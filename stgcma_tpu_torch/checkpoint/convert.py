@@ -1,0 +1,64 @@
+"""Carry JAX parameter trees over to the port's modules.
+
+`params_from_jax(tree)` takes a JAX param tree as nested dicts / lists of
+numpy arrays (float leaves, or the int8 `kernel_q` with its `kernel_s`) and
+returns the port's state dict. Layouts the port keeps:
+
+- linear `kernel` (in, out) -> `weight` (out, in), torch's layout, which the
+  GEMMs read K-contiguous; `bias` as it is;
+- int8 `kernel_q` (in, out) -> `weight_q` (out, in); `kernel_s` (1, out) ->
+  `weight_s` (out,);
+- conv `kernel` HWIO -> `weight` OIHW;
+- LayerNorm `scale` -> `weight`;
+- every other leaf (embeddings, gates) keeps its name and shape.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..configs import ClipConfig
+from ..models.ave import ClipAVE
+from ..ops.common import resolve_device
+from ..ops.quant import quantize_clip_tower
+
+
+def _leaf(key: str, a: np.ndarray):
+    if key == "kernel" and a.ndim == 2:
+        return "weight", a.T
+    if key == "kernel" and a.ndim == 4:
+        return "weight", a.transpose(3, 2, 0, 1)
+    if key == "kernel_q":
+        return "weight_q", a.T
+    if key == "kernel_s":
+        return "weight_s", a.reshape(-1)
+    if key == "scale":
+        return "weight", a
+    return key, a
+
+
+def params_from_jax(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Nested dicts/lists of numpy arrays -> {dotted name: tensor}."""
+    out: Dict[str, torch.Tensor] = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(params_from_jax(v, f"{prefix}{k}."))
+        else:
+            name, a = _leaf(str(k), np.asarray(v))
+            out[prefix + name] = torch.from_numpy(np.array(a, order="C"))
+    return out
+
+
+def clip_ave_from_jax(cfg: ClipConfig, tree: Any, device="cuda") -> ClipAVE:
+    """A ClipAVE holding the JAX tree's weights (float, or an int8 tower made
+    by the JAX `quantize_clip_tower`)."""
+    device = resolve_device(device)
+    state = params_from_jax(tree)
+    model = ClipAVE(cfg)
+    if any(k.endswith("weight_q") for k in state):
+        model.backbone = quantize_clip_tower(model.backbone)
+    model.load_state_dict(state, strict=True)
+    return model.to(device)

@@ -1,0 +1,244 @@
+// Attention core of K1/K2: o = softmax(q * dh^-1/2 . k^T + bm) . v per row and head.
+//
+// Replaces the per-head loop of stgcma_tpu/ops/pallas_attn.py
+// _win_block_kernel (:406-420) and _win_block_q_core (:1445-1455, default
+// bf16 grams): q is scaled and rounded to bf16, logits are fp32 (+ the
+// optional bias bm of shape (nWb, heads, N, N), row b taking bm[b % nWb]),
+// the max is subtracted, exp'd, divided exactly by the row sum, the
+// probabilities are rounded to bf16, and p.v is summed in fp32 and rounded to
+// bf16. Heads stay merged in the output, (B_, N, heads * dh).
+// Differences from the TPU layout, on purpose: no 8-row block-diagonal
+// packing of the T = 10 temporal site and no 197 -> 208 resident pad; each
+// row attends over its own N tokens (exp(-1e30 - m) was exactly 0 there, so
+// the math is the same).
+// Bound on the H100: operations at the spatial sites (N = 197: ~9.5 GFLOP a
+// B = 8 call), bytes at the temporal site (N = 10: the qkv read dominates).
+// Design: both products on tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate). One warp owns a 16-query tile: its logits and probabilities
+// stay in registers, and the probabilities' accumulator fragments are reused
+// as the A operand of p.v. A block holds K (keys x dh) and V^T (dh x keys)
+// of one (row, head) in shared memory, loaded once for all its query tiles;
+// for N <= 48 a block serves several (row, head) pairs, so the T = 10
+// temporal site packs 4 to a block. Keys are padded to 16 * KT (KT chosen
+// per call from N, at most 256 keys) and masked to -inf. Shared-memory row
+// strides are padded so the fragment loads are free of bank conflicts.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// q[row, col:col+2] * scale, rounded to bf16 and packed; 0 past the last row
+__device__ __forceinline__ uint32_t load_q2(const bf16* base, int row, int col, int N, int C3,
+                                            float scale) {
+  if (row >= N) return 0u;
+  const float2 f = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(base + static_cast<size_t>(row) * C3 + col));
+  return pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DH, int KT>
+struct Layout {
+  static constexpr int NK = 16 * KT;     // padded key count
+  static constexpr int LDK = DH + 8;     // K row stride (bf16)
+  static constexpr int LDV = NK + 8;     // V^T row stride (bf16)
+  static constexpr int PER_BH = NK * LDK + DH * LDV;   // bf16 per (row, head)
+};
+
+template <int DH, int KT>
+__global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ bm, int nWb,
+    bf16* __restrict__ o, int BH, int N, int heads, float scale, int bh_per_block,
+    int q_tiles) {
+  using L = Layout<DH, KT>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int C = heads * DH, C3 = 3 * C;
+  const int bh0 = static_cast<int>(blockIdx.x) * bh_per_block;
+
+  for (int l = 0; l < bh_per_block; ++l) {       // K and V^T of each (row, head)
+    const int bh = bh0 + l;
+    bf16* ks = smem + l * L::PER_BH;
+    bf16* vt = ks + L::NK * L::LDK;
+    const bf16* base = qkv + static_cast<size_t>(bh / heads) * N * C3 + (bh % heads) * DH;
+    for (int i = threadIdx.x; i < L::NK * (DH / 2); i += blockDim.x) {
+      const int j = i / (DH / 2), w = i % (DH / 2);
+      uint32_t kw = 0u, vw = 0u;
+      if (bh < BH && j < N) {
+        kw = reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(j) * C3 + C)[w];
+        vw = reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(j) * C3 + 2 * C)[w];
+      }
+      *reinterpret_cast<uint32_t*>(ks + j * L::LDK + 2 * w) = kw;
+      const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
+      vt[(2 * w) * L::LDV + j] = v2.x;
+      vt[(2 * w + 1) * L::LDV + j] = v2.y;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int task = warp; task < bh_per_block * q_tiles; task += kWarps) {
+    const int l = task / q_tiles, qt = task % q_tiles;
+    const int bh = bh0 + l;
+    if (bh >= BH) break;                          // later tasks are past BH too
+    const int b = bh / heads, h = bh % heads;
+    const bf16* ks = smem + l * L::PER_BH;
+    const bf16* vt = ks + L::NK * L::LDK;
+    const bf16* base = qkv + static_cast<size_t>(b) * N * C3 + h * DH;
+    const int r0 = qt * 16 + g, r1 = r0 + 8;     // this thread's two query rows
+
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int c0 = kk * 16 + 2 * t;
+      qa[kk][0] = load_q2(base, r0, c0, N, C3, scale);
+      qa[kk][1] = load_q2(base, r1, c0, N, C3, scale);
+      qa[kk][2] = load_q2(base, r0, c0 + 8, N, C3, scale);
+      qa[kk][3] = load_q2(base, r1, c0 + 8, N, C3, scale);
+    }
+
+    // logits: s[nt] holds keys nt*8 + 2t (+1) of rows r0 (elements 0, 1) and r1 (2, 3)
+    float s[2 * KT][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const bf16* krow = ks + (nt * 8 + g) * L::LDK + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
+                 *reinterpret_cast<const uint32_t*>(krow + kk * 16),
+                 *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
+      }
+    }
+
+    const float* bias = bm == nullptr ? nullptr
+        : bm + (static_cast<size_t>(b % nWb) * heads + h) * N * N;
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nt * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? r0 : r1;
+        if (key >= N) {
+          s[nt][e] = -INFINITY;
+        } else if (bias != nullptr && row < N) {
+          s[nt][e] = __fadd_rn(s[nt][e], bias[static_cast<size_t>(row) * N + key]);
+        }
+      }
+      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+      s[nt][0] = expf(__fsub_rn(s[nt][0], m0));
+      s[nt][1] = expf(__fsub_rn(s[nt][1], m0));
+      s[nt][2] = expf(__fsub_rn(s[nt][2], m1));
+      s[nt][3] = expf(__fsub_rn(s[nt][3], m1));
+      l0 += s[nt][0] + s[nt][1];
+      l1 += s[nt][2] + s[nt][3];
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+
+    // p = e / l rounded to bf16: two logit tiles make one A fragment of p.v
+    float acc[DH / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KT; ++kc) {
+      const uint32_t a0 = pack_bf16x2(__fdiv_rn(s[2 * kc][0], l0), __fdiv_rn(s[2 * kc][1], l0));
+      const uint32_t a1 = pack_bf16x2(__fdiv_rn(s[2 * kc][2], l1), __fdiv_rn(s[2 * kc][3], l1));
+      const uint32_t a2 =
+          pack_bf16x2(__fdiv_rn(s[2 * kc + 1][0], l0), __fdiv_rn(s[2 * kc + 1][1], l0));
+      const uint32_t a3 =
+          pack_bf16x2(__fdiv_rn(s[2 * kc + 1][2], l1), __fdiv_rn(s[2 * kc + 1][3], l1));
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const bf16* vrow = vt + (nd * 8 + g) * L::LDV + kc * 16 + 2 * t;
+        mma_bf16(acc[nd], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(vrow),
+                 *reinterpret_cast<const uint32_t*>(vrow + 8));
+      }
+    }
+
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = h * DH + nd * 8 + 2 * t;
+      if (r0 < N)
+        *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r0) * C + col) =
+            __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+      if (r1 < N)
+        *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r1) * C + col) =
+            __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+    }
+  }
+}
+
+template <int DH, int KT>
+int launch(const void* qkv, const void* bm, int nWb, void* o, int BH, int N, int heads,
+           float scale, cudaStream_t stream) {
+  const int q_tiles = ceil_div(N, 16);
+  const int bh_per_block = q_tiles >= kWarps ? 1 : kWarps / q_tiles;
+  const size_t smem = static_cast<size_t>(bh_per_block) * Layout<DH, KT>::PER_BH * sizeof(bf16);
+  auto kernel = attn_mma_kernel<DH, KT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<ceil_div(BH, bh_per_block), kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bm), nWb,
+      static_cast<bf16*>(o), BH, N, heads, scale, bh_per_block, q_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dh(const void* qkv, const void* bm, int nWb, void* o, int BH, int N, int heads,
+              float scale, cudaStream_t stream) {
+  const int kt = ceil_div(N, 16);
+  if (kt <= 1) return launch<DH, 1>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+  if (kt <= 2) return launch<DH, 2>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+  if (kt <= 4) return launch<DH, 4>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+  if (kt <= 8) return launch<DH, 8>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+  if (kt <= 13) return launch<DH, 13>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+  if (kt <= 16) return launch<DH, 16>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// qkv: (B_, N, 3 * heads * dh) bf16; o: (B_, N, heads * dh) bf16; N <= 256, dh in {32, 64}
+STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int B, int N,
+                          int heads, int dh, float scale, cudaStream_t stream) {
+  if (dh == 64) return launch_dh<64>(qkv, bm, nWb, o, B * heads, N, heads, scale, stream);
+  if (dh == 32) return launch_dh<32>(qkv, bm, nWb, o, B * heads, N, heads, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,75 @@
+"""AVE-29 audio-visual event localization, CLIP flavor.
+
+Port of the CLIP half of `stgcma_tpu/models/ave.py` (:20-37, :69-84) in
+`fusion` mode: the dual MLP head Linear(2C, 512) -> Linear(512, label_dim),
+without dropout (serving). I/O: a (B, T, 102, 128), v (B, T, 224, 224, 3)
+-> logits (B*T, label_dim).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs import ClipConfig
+from ..nn.clip_vit import ClipBackbone, clip_backbone_apply, init_clip_backbone_
+from ..ops.common import Linear, linear, resolve_device
+
+
+class MlpHead(nn.Module):
+    def __init__(self, in_dim: int, label_dim: int):
+        super().__init__()
+        self.fc1 = Linear(2 * in_dim, 512)
+        self.fc2 = Linear(512, label_dim)
+
+
+class ClipAVE(nn.Module):
+    def __init__(self, cfg: ClipConfig):
+        super().__init__()
+        self.backbone = ClipBackbone(cfg)
+        self.mlp_head = MlpHead(cfg.embed_dim, cfg.label_dim)
+
+
+def init_clip_ave(cfg: ClipConfig, generator: torch.Generator = None,
+                  device="cuda") -> ClipAVE:
+    """A ClipAVE with the JAX package's initialization, drawn on the CPU from
+    `generator` (seed 0 if none), then moved to `device`."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = ClipAVE(cfg)
+    init_clip_backbone_(model.backbone, cfg, g)
+    with torch.no_grad():
+        for lin in (model.mlp_head.fc1, model.mlp_head.fc2):
+            nn.init.trunc_normal_(lin.weight, std=0.02, a=-0.04, b=0.04, generator=g)
+    return model.to(device)
+
+
+def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a, v):
+    """Forward in fusion mode. Returns logits (B*T, label_dim)."""
+    feats = clip_backbone_apply(model.backbone, cfg, a=a, v=v)
+    pooled = torch.cat([feats["a"], feats["v"]], dim=-1)
+    return linear(model.mlp_head.fc2, linear(model.mlp_head.fc1, pooled))
+
+
+def random_clip_ave(cfg: ClipConfig, seed: int) -> ClipAVE:
+    """A ClipAVE on the CPU with every leaf drawn from one seeded generator,
+    for smoke runs and measurements: linears N(0, 0.02), LayerNorm weights
+    1 + N(0, 0.1), gates N(0, 0.5), embeddings N(0, C^-1/2), patch convs
+    uniform(+-1/sqrt(fan_in)). Unlike the training init, the gates and the
+    adapters' D_fc2 are non-zero, so fusion and adapters are live."""
+    g = torch.Generator().manual_seed(seed)
+    model = ClipAVE(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name.startswith("backbone.conv1"):
+                bound = p[0].numel() ** -0.5
+                p.uniform_(-bound, bound, generator=g)
+            elif "embedding" in name:
+                p.normal_(0.0, cfg.embed_dim ** -0.5, generator=g)
+            elif leaf in ("gate_v", "gate_a"):
+                p.normal_(0.0, 0.5, generator=g)
+            elif ".ln_" in f".{name}" and leaf == "weight":
+                p.normal_(1.0, 0.1, generator=g)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+    return model

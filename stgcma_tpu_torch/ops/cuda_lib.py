@@ -1,0 +1,125 @@
+"""Build and load the hand-written CUDA kernels of `stgcma_tpu_torch/csrc/`.
+
+Each `.cu` source is compiled by `nvcc` for `sm_90a` into its own shared
+library with a plain C interface, all sources at once in parallel, on first
+use. The libraries land in `build/kernels/<hash>/` at the root of the
+checkout, keyed on a hash of every file in `csrc/`, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing is built or loaded
+when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+# C signature of every exported launcher (all return a cudaError_t as int)
+SIGNATURES = {
+    "rowprep.cu": {
+        # x, gamma, beta, y, M, K, eps, stream
+        "stg_ln_bf16": [P, P, P, P, I, I, F, P],
+        # x, x_is_f32, gamma (nullable: no LN), beta, q, sx, M, K, eps, stream
+        "stg_quant_rows": [P, I, P, P, P, P, I, I, F, P],
+    },
+    "gemm.cu": {
+        # A, W, bias, C, M, N, K, stream
+        "stg_gemm_bf16": [P, P, P, P, I, I, I, P],
+        # A, sa, W, ws, bias, C, M, N, K, epilogue, stream
+        "stg_gemm_s8": [P, P, P, P, P, P, I, I, I, I, P],
+    },
+    "attn.cu": {
+        # qkv, bm (nullable), nWb, o, B_, N, heads, dh, scale, stream
+        "stg_attn_core": [P, P, I, P, I, I, I, I, F, P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources_hash() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and in {home}/bin)")
+    return path
+
+
+def build() -> Path:
+    """Compile every source that has no library for the current hash yet.
+    Returns the build directory, which also holds each source's nvcc log
+    (`<source>.log`, with ptxas' register and spill counts). Raises with
+    nvcc's output if a source fails."""
+    out_dir = BUILD_ROOT / sources_hash()
+    todo = [src for src in SIGNATURES if not (out_dir / _so_name(src)).exists()]
+    if not todo:
+        return out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in todo:
+        tmp = out_dir / f"tmp{os.getpid()}_{_so_name(src)}"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        procs.append((src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, tmp, proc in procs:
+        log, _ = proc.communicate()
+        (out_dir / f"{src}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+        else:
+            os.replace(tmp, out_dir / _so_name(src))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out_dir
+
+
+def _so_name(src: str) -> str:
+    return "lib" + Path(src).stem + ".so"
+
+
+def lib(src: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    with _lock:
+        if src not in _libs:
+            out_dir = build()
+            so = ctypes.CDLL(str(out_dir / _so_name(src)))
+            for name, args in SIGNATURES[src].items():
+                fn = getattr(so, name)
+                fn.argtypes = args
+                fn.restype = I
+            so.stg_error_string.argtypes = [I]
+            so.stg_error_string.restype = ctypes.c_char_p
+            _libs[src] = so
+        return _libs[src]
+
+
+def check(src: str, err: int) -> None:
+    """Raise if a launcher reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = lib(src).stg_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel launch failed in {src}: {msg} ({err})")

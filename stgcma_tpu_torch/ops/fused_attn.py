@@ -1,0 +1,338 @@
+"""The main path's kernels K1-K3: wrappers, plain versions, launch counts.
+
+- K1 `win_block`: LN -> x.Wqkv + b -> per-head softmax(q.dh^-1/2.k^T + bm).v
+  -> merge -> .Wproj + b, in x's dtype. Replaces
+  `stgcma_tpu/ops/pallas_attn.py::_win_block_kernel` (:385).
+- K2 `win_block_q`: its int8 twin (fp32 LN -> row-quantized int8 qkv product
+  -> bf16 qkv -> bf16 grams -> row-quantized int8 proj). Replaces
+  `_win_block_q_kernel` (:1461, body `_win_block_q_core` :1425).
+- K3 `ffn_q`: fp32 LN -> int8 fc1 + b1 -> QuickGELU or erf-GELU -> int8 fc2
+  + b2. Replaces `_ffn_q_kernel` (:1616).
+
+Each wrapper runs its plain PyTorch version when its input lies on the CPU,
+and only then. For a CUDA tensor it launches the hand-written kernels of
+`stgcma_tpu_torch/csrc/` (built on first use, ops/cuda_lib.py) or raises;
+it never falls back. Each wrapper counts the calls in which it launched its
+kernels in `.launches` (one per call, however many CUDA launches the call
+makes).
+
+Departures from the TPU kernels' layout, on purpose: no 8-row block-diagonal
+packing of the T = 10 temporal site (`pallas_attn.py:879-905`) and no
+resident pad of the 197-token video stream (`clip_vit.py:366-383`). The
+kernels take any token count N and each row attends over its own N tokens.
+The softmax divides exactly, and the activation scale uses a correctly
+rounded reciprocal (the TPU kernels' `pl.reciprocal(approx=True)` is a
+hardware approximation).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+_QUICK_GELU, _GELU = "quick_gelu", "gelu"
+_EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
+_EPI_Q_BF16 = 1
+_LN_EPS = 1e-5                        # the TPU kernels' LayerNorm eps
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the kernels' arithmetic in PyTorch ops)
+# ---------------------------------------------------------------------------
+
+def _ln_f32(x, w, b):
+    """LayerNorm with fp32 statistics; returns fp32 (not cast back)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + _LN_EPS) * w.float() + b.float()
+
+
+def quant_rows(xf):
+    """Per-row symmetric int8 quantization of an fp32 (M, K) block, as the
+    kernels do it: scale = max(|x|, 1e-30) * (1/127), q = round_half_even(
+    x * (1/scale)) clamped to +-127. Returns (q as fp32 values, scale (M, 1))."""
+    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30) * (1.0 / 127.0)
+    xq = torch.clamp(torch.round(xf * torch.reciprocal(sx)), -127, 127)
+    return xq, sx
+
+
+def dotq(xf, wq, ws):
+    """fp32 activations -> row quant -> exact int8 product -> dequant (fp32).
+    wq: int8 (N, K); ws: (N,). The product runs in float64, which is exact
+    for int8 sums below 2^53 (float32 is not: 127^2 * 3072 > 2^24)."""
+    xq, sx = quant_rows(xf)
+    acc = torch.matmul(xq.double(), wq.double().t()).float()
+    return acc * sx * ws.float()
+
+
+def _heads_attention(qkv, heads, bias, dt):
+    """qkv (B_, N, 3C) in dt -> merged heads (B_, N, C) in dt."""
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh = C // heads
+    q, k, v = qkv.view(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q = q * torch.tensor(dh ** -0.5, dtype=dt)          # scale rounded to dt
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        nWb = bias.shape[0]
+        logits = (logits.view(B_ // nWb, nWb, heads, N, N) + bias.float()
+                  ).view(B_, heads, N, N)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+    o = torch.matmul(p.float(), v.float()).to(dt)
+    return o.transpose(1, 2).reshape(B_, N, C)
+
+
+def win_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
+                    bias=None):
+    dt = x.dtype
+    xn = _ln_f32(x, ln_w, ln_b).to(dt)
+    qkv = (torch.matmul(xn.float(), w_qkv.float().t()) + b_qkv.float()).to(dt)
+    o = _heads_attention(qkv, heads, bias, dt)
+    return (torch.matmul(o.float(), w_proj.float().t()) + b_proj.float()).to(dt)
+
+
+def win_block_q_plain(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s,
+                      b_proj, heads, bias=None):
+    xn = _ln_f32(x, ln_w, ln_b)
+    qkv = (dotq(xn, wqkv_q, wqkv_s) + b_qkv.float()).to(torch.bfloat16)
+    o = _heads_attention(qkv, heads, bias, torch.bfloat16)
+    out = dotq(o.float(), wproj_q, wproj_s) + b_proj.float()
+    return out.to(x.dtype)
+
+
+def ffn_q_plain(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+    xn = _ln_f32(x, ln_w, ln_b)
+    h = dotq(xn, w1_q, w1_s) + b1.float()
+    if act == _QUICK_GELU:
+        h = h * torch.sigmoid(1.702 * h)
+    else:
+        h = 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))
+    return (dotq(h, w2_q, w2_s) + b2.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# launches on the card
+# ---------------------------------------------------------------------------
+
+def _check_cuda(x, named):
+    """Every tensor on x's card, contiguous, of the stated dtype."""
+    for name, (t, dtype) in named.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_shapes(named):
+    for name, (t, shape) in named.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _ln_bf16(x2, ln_w, ln_b, s):
+    """K1's prologue: LayerNorm of bf16 rows, cast back to bf16."""
+    M, K = x2.shape
+    y = torch.empty_like(x2)
+    cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_ln_bf16(
+        _ptr(x2), _ptr(ln_w), _ptr(ln_b), _ptr(y), M, K, _LN_EPS, s))
+    return y
+
+
+def _quant_rows(x2, s, ln_w=None, ln_b=None):
+    """int8 row quantization of bf16 or fp32 rows, after a LayerNorm when its
+    weights are given (K2/K3 prologues). Returns (int8 codes, fp32 scales)."""
+    M, K = x2.shape
+    q = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
+    cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_quant_rows(
+        _ptr(x2), int(x2.dtype == torch.float32), _ptr(ln_w), _ptr(ln_b),
+        _ptr(q), _ptr(sx), M, K, _LN_EPS, s))
+    return q, sx
+
+
+def _gemm_s8(a, sa, wq, ws, bias, out, epi, s):
+    M, K = a.shape
+    cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_s8(
+        _ptr(a), _ptr(sa), _ptr(wq), _ptr(ws), _ptr(bias), _ptr(out),
+        M, wq.shape[0], K, epi, s))
+
+
+def _attn_core(qkv, bias, heads, s):
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh = C // heads
+    o = torch.empty((B_, N, C), dtype=torch.bfloat16, device=qkv.device)
+    scale = float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
+    nWb = 1 if bias is None else bias.shape[0]
+    cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_core(
+        _ptr(qkv), _ptr(bias), nWb, _ptr(o), B_, N, heads, dh, scale, s))
+    return o
+
+
+def _check_block(x, heads, bias, weights):
+    """Shared validation of K1/K2 inputs on the card."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B_, N, C), got {tuple(x.shape)}")
+    B_, N, C = x.shape
+    if C % heads or C // heads not in (32, 64) or N > 256:
+        raise ValueError(f"the attention core takes N <= 256 tokens and heads of width "
+                         f"32 or 64, got N={N}, C={C}, heads={heads}")
+    named = {"x": (x, torch.bfloat16), **weights}
+    if bias is not None:
+        named["bias"] = (bias, torch.float32)
+        nWb = bias.shape[0]
+        _check_shapes({"bias": (bias, (nWb, heads, N, N))})
+        if B_ % nWb:
+            raise ValueError(f"B_={B_} is not a multiple of the bias period {nWb}")
+    _check_cuda(x, named)
+
+
+class _Kernel:
+    """A kernel wrapper with its launch count."""
+
+    def __init__(self, name, plain, launch):
+        self.name = name
+        self.plain = plain
+        self._launch = launch
+        self.launches = 0
+
+    def __call__(self, x, *args, **kw):
+        if not x.is_contiguous():      # checked on every device, so that the
+            raise ValueError(f"{self.name}: x must be contiguous")   # CPU tests see it
+        if x.device.type == "cpu":
+            return self.plain(x, *args, **kw)
+        if x.device.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for device {x.device}")
+        with torch.cuda.device(x.device):
+            out = self._launch(x, *args, **kw)
+        self.launches += 1
+        return out
+
+
+def _win_block_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
+                    bias=None):
+    B_, N, C = x.shape
+    bf = torch.bfloat16
+    _check_block(x, heads, bias, {
+        "ln_w": (ln_w, bf), "ln_b": (ln_b, bf), "w_qkv": (w_qkv, bf),
+        "b_qkv": (b_qkv, bf), "w_proj": (w_proj, bf), "b_proj": (b_proj, bf)})
+    _check_shapes({"ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,)),
+                   "w_qkv": (w_qkv, (3 * C, C)), "b_qkv": (b_qkv, (3 * C,)),
+                   "w_proj": (w_proj, (C, C)), "b_proj": (b_proj, (C,))})
+    s = _stream(x)
+    M = B_ * N
+    gemm = cuda_lib.lib("gemm.cu")
+    xn = _ln_bf16(x.view(M, C), ln_w, ln_b, s)
+    qkv = torch.empty((B_, N, 3 * C), dtype=bf, device=x.device)
+    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
+        _ptr(xn), _ptr(w_qkv), _ptr(b_qkv), _ptr(qkv), M, 3 * C, C, s))
+    o = _attn_core(qkv, bias, heads, s)
+    out = torch.empty_like(x)
+    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
+        _ptr(o), _ptr(w_proj), _ptr(b_proj), _ptr(out), M, C, C, s))
+    return out
+
+
+def _win_block_q_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s,
+                      b_proj, heads, bias=None):
+    B_, N, C = x.shape
+    bf, i8 = torch.bfloat16, torch.int8
+    _check_block(x, heads, bias, {
+        "ln_w": (ln_w, bf), "ln_b": (ln_b, bf), "wqkv_q": (wqkv_q, i8),
+        "wqkv_s": (wqkv_s, bf), "b_qkv": (b_qkv, bf), "wproj_q": (wproj_q, i8),
+        "wproj_s": (wproj_s, bf), "b_proj": (b_proj, bf)})
+    _check_shapes({"ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,)),
+                   "wqkv_q": (wqkv_q, (3 * C, C)), "wqkv_s": (wqkv_s, (3 * C,)),
+                   "b_qkv": (b_qkv, (3 * C,)), "wproj_q": (wproj_q, (C, C)),
+                   "wproj_s": (wproj_s, (C,)), "b_proj": (b_proj, (C,))})
+    s = _stream(x)
+    M = B_ * N
+    xq, sx = _quant_rows(x.view(M, C), s, ln_w, ln_b)
+    qkv = torch.empty((B_, N, 3 * C), dtype=bf, device=x.device)
+    _gemm_s8(xq, sx, wqkv_q, wqkv_s, b_qkv, qkv, _EPI_Q_BF16, s)
+    o = _attn_core(qkv, bias, heads, s)
+    oq, so = _quant_rows(o.view(M, C), s)
+    out = torch.empty_like(x)
+    _gemm_s8(oq, so, wproj_q, wproj_s, b_proj, out, _EPI_Q_BF16, s)
+    return out
+
+
+def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+    if act not in _EPI:
+        raise ValueError(f"act must be one of {sorted(_EPI)}, got {act!r}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
+    M, C = x.shape
+    H = w1_q.shape[0]
+    bf, i8 = torch.bfloat16, torch.int8
+    _check_cuda(x, {"x": (x, bf), "ln_w": (ln_w, bf), "ln_b": (ln_b, bf),
+                    "w1_q": (w1_q, i8), "w1_s": (w1_s, bf), "b1": (b1, bf),
+                    "w2_q": (w2_q, i8), "w2_s": (w2_s, bf), "b2": (b2, bf)})
+    _check_shapes({"ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,)),
+                   "w1_q": (w1_q, (H, C)), "w1_s": (w1_s, (H,)), "b1": (b1, (H,)),
+                   "w2_q": (w2_q, (C, H)), "w2_s": (w2_s, (C,)), "b2": (b2, (C,))})
+    if C % 16 or H % 16:
+        raise ValueError(f"C={C} and hidden={H} must be multiples of 16")
+    s = _stream(x)
+    xq, sx = _quant_rows(x, s, ln_w, ln_b)
+    # the fp32 hidden (M, H) goes through device memory: its per-row int8
+    # scale needs the whole row's max before fc2 can start
+    h = torch.empty((M, H), dtype=torch.float32, device=x.device)
+    _gemm_s8(xq, sx, w1_q, w1_s, b1, h, _EPI[act], s)
+    hq, sh = _quant_rows(h, s)
+    out = torch.empty_like(x)
+    _gemm_s8(hq, sh, w2_q, w2_s, b2, out, _EPI_Q_BF16, s)
+    return out
+
+
+win_block = _Kernel("win_block (K1)", win_block_plain, _win_block_cuda)
+win_block_q = _Kernel("win_block_q (K2)", win_block_q_plain, _win_block_q_cuda)
+ffn_q = _Kernel("ffn_q (K3)", ffn_q_plain, _ffn_q_cuda)
+KERNELS = (win_block, win_block_q, ffn_q)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# entry points of the CLIP tower
+# ---------------------------------------------------------------------------
+
+def clip_attention_block(attn, ln, x, heads: int):
+    """LN + self-attention + out-proj over the middle axis of x (B_, N, C):
+    K2 for an int8 tower, K1 otherwise. Counterpart of
+    `pallas_attn.py::clip_temporal_megakernel` (:867), without its packing
+    and padding."""
+    if attn.in_proj.quantized:
+        return win_block_q(x, ln.weight, ln.bias, attn.in_proj.weight_q,
+                           attn.in_proj.weight_s, attn.in_proj.bias,
+                           attn.out_proj.weight_q, attn.out_proj.weight_s,
+                           attn.out_proj.bias, heads)
+    return win_block(x, ln.weight, ln.bias, attn.in_proj.weight,
+                     attn.in_proj.bias, attn.out_proj.weight,
+                     attn.out_proj.bias, heads)
+
+
+def ffn_q_megakernel(mlp, ln, x, act: str = _QUICK_GELU):
+    """LN + int8 FFN over x (..., C) (`pallas_attn.py::ffn_q_megakernel`)."""
+    shape = x.shape
+    out = ffn_q(x.reshape(-1, shape[-1]), ln.weight, ln.bias,
+                mlp.c_fc.weight_q, mlp.c_fc.weight_s, mlp.c_fc.bias,
+                mlp.c_proj.weight_q, mlp.c_proj.weight_s, mlp.c_proj.bias, act)
+    return out.reshape(shape)

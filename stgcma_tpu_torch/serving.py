@@ -1,0 +1,43 @@
+"""Batched AV serving on one device.
+
+Port of `stgcma_tpu/serving.py::MultiTaskServer` (:49-121) with the CLIP AVE
+task: float parameters and float inputs are cast to the serving dtype (bf16
+by default, the int8 tower's scales included, as the JAX `cast_tree` does)
+and the logits come back as float32 numpy. The mesh and shard options and
+`serve_stream` are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from .configs import ClipConfig
+from .models.ave import ClipAVE, apply_clip_ave
+from .ops.common import cast_tree, resolve_device
+
+
+class MultiTaskServer:
+    """Dispatches batched inference by task name."""
+
+    def __init__(self, dtype=torch.bfloat16, device="cuda"):
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self._fns: Dict[str, Callable] = {}
+
+    def add_clip_ave(self, name: str, cfg: ClipConfig, model: ClipAVE):
+        """Serve `model` (left as it is: the server keeps a cast copy)."""
+        m = cast_tree(model, self.dtype).to(self.device).eval()
+        self._fns[name] = lambda batch: apply_clip_ave(m, cfg, batch["a"], batch["v"])
+
+    def tasks(self):
+        return sorted(self._fns)
+
+    @torch.inference_mode()
+    def predict(self, task: str, batch: Dict[str, np.ndarray]) -> np.ndarray:
+        dev = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v)).to(self.device)
+            dev[k] = t.to(self.dtype) if t.is_floating_point() else t
+        return self._fns[task](dev).float().cpu().numpy()

@@ -1,0 +1,92 @@
+"""Where the time of one serving forward goes on the card.
+
+    python3 -m stgcma_tpu_torch.tools.trace_slice [--seed 0] [--out DIR]
+
+Serves AVE-29 with CLIP ViT-B/16 in fusion mode (full width, random seeded
+weights) through the port's MultiTaskServer, bf16 and int8 towers. For each
+mode it prints the median wall time of 5 untraced B = 8 requests, then traces
+one request with torch.profiler and prints the device time summed over all
+kernels, the share of the untraced wall time it covers (the rest is the
+device idle, waiting on the host), and the kernels that took the most device
+time. The Chrome trace of each mode is written to DIR (default
+build/trace). Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..configs import clip_b16
+from ..models.ave import random_clip_ave
+from ..ops.quant import quantize_clip_tower
+from ..serving import MultiTaskServer
+
+B, REQUESTS = 8, 5
+# kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
+PORT_KERNELS = ("gemm_kernel", "attn_mma_kernel", "quant_rows_kernel", "ln_bf16_kernel")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="build/trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trace_slice: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    cfg = clip_b16(ftmode="fusion", label_dim=29)
+    model = random_clip_ave(cfg, args.seed)
+    model_q = random_clip_ave(cfg, args.seed)
+    model_q.backbone = quantize_clip_tower(model_q.backbone)
+    srv = MultiTaskServer(device="cuda")
+    srv.add_clip_ave("bf16", cfg, model)
+    srv.add_clip_ave("int8", cfg, model_q)
+    rng = np.random.RandomState(args.seed)
+    batch = {"a": rng.randn(B, cfg.num_frames, cfg.audio_tdim,
+                            cfg.audio_fdim).astype(np.float32),
+             "v": rng.randn(B, cfg.num_frames, cfg.input_resolution,
+                            cfg.input_resolution, 3).astype(np.float32)}
+    os.makedirs(args.out, exist_ok=True)
+    print(f"card: {smi}; B={B}, seed {args.seed}")
+    for task in srv.tasks():
+        srv.predict(task, batch)                          # warm-up
+        walls = []
+        for _ in range(REQUESTS):
+            t0 = time.perf_counter()
+            srv.predict(task, batch)
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            srv.predict(task, batch)
+        prof.export_chrome_trace(os.path.join(args.out, f"{task}.json"))
+        # device-side rows only (kernels, copies): the CPU ops' rows repeat them
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in rows)
+        port_us = sum(e.self_device_time_total for e in rows
+                      if any(k in e.key for k in PORT_KERNELS))
+        print(f"[{task}] untraced request: median {wall * 1e3:.2f} ms of {len(walls)} "
+              f"(min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}) = "
+              f"{B / wall:.2f} clips/s")
+        print(f"[{task}] traced request: device time {dev_us / 1e3:.2f} ms = "
+              f"{100 * dev_us / 1e3 / (wall * 1e3):.1f}% of the untraced wall time; "
+              f"port kernels {port_us / 1e3:.2f} ms ({100 * port_us / max(dev_us, 1):.1f}% "
+              f"of device time)")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
