@@ -7,16 +7,23 @@ Phases, one or more lines each; any failure exits non-zero before the last
 line:
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels of stgcma_tpu_torch/csrc/ (in parallel);
-  3. kernels: K1 (bf16 attention block), K2 (its int8 twin) and K3 (int8
-     FFN) against their plain PyTorch versions on the card, at the B = 8
-     shapes of the main path, with the stated tolerance, and timed beside
-     their bound and a yardstick composed of PyTorch's own calls;
-  4. slice: MultiTaskServer(device="cuda") serving AVE-29 with CLIP ViT-B/16
-     in fusion mode at full width (12 layers, C = 768, T = 10 frames at
-     224^2, 102x128 fbank audio), random seeded weights, one bf16 task and
-     one int8 task; a few B = 8 requests; launch counts per forward; B = 1
-     logits held against the same model on the CPU (plain versions);
-     clips/s per mode.
+  3. kernels against their plain PyTorch versions on the card, at the B = 8
+     shapes of the two paths, with the stated tolerance, each timed beside
+     its bound and a yardstick composed of PyTorch's own calls: K1 (bf16
+     attention block), K2 (its int8 twin) and K3 (int8 FFN) at the CLIP
+     sites; K1 at the Swin window sites (with their bias and shift mask) and
+     temporal sites, K7 (bf16 FFN), K8 (window-attention core, small and
+     blocked bias) and K9 (LayerNorm) at the Swin sites;
+  4. slices, each driven through MultiTaskServer(device="cuda") with random
+     seeded weights, a few B = 8 requests, the launch counts of every kernel
+     per forward, B = 1 logits held against the same model on the CPU (plain
+     versions), and clips/s:
+     - AVE-29 with CLIP ViT-B/16 in fusion mode at full width (12 layers,
+       C = 768, T = 10 frames at 224^2, 102x128 fbank audio), a bf16 and an
+       int8 task;
+     - AVE-29 with Swin-Base in multimodal mode at full width and depth
+       (depths 2/2/18/2, C = 128..1024, T = 10 frames at 224^2, 224x224
+       fbank audio), bf16.
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
 """
@@ -33,8 +40,25 @@ B = 8
 TOL_KERNEL = 2e-2    # max |kernel - plain| / max |plain|, bf16 outputs: a few
                      # bf16 steps where an intermediate rounds the other way
 TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 through
-                     # 12 blocks on two devices (different sum orders everywhere)
+                     # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
+H100_FP32 = 67e12    # fp32 outside the tensor cores (LayerNorm arithmetic)
+# each kernel's wrapper in stgcma_tpu_torch/ops/fused_attn.py
+KERNELS = {"K1": "win_block", "K2": "win_block_q", "K3": "ffn_q", "K7": "ffn", "K8": "wmsa",
+           "K9": "layernorm"}
+# each kernel's name in the kernels line, the TPU kernel it replaces, and its
+# CUDA sources in stgcma_tpu_torch/csrc/
+META = {
+    "K1": ("K1 win_block (bf16 attention block)", "stgcma_tpu/ops/pallas_attn.py:385",
+           ["gemm.cu", "attn.cu", "rowprep.cu"]),
+    "K2": ("K2 win_block_q (int8 attention block)", "stgcma_tpu/ops/pallas_attn.py:1461",
+           ["gemm.cu", "attn.cu", "rowprep.cu"]),
+    "K3": ("K3 ffn_q (int8 FFN)", "stgcma_tpu/ops/pallas_attn.py:1616",
+           ["gemm.cu", "rowprep.cu"]),
+    "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676", ["gemm.cu", "rowprep.cu"]),
+    "K8": ("K8 wmsa (window-attention core)", "stgcma_tpu/ops/pallas_attn.py:230", ["attn.cu"]),
+    "K9": ("K9 layernorm", "stgcma_tpu/ops/pallas_attn.py:755", ["rowprep.cu"]),
+}
 
 
 def log(msg):
@@ -137,14 +161,16 @@ def library_qmm(a, wq, ws, b):
     return torch._int_mm(aq, wq.t()).float() * s * ws.float() + b.float()
 
 
-def library_block(args, heads, int8):
+def library_block(args, heads, int8, bias=None):
     """The same function from PyTorch's own calls (timed only, never used by
-    the port): layer_norm, linear or _int_mm, scaled_dot_product_attention."""
+    the port): layer_norm, linear or _int_mm, scaled_dot_product_attention
+    (with the bias (nWb, h, N, N) as a float attn_mask)."""
     import torch
     import torch.nn.functional as F
     x = args[0]
     Bq, N, C = x.shape
     dh = C // heads
+    P = 1 if bias is None else bias.shape[0]
 
     def run():
         xn = F.layer_norm(x, (C,), args[1], args[2])
@@ -152,8 +178,13 @@ def library_block(args, heads, int8):
             qkv = library_qmm(xn.view(-1, C), args[3], args[4], args[5]).to(torch.bfloat16)
         else:
             qkv = F.linear(xn, args[3], args[4])
-        q, k, v = qkv.view(Bq, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
-        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(Bq * N, C)
+        if bias is None:
+            q, k, v = qkv.view(Bq, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v)
+        else:     # windows grouped by the bias period, which the mask broadcasts over
+            q, k, v = qkv.view(Bq // P, P, N, 3, heads, dh).permute(3, 0, 1, 4, 2, 5)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(x.dtype))
+        o = o.transpose(-3, -2).reshape(Bq * N, C)
         if int8:
             return library_qmm(o, args[6], args[7], args[8]).to(torch.bfloat16)
         return F.linear(o, args[5], args[6])
@@ -230,15 +261,187 @@ def phase_kernels(cfg):
     return results
 
 
+def swin_bias(g, heads, N, index, mask=None):
+    """A bias of the Swin path from the port's own functions: a random table
+    (std 0.5) gathered to (h, N, N) fp32, plus the shift mask (nW, N, N)
+    when given -> (nW or 1, h, N, N)."""
+    import torch
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    table = torch.randn(int(index.max()) + 1, heads, generator=g, device="cuda") * 0.5
+    bias = gather_bias(table.to(torch.bfloat16), index, heads, N)[None]
+    return (bias if mask is None else bias + mask[:, None]).contiguous()
+
+
+def ffn_bf16_bound(M, C, H):
+    ops = 2 * 2 * M * C * H
+    nbytes = 2 * M * C * 2 + 2 * C * H * 2 + (H + 3 * C) * 2
+    t_ops, t_bytes = ops / H100_BF16, nbytes / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def wmsa_bound(R, N, dh, P):
+    ops = 2 * 2 * R * N * N * dh
+    nbytes = 4 * R * N * dh * 2 + P * N * N * 4
+    t_ops, t_bytes = ops / H100_BF16, nbytes / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ln_bound(M, C):
+    t_ops, t_bytes = 8 * M * C / H100_FP32, (2 * M * C * 2 + 2 * C * 2) / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_swin_kernels(cfg):
+    """K1, K7, K8 and K9 at the shapes of Swin-Base multimodal at B = 8."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dev, bf = "cuda", torch.bfloat16
+    T, ws = cfg.num_ttokens, cfg.window_size
+    N = ws * ws
+    rel = torch.from_numpy(window.relative_position_index(ws)).to(dev)
+    t_idx = torch.from_numpy(window.temporal_relative_index(T)).to(dev)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    results = {"K1": [], "K7": [], "K8": [], "K9": []}
+    for s in range(cfg.num_layers - 1):          # stages 0-2: K1
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        mask = torch.from_numpy(window.shift_attn_mask(H, H, ws, ws // 2)).to(dev)
+        bm = swin_bias(g, heads, N, rel, mask)
+        Bq = B * T * bm.shape[0]
+        args, _ = make_block_inputs(g, Bq, N, C, heads, False)
+        results["K1"].append(check_kernel(
+            f"K1 Swin stage {s} shifted windows {(Bq, N, C)} h{heads} period {bm.shape[0]}",
+            FA.win_block, FA.win_block_plain, args + (heads,), {"bias": bm},
+            block_bound(Bq, N, C, heads, False, bm.shape[0]),
+            library_block(args, heads, False, bm)))
+    for s in range(cfg.num_layers - 1):
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        bm = swin_bias(g, heads, T, t_idx)
+        Bq = B * H * H
+        args, _ = make_block_inputs(g, Bq, T, C, heads, False)
+        results["K1"].append(check_kernel(
+            f"K1 Swin stage {s} temporal {(Bq, T, C)} h{heads}", FA.win_block,
+            FA.win_block_plain, args + (heads,), {"bias": bm},
+            block_bound(Bq, T, C, heads, False, 1), library_block(args, heads, False, bm)))
+
+    for s in (0, 1):                             # K7 at the FFNs of stages 0-1
+        H, _ = cfg.stage_resolution(s)
+        M, C = B * T * H * H, cfg.stage_dim(s)
+        Hd = 4 * C
+        args = (rnd(M, C).to(bf), (1 + rnd(C, std=0.1)).to(bf), rnd(C, std=0.02).to(bf),
+                rnd(Hd, C, std=0.05).to(bf), rnd(Hd, std=0.02).to(bf),
+                rnd(C, Hd, std=0.02).to(bf), rnd(C, std=0.02).to(bf))
+
+        def library(a=args, C=C):
+            return F.linear(F.gelu(F.linear(F.layer_norm(a[0], (C,), a[1], a[2]), a[3], a[4])),
+                            a[5], a[6])
+        results["K7"].append(check_kernel(
+            f"K7 Swin stage {s} FFN {(M, C)} hidden {Hd}", FA.ffn, FA.ffn_plain, args, {},
+            ffn_bf16_bound(M, C, Hd), library))
+
+    s3 = cfg.num_layers - 1                      # K8 at stage 3 (32 heads)
+    H, _ = cfg.stage_resolution(s3)
+    C, heads = cfg.stage_dim(s3), cfg.num_heads[s3]
+    dh = C // heads
+    scale = float(torch.tensor(dh ** -0.5, dtype=bf))
+    k8_sites = [("spatial", B * T * heads, N, swin_bias(g, heads, N, rel)[0]),
+                ("temporal", B * H * H * heads, T, swin_bias(g, heads, T, t_idx)[0]),
+                ("blocked bias", B * T * heads, N, rnd(256, N, N, std=2.0))]
+    for site, R, n, bm in k8_sites:
+        q = (rnd(R, n, dh) * scale).to(bf)
+        k, v = rnd(R, n, dh).to(bf), rnd(R, n, dh).to(bf)
+        P = bm.shape[0]
+
+        def library(q=q, k=k, v=v, bm=bm, R=R, n=n, P=P):
+            shp = (R // P, P, n, dh)
+            return F.scaled_dot_product_attention(q.view(shp), k.view(shp), v.view(shp),
+                                                  attn_mask=bm.to(bf), scale=1.0)
+        results["K8"].append(check_kernel(
+            f"K8 Swin stage 3 {site} {(R, n, dh)} period {P}", FA.wmsa, FA.wmsa_plain,
+            (q, k, v, bm), {}, wmsa_bound(R, n, dh, P), library))
+
+    rows = B * T                                 # K9 at the six norms of a stream
+    H0, _ = cfg.stage_resolution(0)
+    k9_sites = [("patch-embed norm", rows * H0 * H0, cfg.embed_dim)]
+    for s in range(cfg.num_layers - 1):
+        Hs, _ = cfg.stage_resolution(s)
+        k9_sites.append((f"merge norm {s}->{s + 1}", rows * (Hs // 2) ** 2, 4 * cfg.stage_dim(s)))
+    k9_sites += [("stage-3 temporal norm", B * H * H * T, C), ("final norm", rows * H * H, C)]
+    for site, M, Cn in k9_sites:
+        args = (rnd(M, Cn, std=2.0).to(bf), (1 + rnd(Cn, std=0.1)).to(bf),
+                rnd(Cn, std=0.02).to(bf))
+
+        def library(a=args, Cn=Cn):
+            return F.layer_norm(a[0], (Cn,), a[1], a[2])
+        results["K9"].append(check_kernel(
+            f"K9 {site} {(M, Cn)}", FA.layernorm, FA.layernorm_plain, args, {},
+            ln_bound(M, Cn), library))
+    return results
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the slice
+# phase 4: the slices
 # ---------------------------------------------------------------------------
 
-def phase_slice(cfg, smi):
+def drive(srv, requests, want, smi):
+    """The main path of each task: every launch count set to 0 just before a
+    request and read just after; B = 8 logits finite and of the expected
+    shape. Returns ({kernel: launches summed over all requests}, {task:
+    clips/s})."""
     import numpy as np
-    import torch
-    from stgcma_tpu_torch.models.ave import random_clip_ave
     from stgcma_tpu_torch.ops import fused_attn as FA
+    totals = {k: 0 for k in KERNELS}
+    clips = {}
+    for task, (reqs, shape) in requests.items():
+        times = []
+        for i, req in enumerate(reqs):
+            FA.reset_launches()
+            t1 = time.perf_counter()
+            out = srv.predict(task, req)
+            times.append(time.perf_counter() - t1)
+            got = {k: getattr(FA, attr).launches for k, attr in KERNELS.items()}
+            if got != want[task]:
+                fail(f"{task} request {i}: launches {got}, expected {want[task]} per forward")
+            for k in KERNELS:
+                totals[k] += got[k]
+            if out.shape != shape or not np.isfinite(out).all():
+                fail(f"{task}: logits of shape {out.shape}, finite={np.isfinite(out).all()}")
+        steady = sorted(times[1:])
+        med = steady[len(steady) // 2]
+        clips[task] = B / med
+        log(f"  {task}: {len(reqs)} requests of B={B}, logits {out.shape} finite; "
+            f"launches per forward {want[task]}; first request {times[0] * 1e3:.1f} ms, "
+            f"median of the other {len(steady)} {med * 1e3:.2f} ms (min {steady[0] * 1e3:.2f}, "
+            f"max {steady[-1] * 1e3:.2f}) = {clips[task]:.2f} clips/s on {smi}")
+    return totals, clips
+
+
+def check_against_cpu(srv, cpu, one):
+    """B = 1: the card against the same port model on the CPU (plain versions)."""
+    import numpy as np
+    for task in cpu.tasks():
+        t1 = time.perf_counter()
+        ref = cpu.predict(task, one)
+        cpu_s = time.perf_counter() - t1
+        got = srv.predict(task, one)
+        err = float(np.abs(got - ref).max())
+        scale = float(np.abs(ref).max())
+        if not err <= TOL_SLICE * scale:
+            fail(f"{task} B=1: max |card - cpu| = {err:.4g} > {TOL_SLICE} * {scale:.4g}")
+        log(f"  {task} B=1 card vs CPU: max_abs_err {err:.4g} (max |cpu| {scale:.4g}, "
+            f"tol {TOL_SLICE} rel; CPU forward {cpu_s:.1f} s)")
+
+
+def phase_clip_slice(cfg, smi):
+    import numpy as np
+    from stgcma_tpu_torch.models.ave import random_clip_ave
     from stgcma_tpu_torch.ops.quant import quantize_clip_tower
     from stgcma_tpu_torch.serving import MultiTaskServer
 
@@ -259,57 +462,47 @@ def phase_slice(cfg, smi):
                 "v": rng.randn(b, cfg.num_frames, cfg.input_resolution,
                                cfg.input_resolution, 3).astype(np.float32)}
 
-    requests = [batch(B) for _ in range(4)]
+    shape = (B * cfg.num_frames, cfg.label_dim)
+    requests = {task: ([batch(B) for _ in range(4)], shape) for task in srv.tasks()}
     # 4 attention sites (temporal/spatial x video/audio) and 2 FFNs a block:
     # 48 K1, or 48 K2 + 24 K3, a forward at 12 layers
     L = cfg.layers
-    want = {"ave29_bf16": {"K1": 4 * L, "K2": 0, "K3": 0},
-            "ave29_int8": {"K1": 0, "K2": 4 * L, "K3": 2 * L}}
-    kernels = {"K1": FA.win_block, "K2": FA.win_block_q, "K3": FA.ffn_q}
-    totals = {k: 0 for k in kernels}
-    clips = {}
-    for task in srv.tasks():
-        # the main path: counts set to 0 just before, read just after
-        times = []
-        for i, req in enumerate(requests):
-            FA.reset_launches()
-            t1 = time.perf_counter()
-            out = srv.predict(task, req)
-            times.append(time.perf_counter() - t1)
-            got = {k: kern.launches for k, kern in kernels.items()}
-            if got != want[task]:
-                fail(f"{task} request {i}: launches {got}, expected {want[task]} per forward")
-            for k in kernels:
-                totals[k] += got[k]
-            if out.shape != (B * cfg.num_frames, cfg.label_dim) or not np.isfinite(out).all():
-                fail(f"{task}: logits of shape {out.shape}, finite={np.isfinite(out).all()}")
-        steady = sorted(times[1:])
-        med = steady[len(steady) // 2]
-        clips[task] = B / med
-        log(f"  {task}: {len(requests)} requests of B={B}, logits {out.shape} finite; "
-            f"launches per forward {want[task]}; first request {times[0] * 1e3:.1f} ms, "
-            f"median of the other {len(steady)} {med * 1e3:.2f} ms (min {steady[0] * 1e3:.2f}, "
-            f"max {steady[-1] * 1e3:.2f}) = {clips[task]:.2f} clips/s on {smi}")
-    for k, n in totals.items():
-        if n == 0:
-            fail(f"{k} was launched no time on the main path")
-
-    # B = 1: the card against the same port model on the CPU (plain versions)
+    none = {k: 0 for k in KERNELS}
+    want = {"ave29_bf16": {**none, "K1": 4 * L},
+            "ave29_int8": {**none, "K2": 4 * L, "K3": 2 * L}}
+    totals, clips = drive(srv, requests, want, smi)
     cpu = MultiTaskServer(device="cpu")
     cpu.add_clip_ave("ave29_bf16", cfg, model)
     cpu.add_clip_ave("ave29_int8", cfg, model_q)
-    one = batch(1)
-    for task in srv.tasks():
-        t1 = time.perf_counter()
-        ref = cpu.predict(task, one)
-        cpu_s = time.perf_counter() - t1
-        got = srv.predict(task, one)
-        err = float(np.abs(got - ref).max())
-        scale = float(np.abs(ref).max())
-        if not err <= TOL_SLICE * scale:
-            fail(f"{task} B=1: max |card - cpu| = {err:.4g} > {TOL_SLICE} * {scale:.4g}")
-        log(f"  {task} B=1 card vs CPU: max_abs_err {err:.4g} (max |cpu| {scale:.4g}, "
-            f"tol {TOL_SLICE} rel; CPU forward {cpu_s:.1f} s)")
+    check_against_cpu(srv, cpu, batch(1))
+    return totals, clips
+
+
+def phase_swin_slice(cfg, smi):
+    import numpy as np
+    from stgcma_tpu_torch.models.ave import random_swin_ave
+    from stgcma_tpu_torch.nn.swin import launches_per_forward
+    from stgcma_tpu_torch.serving import MultiTaskServer
+
+    task = "ave29_swin_mm_bf16"
+    t0 = time.perf_counter()
+    model = random_swin_ave(cfg, SEED)
+    srv = MultiTaskServer(device="cuda")
+    srv.add_ave(task, cfg, model)
+    log(f"  set-up: random weights, server on the card: {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(SEED)
+    n, T = cfg.img_size, cfg.num_frames
+
+    def batch(b):
+        return {"a": rng.randn(b, T, n, n).astype(np.float32),
+                "v": rng.randn(b, T, n, n, 3).astype(np.float32)}
+
+    requests = {task: ([batch(B) for _ in range(4)], (B * cfg.num_ttokens, cfg.label_dim))}
+    want = {task: {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B)}}
+    totals, clips = drive(srv, requests, want, smi)
+    cpu = MultiTaskServer(device="cpu")
+    cpu.add_ave(task, cfg, model)
+    check_against_cpu(srv, cpu, batch(1))
     return totals, clips
 
 
@@ -322,7 +515,7 @@ def main():
         fail("no CUDA device: this script drives the port on the GPU only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from stgcma_tpu_torch.configs import clip_b16
+        from stgcma_tpu_torch.configs import clip_b16, swin_base
         from stgcma_tpu_torch.ops import cuda_lib
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -348,28 +541,30 @@ def main():
                     log(f"  {src}: {line.strip()}")
 
     cfg = clip_b16(ftmode="fusion", label_dim=29)
+    swin_cfg = swin_base(ftmode="multimodal", label_dim=29)
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel)")
     results = phase_kernels(cfg)
+    for k, rows in phase_swin_kernels(swin_cfg).items():
+        results.setdefault(k, []).extend(rows)
 
     log(f"[4/4] slice: CLIP ViT-B/16 fusion AVE-29, {cfg.layers} layers, C={cfg.embed_dim}, "
         f"T={cfg.num_frames}, bf16 and int8 towers")
-    totals, clips = phase_slice(cfg, smi)
+    totals, clips = phase_clip_slice(cfg, smi)
+    log(f"[4/4] slice: Swin-Base multimodal AVE-29, depths {swin_cfg.depths}, "
+        f"C={swin_cfg.embed_dim}..{swin_cfg.num_features}, T={swin_cfg.num_frames}, bf16")
+    swin_totals, swin_clips = phase_swin_slice(swin_cfg, smi)
+    clips.update(swin_clips)
 
-    meta = {
-        "K1": ("K1 win_block (bf16 attention block)", "stgcma_tpu/ops/pallas_attn.py:385",
-               ["gemm.cu", "attn.cu", "rowprep.cu"]),
-        "K2": ("K2 win_block_q (int8 attention block)", "stgcma_tpu/ops/pallas_attn.py:1461",
-               ["gemm.cu", "attn.cu", "rowprep.cu"]),
-        "K3": ("K3 ffn_q (int8 FFN)", "stgcma_tpu/ops/pallas_attn.py:1616",
-               ["gemm.cu", "rowprep.cu"]),
-    }
     kernels = []
     for k, rows in results.items():
-        name, replaces, srcs = meta[k]
-        head = rows[2] if k != "K3" else rows[0]     # video spatial / video FFN
+        name, replaces, srcs = META[k]
+        launches = totals[k] + swin_totals[k]
+        if launches == 0:
+            fail(f"{k} was launched no time on the main paths")
+        head = rows[2] if k in ("K1", "K2") else rows[0]   # CLIP video spatial / first site
         kernels.append({"name": name, "route": "cuda", "source": "stgcma_tpu_torch/csrc",
                         "sources": [f"stgcma_tpu_torch/csrc/{s}" for s in srcs],
-                        "replaces": replaces, "launches": totals[k], **head,
+                        "replaces": replaces, "launches": launches, **head,
                         "shapes": rows})
     log("clips/s: " + ", ".join(f"{t} {c:.2f}" for t, c in clips.items()) + f" on {smi}")
     log(smi)

@@ -8,7 +8,8 @@ returns the port's state dict. Layouts the port keeps:
   GEMMs read K-contiguous; `bias` as it is;
 - int8 `kernel_q` (in, out) -> `weight_q` (out, in); `kernel_s` (1, out) ->
   `weight_s` (out,);
-- conv `kernel` HWIO -> `weight` OIHW;
+- conv `kernel` HWIO -> `weight` OIHW, and DHWIO -> OIDHW (the Swin
+  patch embed's (pt, ph, pw, I, O));
 - LayerNorm `scale` -> `weight`;
 - every other leaf (embeddings, gates) keeps its name and shape.
 """
@@ -19,8 +20,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..configs import ClipConfig
-from ..models.ave import ClipAVE
+from ..configs import ClipConfig, SwinConfig
+from ..models.ave import ClipAVE, SwinAVE
 from ..ops.common import resolve_device
 from ..ops.quant import quantize_clip_tower
 
@@ -30,6 +31,8 @@ def _leaf(key: str, a: np.ndarray):
         return "weight", a.T
     if key == "kernel" and a.ndim == 4:
         return "weight", a.transpose(3, 2, 0, 1)
+    if key == "kernel" and a.ndim == 5:
+        return "weight", a.transpose(4, 3, 0, 1, 2)
     if key == "kernel_q":
         return "weight_q", a.T
     if key == "kernel_s":
@@ -61,4 +64,14 @@ def clip_ave_from_jax(cfg: ClipConfig, tree: Any, device="cuda") -> ClipAVE:
     if any(k.endswith("weight_q") for k in state):
         model.backbone = quantize_clip_tower(model.backbone)
     model.load_state_dict(state, strict=True)
+    return model.to(device)
+
+
+def swin_ave_from_jax(cfg: SwinConfig, tree: Any, device="cuda") -> SwinAVE:
+    """A SwinAVE holding the JAX tree's float weights. Loads strictly: every
+    leaf of the tree is a parameter of the port and the other way round (the
+    bias-free patch-merging `reduction` included)."""
+    device = resolve_device(device)
+    model = SwinAVE(cfg)
+    model.load_state_dict(params_from_jax(tree), strict=True)
     return model.to(device)

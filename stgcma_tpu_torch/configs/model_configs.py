@@ -1,8 +1,9 @@
-"""CLIP tower configuration and its presets.
+"""CLIP and Swin tower configurations and their presets.
 
-The port's own copy of the CLIP half of `stgcma_tpu/configs/model_configs.py`
-(ClipConfig and the clip_b16 / clip_l14 / clip_tiny_test presets), so that the
-port imports nothing of the JAX package.
+The port's own copy of `stgcma_tpu/configs/model_configs.py` (ClipConfig,
+SwinConfig and the clip_b16 / clip_l14 / clip_tiny_test, swin_base /
+swin_large / swin_tiny_test presets), so that the port imports nothing of the
+JAX package.
 """
 from __future__ import annotations
 
@@ -71,3 +72,80 @@ def clip_tiny_test(**kw) -> ClipConfig:
     kw.setdefault("audio_tdim", 48)
     kw.setdefault("adapter_ratio", 0.25)
     return ClipConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinConfig:
+    """Swin-2D adapter backbone (reference: AVE/model/Swin_AVE.py:1129-1599).
+
+    `scan_blocks` and `use_checkpoint` are the JAX package's compile-time and
+    rematerialization devices; the port keeps the fields and ignores them."""
+
+    embed_dim: int = 128
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 7
+    mlp_ratio: float = 4.0
+    img_size: int = 224
+    # (pt, ph, pw); the reference always uses (1, 4, 4)
+    patch_size: Tuple[int, int, int] = (1, 4, 4)
+    num_frames: int = 10
+    in_chans: int = 3
+    adapter_ratios: Tuple[float, ...] = (0.25, 0.25, 0.25, 0.25)
+    qkv_bias: bool = True
+    ftmode: str = "fusion"
+    label_dim: int = 29
+    with_nega_stream: bool = False
+    ln_eps: float = 1e-5
+    use_temporal_attn: bool = True
+    use_t_adapter: bool = True
+    use_s_adapter: bool = True
+    use_g_adapter: bool = True
+    use_checkpoint: bool = False
+    scan_blocks: int = 0
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.depths)
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (self.num_layers - 1))
+
+    @property
+    def patches_resolution(self) -> Tuple[int, int]:
+        return (self.img_size // self.patch_size[1], self.img_size // self.patch_size[2])
+
+    @property
+    def num_ttokens(self) -> int:
+        return self.num_frames // self.patch_size[0]
+
+    def stage_dim(self, i: int) -> int:
+        return int(self.embed_dim * 2 ** i)
+
+    def stage_resolution(self, i: int) -> Tuple[int, int]:
+        pr = self.patches_resolution
+        return (pr[0] // (2 ** i), pr[1] // (2 ** i))
+
+
+def swin_base(**kw) -> SwinConfig:
+    """MM-Swin-*-Base (AVE/run_adapt_ave29.py:153-165)."""
+    kw.setdefault("adapter_ratios", (0.125, 0.125, 0.0625, 0.0625))
+    return SwinConfig(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32), **kw)
+
+
+def swin_large(**kw) -> SwinConfig:
+    """MM-Swin-*-Large (AVE/run_adapt_ave29.py:167-181)."""
+    kw.setdefault("adapter_ratios", (0.5, 0.25, 0.125, 0.0625))
+    return SwinConfig(embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48), **kw)
+
+
+def swin_tiny_test(**kw) -> SwinConfig:
+    """Small config for CPU unit tests (not a reference preset)."""
+    kw.setdefault("embed_dim", 16)
+    kw.setdefault("depths", (2, 2))
+    kw.setdefault("num_heads", (2, 4))
+    kw.setdefault("img_size", 56)
+    kw.setdefault("num_frames", 2)
+    kw.setdefault("adapter_ratios", (0.25, 0.25))
+    return SwinConfig(**kw)

@@ -1,18 +1,29 @@
-// Attention core of K1/K2: o = softmax(q * dh^-1/2 . k^T + bm) . v per row and head.
+// Attention core of K1/K2 and K8: o = softmax(q * scale . k^T + bm) . v per row and head.
 //
 // Replaces the per-head loop of stgcma_tpu/ops/pallas_attn.py
 // _win_block_kernel (:406-420) and _win_block_q_core (:1445-1455, default
-// bf16 grams): q is scaled and rounded to bf16, logits are fp32 (+ the
-// optional bias bm of shape (nWb, heads, N, N), row b taking bm[b % nWb]),
-// the max is subtracted, exp'd, divided exactly by the row sum, the
-// probabilities are rounded to bf16, and p.v is summed in fp32 and rounded to
-// bf16. Heads stay merged in the output, (B_, N, heads * dh).
+// bf16 grams), and the W-MSA core K8, _wmsa_kernel_small_bias (:230) and
+// _wmsa_kernel_blocked_bias (:247): q is scaled and rounded to bf16 (K8 gets
+// q scaled already and passes scale 1, which is exact), logits are fp32
+// (+ the optional bias bm, of shape (nWb, heads, N, N), row b taking
+// bm[b % nWb]), the max is subtracted, exp'd, divided exactly by the row sum,
+// the probabilities are rounded to bf16, and p.v is summed in fp32 and
+// rounded to bf16. Heads stay merged in the output, (B_, N, heads * dh).
+// Two entry points read the same core:
+//   - stg_attn_core (K1/K2): q, k, v are column blocks of one packed
+//     (B_, N, 3 * heads * dh) qkv;
+//   - stg_attn_qkv (K8): separate q, k, v of shape (R, N, dh) and a bias
+//     (P, N, N) whose row r takes bm[r % P] (one head per row, heads = 1).
+//     One kernel takes any period P, so it covers both Pallas bodies: the
+//     small bias (P <= 128, held whole) and the blocked bias (P a multiple
+//     of 128, tiled along the rows).
 // Differences from the TPU layout, on purpose: no 8-row block-diagonal
-// packing of the T = 10 temporal site and no 197 -> 208 resident pad; each
-// row attends over its own N tokens (exp(-1e30 - m) was exactly 0 there, so
-// the math is the same).
-// Bound on the H100: operations at the spatial sites (N = 197: ~9.5 GFLOP a
-// B = 8 call), bytes at the temporal site (N = 10: the qkv read dominates).
+// packing of the T = 10 temporal site, no 197 -> 208 resident pad and no
+// 49 -> 64 window pad; each row attends over its own N tokens (exp(-1e30 - m)
+// was exactly 0 there, so the math is the same).
+// Bound on the H100: operations at the CLIP spatial sites (N = 197: ~9.5
+// GFLOP a B = 8 call), bytes at the temporal and window sites (N = 10 or
+// 49: the q, k, v reads dominate).
 // Design: both products on tensor cores (mma.sync m16n8k16, bf16 in, fp32
 // accumulate). One warp owns a 16-query tile: its logits and probabilities
 // stay in registers, and the probabilities' accumulator fragments are reused
@@ -45,11 +56,11 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // q[row, col:col+2] * scale, rounded to bf16 and packed; 0 past the last row
-__device__ __forceinline__ uint32_t load_q2(const bf16* base, int row, int col, int N, int C3,
+__device__ __forceinline__ uint32_t load_q2(const bf16* base, int row, int col, int N, int ld,
                                             float scale) {
   if (row >= N) return 0u;
   const float2 f = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(base + static_cast<size_t>(row) * C3 + col));
+      *reinterpret_cast<const __nv_bfloat162*>(base + static_cast<size_t>(row) * ld + col));
   return pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
 }
 
@@ -71,28 +82,29 @@ struct Layout {
   static constexpr int PER_BH = NK * LDK + DH * LDV;   // bf16 per (row, head)
 };
 
+// Token j of head h of row b is at q/k/v + (b * N + j) * ld + h * DH.
 template <int DH, int KT>
 __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
-    const bf16* __restrict__ qkv, const float* __restrict__ bm, int nWb,
-    bf16* __restrict__ o, int BH, int N, int heads, float scale, int bh_per_block,
-    int q_tiles) {
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
+    const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int BH, int N, int heads,
+    float scale, int bh_per_block, int q_tiles) {
   using L = Layout<DH, KT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int C = heads * DH, C3 = 3 * C;
+  const int C = heads * DH;
   const int bh0 = static_cast<int>(blockIdx.x) * bh_per_block;
 
   for (int l = 0; l < bh_per_block; ++l) {       // K and V^T of each (row, head)
     const int bh = bh0 + l;
     bf16* ks = smem + l * L::PER_BH;
     bf16* vt = ks + L::NK * L::LDK;
-    const bf16* base = qkv + static_cast<size_t>(bh / heads) * N * C3 + (bh % heads) * DH;
+    const size_t base = static_cast<size_t>(bh / heads) * N * ld + (bh % heads) * DH;
     for (int i = threadIdx.x; i < L::NK * (DH / 2); i += blockDim.x) {
       const int j = i / (DH / 2), w = i % (DH / 2);
       uint32_t kw = 0u, vw = 0u;
       if (bh < BH && j < N) {
-        kw = reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(j) * C3 + C)[w];
-        vw = reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(j) * C3 + 2 * C)[w];
+        kw = reinterpret_cast<const uint32_t*>(k + base + static_cast<size_t>(j) * ld)[w];
+        vw = reinterpret_cast<const uint32_t*>(v + base + static_cast<size_t>(j) * ld)[w];
       }
       *reinterpret_cast<uint32_t*>(ks + j * L::LDK + 2 * w) = kw;
       const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
@@ -111,17 +123,17 @@ __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
     const int b = bh / heads, h = bh % heads;
     const bf16* ks = smem + l * L::PER_BH;
     const bf16* vt = ks + L::NK * L::LDK;
-    const bf16* base = qkv + static_cast<size_t>(b) * N * C3 + h * DH;
+    const bf16* base = q + static_cast<size_t>(b) * N * ld + h * DH;
     const int r0 = qt * 16 + g, r1 = r0 + 8;     // this thread's two query rows
 
     uint32_t qa[DH / 16][4];
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const int c0 = kk * 16 + 2 * t;
-      qa[kk][0] = load_q2(base, r0, c0, N, C3, scale);
-      qa[kk][1] = load_q2(base, r1, c0, N, C3, scale);
-      qa[kk][2] = load_q2(base, r0, c0 + 8, N, C3, scale);
-      qa[kk][3] = load_q2(base, r1, c0 + 8, N, C3, scale);
+      qa[kk][0] = load_q2(base, r0, c0, N, ld, scale);
+      qa[kk][1] = load_q2(base, r1, c0, N, ld, scale);
+      qa[kk][2] = load_q2(base, r0, c0 + 8, N, ld, scale);
+      qa[kk][3] = load_q2(base, r1, c0 + 8, N, ld, scale);
     }
 
     // logits: s[nt] holds keys nt*8 + 2t (+1) of rows r0 (elements 0, 1) and r1 (2, 3)
@@ -204,9 +216,19 @@ __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
   }
 }
 
+struct Args {
+  const void *q, *k, *v;
+  int ld;               // elements between consecutive tokens of q, k and v
+  const void* bm;       // nullable
+  int nWb;
+  void* o;
+  int BH, N, heads;
+  float scale;
+};
+
 template <int DH, int KT>
-int launch(const void* qkv, const void* bm, int nWb, void* o, int BH, int N, int heads,
-           float scale, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
+  const int N = a.N, BH = a.BH;
   const int q_tiles = ceil_div(N, 16);
   const int bh_per_block = q_tiles >= kWarps ? 1 : kWarps / q_tiles;
   const size_t smem = static_cast<size_t>(bh_per_block) * Layout<DH, KT>::PER_BH * sizeof(bf16);
@@ -215,30 +237,46 @@ int launch(const void* qkv, const void* bm, int nWb, void* o, int BH, int N, int
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<ceil_div(BH, bh_per_block), kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(bm), nWb,
-      static_cast<bf16*>(o), BH, N, heads, scale, bh_per_block, q_tiles);
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.ld, static_cast<const float*>(a.bm), a.nWb,
+      static_cast<bf16*>(a.o), BH, N, a.heads, a.scale, bh_per_block, q_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
-int launch_dh(const void* qkv, const void* bm, int nWb, void* o, int BH, int N, int heads,
-              float scale, cudaStream_t stream) {
-  const int kt = ceil_div(N, 16);
-  if (kt <= 1) return launch<DH, 1>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
-  if (kt <= 2) return launch<DH, 2>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
-  if (kt <= 4) return launch<DH, 4>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
-  if (kt <= 8) return launch<DH, 8>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
-  if (kt <= 13) return launch<DH, 13>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
-  if (kt <= 16) return launch<DH, 16>(qkv, bm, nWb, o, BH, N, heads, scale, stream);
+int launch_dh(const Args& a, cudaStream_t stream) {
+  const int kt = ceil_div(a.N, 16);
+  if (kt <= 1) return launch<DH, 1>(a, stream);
+  if (kt <= 2) return launch<DH, 2>(a, stream);
+  if (kt <= 4) return launch<DH, 4>(a, stream);
+  if (kt <= 8) return launch<DH, 8>(a, stream);
+  if (kt <= 13) return launch<DH, 13>(a, stream);
+  if (kt <= 16) return launch<DH, 16>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_any(const Args& a, int dh, cudaStream_t stream) {
+  if (dh == 64) return launch_dh<64>(a, stream);
+  if (dh == 32) return launch_dh<32>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// qkv: (B_, N, 3 * heads * dh) bf16; o: (B_, N, heads * dh) bf16; N <= 256, dh in {32, 64}
+// K1/K2: qkv (B_, N, 3 * heads * dh) bf16; o: (B_, N, heads * dh) bf16; N <= 256,
+// dh in {32, 64}
 STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int B, int N,
                           int heads, int dh, float scale, cudaStream_t stream) {
-  if (dh == 64) return launch_dh<64>(qkv, bm, nWb, o, B * heads, N, heads, scale, stream);
-  if (dh == 32) return launch_dh<32>(qkv, bm, nWb, o, B * heads, N, heads, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int C = heads * dh;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  const Args a{base, base + C, base + 2 * C, 3 * C, bm, nWb, o, B * heads, N, heads, scale};
+  return launch_any(a, dh, stream);
+}
+
+// K8: q (pre-scaled), k, v, o (R, N, dh) bf16; bm (P, N, N) fp32, row r taking bm[r % P];
+// N <= 256, dh in {32, 64}
+STG_API int stg_attn_qkv(const void* q, const void* k, const void* v, const void* bm, int P,
+                         void* o, int R, int N, int dh, cudaStream_t stream) {
+  const Args a{q, k, v, dh, bm, P, o, R, N, 1, 1.0f};
+  return launch_any(a, dh, stream);
 }

@@ -1,8 +1,13 @@
-// Tensor-core GEMM shared by K1-K3: C[m, n] = sum_k A[m, k] * W[n, k] + epilogue.
+// Tensor-core GEMM shared by K1-K3 and K7: C[m, n] = sum_k A[m, k] * W[n, k] + epilogue.
 //
 // Replaces the MXU products inside stgcma_tpu/ops/pallas_attn.py:
-//   - bf16: the qkv and proj dots of _win_block_kernel (:401, :421), fp32
-//     accumulation, + bias in fp32, cast to bf16;
+//   - bf16: the qkv and proj dots of _win_block_kernel (:401, :421) and the
+//     fc2 dot of _ffn_kernel (:694), fp32 accumulation, + bias in fp32, cast
+//     to bf16;
+//   - bf16 with erf-GELU: the fc1 dot of _ffn_kernel (:685-693), acc + bias
+//     in fp32, then 0.5 h (1 + erf(h / sqrt 2)) in fp32 (erff; the TPU
+//     kernel's A&S 7.1.26 polynomial differs from it by < 2e-7), rounded to
+//     a bf16 hidden;
 //   - int8: _dotq (:1356) in _win_block_q_core (:1440, :1457) and
 //     _ffn_q_kernel (:1626, :1632): int8 x int8 -> int32, then
 //     float(acc) * sx[m] * ws[n] + b[n] in fp32, then either a bf16 store or
@@ -11,7 +16,13 @@
 // K = 768 or 3072, N = 768..3072) the bf16 products do 380-560 flops per byte
 // they must move, above the card's bf16 ridge of ~295: operations bound them.
 // The int8 fc1 product writes an fp32 hidden and does ~360 ops per byte,
-// below the int8 ridge of ~590: bytes bound it. Design (first version,
+// below the int8 ridge of ~590: bytes bound it. At the Swin FFN shapes of K7
+// (M = 250880 or 62720 rows, C = 128 or 256, hidden 4C) each product alone
+// does ~200-400 flops per byte, and the bf16 hidden goes through device
+// memory between fc1 and fc2 (2 x 257 MB at stage 0, ~0.15 ms at 3.35 TB/s,
+// about twice K7's op bound of 0.067 ms): the later design keeps it on chip
+// (fc1 chunk -> GELU -> fc2 accumulate), as the TPU kernel does in VMEM. At
+// K = 128 the 4-stage ring sees only 4 k-tiles. Design (first version,
 // simple and right): 128x128 block tiles, 64-byte deep k-tiles in a 4-stage
 // cp.async ring in shared memory (three tiles in flight while one is
 // multiplied), 8 warps of 64x32 each issuing mma.sync (m16n8k16 bf16 or
@@ -50,7 +61,9 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint8_t* row
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-enum Epi { EPI_BF16 = 0, EPI_Q_BF16 = 1, EPI_Q_QUICKGELU_F32 = 2, EPI_Q_GELU_F32 = 3 };
+enum Epi {
+  EPI_BF16 = 0, EPI_Q_BF16 = 1, EPI_Q_QUICKGELU_F32 = 2, EPI_Q_GELU_F32 = 3, EPI_BF16_GELU = 4
+};
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -78,7 +91,7 @@ struct EpiArgs {
 template <int EPI, typename Acc>
 __device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc acc) {
   float v;
-  if constexpr (EPI == EPI_BF16) {
+  if constexpr (EPI == EPI_BF16 || EPI == EPI_BF16_GELU) {
     v = acc;
   } else {
     v = __fmul_rn(__fmul_rn(__int2float_rn(static_cast<int>(acc)), e.sa[m]),
@@ -88,6 +101,9 @@ __device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc
   const size_t i = static_cast<size_t>(m) * N + n;
   if constexpr (EPI == EPI_BF16 || EPI == EPI_Q_BF16) {
     static_cast<bf16*>(e.out)[i] = __float2bfloat16_rn(v);
+  } else if constexpr (EPI == EPI_BF16_GELU) {
+    static_cast<bf16*>(e.out)[i] =
+        __float2bfloat16_rn(0.5f * v * (1.0f + erff(v * 0.70710678118654752f)));
   } else if constexpr (EPI == EPI_Q_QUICKGELU_F32) {
     static_cast<float*>(e.out)[i] = v * (1.0f / (1.0f + expf(-1.702f * v)));
   } else {
@@ -200,10 +216,15 @@ int launch(const uint8_t* A, const uint8_t* W, int M, int N, int kbytes, const E
 }  // namespace
 
 STG_API int stg_gemm_bf16(const void* A, const void* W, const void* bias, void* C,
-                          int M, int N, int K, cudaStream_t stream) {
+                          int M, int N, int K, int epilogue, cudaStream_t stream) {
   EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C};
-  return launch<float, EPI_BF16>(static_cast<const uint8_t*>(A),
-                                 static_cast<const uint8_t*>(W), M, N, 2 * K, e, stream);
+  const uint8_t* a = static_cast<const uint8_t*>(A);
+  const uint8_t* w = static_cast<const uint8_t*>(W);
+  switch (epilogue) {
+    case EPI_BF16: return launch<float, EPI_BF16>(a, w, M, N, 2 * K, e, stream);
+    case EPI_BF16_GELU: return launch<float, EPI_BF16_GELU>(a, w, M, N, 2 * K, e, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 STG_API int stg_gemm_s8(const void* A, const void* sa, const void* W, const void* ws,

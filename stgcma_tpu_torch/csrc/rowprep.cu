@@ -1,7 +1,12 @@
-// Row prologues of K1-K3: LayerNorm and per-row int8 activation quantization.
+// Row prologues of K1-K3 and K7, and the LayerNorm K9: LayerNorm and per-row
+// int8 activation quantization.
 //
-// Replaces the in-kernel prologues of stgcma_tpu/ops/pallas_attn.py:
-//   - LN cast to x.dtype before the bf16 qkv product (_win_block_kernel :394-400),
+// Replaces, in stgcma_tpu/ops/pallas_attn.py:
+//   - K9, the row LayerNorm _ln_kernel (:755) with fp32 statistics and bf16
+//     in and out: ln_bf16_kernel computes exactly its function (at Swin's
+//     patch-embed, merge and final norms, C = 128..2048, up to 250880 rows);
+//   - LN cast to x.dtype before the bf16 qkv product (_win_block_kernel :394-400)
+//     and before fc1 (_ffn_kernel :679-684),
 //   - LN kept in fp32, then _quant_rows (:1335) before an int8 product
 //     (_win_block_q_core :1434-1440, _ffn_q_kernel :1620-1626),
 //   - _quant_rows of the bf16 attention output (:1457) and of the fp32 FFN

@@ -1,18 +1,20 @@
-"""AVE-29 audio-visual event localization, CLIP flavor.
+"""AVE-29 audio-visual event localization, CLIP and Swin flavors.
 
-Port of the CLIP half of `stgcma_tpu/models/ave.py` (:20-37, :69-84) in
-`fusion` mode: the dual MLP head Linear(2C, 512) -> Linear(512, label_dim),
-without dropout (serving). I/O: a (B, T, 102, 128), v (B, T, 224, 224, 3)
--> logits (B*T, label_dim).
+Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) in
+`fusion` mode and the Swin half (:44-62) in `multimodal` mode, each with the
+dual MLP head Linear(2C, 512) -> Linear(512, label_dim), without dropout
+(serving). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
+224, 224, 3) -> logits (B*T, label_dim).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..configs import ClipConfig
+from ..configs import ClipConfig, SwinConfig
+from ..nn import swin
 from ..nn.clip_vit import ClipBackbone, clip_backbone_apply, init_clip_backbone_
-from ..ops.common import Linear, linear, resolve_device
+from ..ops.common import LayerNorm, Linear, linear, resolve_device
 
 
 class MlpHead(nn.Module):
@@ -72,4 +74,74 @@ def random_clip_ave(cfg: ClipConfig, seed: int) -> ClipAVE:
                 p.normal_(1.0, 0.1, generator=g)
             else:
                 p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Swin flavor
+# ---------------------------------------------------------------------------
+
+class SwinAVE(nn.Module):
+    def __init__(self, cfg: SwinConfig):
+        super().__init__()
+        self.backbone = swin.SwinBackbone(cfg)
+        self.mlp_head = MlpHead(cfg.num_features, cfg.label_dim)
+
+
+def _uniform_patch_convs_(bb: swin.SwinBackbone, g: torch.Generator):
+    """uniform(+-1/sqrt(fan_in)) patch-conv weights and biases (conv3d_init)."""
+    for conv in (bb.patch_embed.proj, bb.patch_embed_audio.proj):
+        bound = conv.weight[0].numel() ** -0.5
+        conv.weight.uniform_(-bound, bound, generator=g)
+        conv.bias.uniform_(-bound, bound, generator=g)
+
+
+def init_swin_ave(cfg: SwinConfig, generator: torch.Generator = None,
+                  device="cuda") -> SwinAVE:
+    """A SwinAVE with the JAX package's initialization (`swin.backbone_init`,
+    `_mlp_head_init`), drawn on the CPU from `generator` (seed 0 if none),
+    then moved to `device`: trunc_normal(0.02) linears and bias tables, zero
+    biases, zero adapter D_fc2 and gates, uniform(+-1/sqrt(fan_in)) patch
+    convs and their biases, unit LayerNorms."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = SwinAVE(cfg)
+    with torch.no_grad():
+        _uniform_patch_convs_(model.backbone, g)
+        for name, p in model.named_parameters():
+            if name.endswith("bias_table") or (p.dim() == 2 and name.endswith(".weight")):
+                nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=g)
+        for name, p in model.named_parameters():
+            if ".D_fc2." in name:
+                p.zero_()
+    return model.to(device)
+
+
+def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a, v):
+    """Forward in cfg.ftmode (`multimodal` only, so far): the tokens of each
+    stream are averaged, concatenated as (a, v) (Swin_AVE.py:1596) and fed
+    to the head. Returns logits (B*T, label_dim)."""
+    feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
+    pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
+    return linear(model.mlp_head.fc2, linear(model.mlp_head.fc1, pooled))
+
+
+def random_swin_ave(cfg: SwinConfig, seed: int) -> SwinAVE:
+    """A SwinAVE on the CPU with every leaf drawn from one seeded generator,
+    for smoke runs and measurements: linears N(0, 0.02), LayerNorm weights
+    1 + N(0, 0.1), relative and temporal bias tables N(0, 0.5), patch convs
+    uniform(+-1/sqrt(fan_in)). Unlike the training init, the adapters' D_fc2
+    and the bias tables are far from zero, so adapters and biases are live."""
+    g = torch.Generator().manual_seed(seed)
+    model = SwinAVE(cfg)
+    norms = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if id(p) in norms:
+                p.normal_(1.0, 0.1, generator=g)
+            elif name.endswith("bias_table"):
+                p.normal_(0.0, 0.5, generator=g)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+        _uniform_patch_convs_(model.backbone, g)
     return model

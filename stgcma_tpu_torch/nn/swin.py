@@ -1,0 +1,345 @@
+"""Swin-2D adapter backbone, two streams without fusion (`multimodal` ftmode).
+
+Port of `stgcma_tpu/nn/swin.py` in `multimodal` ftmode, the reference's
+`multimodal_adapt_no_fusion` (Swin_AVE.py:490-591): `BlockStatic` and
+`make_block_static` (:42-78), `_temporal_branch` (:163), `_ffn` (:190),
+`_spatial_windows` (:214), `_merge_windows` (:248), `_dual_no_fusion` (:271),
+`block_apply` (:361), the patch embed and merging (:382-407),
+`backbone_statics` (:410), and the unrolled `_run_layers` (:435) and
+`backbone_apply` (:483). The `fusion` ftmode (the STG-CMA exchange, kernels
+K4-K6), the single-stream modes, the `multi_scale` taps and the AVQA `nega`
+stream are not ported yet (ROADMAP.md, queue 1).
+
+The modules only hold parameters, named as the JAX tree's keys; the
+functions read them. Tokens are batch-first (B*T, H*W, C). The kernel routes
+follow the JAX package's TPU policy (ops/fused_attn.py): K1 for the temporal
+and window attention of stages with <= 16 heads, LayerNorm then the K8 core
+for more heads, K7 for an FFN whose hidden takes >= 96 MiB, K9 for the large
+norms. The bias and shift mask of each attention site are gathered from the
+block's table on every call, as the JAX package does inside its jit; the
+index and mask constants are built once per geometry and device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from ..configs import SwinConfig
+from ..ops import window as W
+from ..ops.common import LayerNorm, Linear, layernorm, linear, mlp_apply
+from ..ops.conv import conv3d
+from ..ops.fused_attn import (block_kernel_route, ffn_kernel_route, ffn_megakernel,
+                              layernorm_fused, ln_kernel_route, temporal_attention_fused,
+                              temporal_block_megakernel, window_attention_fused,
+                              window_block_megakernel)
+from .adapters import Adapter, adapter_apply
+
+PORTED_FTMODES = ("multimodal",)
+
+
+# ---------------------------------------------------------------------------
+# static (non-parameter) geometry per block
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BlockStatic:
+    dim: int
+    H: int
+    W: int
+    num_heads: int
+    window_size: int
+    shift_size: int
+    t_attn: bool
+    num_frames: int
+    adapter_ratio: float
+    mode: str
+    use_t_adapter: bool = True
+    use_s_adapter: bool = True
+    use_g_adapter: bool = True
+
+
+def make_block_static(cfg: SwinConfig, stage: int, block_idx: int, mode: str) -> BlockStatic:
+    H, Wd = cfg.stage_resolution(stage)
+    ws = cfg.window_size
+    shift = 0 if block_idx % 2 == 0 else ws // 2
+    # Swin_AVE.py:330-334: a window larger than the feature map shrinks to it, unshifted
+    if min(H, Wd) <= ws:
+        ws = min(H, Wd)
+        shift = 0
+    return BlockStatic(
+        dim=cfg.stage_dim(stage), H=H, W=Wd, num_heads=cfg.num_heads[stage],
+        window_size=ws, shift_size=shift,
+        t_attn=(block_idx % 2 == 0) and cfg.use_temporal_attn,
+        num_frames=cfg.num_ttokens, adapter_ratio=cfg.adapter_ratios[stage],
+        mode=mode, use_t_adapter=cfg.use_t_adapter,
+        use_s_adapter=cfg.use_s_adapter, use_g_adapter=cfg.use_g_adapter)
+
+
+def _mode_for_ftmode(ftmode: str) -> str:
+    if ftmode not in PORTED_FTMODES:
+        raise NotImplementedError(
+            f"Swin ftmode {ftmode!r} is not ported yet: the port runs {PORTED_FTMODES} "
+            "(the fusion slice and the single-stream modes are queued in ROADMAP.md, "
+            "section 1)")
+    return "multimodal_adapt_no_fusion"
+
+
+def backbone_statics(cfg: SwinConfig) -> List[List[BlockStatic]]:
+    mode = _mode_for_ftmode(cfg.ftmode)
+    return [[make_block_static(cfg, s, i, mode) for i in range(cfg.depths[s])]
+            for s in range(cfg.num_layers)]
+
+
+@functools.lru_cache(maxsize=64)
+def _rel_index(ws: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(W.relative_position_index(ws)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _t_index(T: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(W.temporal_relative_index(T)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_mask(H: int, Wd: int, ws: int, ss: int, device: torch.device):
+    if ss == 0:
+        return None
+    return torch.from_numpy(W.shift_attn_mask(H, Wd, ws, ss)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# parameter modules
+# ---------------------------------------------------------------------------
+
+class SwinAttention(nn.Module):
+    def __init__(self, st: BlockStatic):
+        super().__init__()
+        d, h = st.dim, st.num_heads
+        self.qkv = Linear(d, 3 * d)
+        self.proj = Linear(d, d)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * st.window_size - 1) ** 2, h))
+        if st.t_attn:
+            self.temporal_position_bias_table = nn.Parameter(torch.zeros(2 * st.num_frames - 1, h))
+            self.temporal_position_bias_table_audio = nn.Parameter(
+                torch.zeros(2 * st.num_frames - 1, h))
+
+
+class SwinMlp(nn.Module):
+    def __init__(self, d: int, hidden: int):
+        super().__init__()
+        self.fc1 = Linear(d, hidden)
+        self.fc2 = Linear(hidden, d)
+
+
+class SwinBlock(nn.Module):
+    """One multimodal block: the frozen Swin block (with both temporal
+    tables), the unused fusion gates of the JAX tree, and each stream's
+    adapters."""
+
+    def __init__(self, st: BlockStatic):
+        super().__init__()
+        d, r = st.dim, st.adapter_ratio
+        self.norm1 = LayerNorm(d)
+        self.norm2 = LayerNorm(d)
+        self.attn = SwinAttention(st)
+        self.mlp = SwinMlp(d, int(d * 4.0))
+        self.gate_v = nn.Parameter(torch.zeros(1))
+        self.gate_a = nn.Parameter(torch.zeros(1))
+        for sfx in ("", "_Audio"):
+            if st.t_attn and st.use_t_adapter:
+                setattr(self, "T_Adapter" + sfx, Adapter(d, r))
+            if st.use_g_adapter:
+                setattr(self, "S_Adapter" + sfx, Adapter(d, r))
+            if st.use_s_adapter:
+                setattr(self, "S_Adapter2" + sfx, Adapter(d, r))
+
+
+class Conv3d(nn.Module):
+    """Patch-embedding conv parameters: weight (C_out, C_in, pt, ph, pw), bias."""
+
+    def __init__(self, c_in: int, c_out: int, kernel):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, *kernel))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, cfg: SwinConfig, in_chans: int):
+        super().__init__()
+        self.proj = Conv3d(in_chans, cfg.embed_dim, cfg.patch_size)
+        self.norm = LayerNorm(cfg.embed_dim)
+
+
+class PatchMerging(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+
+
+class SwinStage(nn.Module):
+    def __init__(self, statics: List[BlockStatic], downsample: bool):
+        super().__init__()
+        self.blocks = nn.ModuleList(SwinBlock(st) for st in statics)
+        self.downsample = PatchMerging(statics[0].dim) if downsample else None
+
+
+class SwinBackbone(nn.Module):
+    def __init__(self, cfg: SwinConfig):
+        super().__init__()
+        statics = backbone_statics(cfg)
+        self.patch_embed = PatchEmbed(cfg, cfg.in_chans)
+        self.patch_embed_audio = PatchEmbed(cfg, 1)
+        self.layers = nn.ModuleList(SwinStage(statics[s], s < cfg.num_layers - 1)
+                                    for s in range(cfg.num_layers))
+        self.norm = LayerNorm(cfg.num_features)
+
+
+# ---------------------------------------------------------------------------
+# block forward pieces
+# ---------------------------------------------------------------------------
+
+def _temporal_branch(blk: SwinBlock, x, st: BlockStatic, signal: str, adapter_key: str):
+    """Temporal attention over the T frame tokens + no-skip T_Adapter +
+    residual (Swin_AVE.py:705-716). x: (B*T, N, C)."""
+    BT, N, C = x.shape
+    T = st.num_frames
+    B = BT // T
+    t_index = _t_index(T, x.device)
+    xt = x.reshape(B, T, N, C).transpose(1, 2).reshape(B * N, T, C).contiguous()
+    if block_kernel_route(st.num_heads):
+        res = temporal_block_megakernel(blk.attn, blk.norm1, xt, st.num_heads, t_index,
+                                        signal=signal)
+    else:
+        res = temporal_attention_fused(blk.attn, layernorm_fused(blk.norm1, xt),
+                                       st.num_heads, t_index, signal=signal)
+    if st.use_t_adapter:
+        res = adapter_apply(getattr(blk, adapter_key), res, skip=False)
+    xt = xt + res
+    return xt.reshape(B, N, T, C).transpose(1, 2).reshape(BT, N, C)
+
+
+def _ffn(blk: SwinBlock, x):
+    """LN + fc1 + erf-GELU + fc2: K7 when the hidden is large, the plain
+    bf16 ops (XLA's in the JAX package) otherwise."""
+    hidden = blk.mlp.fc1.weight.shape[0]
+    if ffn_kernel_route(x.numel() // x.shape[-1], hidden, x.element_size()):
+        return ffn_megakernel(blk.mlp, blk.norm2, x)
+    return mlp_apply(blk.mlp, layernorm(blk.norm2, x))
+
+
+def _spatial_windows(blk: SwinBlock, x, st: BlockStatic):
+    """LN -> shift -> partition -> W-MSA. Returns the attended windows.
+    LN commutes with the token-wise shift and partition, so the K1 route
+    normalizes inside the kernel."""
+    BT, L, C = x.shape
+    ws, ss = st.window_size, st.shift_size
+    mask = _shift_mask(st.H, st.W, ws, ss, x.device)
+    rel = _rel_index(ws, x.device)
+    kernel = block_kernel_route(st.num_heads)
+    xr = (x if kernel else layernorm(blk.norm1, x)).reshape(BT, st.H, st.W, C)
+    if ss > 0:
+        xr = torch.roll(xr, (-ss, -ss), dims=(1, 2))
+    xw = W.window_partition(xr, ws)
+    if kernel:
+        return window_block_megakernel(blk.attn, blk.norm1, xw, st.num_heads, rel, mask=mask)
+    return window_attention_fused(blk.attn, xw, st.num_heads, rel, mask=mask)
+
+
+def _merge_windows(attn_w, st: BlockStatic, BT: int):
+    x = W.window_reverse(attn_w, st.window_size, st.H, st.W)
+    if st.shift_size > 0:
+        x = torch.roll(x, (st.shift_size, st.shift_size), dims=(1, 2))
+    return x.reshape(BT, st.H * st.W, -1)
+
+
+def _dual_no_fusion(blk: SwinBlock, v, a, st: BlockStatic):
+    """multimodal_adapt_no_fusion (Swin_AVE.py:490-591). The FFN adapter
+    reads the MLP *output*, without the 0.5 factor of the single-stream
+    modes."""
+    out = []
+    for x, sfx, signal in ((v, "", "video"), (a, "_Audio", "audio")):
+        if st.t_attn:
+            x = _temporal_branch(blk, x, st, signal, "T_Adapter" + sfx)
+        attn_w = _spatial_windows(blk, x, st)
+        if st.use_s_adapter:
+            attn_w = adapter_apply(getattr(blk, "S_Adapter2" + sfx), attn_w, skip=True)
+        x = x + _merge_windows(attn_w, st, x.shape[0])
+        xn = _ffn(blk, x)
+        x = x + xn
+        if st.use_g_adapter:
+            x = x + adapter_apply(getattr(blk, "S_Adapter" + sfx), xn, skip=False)
+        out.append(x)
+    return out[0], out[1]
+
+
+def block_apply(blk: SwinBlock, x, st: BlockStatic):
+    """x is the pair (v, a)."""
+    if st.mode != "multimodal_adapt_no_fusion":
+        raise NotImplementedError(f"Swin block mode {st.mode!r} is not ported yet")
+    return _dual_no_fusion(blk, x[0], x[1], st)
+
+
+# ---------------------------------------------------------------------------
+# patch embed / merging / backbone
+# ---------------------------------------------------------------------------
+
+def patch_embed_apply(pe: PatchEmbed, x, cfg: SwinConfig):
+    """x: (B, T, H, W, C_in) -> tokens (B*T', H'*W', C), T' = T // pt
+    (PatchEmbed3D, Swin_AVE.py:1078-1124)."""
+    y = conv3d(pe.proj.weight, pe.proj.bias, x, stride=cfg.patch_size)
+    B, Tp, Hp, Wp, C = y.shape
+    return layernorm_fused(pe.norm, y.reshape(B * Tp, Hp * Wp, C))
+
+
+def patch_merging_apply(pm: PatchMerging, x, H: int, Wd: int):
+    return linear(pm.reduction, layernorm_fused(pm.norm, W.patch_merge(x, H, Wd)))
+
+
+def _run_layers(bb: SwinBackbone, cfg: SwinConfig, statics, x):
+    for s, layer in enumerate(bb.layers):
+        for blk, st in zip(layer.blocks, statics[s]):
+            x = block_apply(blk, x, st)
+        if layer.downsample is not None:
+            H, Wd = cfg.stage_resolution(s)
+            x = tuple(patch_merging_apply(layer.downsample, xi, H, Wd) for xi in x)
+    return x
+
+
+def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a, v) -> Dict[str, torch.Tensor]:
+    """Normed tokens per stream, (B*T', 49, C_last) at 224^2.
+    v: (B, T, H, W, 3) frames; a: (B, T, F, Tt) fbank images."""
+    statics = backbone_statics(cfg)
+    vt = patch_embed_apply(bb.patch_embed, v, cfg)
+    at = patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg)
+    vt, at = _run_layers(bb, cfg, statics, (vt, at))
+    return {"v": layernorm_fused(bb.norm, vt), "a": layernorm_fused(bb.norm, at)}
+
+
+def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2) -> Dict[str, int]:
+    """Kernel launches of one backbone forward at batch B, in a dtype of
+    `itemsize` bytes, derived from the route functions the forward calls."""
+    n = {"K1": 0, "K7": 0, "K8": 0, "K9": 0}
+    rows = B * cfg.num_ttokens            # frames through the tower, per stream
+    H, Wd = cfg.stage_resolution(0)
+    n["K9"] += ln_kernel_route(rows * H * Wd * cfg.embed_dim)           # patch embed
+    for s, stage in enumerate(backbone_statics(cfg)):
+        for st in stage:
+            tokens = rows * st.H * st.W
+            kernel = block_kernel_route(st.num_heads)
+            if st.t_attn:
+                n["K1" if kernel else "K8"] += 1
+                n["K9"] += (not kernel) and ln_kernel_route(tokens * st.dim)
+            n["K1" if kernel else "K8"] += 1
+            n["K7"] += ffn_kernel_route(tokens, int(st.dim * 4.0), itemsize)
+        if s < cfg.num_layers - 1:
+            H, Wd = cfg.stage_resolution(s)
+            n["K9"] += ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
+    H, Wd = cfg.stage_resolution(cfg.num_layers - 1)
+    n["K9"] += ln_kernel_route(rows * H * Wd * cfg.num_features)        # final norm
+    return {k: 2 * int(c) for k, c in n.items()}                        # two streams

@@ -29,14 +29,15 @@ def resolve_device(device) -> torch.device:
 
 
 class Linear(nn.Module):
-    """Float linear layer: weight (out, in), bias (out,)."""
+    """Float linear layer: weight (out, in), bias (out,) or None (the Swin
+    patch-merging reduction has none)."""
 
     quantized = False
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
 
 class QLinear(nn.Module):
@@ -66,7 +67,8 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     path (`int8_matmul`) quantizes differently and is not ported."""
     if p.quantized:
         raise ValueError("quantized linears run inside the int8 kernels only")
-    return F.linear(x, p.weight.to(x.dtype), p.bias.to(x.dtype))
+    bias = None if p.bias is None else p.bias.to(x.dtype)
+    return F.linear(x, p.weight.to(x.dtype), bias)
 
 
 def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -88,6 +90,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP QuickGELU: x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)
+
+
+def mlp_apply(p, x: torch.Tensor, act=gelu) -> torch.Tensor:
+    """fc2(act(fc1(x))), every op in x's dtype (`stgcma_tpu/ops/common.py:106`)."""
+    return linear(p.fc2, act(linear(p.fc1, x)))
 
 
 def cast_tree(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -35,14 +35,16 @@ SIGNATURES = {
         "stg_quant_rows": [P, I, P, P, P, P, I, I, F, P],
     },
     "gemm.cu": {
-        # A, W, bias, C, M, N, K, stream
-        "stg_gemm_bf16": [P, P, P, P, I, I, I, P],
+        # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU), stream
+        "stg_gemm_bf16": [P, P, P, P, I, I, I, I, P],
         # A, sa, W, ws, bias, C, M, N, K, epilogue, stream
         "stg_gemm_s8": [P, P, P, P, P, P, I, I, I, I, P],
     },
     "attn.cu": {
         # qkv, bm (nullable), nWb, o, B_, N, heads, dh, scale, stream
         "stg_attn_core": [P, P, I, P, I, I, I, I, F, P],
+        # q (pre-scaled), k, v, bm, P, o, R, N, dh, stream
+        "stg_attn_qkv": [P, P, P, P, I, P, I, I, I, P],
     },
 }
 

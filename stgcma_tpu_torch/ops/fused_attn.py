@@ -1,4 +1,5 @@
-"""The main path's kernels K1-K3: wrappers, plain versions, launch counts.
+"""The port's kernels K1-K3 and K7-K9: wrappers, plain versions, launch
+counts, and the entry points of the CLIP and Swin towers that route to them.
 
 - K1 `win_block`: LN -> x.Wqkv + b -> per-head softmax(q.dh^-1/2.k^T + bm).v
   -> merge -> .Wproj + b, in x's dtype. Replaces
@@ -8,6 +9,14 @@
   `_win_block_q_kernel` (:1461, body `_win_block_q_core` :1425).
 - K3 `ffn_q`: fp32 LN -> int8 fc1 + b1 -> QuickGELU or erf-GELU -> int8 fc2
   + b2. Replaces `_ffn_q_kernel` (:1616).
+- K7 `ffn`: LN (cast to x's dtype) -> fc1 + b1 -> erf-GELU in fp32 -> hidden
+  rounded to x's dtype -> fc2 + b2. Replaces `_ffn_kernel` (:676).
+- K8 `wmsa`: the attention core alone, softmax(q.k^T + bm).v over (R, N, dh)
+  rows with q scaled beforehand and a bias (P, N, N), row r taking bm[r % P].
+  Replaces `_wmsa_kernel_small_bias` (:230) and `_wmsa_kernel_blocked_bias`
+  (:247); one kernel takes any period P.
+- K9 `layernorm`: row LayerNorm, fp32 statistics, x's dtype in and out.
+  Replaces `_ln_kernel` (:755).
 
 Each wrapper runs its plain PyTorch version when its input lies on the CPU,
 and only then. For a CUDA tensor it launches the hand-written kernels of
@@ -17,9 +26,11 @@ kernels in `.launches` (one per call, however many CUDA launches the call
 makes).
 
 Departures from the TPU kernels' layout, on purpose: no 8-row block-diagonal
-packing of the T = 10 temporal site (`pallas_attn.py:879-905`) and no
+packing of the T = 10 temporal sites (`pallas_attn.py:622-647, :879-905`), no
+2-window packing and 49 -> 64 pad of the Swin windows (:578-608) and no
 resident pad of the 197-token video stream (`clip_vit.py:366-383`). The
-kernels take any token count N and each row attends over its own N tokens.
+kernels take any token count N <= 256 and each row attends over its own N
+tokens.
 The softmax divides exactly, and the activation scale uses a correctly
 rounded reciprocal (the TPU kernels' `pl.reciprocal(approx=True)` is a
 hardware approximation).
@@ -29,11 +40,18 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .attention import gather_bias, temporal_table
+from .common import linear
 
 _QUICK_GELU, _GELU = "quick_gelu", "gelu"
 _EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
-_EPI_Q_BF16 = 1
+_EPI_BF16, _EPI_Q_BF16, _EPI_BF16_GELU = 0, 1, 4
 _LN_EPS = 1e-5                        # the TPU kernels' LayerNorm eps
+
+# Swin routing thresholds of the JAX package
+BLOCK_KERNEL_MAX_HEADS = 16           # K1 at <= 16 heads, else LN + K8 (swin.py:171, :224)
+LN_KERNEL_MIN_ELEMS = 1 << 20         # K9 at >= 2^20 elements (pallas_attn.py:819)
+FFN_KERNEL_MIN_HIDDEN_BYTES = 96 << 20   # K7 when the hidden is >= 96 MiB (swin.py:204-210)
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +128,32 @@ def ffn_q_plain(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
     else:
         h = 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))
     return (dotq(h, w2_q, w2_s) + b2.float()).to(x.dtype)
+
+
+def _erf_gelu(h):
+    return 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))
+
+
+def ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2):
+    dt = x.dtype
+    xn = _ln_f32(x, ln_w, ln_b).to(dt)
+    h = _erf_gelu(torch.matmul(xn.float(), w1.float().t()) + b1.float()).to(dt)
+    return (torch.matmul(h.float(), w2.float().t()) + b2.float()).to(dt)
+
+
+def wmsa_plain(q, k, v, bm):
+    dt = q.dtype
+    R, N, _ = q.shape
+    P = bm.shape[0]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    logits = (logits.view(R // P, P, N, N) + bm.float()).view(R, N, N)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+    return torch.matmul(p.float(), v.float()).to(dt)
+
+
+def layernorm_plain(x, ln_w, ln_b):
+    return _ln_f32(x, ln_w, ln_b).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +283,11 @@ def _win_block_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
     xn = _ln_bf16(x.view(M, C), ln_w, ln_b, s)
     qkv = torch.empty((B_, N, 3 * C), dtype=bf, device=x.device)
     cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
-        _ptr(xn), _ptr(w_qkv), _ptr(b_qkv), _ptr(qkv), M, 3 * C, C, s))
+        _ptr(xn), _ptr(w_qkv), _ptr(b_qkv), _ptr(qkv), M, 3 * C, C, _EPI_BF16, s))
     o = _attn_core(qkv, bias, heads, s)
     out = torch.empty_like(x)
     cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
-        _ptr(o), _ptr(w_proj), _ptr(b_proj), _ptr(out), M, C, C, s))
+        _ptr(o), _ptr(w_proj), _ptr(b_proj), _ptr(out), M, C, C, _EPI_BF16, s))
     return out
 
 
@@ -299,10 +343,65 @@ def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
     return out
 
 
+def _ffn_cuda(x, ln_w, ln_b, w1, b1, w2, b2):
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
+    M, C = x.shape
+    H = w1.shape[0]
+    bf = torch.bfloat16
+    _check_cuda(x, {"x": (x, bf), "ln_w": (ln_w, bf), "ln_b": (ln_b, bf), "w1": (w1, bf),
+                    "b1": (b1, bf), "w2": (w2, bf), "b2": (b2, bf)})
+    _check_shapes({"ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,)), "w1": (w1, (H, C)),
+                   "b1": (b1, (H,)), "w2": (w2, (C, H)), "b2": (b2, (C,))})
+    if C % 8 or H % 8:
+        raise ValueError(f"C={C} and hidden={H} must be multiples of 8")
+    s = _stream(x)
+    gemm = cuda_lib.lib("gemm.cu")
+    xn = _ln_bf16(x, ln_w, ln_b, s)
+    # the bf16 hidden (M, H) goes through device memory between the products
+    h = torch.empty((M, H), dtype=bf, device=x.device)
+    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
+        _ptr(xn), _ptr(w1), _ptr(b1), _ptr(h), M, H, C, _EPI_BF16_GELU, s))
+    out = torch.empty_like(x)
+    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
+        _ptr(h), _ptr(w2), _ptr(b2), _ptr(out), M, C, H, _EPI_BF16, s))
+    return out
+
+
+def _wmsa_cuda(q, k, v, bm):
+    if q.dim() != 3:
+        raise ValueError(f"q must be (R, N, dh), got {tuple(q.shape)}")
+    R, N, dh = q.shape
+    P = bm.shape[0]
+    bf = torch.bfloat16
+    _check_cuda(q, {"q": (q, bf), "k": (k, bf), "v": (v, bf), "bm": (bm, torch.float32)})
+    _check_shapes({"k": (k, (R, N, dh)), "v": (v, (R, N, dh)), "bm": (bm, (P, N, N))})
+    if dh not in (32, 64) or N > 256 or R % P:
+        raise ValueError(f"the attention core takes N <= 256 tokens, heads of width 32 or "
+                         f"64 and R a multiple of the bias period; got R={R}, N={N}, "
+                         f"dh={dh}, P={P}")
+    o = torch.empty_like(q)
+    cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_qkv(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bm), P, _ptr(o), R, N, dh, _stream(q)))
+    return o
+
+
+def _layernorm_cuda(x, ln_w, ln_b):
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
+    bf = torch.bfloat16
+    _check_cuda(x, {"x": (x, bf), "ln_w": (ln_w, bf), "ln_b": (ln_b, bf)})
+    _check_shapes({"ln_w": (ln_w, (x.shape[1],)), "ln_b": (ln_b, (x.shape[1],))})
+    return _ln_bf16(x, ln_w, ln_b, _stream(x))
+
+
 win_block = _Kernel("win_block (K1)", win_block_plain, _win_block_cuda)
 win_block_q = _Kernel("win_block_q (K2)", win_block_q_plain, _win_block_q_cuda)
 ffn_q = _Kernel("ffn_q (K3)", ffn_q_plain, _ffn_q_cuda)
-KERNELS = (win_block, win_block_q, ffn_q)
+ffn = _Kernel("ffn (K7)", ffn_plain, _ffn_cuda)
+wmsa = _Kernel("wmsa (K8)", wmsa_plain, _wmsa_cuda)
+layernorm = _Kernel("layernorm (K9)", layernorm_plain, _layernorm_cuda)
+KERNELS = (win_block, win_block_q, ffn_q, ffn, wmsa, layernorm)
 
 
 def reset_launches():
@@ -335,4 +434,97 @@ def ffn_q_megakernel(mlp, ln, x, act: str = _QUICK_GELU):
     out = ffn_q(x.reshape(-1, shape[-1]), ln.weight, ln.bias,
                 mlp.c_fc.weight_q, mlp.c_fc.weight_s, mlp.c_fc.bias,
                 mlp.c_proj.weight_q, mlp.c_proj.weight_s, mlp.c_proj.bias, act)
+    return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# entry points of the Swin tower (bf16), routed as `pallas_attn.py` routes them
+# ---------------------------------------------------------------------------
+
+def block_kernel_route(num_heads: int) -> bool:
+    """True: LN + attention + proj in K1; False: LN, then the K8 core with
+    the qkv and proj products outside it (`swin.py:171-179`, :224-244)."""
+    return num_heads <= BLOCK_KERNEL_MAX_HEADS
+
+
+def ln_kernel_route(numel: int) -> bool:
+    """K9 for tensors of at least 2^20 elements (`layernorm_fused` :819)."""
+    return numel >= LN_KERNEL_MIN_ELEMS
+
+
+def ffn_kernel_route(rows: int, hidden: int, itemsize: int) -> bool:
+    """K7 when the (rows, hidden) hidden takes >= 96 MiB (`swin.py:204-210`;
+    the JAX opt-in `STGCMA_FUSED_FFN` is not honoured)."""
+    return rows * hidden * itemsize >= FFN_KERNEL_MIN_HIDDEN_BYTES
+
+
+def _block_kernel(attn, ln, x, heads, bm):
+    return win_block(x, ln.weight, ln.bias, attn.qkv.weight, attn.qkv.bias,
+                     attn.proj.weight, attn.proj.bias, heads, bias=bm)
+
+
+def window_block_megakernel(attn, ln, x, num_heads: int, rel_index, mask=None):
+    """LN + W-MSA / SW-MSA + proj in K1 (`pallas_attn.py:563`). x: (BT*nW,
+    N, C) raw window tokens; the bias is the gathered table plus the shift
+    mask, (nW, h, N, N) fp32, repeating with period nW along the windows."""
+    N = x.shape[1]
+    bias = gather_bias(attn.relative_position_bias_table, rel_index, num_heads, N)
+    bm = bias[None] if mask is None else bias[None] + mask[:, None].float()
+    return _block_kernel(attn, ln, x, num_heads, bm.contiguous())
+
+
+def temporal_block_megakernel(attn, ln, x, num_heads: int, t_index, signal: str = "video"):
+    """LN + temporal attention + proj in K1 (`pallas_attn.py:611`), with the
+    per-modality table as a (1, h, T, T) bias. x: (B*N, T, C)."""
+    T = x.shape[1]
+    bias = gather_bias(temporal_table(attn, signal), t_index, num_heads, T)
+    return _block_kernel(attn, ln, x, num_heads, bias[None].contiguous())
+
+
+def _qkv_core(attn, x, num_heads: int, bm):
+    """qkv product -> q scaled by a dh^-1/2 rounded to x's dtype -> K8 over
+    (B_*h, N, dh) rows (head fastest) -> merged heads -> proj product."""
+    B_, N, C = x.shape
+    dh = C // num_heads
+    qkv = linear(attn.qkv, x).reshape(B_, N, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    q = qkv[0] * torch.tensor(dh ** -0.5, dtype=x.dtype)
+    q, k, v = (t.reshape(B_ * num_heads, N, dh).contiguous() for t in (q, qkv[1], qkv[2]))
+    out = wmsa(q, k, v, bm)
+    out = out.reshape(B_, num_heads, N, dh).transpose(1, 2).reshape(B_, N, C)
+    return linear(attn.proj, out)
+
+
+def window_attention_fused(attn, x, num_heads: int, rel_index, mask=None):
+    """W-MSA with the K8 core (`pallas_attn.py:351`). x: (B_, N, C), already
+    normalized; the bias has period nW * heads, or heads without a mask."""
+    N = x.shape[1]
+    bias = gather_bias(attn.relative_position_bias_table, rel_index, num_heads, N)
+    if mask is not None:
+        bias = (bias[None] + mask[:, None].float()).reshape(-1, N, N)
+    return _qkv_core(attn, x, num_heads, bias.contiguous())
+
+
+def temporal_attention_fused(attn, x, num_heads: int, t_index, signal: str = "video"):
+    """Temporal attention with the K8 core (`pallas_attn.py:650`): rows
+    B*N*heads, bias (heads, T, T). x: (B*N, T, C), already normalized."""
+    T = x.shape[1]
+    bias = gather_bias(temporal_table(attn, signal), t_index, num_heads, T)
+    return _qkv_core(attn, x, num_heads, bias.contiguous())
+
+
+def layernorm_fused(ln, x):
+    """K9 over the last axis of a large x, the plain LayerNorm below 2^20
+    elements (`pallas_attn.py:819`)."""
+    if not ln_kernel_route(x.numel()):
+        return layernorm_plain(x, ln.weight, ln.bias)
+    shape = x.shape
+    return layernorm(x.reshape(-1, shape[-1]), ln.weight, ln.bias).reshape(shape)
+
+
+def ffn_megakernel(mlp, ln, x):
+    """LN + FFN with erf-GELU in K7 (`pallas_attn.py:834`). x: (..., C);
+    returns the FFN output (the caller adds the residual)."""
+    shape = x.shape
+    out = ffn(x.reshape(-1, shape[-1]), ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias,
+              mlp.fc2.weight, mlp.fc2.bias)
     return out.reshape(shape)

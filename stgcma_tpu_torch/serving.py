@@ -1,9 +1,10 @@
 """Batched AV serving on one device.
 
-Port of `stgcma_tpu/serving.py::MultiTaskServer` (:49-121) with the CLIP AVE
-task: float parameters and float inputs are cast to the serving dtype (bf16
-by default, the int8 tower's scales included, as the JAX `cast_tree` does)
-and the logits come back as float32 numpy. The mesh and shard options and
+Port of `stgcma_tpu/serving.py::MultiTaskServer` (:49-121) with the AVE
+tasks, Swin (`add_ave`) and CLIP (`add_clip_ave`): float parameters and float
+inputs are cast to the serving dtype (bf16 by default, the int8 tower's
+scales and the Swin bias tables included, as the JAX `cast_tree` does) and
+the logits come back as float32 numpy. The mesh and shard options and
 `serve_stream` are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
@@ -13,8 +14,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from .configs import ClipConfig
-from .models.ave import ClipAVE, apply_clip_ave
+from .configs import ClipConfig, SwinConfig
+from .models.ave import ClipAVE, SwinAVE, apply_clip_ave, apply_swin_ave
 from .ops.common import cast_tree, resolve_device
 
 
@@ -25,6 +26,12 @@ class MultiTaskServer:
         self.dtype = dtype
         self.device = resolve_device(device)
         self._fns: Dict[str, Callable] = {}
+
+    def add_ave(self, name: str, cfg: SwinConfig, model: SwinAVE):
+        """Serve a Swin AVE `model` (left as it is: the server keeps a cast
+        copy)."""
+        m = cast_tree(model, self.dtype).to(self.device).eval()
+        self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch["a"], batch["v"])
 
     def add_clip_ave(self, name: str, cfg: ClipConfig, model: ClipAVE):
         """Serve `model` (left as it is: the server keeps a cast copy)."""

@@ -1,10 +1,11 @@
 """Where the time of one serving forward goes on the card.
 
-    python3 -m stgcma_tpu_torch.tools.trace_slice [--seed 0] [--out DIR]
+    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin] [--seed 0] [--out DIR]
 
-Serves AVE-29 with CLIP ViT-B/16 in fusion mode (full width, random seeded
-weights) through the port's MultiTaskServer, bf16 and int8 towers. For each
-mode it prints the median wall time of 5 untraced B = 8 requests, then traces
+Serves AVE-29 through the port's MultiTaskServer at full width, random
+seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
+int8 towers; `swin` is Swin-Base in multimodal mode, bf16. For each task it
+prints the median wall time of 5 untraced B = 8 requests, then traces
 one request with torch.profiler and prints the device time summed over all
 kernels, the share of the untraced wall time it covers (the rest is the
 device idle, waiting on the host), and the kernels that took the most device
@@ -25,8 +26,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import clip_b16
-from ..models.ave import random_clip_ave
+from ..configs import clip_b16, swin_base
+from ..models.ave import random_clip_ave, random_swin_ave
 from ..ops.quant import quantize_clip_tower
 from ..serving import MultiTaskServer
 
@@ -37,6 +38,7 @@ PORT_KERNELS = ("gemm_kernel", "attn_mma_kernel", "quant_rows_kernel", "ln_bf16_
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("clip", "swin"), default="clip")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
@@ -45,18 +47,25 @@ def main(argv=None) -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = clip_b16(ftmode="fusion", label_dim=29)
-    model = random_clip_ave(cfg, args.seed)
-    model_q = random_clip_ave(cfg, args.seed)
-    model_q.backbone = quantize_clip_tower(model_q.backbone)
     srv = MultiTaskServer(device="cuda")
-    srv.add_clip_ave("bf16", cfg, model)
-    srv.add_clip_ave("int8", cfg, model_q)
     rng = np.random.RandomState(args.seed)
-    batch = {"a": rng.randn(B, cfg.num_frames, cfg.audio_tdim,
-                            cfg.audio_fdim).astype(np.float32),
-             "v": rng.randn(B, cfg.num_frames, cfg.input_resolution,
-                            cfg.input_resolution, 3).astype(np.float32)}
+    if args.model == "swin":
+        cfg = swin_base(ftmode="multimodal", label_dim=29)
+        srv.add_ave("swin_mm_bf16", cfg, random_swin_ave(cfg, args.seed))
+        n = cfg.img_size
+        batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
+                 "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}
+    else:
+        cfg = clip_b16(ftmode="fusion", label_dim=29)
+        model = random_clip_ave(cfg, args.seed)
+        model_q = random_clip_ave(cfg, args.seed)
+        model_q.backbone = quantize_clip_tower(model_q.backbone)
+        srv.add_clip_ave("bf16", cfg, model)
+        srv.add_clip_ave("int8", cfg, model_q)
+        batch = {"a": rng.randn(B, cfg.num_frames, cfg.audio_tdim,
+                                cfg.audio_fdim).astype(np.float32),
+                 "v": rng.randn(B, cfg.num_frames, cfg.input_resolution,
+                                cfg.input_resolution, 3).astype(np.float32)}
     os.makedirs(args.out, exist_ok=True)
     print(f"card: {smi}; B={B}, seed {args.seed}")
     for task in srv.tasks():
@@ -82,7 +91,7 @@ def main(argv=None) -> int:
               f"{100 * dev_us / 1e3 / (wall * 1e3):.1f}% of the untraced wall time; "
               f"port kernels {port_us / 1e3:.2f} ms ({100 * port_us / max(dev_us, 1):.1f}% "
               f"of device time)")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:110]}")
     return 0
