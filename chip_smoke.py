@@ -13,7 +13,12 @@ line:
      attention block), K2 (its int8 twin) and K3 (int8 FFN) at the CLIP
      sites; K1 at the Swin window sites (with their bias and shift mask) and
      temporal sites, K7 (bf16 FFN), K8 (window-attention core, small and
-     blocked bias) and K9 (LayerNorm) at the Swin sites;
+     blocked bias) and K9 (LayerNorm) at the Swin sites; K4 (the whole Swin
+     fusion block, with live adapters and gates, and once more with each of
+     its wiring faults, which must fail the check) at stages 2 (shifted and
+     unshifted) and 3, K5 (per-window
+     fusion) and K6 (full-grid fusion) at stages 0 and 1, and K6 at one odd
+     shape (Nv != Na, neither a multiple of the kernel's 64-row tile);
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
      per forward, B = 1 logits held against the same model on the CPU (plain
@@ -21,9 +26,9 @@ line:
      - AVE-29 with CLIP ViT-B/16 in fusion mode at full width (12 layers,
        C = 768, T = 10 frames at 224^2, 102x128 fbank audio), a bf16 and an
        int8 task;
-     - AVE-29 with Swin-Base in multimodal mode at full width and depth
-       (depths 2/2/18/2, C = 128..1024, T = 10 frames at 224^2, 224x224
-       fbank audio), bf16.
+     - AVE-29 with Swin-Base at full width and depth (depths 2/2/18/2, C =
+       128..1024, T = 10 frames at 224^2, 224x224 fbank audio), bf16, in
+       multimodal mode (no fusion) and in fusion mode (the STG-CMA exchange).
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
 """
@@ -43,9 +48,8 @@ TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 throug
                      # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
 H100_FP32 = 67e12    # fp32 outside the tensor cores (LayerNorm arithmetic)
-# each kernel's wrapper in stgcma_tpu_torch/ops/fused_attn.py
-KERNELS = {"K1": "win_block", "K2": "win_block_q", "K3": "ffn_q", "K7": "ffn", "K8": "wmsa",
-           "K9": "layernorm"}
+SFU_PER_SM_CLOCK, H100_SMS = 16, 132   # exps per clock per SM (special function units)
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 # each kernel's name in the kernels line, the TPU kernel it replaces, and its
 # CUDA sources in stgcma_tpu_torch/csrc/
 META = {
@@ -55,6 +59,11 @@ META = {
            ["gemm.cu", "attn.cu", "rowprep.cu"]),
     "K3": ("K3 ffn_q (int8 FFN)", "stgcma_tpu/ops/pallas_attn.py:1616",
            ["gemm.cu", "rowprep.cu"]),
+    "K4": ("K4 swin_block (whole Swin fusion block)", "stgcma_tpu/ops/pallas_swin_block.py:245",
+           ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
+    "K5": ("K5 win_fuse (per-window fusion)", "stgcma_tpu/ops/pallas_attn.py:1222", ["fuse.cu"]),
+    "K6": ("K6 bidir_fuse (full-grid fusion)", "stgcma_tpu/ops/pallas_attn.py:1103",
+           ["fuse.cu"]),
     "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676", ["gemm.cu", "rowprep.cu"]),
     "K8": ("K8 wmsa (window-attention core)", "stgcma_tpu/ops/pallas_attn.py:230", ["attn.cu"]),
     "K9": ("K9 layernorm", "stgcma_tpu/ops/pallas_attn.py:755", ["rowprep.cu"]),
@@ -75,6 +84,22 @@ def smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def wrappers():
+    """{"K1": wrapper, ...}: every kernel wrapper of the port, by its id."""
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import swin_block  # noqa: F401  (registers K4)
+    return {k.id: k for k in FA.KERNELS}
+
+
+def sfu_rate():
+    """exps per second: 16 per clock per SM x 132 SMs x the card's maximum SM clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return SFU_PER_SM_CLOCK * H100_SMS * mhz * 1e6
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -203,15 +228,23 @@ def library_ffn(args, act):
     return run
 
 
+def _flat(out):
+    """One fp32 vector of a kernel's output (a tensor, or a tuple of them)."""
+    import torch
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.cat([o.float().flatten() for o in outs])
+
+
 def check_kernel(name, kernel, plain, args, kw, bound, library):
     import torch
-    out = kernel(*args, **kw)
+    out = _flat(kernel(*args, **kw))
     torch.cuda.synchronize()
-    ref = plain(*args, **kw)
+    ref = _flat(plain(*args, **kw))
     if not torch.isfinite(out).all():
         fail(f"{name}: non-finite kernel output")
-    err = (out.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    del out, ref
     if not err <= TOL_KERNEL * scale:
         fail(f"{name}: max |kernel - plain| = {err:.4g} > {TOL_KERNEL} * {scale:.4g}")
     ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
@@ -386,6 +419,218 @@ def phase_swin_kernels(cfg):
     return results
 
 
+def fuse_bound(B, Nv, Na, D, sfu):
+    """The fusion of K5/K6: vh, ah read and vo, ao written once; the gram and
+    the two probability products on the tensor cores; one exp per gram
+    entry on the special function units (the TPU kernel derives the second
+    direction from the same exps). Operations bound it where either the
+    tensor time or the exp time exceeds the byte time."""
+    nbytes = 2 * 2 * B * (Nv + Na) * D
+    t_ops = max(3 * 2 * B * Nv * Na * D / H100_BF16, B * Nv * Na / sfu)
+    t_bytes = nbytes / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_fuse(vh, ah, gv, ga):
+    """scaled_dot_product_attention (scale 1) in both directions and the gated adds."""
+    import torch.nn.functional as F
+
+    def run():
+        a2v = F.scaled_dot_product_attention(vh, ah, ah, scale=1.0)
+        v2a = F.scaled_dot_product_attention(ah, vh, vh, scale=1.0)
+        return vh + gv * a2v, ah + ga * v2a
+    return run
+
+
+def block_k4_bound(BT, N, C, heads, D, sfu):
+    """K4 per call, both streams: qkv, proj, FFN (hidden 4C), attention
+    grams and adapters on the tensor cores, plus both fusions; one exp per
+    attention and fusion gram entry on the special function units. Bytes:
+    v, a read and both outputs written once, the weights, the bias and mask."""
+    M = BT * N
+    per_stream = (2 * M * C * 3 * C + 2 * M * C * C + 2 * 2 * M * C * 4 * C
+                  + 4 * BT * N * N * C + 4 * 2 * M * C * D)
+    flops = 2 * per_stream + 2 * 3 * 2 * BT * N * N * D
+    exps = 2 * BT * heads * N * N + 2 * BT * N * N
+    wbytes = 2 * (12 * C * C + 8 * C * D) + heads * N * N * 4 + N * N * 4
+    t_ops = max(flops / H100_BF16, exps / sfu)
+    t_bytes = (4 * M * C * 2 + wbytes) / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_k4(v, a, w, heads, bias, fuse_mask):
+    """layer_norm, linear, scaled_dot_product_attention with a float mask and
+    gelu: the same block from PyTorch's own calls (timed only)."""
+    import torch
+    import torch.nn.functional as F
+    BT, N, C = v.shape
+    dh = C // heads
+    bm, fm = bias.to(v.dtype), fuse_mask.to(v.dtype)
+
+    def fuse(xv, xa, kv, ka, mask):
+        hv = F.gelu(F.linear(xv, w[f"{kv}_w1"], w[f"{kv}_b1"]))
+        ha = F.gelu(F.linear(xa, w[f"{ka}_w1"], w[f"{ka}_b1"]))
+        a2v = F.scaled_dot_product_attention(hv, ha, ha, attn_mask=mask, scale=1.0)
+        v2a = F.scaled_dot_product_attention(ha, hv, hv, attn_mask=mask, scale=1.0)
+        return hv + w["gate_v"] * a2v, ha + w["gate_a"] * v2a
+
+    def run():
+        xn = F.layer_norm(torch.cat([v, a]), (C,), w["ln1_w"], w["ln1_b"])
+        q, k, vv = F.linear(xn, w["w_qkv"], w["b_qkv"]).view(2 * BT, N, 3, heads, dh
+                                                            ).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, vv, attn_mask=bm)
+        vs, as_ = F.linear(o.transpose(1, 2).reshape(2 * BT, N, C), w["w_proj"],
+                           w["b_proj"]).chunk(2)
+        fv, fa = fuse(vs, as_, "s2v", "s2a", fm)
+        v1 = v + vs + F.linear(fv, w["s2v_w2"], w["s2v_b2"])
+        a1 = a + as_ + F.linear(fa, w["s2a_w2"], w["s2a_b2"])
+        xn2 = F.layer_norm(torch.cat([v1, a1]), (C,), w["ln2_w"], w["ln2_b"])
+        vn, an = F.linear(F.gelu(F.linear(xn2, w["w1"], w["b1"])), w["w2"], w["b2"]).chunk(2)
+        fv, fa = fuse(vn, an, "sv", "sa", None)
+        return (v1 + vn + F.linear(fv, w["sv_w2"], w["sv_b2"]),
+                a1 + an + F.linear(fa, w["sa_w2"], w["sa_b2"]))
+    return run
+
+
+def live_k4_weights(w, g):
+    """K4's weights with the four adapters and the gates drawn where the
+    fusion moves the block's output: with the tower's N(0, 0.02) adapters it
+    moves it by ~1e-3, under the check's tolerance. D_fc1 N(0, 2.26^2 / C)
+    and D_fc2 N(0, 0.566^2 / D) (both 0.1 at stage 2, C = 512 and D = 32),
+    their biases N(0, 0.1), gates 0.8 and -0.6 as at K5 and K6."""
+    import torch
+    from stgcma_tpu_torch.ops.swin_block import ADAPTERS
+    C, D = w["w_qkv"].shape[1], w["s2v_w1"].shape[0]
+    std = {"w1": 2.26 / C ** 0.5, "w2": 0.566 / D ** 0.5, "b1": 0.1, "b2": 0.1}
+    live = dict(w)
+    for key, _ in ADAPTERS:
+        for p, sd in std.items():
+            t = w[f"{key}_{p}"]
+            live[f"{key}_{p}"] = (torch.randn(t.shape, generator=g, device=t.device) * sd
+                                  ).to(t.dtype)
+    live["gate_v"] = torch.full_like(w["gate_v"], 0.8)
+    live["gate_a"] = torch.full_like(w["gate_a"], -0.6)
+    return live
+
+
+def k4_faults(w, fuse_mask):
+    """{fault: (weights, fuse_mask)} on which K4 computes what a K4 with that
+    wiring fault would compute on the true ones."""
+    swapped = dict(w)
+    for kv, ka in (("s2v", "s2a"), ("sv", "sa")):
+        for p in ("w1", "b1", "w2", "b2"):
+            swapped[f"{kv}_{p}"], swapped[f"{ka}_{p}"] = w[f"{ka}_{p}"], w[f"{kv}_{p}"]
+    zero = {k: w[k] * 0 for k in ("gate_v", "gate_a", "sv_w2", "sv_b2", "sa_w2", "sa_b2")}
+    faults = {"fusion off": ({**w, "gate_v": zero["gate_v"], "gate_a": zero["gate_a"]},
+                             fuse_mask),
+              "gates swapped": ({**w, "gate_v": w["gate_a"], "gate_a": w["gate_v"]}, fuse_mask),
+              "stream adapters swapped": (swapped, fuse_mask),
+              "second adapter output dropped": ({**w, **{k: zero[k] for k in (
+                  "sv_w2", "sv_b2", "sa_w2", "sa_b2")}}, fuse_mask)}
+    if bool((fuse_mask != 0).any()):       # a grid of one window has no fusion mask
+        faults["fusion mask ignored"] = (w, fuse_mask * 0)
+    return faults
+
+
+def check_k4_faults(name, args):
+    """The K4 check fails where it must: K4 run on the inputs of each fault
+    of `k4_faults` (what a K4 with that fault computes) is held to the plain
+    version on the true inputs, and must differ by more than the tolerance.
+    Returns {fault: max |faulty kernel - plain| / max |plain|}."""
+    import torch
+    from stgcma_tpu_torch.ops import swin_block as SB
+    v, a, w, heads, bias, fuse_mask = args
+    ref = _flat(SB.swin_block_plain(*args))
+    scale = ref.abs().max().item()
+    moved = {}
+    for fault, (wf, fm) in k4_faults(w, fuse_mask).items():
+        out = _flat(SB.swin_block(v, a, wf, heads, bias, fm))
+        torch.cuda.synchronize()
+        moved[fault] = (out - ref).abs().max().item() / scale
+        if not moved[fault] > TOL_KERNEL:
+            fail(f"{name}: a K4 with '{fault}' passes the check ({moved[fault]:.4g} of "
+                 f"max |plain| from the plain version, tol {TOL_KERNEL})")
+    log(f"  {name}: K4 with a fault vs plain (rel, must exceed {TOL_KERNEL}): "
+        + ", ".join(f"{k} {x:.4g}" for k, x in moved.items()))
+    return moved
+
+
+def phase_fusion_kernels(cfg):
+    """K4, K5 and K6 at the shapes of Swin-Base fusion at B = 8, and K6 at
+    one odd shape."""
+    import torch
+    from stgcma_tpu_torch.models.ave import random_swin_ave
+    from stgcma_tpu_torch.nn.swin import backbone_statics
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import swin_block as SB
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    from stgcma_tpu_torch.ops.common import cast_tree
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dev, bf = "cuda", torch.bfloat16
+    sfu = sfu_rate()
+    log(f"  special function units: {sfu / 1e12:.3f} T exps/s (16 x 132 SMs x max SM clock)")
+    BT = B * cfg.num_ttokens
+    gv = torch.tensor([0.8], dtype=bf, device=dev)
+    ga = torch.tensor([-0.6], dtype=bf, device=dev)
+
+    def hidden(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.7).to(bf)
+
+    results = {"K4": [], "K5": [], "K6": []}
+    ws = cfg.window_size
+    for s in (0, 1):
+        H, _ = cfg.stage_resolution(s)
+        D = int(cfg.stage_dim(s) * cfg.adapter_ratios[s])
+        R = BT * (H // ws) ** 2
+        vh, ah = hidden(R, ws * ws, D), hidden(R, ws * ws, D)
+        results["K5"].append(check_kernel(
+            f"K5 Swin stage {s} windows {(R, ws * ws, D)}", FA.win_fuse, FA.fuse_plain,
+            (vh, ah, gv, ga), {}, fuse_bound(R, ws * ws, ws * ws, D, sfu),
+            library_fuse(vh, ah, gv, ga)))
+    for s in (0, 1):
+        H, _ = cfg.stage_resolution(s)
+        D = int(cfg.stage_dim(s) * cfg.adapter_ratios[s])
+        vh, ah = hidden(BT, H * H, D), hidden(BT, H * H, D)
+        with torch.inference_mode():
+            results["K6"].append(check_kernel(
+                f"K6 Swin stage {s} full grid {(BT, H * H, D)}", FA.bidir_fuse, FA.fuse_plain,
+                (vh, ah, gv, ga), {}, fuse_bound(BT, H * H, H * H, D, sfu),
+                library_fuse(vh, ah, gv, ga)))
+    Bo, Nv, Na, D = 3, 300, 170, 16            # the kernel's own tiling at ragged edges
+    vh, ah = hidden(Bo, Nv, D), hidden(Bo, Na, D)
+    results["K6"].append(check_kernel(
+        f"K6 odd shape vh {(Bo, Nv, D)} ah {(Bo, Na, D)}", FA.bidir_fuse, FA.fuse_plain,
+        (vh, ah, gv, ga), {}, fuse_bound(Bo, Nv, Na, D, sfu), library_fuse(vh, ah, gv, ga)))
+
+    model = random_swin_ave(cfg, SEED)
+    statics = backbone_statics(cfg)
+    for s, i in ((2, 0), (2, 1), (3, 0)):       # stage 2 unshifted and shifted, stage 3
+        st = statics[s][i]
+        blk = cast_tree(model.backbone.layers[s].blocks[i], bf).to(dev)
+        index, attn_mask, fuse_mask = SB._geo_tensors(st.H, st.W, st.window_size,
+                                                      st.shift_size, torch.device(dev))
+        N, C = st.H * st.W, st.dim
+        bias = gather_bias(blk.attn.relative_position_bias_table, index, st.num_heads, N)
+        bias = (bias + attn_mask)[None].contiguous()
+        w = live_k4_weights(SB.block_weights(blk), g)
+        # residual streams at std 0.1: LN1 and LN2 make the block's inner
+        # work the same at any scale, and the block's own terms, the fusion's
+        # among them, set max |plain| rather than the residual passing through
+        v = (torch.randn(BT, N, C, generator=g, device=dev) * 0.1).to(bf)
+        a = (torch.randn(BT, N, C, generator=g, device=dev) * 0.1).to(bf)
+        D = w["s2v_w1"].shape[0]
+        name = (f"K4 Swin stage {s} block {i} {(BT, N, C)} h{st.num_heads} shift "
+                f"{st.shift_size} D {D}")
+        args = (v, a, w, st.num_heads, bias, fuse_mask)
+        with torch.inference_mode():
+            row = check_kernel(name, SB.swin_block, SB.swin_block_plain, args, {},
+                               block_k4_bound(BT, N, C, st.num_heads, D, sfu),
+                               library_k4(v, a, w, st.num_heads, bias, fuse_mask))
+            row["faults_rel"] = check_k4_faults(name, args)
+        results["K4"].append(row)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slices
 # ---------------------------------------------------------------------------
@@ -397,6 +642,7 @@ def drive(srv, requests, want, smi):
     clips/s})."""
     import numpy as np
     from stgcma_tpu_torch.ops import fused_attn as FA
+    kernels = wrappers()
     totals = {k: 0 for k in KERNELS}
     clips = {}
     for task, (reqs, shape) in requests.items():
@@ -406,7 +652,7 @@ def drive(srv, requests, want, smi):
             t1 = time.perf_counter()
             out = srv.predict(task, req)
             times.append(time.perf_counter() - t1)
-            got = {k: getattr(FA, attr).launches for k, attr in KERNELS.items()}
+            got = {k: kernels[k].launches for k in KERNELS}
             if got != want[task]:
                 fail(f"{task} request {i}: launches {got}, expected {want[task]} per forward")
             for k in KERNELS:
@@ -484,7 +730,7 @@ def phase_swin_slice(cfg, smi):
     from stgcma_tpu_torch.nn.swin import launches_per_forward
     from stgcma_tpu_torch.serving import MultiTaskServer
 
-    task = "ave29_swin_mm_bf16"
+    task = {"multimodal": "ave29_swin_mm_bf16", "fusion": "ave29_swin_fusion_bf16"}[cfg.ftmode]
     t0 = time.perf_counter()
     model = random_swin_ave(cfg, SEED)
     srv = MultiTaskServer(device="cuda")
@@ -542,23 +788,28 @@ def main():
 
     cfg = clip_b16(ftmode="fusion", label_dim=29)
     swin_cfg = swin_base(ftmode="multimodal", label_dim=29)
+    fusion_cfg = swin_base(ftmode="fusion", label_dim=29)
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel)")
     results = phase_kernels(cfg)
-    for k, rows in phase_swin_kernels(swin_cfg).items():
-        results.setdefault(k, []).extend(rows)
+    for phase in (phase_swin_kernels(swin_cfg), phase_fusion_kernels(fusion_cfg)):
+        for k, rows in phase.items():
+            results.setdefault(k, []).extend(rows)
 
     log(f"[4/4] slice: CLIP ViT-B/16 fusion AVE-29, {cfg.layers} layers, C={cfg.embed_dim}, "
         f"T={cfg.num_frames}, bf16 and int8 towers")
     totals, clips = phase_clip_slice(cfg, smi)
-    log(f"[4/4] slice: Swin-Base multimodal AVE-29, depths {swin_cfg.depths}, "
-        f"C={swin_cfg.embed_dim}..{swin_cfg.num_features}, T={swin_cfg.num_frames}, bf16")
-    swin_totals, swin_clips = phase_swin_slice(swin_cfg, smi)
-    clips.update(swin_clips)
+    for scfg in (swin_cfg, fusion_cfg):
+        log(f"[4/4] slice: Swin-Base {scfg.ftmode} AVE-29, depths {scfg.depths}, "
+            f"C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, bf16")
+        swin_totals, swin_clips = phase_swin_slice(scfg, smi)
+        clips.update(swin_clips)
+        totals = {k: totals[k] + swin_totals[k] for k in KERNELS}
 
     kernels = []
-    for k, rows in results.items():
+    for k in KERNELS:
+        rows = results[k]
         name, replaces, srcs = META[k]
-        launches = totals[k] + swin_totals[k]
+        launches = totals[k]
         if launches == 0:
             fail(f"{k} was launched no time on the main paths")
         head = rows[2] if k in ("K1", "K2") else rows[0]   # CLIP video spatial / first site

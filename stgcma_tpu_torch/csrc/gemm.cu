@@ -8,6 +8,12 @@
 //     in fp32, then 0.5 h (1 + erf(h / sqrt 2)) in fp32 (erff; the TPU
 //     kernel's A&S 7.1.26 polynomial differs from it by < 2e-7), rounded to
 //     a bf16 hidden;
+//   - bf16 for the whole Swin block K4 (stgcma_tpu/ops/pallas_swin_block.py
+//     _swin_block_kernel :245): its adapter hidden and FFN fc1 round acc +
+//     bias to bf16 BEFORE the erf-GELU and again after it (_ad_h :346, :410),
+//     EPI_BF16_RGELU; its adapter output is rounded after its bias and added
+//     to two bf16 residuals in JAX's order, bf16(bf16(r1 + r2) + out) (:394,
+//     :421), EPI_BF16_RES2 through stg_gemm_bf16_res2;
 //   - int8: _dotq (:1356) in _win_block_q_core (:1440, :1457) and
 //     _ffn_q_kernel (:1626, :1632): int8 x int8 -> int32, then
 //     float(acc) * sx[m] * ws[n] + b[n] in fp32, then either a bf16 store or
@@ -62,8 +68,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint8_t* row
 }
 
 enum Epi {
-  EPI_BF16 = 0, EPI_Q_BF16 = 1, EPI_Q_QUICKGELU_F32 = 2, EPI_Q_GELU_F32 = 3, EPI_BF16_GELU = 4
+  EPI_BF16 = 0, EPI_Q_BF16 = 1, EPI_Q_QUICKGELU_F32 = 2, EPI_Q_GELU_F32 = 3, EPI_BF16_GELU = 4,
+  EPI_BF16_RGELU = 5, EPI_BF16_RES2 = 6
 };
+
+__device__ __forceinline__ float erf_gelu(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -86,12 +97,15 @@ struct EpiArgs {
   const bf16* ws;    // (N,) per-column weight scales (int8 only)
   const bf16* bias;  // (N,)
   void* out;         // (M, N) bf16 or fp32
+  const bf16* r1;    // (M, N) residuals (EPI_BF16_RES2 only)
+  const bf16* r2;
 };
 
 template <int EPI, typename Acc>
 __device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc acc) {
   float v;
-  if constexpr (EPI == EPI_BF16 || EPI == EPI_BF16_GELU) {
+  if constexpr (EPI == EPI_BF16 || EPI == EPI_BF16_GELU || EPI == EPI_BF16_RGELU ||
+                EPI == EPI_BF16_RES2) {
     v = acc;
   } else {
     v = __fmul_rn(__fmul_rn(__int2float_rn(static_cast<int>(acc)), e.sa[m]),
@@ -102,12 +116,19 @@ __device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc
   if constexpr (EPI == EPI_BF16 || EPI == EPI_Q_BF16) {
     static_cast<bf16*>(e.out)[i] = __float2bfloat16_rn(v);
   } else if constexpr (EPI == EPI_BF16_GELU) {
+    static_cast<bf16*>(e.out)[i] = __float2bfloat16_rn(erf_gelu(v));
+  } else if constexpr (EPI == EPI_BF16_RGELU) {
     static_cast<bf16*>(e.out)[i] =
-        __float2bfloat16_rn(0.5f * v * (1.0f + erff(v * 0.70710678118654752f)));
+        __float2bfloat16_rn(erf_gelu(__bfloat162float(__float2bfloat16_rn(v))));
+  } else if constexpr (EPI == EPI_BF16_RES2) {
+    const float r = __bfloat162float(
+        __float2bfloat16_rn(__fadd_rn(__bfloat162float(e.r1[i]), __bfloat162float(e.r2[i]))));
+    static_cast<bf16*>(e.out)[i] =
+        __float2bfloat16_rn(__fadd_rn(r, __bfloat162float(__float2bfloat16_rn(v))));
   } else if constexpr (EPI == EPI_Q_QUICKGELU_F32) {
     static_cast<float*>(e.out)[i] = v * (1.0f / (1.0f + expf(-1.702f * v)));
   } else {
-    static_cast<float*>(e.out)[i] = 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+    static_cast<float*>(e.out)[i] = erf_gelu(v);
   }
 }
 
@@ -217,21 +238,32 @@ int launch(const uint8_t* A, const uint8_t* W, int M, int N, int kbytes, const E
 
 STG_API int stg_gemm_bf16(const void* A, const void* W, const void* bias, void* C,
                           int M, int N, int K, int epilogue, cudaStream_t stream) {
-  EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C};
+  EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C, nullptr, nullptr};
   const uint8_t* a = static_cast<const uint8_t*>(A);
   const uint8_t* w = static_cast<const uint8_t*>(W);
   switch (epilogue) {
     case EPI_BF16: return launch<float, EPI_BF16>(a, w, M, N, 2 * K, e, stream);
     case EPI_BF16_GELU: return launch<float, EPI_BF16_GELU>(a, w, M, N, 2 * K, e, stream);
+    case EPI_BF16_RGELU: return launch<float, EPI_BF16_RGELU>(a, w, M, N, 2 * K, e, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// C = bf16(bf16(R1 + R2) + bf16(A . W^T + bias)); R1, R2, C: (M, N) bf16
+STG_API int stg_gemm_bf16_res2(const void* A, const void* W, const void* bias, const void* R1,
+                               const void* R2, void* C, int M, int N, int K,
+                               cudaStream_t stream) {
+  EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C,
+            static_cast<const bf16*>(R1), static_cast<const bf16*>(R2)};
+  return launch<float, EPI_BF16_RES2>(static_cast<const uint8_t*>(A),
+                                      static_cast<const uint8_t*>(W), M, N, 2 * K, e, stream);
 }
 
 STG_API int stg_gemm_s8(const void* A, const void* sa, const void* W, const void* ws,
                         const void* bias, void* C, int M, int N, int K, int epilogue,
                         cudaStream_t stream) {
   EpiArgs e{static_cast<const float*>(sa), static_cast<const bf16*>(ws),
-            static_cast<const bf16*>(bias), C};
+            static_cast<const bf16*>(bias), C, nullptr, nullptr};
   const uint8_t* a = static_cast<const uint8_t*>(A);
   const uint8_t* w = static_cast<const uint8_t*>(W);
   switch (epilogue) {

@@ -1,7 +1,7 @@
 """AVE-29 audio-visual event localization, CLIP and Swin flavors.
 
 Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) in
-`fusion` mode and the Swin half (:44-62) in `multimodal` mode, each with the
+`fusion` mode and the Swin half (:44-62) in `multimodal` and `fusion` modes, each with the
 dual MLP head Linear(2C, 512) -> Linear(512, label_dim), without dropout
 (serving). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
 224, 224, 3) -> logits (B*T, label_dim).
@@ -118,7 +118,7 @@ def init_swin_ave(cfg: SwinConfig, generator: torch.Generator = None,
 
 
 def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a, v):
-    """Forward in cfg.ftmode (`multimodal` only, so far): the tokens of each
+    """Forward in cfg.ftmode (`multimodal` or `fusion`): the tokens of each
     stream are averaged, concatenated as (a, v) (Swin_AVE.py:1596) and fed
     to the head. Returns logits (B*T, label_dim)."""
     feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
@@ -129,9 +129,11 @@ def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a, v):
 def random_swin_ave(cfg: SwinConfig, seed: int) -> SwinAVE:
     """A SwinAVE on the CPU with every leaf drawn from one seeded generator,
     for smoke runs and measurements: linears N(0, 0.02), LayerNorm weights
-    1 + N(0, 0.1), relative and temporal bias tables N(0, 0.5), patch convs
-    uniform(+-1/sqrt(fan_in)). Unlike the training init, the adapters' D_fc2
-    and the bias tables are far from zero, so adapters and biases are live."""
+    1 + N(0, 0.1), relative and temporal bias tables N(0, 0.5), fusion gates
+    N(0, 0.5), patch convs uniform(+-1/sqrt(fan_in)). Unlike the training
+    init, the adapters' D_fc2, the gates and the bias tables are far from
+    zero, so adapters, fusion and biases are live. `normal_` takes the same
+    draws whatever its std, so the gates' std moves no other weight."""
     g = torch.Generator().manual_seed(seed)
     model = SwinAVE(cfg)
     norms = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
@@ -139,7 +141,7 @@ def random_swin_ave(cfg: SwinConfig, seed: int) -> SwinAVE:
         for name, p in model.named_parameters():
             if id(p) in norms:
                 p.normal_(1.0, 0.1, generator=g)
-            elif name.endswith("bias_table"):
+            elif name.endswith("bias_table") or name.rsplit(".", 1)[-1] in ("gate_v", "gate_a"):
                 p.normal_(0.0, 0.5, generator=g)
             else:
                 p.normal_(0.0, 0.02, generator=g)

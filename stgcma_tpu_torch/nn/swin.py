@@ -1,23 +1,27 @@
-"""Swin-2D adapter backbone, two streams without fusion (`multimodal` ftmode).
+"""Swin-2D adapter backbone, two streams: `multimodal` and `fusion` ftmodes.
 
-Port of `stgcma_tpu/nn/swin.py` in `multimodal` ftmode, the reference's
-`multimodal_adapt_no_fusion` (Swin_AVE.py:490-591): `BlockStatic` and
+Port of `stgcma_tpu/nn/swin.py` in the reference's
+`multimodal_adapt_no_fusion` (Swin_AVE.py:490-591) and `fusion_adapt`
+(Swin_AVE.py:693-813, the STG-CMA exchange) modes: `BlockStatic` and
 `make_block_static` (:42-78), `_temporal_branch` (:163), `_ffn` (:190),
-`_spatial_windows` (:214), `_merge_windows` (:248), `_dual_no_fusion` (:271),
-`block_apply` (:361), the patch embed and merging (:382-407),
-`backbone_statics` (:410), and the unrolled `_run_layers` (:435) and
-`backbone_apply` (:483). The `fusion` ftmode (the STG-CMA exchange, kernels
-K4-K6), the single-stream modes, the `multi_scale` taps and the AVQA `nega`
-stream are not ported yet (ROADMAP.md, queue 1).
+`_spatial_windows` (:214), `_merge_windows` (:248), `_dual_no_fusion`
+(:271), `_dual_fusion` (:290, without the AVQA `nega` stream), `block_apply`
+(:361), the patch embed and merging (:382-407), `backbone_statics` (:410),
+and the unrolled `_run_layers` (:435) and `backbone_apply` (:483). The
+single-stream modes, the `multi_scale` taps and the `nega` stream are not
+ported yet (ROADMAP.md, queue 1).
 
 The modules only hold parameters, named as the JAX tree's keys; the
 functions read them. Tokens are batch-first (B*T, H*W, C). The kernel routes
-follow the JAX package's TPU policy (ops/fused_attn.py): K1 for the temporal
-and window attention of stages with <= 16 heads, LayerNorm then the K8 core
-for more heads, K7 for an FFN whose hidden takes >= 96 MiB, K9 for the large
-norms. The bias and shift mask of each attention site are gathered from the
-block's table on every call, as the JAX package does inside its jit; the
-index and mask constants are built once per geometry and device.
+follow the JAX package's TPU policy (ops/fused_attn.py, ops/swin_block.py):
+K1 for the temporal and window attention of stages with <= 16 heads,
+LayerNorm then the K8 core for more heads, K7 for an FFN whose hidden takes
+>= 96 MiB, K9 for the large norms; in `fusion` mode K4 for the whole block
+after the temporal branch on grids of <= 256 tokens, and elsewhere K5 for
+the per-window exchange and K6 for the full-grid one. The bias and shift
+mask of each attention site are gathered from the block's table on every
+call, as the JAX package does inside its jit; the index and mask constants
+are built once per geometry and device.
 """
 from __future__ import annotations
 
@@ -32,13 +36,16 @@ from ..configs import SwinConfig
 from ..ops import window as W
 from ..ops.common import LayerNorm, Linear, layernorm, linear, mlp_apply
 from ..ops.conv import conv3d
-from ..ops.fused_attn import (block_kernel_route, ffn_kernel_route, ffn_megakernel,
-                              layernorm_fused, ln_kernel_route, temporal_attention_fused,
-                              temporal_block_megakernel, window_attention_fused,
-                              window_block_megakernel)
-from .adapters import Adapter, adapter_apply
+from ..ops.fused_attn import (block_kernel_route, cross_modal_fuse_flash,
+                              cross_modal_fuse_windows, ffn_kernel_route, ffn_megakernel,
+                              flash_fuse_route, layernorm_fused, ln_kernel_route,
+                              temporal_attention_fused, temporal_block_megakernel,
+                              window_attention_fused, window_block_megakernel)
+from ..ops.swin_block import swin_fusion_whole_block, swin_whole_block_enabled
+from .adapters import Adapter, adapter_apply, adapter_hidden, adapter_out
 
-PORTED_FTMODES = ("multimodal",)
+# ported ftmode -> block mode
+PORTED_FTMODES = {"multimodal": "multimodal_adapt_no_fusion", "fusion": "fusion_adapt"}
 
 
 # ---------------------------------------------------------------------------
@@ -82,10 +89,9 @@ def make_block_static(cfg: SwinConfig, stage: int, block_idx: int, mode: str) ->
 def _mode_for_ftmode(ftmode: str) -> str:
     if ftmode not in PORTED_FTMODES:
         raise NotImplementedError(
-            f"Swin ftmode {ftmode!r} is not ported yet: the port runs {PORTED_FTMODES} "
-            "(the fusion slice and the single-stream modes are queued in ROADMAP.md, "
-            "section 1)")
-    return "multimodal_adapt_no_fusion"
+            f"Swin ftmode {ftmode!r} is not ported yet: the port runs {tuple(PORTED_FTMODES)} "
+            "(the single-stream modes are queued in ROADMAP.md, section 1)")
+    return PORTED_FTMODES[ftmode]
 
 
 def backbone_statics(cfg: SwinConfig) -> List[List[BlockStatic]]:
@@ -137,9 +143,9 @@ class SwinMlp(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """One multimodal block: the frozen Swin block (with both temporal
-    tables), the unused fusion gates of the JAX tree, and each stream's
-    adapters."""
+    """One two-stream block: the frozen Swin block (with both temporal
+    tables), the fusion gates (read in `fusion` mode only) and each stream's
+    adapters; the same keys in both modes."""
 
     def __init__(self, st: BlockStatic):
         super().__init__()
@@ -278,11 +284,44 @@ def _dual_no_fusion(blk: SwinBlock, v, a, st: BlockStatic):
     return out[0], out[1]
 
 
+def _dual_fusion(blk: SwinBlock, v, a, st: BlockStatic):
+    """fusion_adapt, the STG-CMA core (Swin_AVE.py:693-813): the temporal
+    branch per stream, then K4 for the rest of the block on small grids;
+    elsewhere W-MSA per stream, the gated bidirectional exchange of the
+    spatial adapters' hiddens per window (K5), the window merge, the FFN per
+    stream and the same exchange of the FFN adapters' hiddens over the full
+    stage grid (K6)."""
+    if st.t_attn:
+        v = _temporal_branch(blk, v, st, "video", "T_Adapter")
+        a = _temporal_branch(blk, a, st, "audio", "T_Adapter_Audio")
+    if swin_whole_block_enabled(st):
+        return swin_fusion_whole_block(blk, v, a, st)
+    attn_v, attn_a = _spatial_windows(blk, v, st), _spatial_windows(blk, a, st)
+    if st.use_s_adapter:
+        vs_h, as_h = cross_modal_fuse_windows(adapter_hidden(blk.S_Adapter2, attn_v),
+                                              adapter_hidden(blk.S_Adapter2_Audio, attn_a),
+                                              blk.gate_v, blk.gate_a)
+        attn_v = attn_v + adapter_out(blk.S_Adapter2, vs_h)
+        attn_a = attn_a + adapter_out(blk.S_Adapter2_Audio, as_h)
+    v = v + _merge_windows(attn_v, st, v.shape[0])
+    a = a + _merge_windows(attn_a, st, a.shape[0])
+    vn, an = _ffn(blk, v), _ffn(blk, a)
+    if not st.use_g_adapter:
+        return v + vn, a + an
+    vn_h, an_h = cross_modal_fuse_flash(adapter_hidden(blk.S_Adapter, vn),
+                                        adapter_hidden(blk.S_Adapter_Audio, an),
+                                        blk.gate_v, blk.gate_a)
+    return (v + vn + adapter_out(blk.S_Adapter, vn_h),
+            a + an + adapter_out(blk.S_Adapter_Audio, an_h))
+
+
 def block_apply(blk: SwinBlock, x, st: BlockStatic):
     """x is the pair (v, a)."""
-    if st.mode != "multimodal_adapt_no_fusion":
-        raise NotImplementedError(f"Swin block mode {st.mode!r} is not ported yet")
-    return _dual_no_fusion(blk, x[0], x[1], st)
+    if st.mode == "multimodal_adapt_no_fusion":
+        return _dual_no_fusion(blk, x[0], x[1], st)
+    if st.mode == "fusion_adapt":
+        return _dual_fusion(blk, x[0], x[1], st)
+    raise NotImplementedError(f"Swin block mode {st.mode!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -323,23 +362,37 @@ def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a, v) -> Dict[str, torch.T
 
 def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2) -> Dict[str, int]:
     """Kernel launches of one backbone forward at batch B, in a dtype of
-    `itemsize` bytes, derived from the route functions the forward calls."""
-    n = {"K1": 0, "K7": 0, "K8": 0, "K9": 0}
+    `itemsize` bytes, derived from the route functions the forward calls.
+    K1, K7, K8 and K9 run once per stream; K4, K5 and K6 once per call for
+    both streams."""
+    per_stream = {"K1": 0, "K7": 0, "K8": 0, "K9": 0}
+    per_call = {"K4": 0, "K5": 0, "K6": 0}
     rows = B * cfg.num_ttokens            # frames through the tower, per stream
     H, Wd = cfg.stage_resolution(0)
-    n["K9"] += ln_kernel_route(rows * H * Wd * cfg.embed_dim)           # patch embed
+    per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.embed_dim)          # patch embed
     for s, stage in enumerate(backbone_statics(cfg)):
         for st in stage:
             tokens = rows * st.H * st.W
             kernel = block_kernel_route(st.num_heads)
             if st.t_attn:
-                n["K1" if kernel else "K8"] += 1
-                n["K9"] += (not kernel) and ln_kernel_route(tokens * st.dim)
-            n["K1" if kernel else "K8"] += 1
-            n["K7"] += ffn_kernel_route(tokens, int(st.dim * 4.0), itemsize)
+                per_stream["K1" if kernel else "K8"] += 1
+                per_stream["K9"] += (not kernel) and ln_kernel_route(tokens * st.dim)
+            if st.mode == "fusion_adapt" and swin_whole_block_enabled(st):
+                per_call["K4"] += 1
+                continue
+            per_stream["K1" if kernel else "K8"] += 1
+            per_stream["K7"] += ffn_kernel_route(tokens, int(st.dim * 4.0), itemsize)
+            if st.mode == "fusion_adapt":
+                D = int(st.dim * st.adapter_ratio)
+                per_call["K5"] += st.use_s_adapter
+                per_call["K6"] += st.use_g_adapter and flash_fuse_route(
+                    st.H * st.W, st.H * st.W, D) == "K6"
         if s < cfg.num_layers - 1:
             H, Wd = cfg.stage_resolution(s)
-            n["K9"] += ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
+            per_stream["K9"] += ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
     H, Wd = cfg.stage_resolution(cfg.num_layers - 1)
-    n["K9"] += ln_kernel_route(rows * H * Wd * cfg.num_features)        # final norm
-    return {k: 2 * int(c) for k, c in n.items()}                        # two streams
+    per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.num_features)       # final norm
+    counts = {k: 2 * int(c) for k, c in per_stream.items()}                     # two streams
+    if cfg.ftmode == "fusion":
+        counts.update({k: int(c) for k, c in per_call.items()})
+    return counts

@@ -35,8 +35,11 @@ SIGNATURES = {
         "stg_quant_rows": [P, I, P, P, P, P, I, I, F, P],
     },
     "gemm.cu": {
-        # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU), stream
+        # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU,
+        # 5: + bias -> bf16 -> erf-GELU), stream
         "stg_gemm_bf16": [P, P, P, P, I, I, I, I, P],
+        # A, W, bias, R1, R2, C, M, N, K, stream: C = bf16(bf16(R1 + R2) + bf16(A.W^T + b))
+        "stg_gemm_bf16_res2": [P, P, P, P, P, P, I, I, I, P],
         # A, sa, W, ws, bias, C, M, N, K, epilogue, stream
         "stg_gemm_s8": [P, P, P, P, P, P, I, I, I, I, P],
     },
@@ -45,6 +48,10 @@ SIGNATURES = {
         "stg_attn_core": [P, P, I, P, I, I, I, I, F, P],
         # q (pre-scaled), k, v, bm, P, o, R, N, dh, stream
         "stg_attn_qkv": [P, P, P, P, I, P, I, I, I, P],
+    },
+    "fuse.cu": {
+        # vh, ah, gv, ga, mask (nullable), vo, ao, B, Nv, Na, D, stream
+        "stg_fuse_bidir": [P, P, P, P, P, P, P, I, I, I, I, P],
     },
 }
 

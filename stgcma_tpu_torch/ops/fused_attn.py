@@ -1,5 +1,6 @@
-"""The port's kernels K1-K3 and K7-K9: wrappers, plain versions, launch
-counts, and the entry points of the CLIP and Swin towers that route to them.
+"""The port's kernels K1-K3 and K5-K9: wrappers, plain versions, launch
+counts, and the entry points of the CLIP and Swin towers that route to them
+(the whole Swin fusion block K4 is in ops/swin_block.py).
 
 - K1 `win_block`: LN -> x.Wqkv + b -> per-head softmax(q.dh^-1/2.k^T + bm).v
   -> merge -> .Wproj + b, in x's dtype. Replaces
@@ -17,6 +18,14 @@ counts, and the entry points of the CLIP and Swin towers that route to them.
   (:247); one kernel takes any period P.
 - K9 `layernorm`: row LayerNorm, fp32 statistics, x's dtype in and out.
   Replaces `_ln_kernel` (:755).
+- K5 `win_fuse` and K6 `bidir_fuse`: the bidirectional gated cross-modal
+  fusion vo = vh + (gv * softmax(vh.ah^T).ah), ao = ah + (ga *
+  softmax(ah.vh^T).vh), unscaled fp32 logits, probabilities rounded to the
+  dtype, p.v summed in fp32, the gated term rounded before the add. One
+  kernel (csrc/fuse.cu) and one plain version, `fuse_plain`, serve both; K5
+  runs it over Swin windows (replaces `_win_fuse_kernel` :1222, without the
+  49 -> 64 pad), K6 over the full stage grid (replaces
+  `_bidir_fuse_full_kernel` :1103 and `_bidir_fuse_kernel` :1051).
 
 Each wrapper runs its plain PyTorch version when its input lies on the CPU,
 and only then. For a CUDA tensor it launches the hand-written kernels of
@@ -40,18 +49,20 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .attention import gather_bias, temporal_table
+from .attention import cross_modal_fuse, gather_bias, temporal_table
 from .common import linear
 
 _QUICK_GELU, _GELU = "quick_gelu", "gelu"
 _EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
-_EPI_BF16, _EPI_Q_BF16, _EPI_BF16_GELU = 0, 1, 4
+_EPI_BF16, _EPI_Q_BF16, _EPI_BF16_GELU, _EPI_BF16_RGELU = 0, 1, 4, 5
 _LN_EPS = 1e-5                        # the TPU kernels' LayerNorm eps
 
 # Swin routing thresholds of the JAX package
 BLOCK_KERNEL_MAX_HEADS = 16           # K1 at <= 16 heads, else LN + K8 (swin.py:171, :224)
 LN_KERNEL_MIN_ELEMS = 1 << 20         # K9 at >= 2^20 elements (pallas_attn.py:819)
 FFN_KERNEL_MIN_HIDDEN_BYTES = 96 << 20   # K7 when the hidden is >= 96 MiB (swin.py:204-210)
+FLASH_MIN_TOKENS = 120                # K6 from 120 tokens (pallas_attn.py:1023)
+FLASH_MAX_KEY_BYTES = 16 << 20        # K6 while Na * D * 4 <= 16 MiB, else K10 (:1033-1034)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +167,22 @@ def layernorm_plain(x, ln_w, ln_b):
     return _ln_f32(x, ln_w, ln_b).to(x.dtype)
 
 
+def fuse_plain(vh, ah, gate_v, gate_a, mask=None):
+    """The plain version of K5 and K6 (and of K4's two fusions, with `mask`
+    (Nv, Na) fp32 added to the gram in both directions). vh (B, Nv, D), ah
+    (B, Na, D); returns (vo, ao) in vh's dtype."""
+    dt = vh.dtype
+    logits = torch.matmul(vh.float(), ah.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits + mask.float()
+
+    def side(lg, kv, q, gate):
+        e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+        p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+        return q + (gate.float() * torch.matmul(p.float(), kv.float())).to(dt)
+    return side(logits, ah, vh, gate_v), side(logits.transpose(-1, -2), vh, ah, gate_a)
+
+
 # ---------------------------------------------------------------------------
 # launches on the card
 # ---------------------------------------------------------------------------
@@ -187,13 +214,22 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _ln_bf16(x2, ln_w, ln_b, s):
-    """K1's prologue: LayerNorm of bf16 rows, cast back to bf16."""
+def _ln_bf16(x2, ln_w, ln_b, s, out=None):
+    """K1's prologue: LayerNorm of bf16 rows, cast back to bf16 (into `out`,
+    a contiguous (M, K) bf16 tensor, when given)."""
     M, K = x2.shape
-    y = torch.empty_like(x2)
+    y = torch.empty_like(x2) if out is None else out
     cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_ln_bf16(
         _ptr(x2), _ptr(ln_w), _ptr(ln_b), _ptr(y), M, K, _LN_EPS, s))
     return y
+
+
+def _gemm_bf16(a, w, b, out, epi, s):
+    """out (M, N) = epilogue(a (M, K) . w (N, K)^T + b), all bf16 and contiguous."""
+    M, K = a.shape
+    cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16(
+        _ptr(a), _ptr(w), _ptr(b), _ptr(out), M, w.shape[0], K, epi, s))
+    return out
 
 
 def _quant_rows(x2, s, ln_w=None, ln_b=None):
@@ -245,14 +281,20 @@ def _check_block(x, heads, bias, weights):
     _check_cuda(x, named)
 
 
-class _Kernel:
-    """A kernel wrapper with its launch count."""
+KERNELS = []                          # every wrapper, in the order they are made
 
-    def __init__(self, name, plain, launch):
-        self.name = name
+
+class _Kernel:
+    """A kernel wrapper with its id ("K1"...), its launch count; registers
+    itself in KERNELS."""
+
+    def __init__(self, kid, fn, plain, launch):
+        self.id = kid
+        self.name = f"{fn} ({kid})"
         self.plain = plain
         self._launch = launch
         self.launches = 0
+        KERNELS.append(self)
 
     def __call__(self, x, *args, **kw):
         if not x.is_contiguous():      # checked on every device, so that the
@@ -279,16 +321,11 @@ def _win_block_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
                    "w_proj": (w_proj, (C, C)), "b_proj": (b_proj, (C,))})
     s = _stream(x)
     M = B_ * N
-    gemm = cuda_lib.lib("gemm.cu")
     xn = _ln_bf16(x.view(M, C), ln_w, ln_b, s)
-    qkv = torch.empty((B_, N, 3 * C), dtype=bf, device=x.device)
-    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
-        _ptr(xn), _ptr(w_qkv), _ptr(b_qkv), _ptr(qkv), M, 3 * C, C, _EPI_BF16, s))
-    o = _attn_core(qkv, bias, heads, s)
-    out = torch.empty_like(x)
-    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
-        _ptr(o), _ptr(w_proj), _ptr(b_proj), _ptr(out), M, C, C, _EPI_BF16, s))
-    return out
+    qkv = _gemm_bf16(xn, w_qkv, b_qkv, torch.empty((M, 3 * C), dtype=bf, device=x.device),
+                     _EPI_BF16, s)
+    o = _attn_core(qkv.view(B_, N, 3 * C), bias, heads, s)
+    return _gemm_bf16(o.view(M, C), w_proj, b_proj, torch.empty_like(x), _EPI_BF16, s)
 
 
 def _win_block_q_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s,
@@ -356,16 +393,11 @@ def _ffn_cuda(x, ln_w, ln_b, w1, b1, w2, b2):
     if C % 8 or H % 8:
         raise ValueError(f"C={C} and hidden={H} must be multiples of 8")
     s = _stream(x)
-    gemm = cuda_lib.lib("gemm.cu")
     xn = _ln_bf16(x, ln_w, ln_b, s)
     # the bf16 hidden (M, H) goes through device memory between the products
-    h = torch.empty((M, H), dtype=bf, device=x.device)
-    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
-        _ptr(xn), _ptr(w1), _ptr(b1), _ptr(h), M, H, C, _EPI_BF16_GELU, s))
-    out = torch.empty_like(x)
-    cuda_lib.check("gemm.cu", gemm.stg_gemm_bf16(
-        _ptr(h), _ptr(w2), _ptr(b2), _ptr(out), M, C, H, _EPI_BF16, s))
-    return out
+    h = _gemm_bf16(xn, w1, b1, torch.empty((M, H), dtype=bf, device=x.device),
+                   _EPI_BF16_GELU, s)
+    return _gemm_bf16(h, w2, b2, torch.empty_like(x), _EPI_BF16, s)
 
 
 def _wmsa_cuda(q, k, v, bm):
@@ -395,13 +427,37 @@ def _layernorm_cuda(x, ln_w, ln_b):
     return _ln_bf16(x, ln_w, ln_b, _stream(x))
 
 
-win_block = _Kernel("win_block (K1)", win_block_plain, _win_block_cuda)
-win_block_q = _Kernel("win_block_q (K2)", win_block_q_plain, _win_block_q_cuda)
-ffn_q = _Kernel("ffn_q (K3)", ffn_q_plain, _ffn_q_cuda)
-ffn = _Kernel("ffn (K7)", ffn_plain, _ffn_cuda)
-wmsa = _Kernel("wmsa (K8)", wmsa_plain, _wmsa_cuda)
-layernorm = _Kernel("layernorm (K9)", layernorm_plain, _layernorm_cuda)
-KERNELS = (win_block, win_block_q, ffn_q, ffn, wmsa, layernorm)
+def _fuse_cuda(vh, ah, gate_v, gate_a, mask=None):
+    if vh.dim() != 3 or ah.dim() != 3:
+        raise ValueError(f"vh and ah must be (B, N, D), got {tuple(vh.shape)}, {tuple(ah.shape)}")
+    B, Nv, D = vh.shape
+    Na = ah.shape[1]
+    bf = torch.bfloat16
+    named = {"vh": (vh, bf), "ah": (ah, bf), "gate_v": (gate_v, bf), "gate_a": (gate_a, bf)}
+    shapes = {"ah": (ah, (B, Na, D)), "gate_v": (gate_v, (1,)), "gate_a": (gate_a, (1,))}
+    if mask is not None:
+        named["mask"] = (mask, torch.float32)
+        shapes["mask"] = (mask, (Nv, Na))
+    _check_cuda(vh, named)
+    _check_shapes(shapes)
+    if D not in (16, 32, 64) or B > 65535:
+        raise ValueError(f"the fusion kernel takes D in (16, 32, 64) and B <= 65535, got "
+                         f"B={B}, D={D}")
+    vo, ao = torch.empty_like(vh), torch.empty_like(ah)
+    cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_fuse_bidir(
+        _ptr(vh), _ptr(ah), _ptr(gate_v), _ptr(gate_a), _ptr(mask), _ptr(vo), _ptr(ao),
+        B, Nv, Na, D, _stream(vh)))
+    return vo, ao
+
+
+win_block = _Kernel("K1", "win_block", win_block_plain, _win_block_cuda)
+win_block_q = _Kernel("K2", "win_block_q", win_block_q_plain, _win_block_q_cuda)
+ffn_q = _Kernel("K3", "ffn_q", ffn_q_plain, _ffn_q_cuda)
+win_fuse = _Kernel("K5", "win_fuse", fuse_plain, _fuse_cuda)
+bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda)
+ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda)
+wmsa = _Kernel("K8", "wmsa", wmsa_plain, _wmsa_cuda)
+layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda)
 
 
 def reset_launches():
@@ -528,3 +584,35 @@ def ffn_megakernel(mlp, ln, x):
     out = ffn(x.reshape(-1, shape[-1]), ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias,
               mlp.fc2.weight, mlp.fc2.bias)
     return out.reshape(shape)
+
+
+def cross_modal_fuse_windows(v_hidden, a_hidden, gate_v, gate_a):
+    """The spatial STG-CMA exchange over window token batches (BT*nW,
+    ws^2, d) in K5 (`pallas_attn.py:1308`)."""
+    return win_fuse(v_hidden, a_hidden, gate_v, gate_a)
+
+
+def flash_fuse_route(Nv: int, Na: int, D: int) -> str:
+    """"plain" below FLASH_MIN_TOKENS (XLA's `cross_modal_fuse` in the JAX
+    package), "K6" where JAX takes its bidirectional kernel, "K10" where it
+    falls back to two `unscaled_attention` calls (`pallas_attn.py:1029-1044`)."""
+    if Nv < FLASH_MIN_TOKENS:
+        return "plain"
+    if Nv % 16 == 0 and Na % 16 == 0 and D % 8 == 0 and Na * D * 4 <= FLASH_MAX_KEY_BYTES:
+        return "K6"
+    return "K10"
+
+
+def cross_modal_fuse_flash(v_hidden, a_hidden, gate_v, gate_a):
+    """The joint STG-CMA exchange over the full stage grid
+    (`pallas_attn.py:1022`): K6, or the plain `cross_modal_fuse` below
+    FLASH_MIN_TOKENS. The K10 route is not ported and raises."""
+    route = flash_fuse_route(v_hidden.shape[1], a_hidden.shape[1], v_hidden.shape[2])
+    if route == "plain":
+        return cross_modal_fuse(v_hidden, a_hidden, gate_v, gate_a)
+    if route == "K10":
+        raise NotImplementedError(
+            f"cross_modal_fuse_flash at Nv={v_hidden.shape[1]}, Na={a_hidden.shape[1]}, "
+            f"D={v_hidden.shape[2]} takes the K10 route (unscaled_attention), which is not "
+            "ported yet (ROADMAP.md, section 2)")
+    return bidir_fuse(v_hidden, a_hidden, gate_v, gate_a)

@@ -1,10 +1,12 @@
 """Where the time of one serving forward goes on the card.
 
-    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin] [--seed 0] [--out DIR]
+    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--seed 0]
+        [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
 seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
-int8 towers; `swin` is Swin-Base in multimodal mode, bf16. For each task it
+int8 towers; `swin` is Swin-Base in multimodal mode, bf16; `swin-fusion` is
+Swin-Base in fusion mode (the STG-CMA exchange), bf16. For each task it
 prints the median wall time of 5 untraced B = 8 requests, then traces
 one request with torch.profiler and prints the device time summed over all
 kernels, the share of the untraced wall time it covers (the rest is the
@@ -33,12 +35,13 @@ from ..serving import MultiTaskServer
 
 B, REQUESTS = 8, 5
 # kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
-PORT_KERNELS = ("gemm_kernel", "attn_mma_kernel", "quant_rows_kernel", "ln_bf16_kernel")
+PORT_KERNELS = ("gemm_kernel", "attn_mma_kernel", "quant_rows_kernel", "ln_bf16_kernel",
+                "fuse_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("clip", "swin"), default="clip")
+    ap.add_argument("--model", choices=("clip", "swin", "swin-fusion"), default="clip")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
@@ -49,9 +52,10 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     srv = MultiTaskServer(device="cuda")
     rng = np.random.RandomState(args.seed)
-    if args.model == "swin":
-        cfg = swin_base(ftmode="multimodal", label_dim=29)
-        srv.add_ave("swin_mm_bf16", cfg, random_swin_ave(cfg, args.seed))
+    if args.model in ("swin", "swin-fusion"):
+        ftmode = "multimodal" if args.model == "swin" else "fusion"
+        cfg = swin_base(ftmode=ftmode, label_dim=29)
+        srv.add_ave(f"swin_{ftmode}_bf16", cfg, random_swin_ave(cfg, args.seed))
         n = cfg.img_size
         batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
                  "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}

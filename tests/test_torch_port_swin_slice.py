@@ -181,7 +181,7 @@ def test_launch_counts_match_the_forward(monkeypatch, routes):
     assert calls["K1"] > 0 and calls["K8"] > 0
 
 
-@pytest.mark.parametrize("ftmode", ["fusion", "videoonly"])
+@pytest.mark.parametrize("ftmode", ["audioonly", "videoonly"])
 def test_unported_ftmodes_raise(ftmode):
     cfg = swin_tiny_test(**{**TINY, "ftmode": ftmode})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
