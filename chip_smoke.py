@@ -18,7 +18,11 @@ line:
      its wiring faults, which must fail the check) at stages 2 (shifted and
      unshifted) and 3, K5 (per-window
      fusion) and K6 (full-grid fusion) at stages 0 and 1, and K6 at one odd
-     shape (Nv != Na, neither a multiple of the kernel's 64-row tile);
+     shape (Nv != Na, neither a multiple of the kernel's 64-row tile); for
+     the int8 Swin tower, K2 at the five Swin sites (stage 0-1 shifted
+     windows, stage 0-2 temporal), K3 with erf-GELU at the stage 0-1 FFNs
+     and K4's int8 variant (live adapters and gates, and its five wiring
+     faults) at stages 2 and 3;
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
      per forward, B = 1 logits held against the same model on the CPU (plain
@@ -28,7 +32,11 @@ line:
        int8 task;
      - AVE-29 with Swin-Base at full width and depth (depths 2/2/18/2, C =
        128..1024, T = 10 frames at 224^2, 224x224 fbank audio), bf16, in
-       multimodal mode (no fusion) and in fusion mode (the STG-CMA exchange).
+       multimodal mode (no fusion) and in fusion mode (the STG-CMA exchange),
+       and in fusion mode with the int8 tower (`quantize_swin_tower`). The
+       fusion models run with live fusion adapters and gates, and their B = 1
+       check also fails unless zeroing the gates moves the card's logits
+       beyond the tolerance.
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
 """
@@ -44,6 +52,9 @@ SEED = 0
 B = 8
 TOL_KERNEL = 2e-2    # max |kernel - plain| / max |plain|, bf16 outputs: a few
                      # bf16 steps where an intermediate rounds the other way
+TOL_KERNEL_Q = 3e-2  # K4's int8 variant: where a bf16 intermediate rounds the other
+                     # way before one of its four row quantizations, codes move by one
+                     # step; ~1 bf16 step of max |plain| more than the float K4 at stage 3
 TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 through
                      # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
@@ -59,7 +70,8 @@ META = {
            ["gemm.cu", "attn.cu", "rowprep.cu"]),
     "K3": ("K3 ffn_q (int8 FFN)", "stgcma_tpu/ops/pallas_attn.py:1616",
            ["gemm.cu", "rowprep.cu"]),
-    "K4": ("K4 swin_block (whole Swin fusion block)", "stgcma_tpu/ops/pallas_swin_block.py:245",
+    "K4": ("K4 swin_block + swin_block_q (whole Swin fusion block, bf16 and int8 variants)",
+           "stgcma_tpu/ops/pallas_swin_block.py:245",
            ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
     "K5": ("K5 win_fuse (per-window fusion)", "stgcma_tpu/ops/pallas_attn.py:1222", ["fuse.cu"]),
     "K6": ("K6 bidir_fuse (full-grid fusion)", "stgcma_tpu/ops/pallas_attn.py:1103",
@@ -86,11 +98,13 @@ def smi_line():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def wrappers():
-    """{"K1": wrapper, ...}: every kernel wrapper of the port, by its id."""
+def launches():
+    """{"K1": launches, ...} of every kernel, summed over its wrappers (K4 has
+    a bf16 and an int8 one)."""
     from stgcma_tpu_torch.ops import fused_attn as FA
     from stgcma_tpu_torch.ops import swin_block  # noqa: F401  (registers K4)
-    return {k.id: k for k in FA.KERNELS}
+    by_id = FA.launches_by_id()
+    return {k: by_id.get(k, 0) for k in KERNELS}
 
 
 def sfu_rate():
@@ -235,7 +249,7 @@ def _flat(out):
     return torch.cat([o.float().flatten() for o in outs])
 
 
-def check_kernel(name, kernel, plain, args, kw, bound, library):
+def check_kernel(name, kernel, plain, args, kw, bound, library, tol=TOL_KERNEL):
     import torch
     out = _flat(kernel(*args, **kw))
     torch.cuda.synchronize()
@@ -244,9 +258,13 @@ def check_kernel(name, kernel, plain, args, kw, bound, library):
         fail(f"{name}: non-finite kernel output")
     err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
+    past = ""
+    if tol > TOL_KERNEL:             # how many elements need the wider bar
+        n = int(((out - ref).abs() > TOL_KERNEL * scale).sum())
+        past = f", {n} of {out.numel()} elements past {TOL_KERNEL}"
     del out, ref
-    if not err <= TOL_KERNEL * scale:
-        fail(f"{name}: max |kernel - plain| = {err:.4g} > {TOL_KERNEL} * {scale:.4g}")
+    if not err <= tol * scale:
+        fail(f"{name}: max |kernel - plain| = {err:.4g} > {tol} * {scale:.4g}{past}")
     ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
     try:
@@ -256,7 +274,7 @@ def check_kernel(name, kernel, plain, args, kw, bound, library):
         library_ms = None
     bound_ms, bound_by = bound
     lib_s = "null" if library_ms is None else f"{library_ms:.4f}"
-    log(f"  {name}: max_abs_err {err:.4g} (max |plain| {scale:.4g}, tol {TOL_KERNEL} rel) "
+    log(f"  {name}: max_abs_err {err:.4g} (max |plain| {scale:.4g}, tol {tol} rel{past}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_s} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"shape": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -442,30 +460,43 @@ def library_fuse(vh, ah, gv, ga):
     return run
 
 
-def block_k4_bound(BT, N, C, heads, D, sfu):
+def block_k4_bound(BT, N, C, heads, D, sfu, int8=False):
     """K4 per call, both streams: qkv, proj, FFN (hidden 4C), attention
-    grams and adapters on the tensor cores, plus both fusions; one exp per
-    attention and fusion gram entry on the special function units. Bytes:
-    v, a read and both outputs written once, the weights, the bias and mask."""
+    grams and adapters on the tensor cores (the four tower products at the
+    int8 rate in the int8 variant), plus both fusions; one exp per attention
+    and fusion gram entry on the special function units. Bytes: v, a read
+    and both outputs written once, the weights (int8 tower weights and their
+    bf16 scales in the int8 variant), the bias and mask."""
     M = BT * N
-    per_stream = (2 * M * C * 3 * C + 2 * M * C * C + 2 * 2 * M * C * 4 * C
-                  + 4 * BT * N * N * C + 4 * 2 * M * C * D)
-    flops = 2 * per_stream + 2 * 3 * 2 * BT * N * N * D
+    tower = 2 * (2 * M * C * 3 * C + 2 * M * C * C + 2 * 2 * M * C * 4 * C)
+    rest = 2 * (4 * BT * N * N * C + 4 * 2 * M * C * D) + 2 * 3 * 2 * BT * N * N * D
     exps = 2 * BT * heads * N * N + 2 * BT * N * N
-    wbytes = 2 * (12 * C * C + 8 * C * D) + heads * N * N * 4 + N * N * 4
-    t_ops = max(flops / H100_BF16, exps / sfu)
+    tower_bytes = 12 * C * C + 9 * C * 2 if int8 else 2 * 12 * C * C
+    wbytes = tower_bytes + 2 * 8 * C * D + heads * N * N * 4 + N * N * 4
+    t_tensor = tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16
+    t_ops = max(t_tensor, exps / sfu)
     t_bytes = (4 * M * C * 2 + wbytes) / H100_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def library_k4(v, a, w, heads, bias, fuse_mask):
-    """layer_norm, linear, scaled_dot_product_attention with a float mask and
-    gelu: the same block from PyTorch's own calls (timed only)."""
+    """layer_norm, linear (or `torch._int_mm` for the int8 variant's tower
+    products), scaled_dot_product_attention with a float mask and gelu: the
+    same block from PyTorch's own calls (timed only)."""
     import torch
     import torch.nn.functional as F
     BT, N, C = v.shape
     dh = C // heads
     bm, fm = bias.to(v.dtype), fuse_mask.to(v.dtype)
+    int8 = "s_qkv" in w
+
+    def tower(x, wk, sk, bk, gelu=False):
+        if not int8:
+            y = F.linear(x, w[wk], w[bk])
+            return F.gelu(y) if gelu else y
+        y = library_qmm(x.reshape(-1, x.shape[-1]), w[wk], w[sk], w[bk])
+        y = F.gelu(y) if gelu else y.to(v.dtype)
+        return y.view(*x.shape[:-1], -1)
 
     def fuse(xv, xa, kv, ka, mask):
         hv = F.gelu(F.linear(xv, w[f"{kv}_w1"], w[f"{kv}_b1"]))
@@ -476,16 +507,16 @@ def library_k4(v, a, w, heads, bias, fuse_mask):
 
     def run():
         xn = F.layer_norm(torch.cat([v, a]), (C,), w["ln1_w"], w["ln1_b"])
-        q, k, vv = F.linear(xn, w["w_qkv"], w["b_qkv"]).view(2 * BT, N, 3, heads, dh
+        q, k, vv = tower(xn, "w_qkv", "s_qkv", "b_qkv").view(2 * BT, N, 3, heads, dh
                                                             ).permute(2, 0, 3, 1, 4)
         o = F.scaled_dot_product_attention(q, k, vv, attn_mask=bm)
-        vs, as_ = F.linear(o.transpose(1, 2).reshape(2 * BT, N, C), w["w_proj"],
-                           w["b_proj"]).chunk(2)
+        vs, as_ = tower(o.transpose(1, 2).reshape(2 * BT, N, C), "w_proj", "s_proj",
+                        "b_proj").chunk(2)
         fv, fa = fuse(vs, as_, "s2v", "s2a", fm)
         v1 = v + vs + F.linear(fv, w["s2v_w2"], w["s2v_b2"])
         a1 = a + as_ + F.linear(fa, w["s2a_w2"], w["s2a_b2"])
         xn2 = F.layer_norm(torch.cat([v1, a1]), (C,), w["ln2_w"], w["ln2_b"])
-        vn, an = F.linear(F.gelu(F.linear(xn2, w["w1"], w["b1"])), w["w2"], w["b2"]).chunk(2)
+        vn, an = tower(tower(xn2, "w1", "s1", "b1", gelu=True), "w2", "s2", "b2").chunk(2)
         fv, fa = fuse(vn, an, "sv", "sa", None)
         return (v1 + vn + F.linear(fv, w["sv_w2"], w["sv_b2"]),
                 a1 + an + F.linear(fa, w["sa_w2"], w["sa_b2"]))
@@ -532,25 +563,25 @@ def k4_faults(w, fuse_mask):
     return faults
 
 
-def check_k4_faults(name, args):
-    """The K4 check fails where it must: K4 run on the inputs of each fault
-    of `k4_faults` (what a K4 with that fault computes) is held to the plain
-    version on the true inputs, and must differ by more than the tolerance.
-    Returns {fault: max |faulty kernel - plain| / max |plain|}."""
+def check_k4_faults(name, args, kernel, plain, tol):
+    """The K4 check fails where it must: K4 (`kernel`, either variant) run on
+    the inputs of each fault of `k4_faults` (what a K4 with that fault
+    computes) is held to its plain version on the true inputs, and must
+    differ by more than the tolerance. Returns {fault: max |faulty kernel -
+    plain| / max |plain|}."""
     import torch
-    from stgcma_tpu_torch.ops import swin_block as SB
     v, a, w, heads, bias, fuse_mask = args
-    ref = _flat(SB.swin_block_plain(*args))
+    ref = _flat(plain(*args))
     scale = ref.abs().max().item()
     moved = {}
     for fault, (wf, fm) in k4_faults(w, fuse_mask).items():
-        out = _flat(SB.swin_block(v, a, wf, heads, bias, fm))
+        out = _flat(kernel(v, a, wf, heads, bias, fm))
         torch.cuda.synchronize()
         moved[fault] = (out - ref).abs().max().item() / scale
-        if not moved[fault] > TOL_KERNEL:
+        if not moved[fault] > tol:
             fail(f"{name}: a K4 with '{fault}' passes the check ({moved[fault]:.4g} of "
-                 f"max |plain| from the plain version, tol {TOL_KERNEL})")
-    log(f"  {name}: K4 with a fault vs plain (rel, must exceed {TOL_KERNEL}): "
+                 f"max |plain| from the plain version, tol {tol})")
+    log(f"  {name}: K4 with a fault vs plain (rel, must exceed {tol}): "
         + ", ".join(f"{k} {x:.4g}" for k, x in moved.items()))
     return moved
 
@@ -559,12 +590,7 @@ def phase_fusion_kernels(cfg):
     """K4, K5 and K6 at the shapes of Swin-Base fusion at B = 8, and K6 at
     one odd shape."""
     import torch
-    from stgcma_tpu_torch.models.ave import random_swin_ave
-    from stgcma_tpu_torch.nn.swin import backbone_statics
     from stgcma_tpu_torch.ops import fused_attn as FA
-    from stgcma_tpu_torch.ops import swin_block as SB
-    from stgcma_tpu_torch.ops.attention import gather_bias
-    from stgcma_tpu_torch.ops.common import cast_tree
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     dev, bf = "cuda", torch.bfloat16
     sfu = sfu_rate()
@@ -602,8 +628,28 @@ def phase_fusion_kernels(cfg):
         f"K6 odd shape vh {(Bo, Nv, D)} ah {(Bo, Na, D)}", FA.bidir_fuse, FA.fuse_plain,
         (vh, ah, gv, ga), {}, fuse_bound(Bo, Nv, Na, D, sfu), library_fuse(vh, ah, gv, ga)))
 
-    model = random_swin_ave(cfg, SEED)
+    results["K4"] = k4_rows(cfg, g, sfu, int8=False)
+    return results
+
+
+def k4_rows(cfg, g, sfu, int8):
+    """K4 (its int8 variant for `int8`) at stage 2 unshifted and shifted and
+    stage 3 of `cfg`, the block's tower from `random_swin_ave` (quantized for
+    int8) with live adapters and gates, and the five wiring faults."""
+    import torch
+    from stgcma_tpu_torch.models.ave import random_swin_ave
+    from stgcma_tpu_torch.nn.swin import backbone_statics
+    from stgcma_tpu_torch.ops import swin_block as SB
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    from stgcma_tpu_torch.ops.common import cast_tree
+    dev, bf = "cuda", torch.bfloat16
+    BT = B * cfg.num_ttokens
+    kernel, plain = ((SB.swin_block_q, SB.swin_block_q_plain) if int8
+                     else (SB.swin_block, SB.swin_block_plain))
+    tol = TOL_KERNEL_Q if int8 else TOL_KERNEL
+    model = random_swin_ave(cfg, SEED, int8=int8)
     statics = backbone_statics(cfg)
+    rows = []
     for s, i in ((2, 0), (2, 1), (3, 0)):       # stage 2 unshifted and shifted, stage 3
         st = statics[s][i]
         blk = cast_tree(model.backbone.layers[s].blocks[i], bf).to(dev)
@@ -619,15 +665,59 @@ def phase_fusion_kernels(cfg):
         v = (torch.randn(BT, N, C, generator=g, device=dev) * 0.1).to(bf)
         a = (torch.randn(BT, N, C, generator=g, device=dev) * 0.1).to(bf)
         D = w["s2v_w1"].shape[0]
-        name = (f"K4 Swin stage {s} block {i} {(BT, N, C)} h{st.num_heads} shift "
-                f"{st.shift_size} D {D}")
+        name = (f"K4{' int8' if int8 else ''} Swin stage {s} block {i} {(BT, N, C)} "
+                f"h{st.num_heads} shift {st.shift_size} D {D}")
         args = (v, a, w, st.num_heads, bias, fuse_mask)
         with torch.inference_mode():
-            row = check_kernel(name, SB.swin_block, SB.swin_block_plain, args, {},
-                               block_k4_bound(BT, N, C, st.num_heads, D, sfu),
-                               library_k4(v, a, w, st.num_heads, bias, fuse_mask))
-            row["faults_rel"] = check_k4_faults(name, args)
-        results["K4"].append(row)
+            row = check_kernel(name, kernel, plain, args, {},
+                               block_k4_bound(BT, N, C, st.num_heads, D, sfu, int8),
+                               library_k4(v, a, w, st.num_heads, bias, fuse_mask), tol)
+            row["faults_rel"] = check_k4_faults(name, args, kernel, plain, tol)
+        rows.append(row)
+    return rows
+
+
+def phase_int8_swin_kernels(cfg):
+    """The kernels of the int8 Swin-Base fusion tower at B = 8: K2 at the
+    stage 0-1 shifted windows (bias period nW) and the stage 0-2 temporal
+    sites, K3 with erf-GELU at the stage 0-1 FFNs, K4's int8 variant."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    dev = "cuda"
+    T, ws = cfg.num_ttokens, cfg.window_size
+    N = ws * ws
+    rel = torch.from_numpy(window.relative_position_index(ws)).to(dev)
+    t_idx = torch.from_numpy(window.temporal_relative_index(T)).to(dev)
+    results = {"K2": [], "K3": []}
+    sites = []
+    for s in (0, 1):
+        H, _ = cfg.stage_resolution(s)
+        mask = torch.from_numpy(window.shift_attn_mask(H, H, ws, ws // 2)).to(dev)
+        sites.append((f"stage {s} shifted windows", s, N, swin_bias(g, cfg.num_heads[s], N, rel,
+                                                                    mask)))
+    for s in (0, 1, 2):
+        sites.append((f"stage {s} temporal", s, T, swin_bias(g, cfg.num_heads[s], T, t_idx)))
+    for site, s, n, bm in sites:
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        Bq = B * T * bm.shape[0] if n == N else B * H * H
+        args, _ = make_block_inputs(g, Bq, n, C, heads, True)
+        results["K2"].append(check_kernel(
+            f"K2 Swin {site} {(Bq, n, C)} h{heads} period {bm.shape[0]}", FA.win_block_q,
+            FA.win_block_q_plain, args + (heads,), {"bias": bm},
+            block_bound(Bq, n, C, heads, True, bm.shape[0]),
+            library_block(args, heads, True, bm)))
+    for s in (0, 1):
+        H, _ = cfg.stage_resolution(s)
+        M, C = B * T * H * H, cfg.stage_dim(s)
+        args = make_ffn_inputs(g, M, C)
+        results["K3"].append(check_kernel(
+            f"K3 Swin stage {s} FFN erf-GELU {(M, C)} hidden {4 * C}", FA.ffn_q, FA.ffn_q_plain,
+            args + ("gelu",), {}, ffn_bound(M, C), library_ffn(args, "gelu")))
+        del args
+    results["K4"] = k4_rows(cfg, g, sfu_rate(), int8=True)
     return results
 
 
@@ -642,7 +732,6 @@ def drive(srv, requests, want, smi):
     clips/s})."""
     import numpy as np
     from stgcma_tpu_torch.ops import fused_attn as FA
-    kernels = wrappers()
     totals = {k: 0 for k in KERNELS}
     clips = {}
     for task, (reqs, shape) in requests.items():
@@ -652,7 +741,7 @@ def drive(srv, requests, want, smi):
             t1 = time.perf_counter()
             out = srv.predict(task, req)
             times.append(time.perf_counter() - t1)
-            got = {k: kernels[k].launches for k in KERNELS}
+            got = launches()
             if got != want[task]:
                 fail(f"{task} request {i}: launches {got}, expected {want[task]} per forward")
             for k in KERNELS:
@@ -670,8 +759,10 @@ def drive(srv, requests, want, smi):
 
 
 def check_against_cpu(srv, cpu, one):
-    """B = 1: the card against the same port model on the CPU (plain versions)."""
+    """B = 1: the card against the same port model on the CPU (plain
+    versions). Returns {task: the card's B = 1 logits}."""
     import numpy as np
+    cards = {}
     for task in cpu.tasks():
         t1 = time.perf_counter()
         ref = cpu.predict(task, one)
@@ -683,6 +774,48 @@ def check_against_cpu(srv, cpu, one):
             fail(f"{task} B=1: max |card - cpu| = {err:.4g} > {TOL_SLICE} * {scale:.4g}")
         log(f"  {task} B=1 card vs CPU: max_abs_err {err:.4g} (max |cpu| {scale:.4g}, "
             f"tol {TOL_SLICE} rel; CPU forward {cpu_s:.1f} s)")
+        cards[task] = got
+    return cards
+
+
+def live_fusion_adapters_(model, seed):
+    """In place: every block's four fusion adapters (S_Adapter2, S_Adapter
+    and their audio twins) and gates drawn by `live_k4_weights`, so that the
+    exchange moves the logits well beyond the card-vs-CPU tolerance (with
+    `random_swin_ave`'s N(0, 0.02) adapters it does not). Returns the model."""
+    import torch
+    from stgcma_tpu_torch.ops.swin_block import block_weights
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.backbone.layers:
+            for blk in layer.blocks:
+                w = block_weights(blk)
+                for k, t in live_k4_weights(w, g).items():
+                    if t is not w[k]:
+                        w[k].copy_(t)
+    return model
+
+
+def check_fusion_is_live(srv, cfg, model, task, one, card):
+    """The B = 1 check sees the exchange: the same model with every gate
+    zeroed must move the card's logits beyond the card-vs-CPU tolerance."""
+    import copy
+    import numpy as np
+    import torch
+    zero = copy.deepcopy(model)
+    with torch.no_grad():
+        for layer in zero.backbone.layers:
+            for blk in layer.blocks:
+                blk.gate_v.zero_()
+                blk.gate_a.zero_()
+    srv.add_ave(task + "_gates0", cfg, zero)
+    moved = float(np.abs(srv.predict(task + "_gates0", one) - card).max())
+    scale = float(np.abs(card).max())
+    if not moved > TOL_SLICE * scale:
+        fail(f"{task} B=1: zeroing the gates moves the card's logits by {moved:.4g}, not "
+             f"beyond {TOL_SLICE} * {scale:.4g}: the check is blind to the exchange")
+    log(f"  {task} B=1 with the gates zeroed: logits move {moved:.4g} on the card "
+        f"({moved / scale:.4g} of max |logit|, must exceed {TOL_SLICE})")
 
 
 def phase_clip_slice(cfg, smi):
@@ -724,18 +857,23 @@ def phase_clip_slice(cfg, smi):
     return totals, clips
 
 
-def phase_swin_slice(cfg, smi):
+def phase_swin_slice(cfg, smi, int8=False):
     import numpy as np
     from stgcma_tpu_torch.models.ave import random_swin_ave
     from stgcma_tpu_torch.nn.swin import launches_per_forward
     from stgcma_tpu_torch.serving import MultiTaskServer
 
-    task = {"multimodal": "ave29_swin_mm_bf16", "fusion": "ave29_swin_fusion_bf16"}[cfg.ftmode]
+    mode = {"multimodal": "mm", "fusion": "fusion"}[cfg.ftmode]
+    task = f"ave29_swin_{mode}_{'int8' if int8 else 'bf16'}"
     t0 = time.perf_counter()
-    model = random_swin_ave(cfg, SEED)
+    model = random_swin_ave(cfg, SEED, int8=int8)
+    if cfg.ftmode == "fusion":
+        live_fusion_adapters_(model, SEED)
     srv = MultiTaskServer(device="cuda")
     srv.add_ave(task, cfg, model)
-    log(f"  set-up: random weights, server on the card: {time.perf_counter() - t0:.1f} s")
+    log(f"  set-up: random weights{', int8 tower' if int8 else ''}"
+        f"{', live fusion adapters' if cfg.ftmode == 'fusion' else ''}, server on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(SEED)
     n, T = cfg.img_size, cfg.num_frames
 
@@ -744,11 +882,14 @@ def phase_swin_slice(cfg, smi):
                 "v": rng.randn(b, T, n, n, 3).astype(np.float32)}
 
     requests = {task: ([batch(B) for _ in range(4)], (B * cfg.num_ttokens, cfg.label_dim))}
-    want = {task: {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B)}}
+    want = {task: {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B, quantized=int8)}}
     totals, clips = drive(srv, requests, want, smi)
     cpu = MultiTaskServer(device="cpu")
     cpu.add_ave(task, cfg, model)
-    check_against_cpu(srv, cpu, batch(1))
+    one = batch(1)
+    card = check_against_cpu(srv, cpu, one)[task]
+    if cfg.ftmode == "fusion":
+        check_fusion_is_live(srv, cfg, model, task, one, card)
     return totals, clips
 
 
@@ -789,19 +930,22 @@ def main():
     cfg = clip_b16(ftmode="fusion", label_dim=29)
     swin_cfg = swin_base(ftmode="multimodal", label_dim=29)
     fusion_cfg = swin_base(ftmode="fusion", label_dim=29)
-    log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel)")
+    log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel, "
+        f"{TOL_KERNEL_Q} for K4's int8 variant)")
     results = phase_kernels(cfg)
-    for phase in (phase_swin_kernels(swin_cfg), phase_fusion_kernels(fusion_cfg)):
+    for phase in (phase_swin_kernels(swin_cfg), phase_fusion_kernels(fusion_cfg),
+                  phase_int8_swin_kernels(fusion_cfg)):
         for k, rows in phase.items():
             results.setdefault(k, []).extend(rows)
 
     log(f"[4/4] slice: CLIP ViT-B/16 fusion AVE-29, {cfg.layers} layers, C={cfg.embed_dim}, "
         f"T={cfg.num_frames}, bf16 and int8 towers")
     totals, clips = phase_clip_slice(cfg, smi)
-    for scfg in (swin_cfg, fusion_cfg):
+    for scfg, int8 in ((swin_cfg, False), (fusion_cfg, False), (fusion_cfg, True)):
         log(f"[4/4] slice: Swin-Base {scfg.ftmode} AVE-29, depths {scfg.depths}, "
-            f"C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, bf16")
-        swin_totals, swin_clips = phase_swin_slice(scfg, smi)
+            f"C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, "
+            f"{'int8 tower' if int8 else 'bf16'}")
+        swin_totals, swin_clips = phase_swin_slice(scfg, smi, int8)
         clips.update(swin_clips)
         totals = {k: totals[k] + swin_totals[k] for k in KERNELS}
 

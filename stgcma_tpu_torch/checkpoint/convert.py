@@ -23,7 +23,7 @@ import torch
 from ..configs import ClipConfig, SwinConfig
 from ..models.ave import ClipAVE, SwinAVE
 from ..ops.common import resolve_device
-from ..ops.quant import quantize_clip_tower
+from ..ops.quant import quantize_clip_tower, quantize_swin_tower
 
 
 def _leaf(key: str, a: np.ndarray):
@@ -68,10 +68,14 @@ def clip_ave_from_jax(cfg: ClipConfig, tree: Any, device="cuda") -> ClipAVE:
 
 
 def swin_ave_from_jax(cfg: SwinConfig, tree: Any, device="cuda") -> SwinAVE:
-    """A SwinAVE holding the JAX tree's float weights. Loads strictly: every
-    leaf of the tree is a parameter of the port and the other way round (the
+    """A SwinAVE holding the JAX tree's weights (float, or an int8 tower made
+    by the JAX `quantize_swin_tower`). Loads strictly: every leaf of the tree
+    is a parameter or buffer of the port and the other way round (the
     bias-free patch-merging `reduction` included)."""
     device = resolve_device(device)
+    state = params_from_jax(tree)
     model = SwinAVE(cfg)
-    model.load_state_dict(params_from_jax(tree), strict=True)
+    if any(k.endswith("weight_q") for k in state):
+        model.backbone = quantize_swin_tower(model.backbone)
+    model.load_state_dict(state, strict=True)
     return model.to(device)

@@ -1,9 +1,9 @@
 """AVE-29 audio-visual event localization, CLIP and Swin flavors.
 
 Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) in
-`fusion` mode and the Swin half (:44-62) in `multimodal` and `fusion` modes, each with the
-dual MLP head Linear(2C, 512) -> Linear(512, label_dim), without dropout
-(serving). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
+`fusion` mode and the Swin half (:44-62) in `multimodal` and `fusion` modes,
+float or int8 towers, each with the dual MLP head Linear(2C, 512) ->
+Linear(512, label_dim), without dropout (serving). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
 224, 224, 3) -> logits (B*T, label_dim).
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from ..configs import ClipConfig, SwinConfig
 from ..nn import swin
 from ..nn.clip_vit import ClipBackbone, clip_backbone_apply, init_clip_backbone_
 from ..ops.common import LayerNorm, Linear, linear, resolve_device
+from ..ops.quant import quantize_swin_tower
 
 
 class MlpHead(nn.Module):
@@ -126,14 +127,15 @@ def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a, v):
     return linear(model.mlp_head.fc2, linear(model.mlp_head.fc1, pooled))
 
 
-def random_swin_ave(cfg: SwinConfig, seed: int) -> SwinAVE:
+def random_swin_ave(cfg: SwinConfig, seed: int, int8: bool = False) -> SwinAVE:
     """A SwinAVE on the CPU with every leaf drawn from one seeded generator,
     for smoke runs and measurements: linears N(0, 0.02), LayerNorm weights
     1 + N(0, 0.1), relative and temporal bias tables N(0, 0.5), fusion gates
     N(0, 0.5), patch convs uniform(+-1/sqrt(fan_in)). Unlike the training
     init, the adapters' D_fc2, the gates and the bias tables are far from
     zero, so adapters, fusion and biases are live. `normal_` takes the same
-    draws whatever its std, so the gates' std moves no other weight."""
+    draws whatever its std, so the gates' std moves no other weight. With
+    `int8`, the same model with its tower quantized (`quantize_swin_tower`)."""
     g = torch.Generator().manual_seed(seed)
     model = SwinAVE(cfg)
     norms = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
@@ -146,4 +148,6 @@ def random_swin_ave(cfg: SwinConfig, seed: int) -> SwinAVE:
             else:
                 p.normal_(0.0, 0.02, generator=g)
         _uniform_patch_convs_(model.backbone, g)
+    if int8:
+        model.backbone = quantize_swin_tower(model.backbone)
     return model

@@ -141,7 +141,7 @@ def _t_adapt(blk: ClipBlock, x, heads: int, T: int, adapter: Adapter):
 def _ffn_clip(blk: ClipBlock, x):
     """ln_2 + MLP (QuickGELU): K3 for the int8 tower, plain torch else."""
     if blk.mlp.c_fc.quantized:
-        return ffn_q_megakernel(blk.mlp, blk.ln_2, x, act="quick_gelu")
+        return ffn_q_megakernel(blk.mlp, blk.ln_2, x, act="quick_gelu", keys=("c_fc", "c_proj"))
     return linear(blk.mlp.c_proj, quick_gelu(linear(blk.mlp.c_fc, layernorm(blk.ln_2, x))))
 
 

@@ -18,10 +18,14 @@ K1 for the temporal and window attention of stages with <= 16 heads,
 LayerNorm then the K8 core for more heads, K7 for an FFN whose hidden takes
 >= 96 MiB, K9 for the large norms; in `fusion` mode K4 for the whole block
 after the temporal branch on grids of <= 256 tokens, and elsewhere K5 for
-the per-window exchange and K6 for the full-grid one. The bias and shift
-mask of each attention site are gathered from the block's table on every
-call, as the JAX package does inside its jit; the index and mask constants
-are built once per geometry and device.
+the per-window exchange and K6 for the full-grid one. A tower made int8 by
+`ops/quant.py::quantize_swin_tower` routes on `quantized` as JAX routes on
+"kernel_q": K2 in place of K1, K3 at every FFN outside K4 (never K7, nor
+the plain FFN), K4's int8 variant, and `int8_matmul` for the qkv and proj
+products around the K8 core; patch embed, merging and norms stay float.
+The bias and shift mask of each attention site are gathered from the
+block's table on every call, as the JAX package does inside its jit; the
+index and mask constants are built once per geometry and device.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..ops.common import LayerNorm, Linear, layernorm, linear, mlp_apply
 from ..ops.conv import conv3d
 from ..ops.fused_attn import (block_kernel_route, cross_modal_fuse_flash,
                               cross_modal_fuse_windows, ffn_kernel_route, ffn_megakernel,
-                              flash_fuse_route, layernorm_fused, ln_kernel_route,
+                              ffn_q_megakernel, flash_fuse_route, layernorm_fused, ln_kernel_route,
                               temporal_attention_fused, temporal_block_megakernel,
                               window_attention_fused, window_block_megakernel)
 from ..ops.swin_block import swin_fusion_whole_block, swin_whole_block_enabled
@@ -231,8 +235,11 @@ def _temporal_branch(blk: SwinBlock, x, st: BlockStatic, signal: str, adapter_ke
 
 
 def _ffn(blk: SwinBlock, x):
-    """LN + fc1 + erf-GELU + fc2: K7 when the hidden is large, the plain
+    """LN + fc1 + erf-GELU + fc2: K3 for an int8 tower whatever the hidden
+    size (`swin.py:199-203`); else K7 when the hidden is large, the plain
     bf16 ops (XLA's in the JAX package) otherwise."""
+    if blk.mlp.fc1.quantized:
+        return ffn_q_megakernel(blk.mlp, blk.norm2, x)
     hidden = blk.mlp.fc1.weight.shape[0]
     if ffn_kernel_route(x.numel() // x.shape[-1], hidden, x.element_size()):
         return ffn_megakernel(blk.mlp, blk.norm2, x)
@@ -360,12 +367,15 @@ def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a, v) -> Dict[str, torch.T
     return {"v": layernorm_fused(bb.norm, vt), "a": layernorm_fused(bb.norm, at)}
 
 
-def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2) -> Dict[str, int]:
+def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
+                         quantized: bool = False) -> Dict[str, int]:
     """Kernel launches of one backbone forward at batch B, in a dtype of
-    `itemsize` bytes, derived from the route functions the forward calls.
-    K1, K7, K8 and K9 run once per stream; K4, K5 and K6 once per call for
-    both streams."""
-    per_stream = {"K1": 0, "K7": 0, "K8": 0, "K9": 0}
+    `itemsize` bytes, of a float tower or (`quantized`) an int8 one, derived
+    from the route functions the forward calls. K1 (K2 for int8), K7 (K3 at
+    every FFN outside K4 for int8), K8 and K9 run once per stream; K4, K5
+    and K6 once per call for both streams."""
+    blk_k, ffn_k = ("K2", "K3") if quantized else ("K1", "K7")
+    per_stream = {blk_k: 0, ffn_k: 0, "K8": 0, "K9": 0}
     per_call = {"K4": 0, "K5": 0, "K6": 0}
     rows = B * cfg.num_ttokens            # frames through the tower, per stream
     H, Wd = cfg.stage_resolution(0)
@@ -375,13 +385,14 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2) -> Dict[str
             tokens = rows * st.H * st.W
             kernel = block_kernel_route(st.num_heads)
             if st.t_attn:
-                per_stream["K1" if kernel else "K8"] += 1
+                per_stream[blk_k if kernel else "K8"] += 1
                 per_stream["K9"] += (not kernel) and ln_kernel_route(tokens * st.dim)
             if st.mode == "fusion_adapt" and swin_whole_block_enabled(st):
                 per_call["K4"] += 1
                 continue
-            per_stream["K1" if kernel else "K8"] += 1
-            per_stream["K7"] += ffn_kernel_route(tokens, int(st.dim * 4.0), itemsize)
+            per_stream[blk_k if kernel else "K8"] += 1
+            per_stream[ffn_k] += quantized or ffn_kernel_route(tokens, int(st.dim * 4.0),
+                                                               itemsize)
             if st.mode == "fusion_adapt":
                 D = int(st.dim * st.adapter_ratio)
                 per_call["K5"] += st.use_s_adapter

@@ -62,11 +62,12 @@ class LayerNorm(nn.Module):
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W^T + b in x's dtype. A quantized layer runs only inside the int8
-    kernels K2/K3 (ops/fused_attn.py); the JAX package's separate XLA int8
-    path (`int8_matmul`) quantizes differently and is not ported."""
+    """x @ W^T + b in x's dtype. A quantized layer goes to
+    `ops/quant.py::int8_matmul`, as `stgcma_tpu/ops/common.py:63-65` routes
+    it (its own quantizer, not the one inside the int8 kernels K2-K4)."""
     if p.quantized:
-        raise ValueError("quantized linears run inside the int8 kernels only")
+        from .quant import linear_q
+        return linear_q(p, x)
     bias = None if p.bias is None else p.bias.to(x.dtype)
     return F.linear(x, p.weight.to(x.dtype), bias)
 

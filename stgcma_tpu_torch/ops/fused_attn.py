@@ -465,6 +465,15 @@ def reset_launches():
         k.launches = 0
 
 
+def launches_by_id():
+    """{kernel id: launches summed over its wrappers} (K4's two variants are
+    two wrappers under one id)."""
+    out = {}
+    for k in KERNELS:
+        out[k.id] = out.get(k.id, 0) + k.launches
+    return out
+
+
 # ---------------------------------------------------------------------------
 # entry points of the CLIP tower
 # ---------------------------------------------------------------------------
@@ -484,22 +493,28 @@ def clip_attention_block(attn, ln, x, heads: int):
                      attn.out_proj.bias, heads)
 
 
-def ffn_q_megakernel(mlp, ln, x, act: str = _QUICK_GELU):
-    """LN + int8 FFN over x (..., C) (`pallas_attn.py::ffn_q_megakernel`)."""
+def ffn_q_megakernel(mlp, ln, x, act: str = _GELU, keys=("fc1", "fc2")):
+    """LN + int8 FFN over x (..., C) in K3 (`pallas_attn.py::ffn_q_megakernel`
+    :1660, with its defaults: erf-GELU and the Swin keys; CLIP passes
+    QuickGELU and ("c_fc", "c_proj"))."""
     shape = x.shape
+    fc1, fc2 = (getattr(mlp, k) for k in keys)
     out = ffn_q(x.reshape(-1, shape[-1]), ln.weight, ln.bias,
-                mlp.c_fc.weight_q, mlp.c_fc.weight_s, mlp.c_fc.bias,
-                mlp.c_proj.weight_q, mlp.c_proj.weight_s, mlp.c_proj.bias, act)
+                fc1.weight_q, fc1.weight_s, fc1.bias,
+                fc2.weight_q, fc2.weight_s, fc2.bias, act)
     return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
-# entry points of the Swin tower (bf16), routed as `pallas_attn.py` routes them
+# entry points of the Swin tower (bf16 or int8), routed as `pallas_attn.py`
+# routes them
 # ---------------------------------------------------------------------------
 
 def block_kernel_route(num_heads: int) -> bool:
-    """True: LN + attention + proj in K1; False: LN, then the K8 core with
-    the qkv and proj products outside it (`swin.py:171-179`, :224-244)."""
+    """True: LN + attention + proj in K1 (K2 for an int8 tower); False: LN,
+    then the K8 core with the qkv and proj products outside it, through
+    `linear` (`int8_matmul` for an int8 tower) (`swin.py:171-179`,
+    :224-244)."""
     return num_heads <= BLOCK_KERNEL_MAX_HEADS
 
 
@@ -515,12 +530,18 @@ def ffn_kernel_route(rows: int, hidden: int, itemsize: int) -> bool:
 
 
 def _block_kernel(attn, ln, x, heads, bm):
+    """K2 when the tower is int8 (`"kernel_q" in attn_p["qkv"]`,
+    `pallas_attn.py:585`, :637), else K1."""
+    if attn.qkv.quantized:
+        return win_block_q(x, ln.weight, ln.bias, attn.qkv.weight_q, attn.qkv.weight_s,
+                           attn.qkv.bias, attn.proj.weight_q, attn.proj.weight_s,
+                           attn.proj.bias, heads, bias=bm)
     return win_block(x, ln.weight, ln.bias, attn.qkv.weight, attn.qkv.bias,
                      attn.proj.weight, attn.proj.bias, heads, bias=bm)
 
 
 def window_block_megakernel(attn, ln, x, num_heads: int, rel_index, mask=None):
-    """LN + W-MSA / SW-MSA + proj in K1 (`pallas_attn.py:563`). x: (BT*nW,
+    """LN + W-MSA / SW-MSA + proj in K1 or K2 (`pallas_attn.py:563`). x: (BT*nW,
     N, C) raw window tokens; the bias is the gathered table plus the shift
     mask, (nW, h, N, N) fp32, repeating with period nW along the windows."""
     N = x.shape[1]
@@ -530,7 +551,7 @@ def window_block_megakernel(attn, ln, x, num_heads: int, rel_index, mask=None):
 
 
 def temporal_block_megakernel(attn, ln, x, num_heads: int, t_index, signal: str = "video"):
-    """LN + temporal attention + proj in K1 (`pallas_attn.py:611`), with the
+    """LN + temporal attention + proj in K1 or K2 (`pallas_attn.py:611`), with the
     per-modality table as a (1, h, T, T) bias. x: (B*N, T, C)."""
     T = x.shape[1]
     bias = gather_bias(temporal_table(attn, signal), t_index, num_heads, T)
@@ -539,7 +560,9 @@ def temporal_block_megakernel(attn, ln, x, num_heads: int, t_index, signal: str 
 
 def _qkv_core(attn, x, num_heads: int, bm):
     """qkv product -> q scaled by a dh^-1/2 rounded to x's dtype -> K8 over
-    (B_*h, N, dh) rows (head fastest) -> merged heads -> proj product."""
+    (B_*h, N, dh) rows (head fastest) -> merged heads -> proj product. The
+    products go through `linear`: `int8_matmul` for an int8 tower, as JAX's
+    `temporal_attention_fused` (:650) reaches `quant.py::int8_matmul`."""
     B_, N, C = x.shape
     dh = C // num_heads
     qkv = linear(attn.qkv, x).reshape(B_, N, 3, num_heads, dh).permute(2, 0, 3, 1, 4)

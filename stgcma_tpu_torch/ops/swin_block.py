@@ -11,11 +11,19 @@ per-window bidirectional gated fusion, the residuals, LN2 + FFN with
 erf-GELU, the S_Adapter hiddens with the unmasked full-grid fusion, the
 residuals.
 
+Two variants under K4's id, as the kernel's `quantized` flag makes two
+(:279-338, :402-407): `swin_block` for a float tower and `swin_block_q` for
+an int8 one (`quantize_swin_tower`), where qkv, proj, fc1 and fc2 are int8
+products with per-row activation quantization. The int8 variant quantizes
+LN1 and LN2 after rounding them to the block's dtype (`_ln` returns it),
+unlike K2/K3, which quantize the fp32 LN; its FFN hidden stays fp32 and
+unrounded through erf-GELU up to its quantization; its attention core,
+adapters and fusions are the float variant's.
+
 Left out on purpose: the window-major layout (`STGCMA_SWIN_WINMAJOR`, :427,
 a TPU opt-in measured net-negative there), the NP padding of the grid to a
-multiple of 16 (a TPU sublane artifact: the port works at N = H*W), the
-`STGCMA_SWIN_*` switches (the policy is the module constant below) and the
-int8 variant (`quantized=True`, with int8 Swin).
+multiple of 16 (a TPU sublane artifact: the port works at N = H*W) and the
+`STGCMA_SWIN_*` switches (the policy is the module constant below).
 """
 from __future__ import annotations
 
@@ -26,9 +34,10 @@ import torch
 
 from . import cuda_lib
 from .attention import gather_bias
-from .fused_attn import (_EPI_BF16, _EPI_BF16_RGELU, _Kernel, _attn_core, _check_cuda,
-                         _check_shapes, _erf_gelu, _fuse_cuda, _gemm_bf16, _heads_attention,
-                         _ln_bf16, _ln_f32, _ptr, _stream, fuse_plain)
+from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU, _Kernel,
+                         _attn_core, _check_cuda, _check_shapes, _erf_gelu, _fuse_cuda,
+                         _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32, _ptr,
+                         _quant_rows, _stream, dotq, fuse_plain)
 from .window import relative_position_index
 
 WHOLE_BLOCK_MAX_GRID = 256            # K4 for grids of <= 256 tokens (pallas_swin_block.py:587)
@@ -91,15 +100,26 @@ def _geo_tensors(H: int, W: int, ws: int, ss: int, device: torch.device):
 # plain version
 # ---------------------------------------------------------------------------
 
+# the block's four tower products: short name of the weight, its scale (int8
+# only) and its bias
+TOWER = (("w_qkv", "s_qkv", "b_qkv"), ("w_proj", "s_proj", "b_proj"),
+         ("w1", "s1", "b1"), ("w2", "s2", "b2"))
+
+
 def block_weights(blk) -> dict:
-    """The tensors of a fusion-mode SwinBlock that K4 reads, by short name."""
+    """The tensors of a fusion-mode SwinBlock that K4 reads, by short name.
+    For an int8 tower the four products' weights are the int8 `weight_q`,
+    with their per-output-channel scales under the `s_*` names of TOWER."""
     w = {"ln1_w": blk.norm1.weight, "ln1_b": blk.norm1.bias,
-         "w_qkv": blk.attn.qkv.weight, "b_qkv": blk.attn.qkv.bias,
-         "w_proj": blk.attn.proj.weight, "b_proj": blk.attn.proj.bias,
          "ln2_w": blk.norm2.weight, "ln2_b": blk.norm2.bias,
-         "w1": blk.mlp.fc1.weight, "b1": blk.mlp.fc1.bias,
-         "w2": blk.mlp.fc2.weight, "b2": blk.mlp.fc2.bias,
          "gate_v": blk.gate_v, "gate_a": blk.gate_a}
+    for (wk, sk, bk), lin in zip(TOWER, (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
+                                         blk.mlp.fc2)):
+        w[bk] = lin.bias
+        if lin.quantized:
+            w[wk], w[sk] = lin.weight_q, lin.weight_s
+        else:
+            w[wk] = lin.weight
     for key, attr in ADAPTERS:
         ad = getattr(blk, attr)
         w.update({f"{key}_w1": ad.D_fc1.weight, f"{key}_b1": ad.D_fc1.bias,
@@ -111,10 +131,13 @@ def _lin(x, w, b, dt):
     return (torch.matmul(x.float(), w.float().t()) + b.float()).to(dt)
 
 
-def swin_block_plain(v, a, w, heads, bias, fuse_mask):
-    """`_fullgrid_naive` at K4's rounding points. v, a: (BT, N, C); w:
-    `block_weights`; bias: (1, h, N, N) fp32, the gathered relative-position
-    bias plus `attn_mask`; fuse_mask: (N, N) fp32. Returns (vo, ao)."""
+def _linq(x, w, key):
+    """The int8 product of `_dotq` (fp32 x quantized per row) + bias, in fp32."""
+    wk, sk, bk = key
+    return dotq(x.float(), w[wk], w[sk]) + w[bk].float()
+
+
+def _swin_block_plain(v, a, w, heads, bias, fuse_mask, quantized):
     dt = v.dtype
     BT = v.shape[0]
 
@@ -124,19 +147,42 @@ def swin_block_plain(v, a, w, heads, bias, fuse_mask):
     def adapter_out(h, key, r1, r2):  # (r1 + r2) + bf16(h.W2 + b2)
         return (r1 + r2) + _lin(h, w[f"{key}_w2"], w[f"{key}_b2"], dt)
 
+    def tower(x, i):                  # the i-th tower product, rounded to dt
+        wk, _, bk = TOWER[i]
+        return _linq(x, w, TOWER[i]).to(dt) if quantized else _lin(x, w[wk], w[bk], dt)
+
     xn = _ln_f32(torch.cat([v, a]), w["ln1_w"], w["ln1_b"]).to(dt)
-    o = _heads_attention(_lin(xn, w["w_qkv"], w["b_qkv"], dt), heads, bias, dt)
-    s = _lin(o, w["w_proj"], w["b_proj"], dt)
+    o = _heads_attention(tower(xn, 0), heads, bias, dt)
+    s = tower(o, 1)
     vs, as_ = s[:BT], s[BT:]
     vh, ah = fuse_plain(hidden(vs, "s2v"), hidden(as_, "s2a"), w["gate_v"], w["gate_a"],
                         fuse_mask)
     v1, a1 = adapter_out(vh, "s2v", v, vs), adapter_out(ah, "s2a", a, as_)
     xn2 = _ln_f32(torch.cat([v1, a1]), w["ln2_w"], w["ln2_b"]).to(dt)
-    hid = _erf_gelu(_lin(xn2, w["w1"], w["b1"], dt).float()).to(dt)
-    n = _lin(hid, w["w2"], w["b2"], dt)
+    if quantized:                     # the fp32 hidden is quantized unrounded
+        n = tower(_erf_gelu(_linq(xn2, w, TOWER[2])), 3)
+    else:
+        n = tower(_erf_gelu(_lin(xn2, w["w1"], w["b1"], dt).float()).to(dt), 3)
     vn, an = n[:BT], n[BT:]
     vh2, ah2 = fuse_plain(hidden(vn, "sv"), hidden(an, "sa"), w["gate_v"], w["gate_a"])
     return adapter_out(vh2, "sv", v1, vn), adapter_out(ah2, "sa", a1, an)
+
+
+def swin_block_plain(v, a, w, heads, bias, fuse_mask):
+    """`_fullgrid_naive` at K4's rounding points. v, a: (BT, N, C); w:
+    `block_weights`; bias: (1, h, N, N) fp32, the gathered relative-position
+    bias plus `attn_mask`; fuse_mask: (N, N) fp32. Returns (vo, ao)."""
+    return _swin_block_plain(v, a, w, heads, bias, fuse_mask, quantized=False)
+
+
+def swin_block_q_plain(v, a, w, heads, bias, fuse_mask):
+    """The int8 variant (`_swin_block_kernel(quantized=True)`) at its rounding
+    points: LN1 rounded to dt, then `_dotq` of it for qkv (one row
+    quantization shared by every head), + bias, rounded; the float core;
+    `_dotq` of the merged heads for proj; LN2 rounded, `_dotq` + b1 ->
+    erf-GELU in fp32 -> `_dotq` + b2, rounded. w: `block_weights` of an int8
+    block (the `s_*` scales of TOWER)."""
+    return _swin_block_plain(v, a, w, heads, bias, fuse_mask, quantized=True)
 
 
 # ---------------------------------------------------------------------------
@@ -151,20 +197,27 @@ def _gemm_res2(a, w, b, r1, r2, out, s):
     return out
 
 
-def _swin_block_cuda(v, a, w, heads, bias, fuse_mask):
+def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
     if v.dim() != 3:
         raise ValueError(f"v must be (BT, N, C), got {tuple(v.shape)}")
     BT, N, C = v.shape
     Hd, D = w["w1"].shape[0], w["s2v_w1"].shape[0]
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    step = 16 if quantized else 8      # int8 rows of 16-byte chunks in gemm.cu
     if C % heads or C // heads not in (32, 64) or N > 256:
         raise ValueError(f"K4 takes N <= 256 tokens and heads of width 32 or 64, got N={N}, "
                          f"C={C}, heads={heads}")
-    if C % 8 or Hd % 8 or D not in (16, 32, 64):
-        raise ValueError(f"K4 takes C and the FFN hidden in multiples of 8 and adapter "
+    if C % step or Hd % step or D not in (16, 32, 64):
+        raise ValueError(f"K4 takes C and the FFN hidden in multiples of {step} and adapter "
                          f"widths 16, 32 or 64, got C={C}, hidden={Hd}, D={D}")
+    int8_keys = {wk for wk, _, _ in TOWER} if quantized else set()
+    scale_keys = {sk for _, sk, _ in TOWER}
+    if quantized != all(k in w for k in scale_keys):
+        raise ValueError(f"K4 {'int8' if quantized else 'float'} variant given the weights of "
+                         f"the other one")
     _check_cuda(v, {"v": (v, bf), "a": (a, bf), "bias": (bias, f32),
-                    "fuse_mask": (fuse_mask, f32), **{k: (t, bf) for k, t in w.items()}})
+                    "fuse_mask": (fuse_mask, f32),
+                    **{k: (t, i8 if k in int8_keys else bf) for k, t in w.items()}})
     shapes = {"a": (a, (BT, N, C)), "bias": (bias, (1, heads, N, N)),
               "fuse_mask": (fuse_mask, (N, N)), "ln1_w": (w["ln1_w"], (C,)),
               "ln1_b": (w["ln1_b"], (C,)), "w_qkv": (w["w_qkv"], (3 * C, C)),
@@ -173,6 +226,9 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask):
               "ln2_b": (w["ln2_b"], (C,)), "w1": (w["w1"], (Hd, C)), "b1": (w["b1"], (Hd,)),
               "w2": (w["w2"], (C, Hd)), "b2": (w["b2"], (C,)),
               "gate_v": (w["gate_v"], (1,)), "gate_a": (w["gate_a"], (1,))}
+    if quantized:
+        shapes.update({"s_qkv": (w["s_qkv"], (3 * C,)), "s_proj": (w["s_proj"], (C,)),
+                       "s1": (w["s1"], (Hd,)), "s2": (w["s2"], (C,))})
     for key, _ in ADAPTERS:
         shapes.update({f"{key}_w1": (w[f"{key}_w1"], (D, C)), f"{key}_b1": (w[f"{key}_b1"], (D,)),
                        f"{key}_w2": (w[f"{key}_w2"], (C, D)), f"{key}_b2": (w[f"{key}_b2"], (C,))})
@@ -180,8 +236,19 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask):
     s = _stream(v)
     M = BT * N
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=bf, device=v.device)
+    def empty(*shape, dtype=bf):
+        return torch.empty(shape, dtype=dtype, device=v.device)
+
+    def tower(x, i, out, gelu=False):
+        """The i-th tower product of TOWER into `out`: bf16 GEMM (GELU:
+        rounded before and after it), or row quantization of x (bf16 or
+        fp32) + int8 GEMM (GELU: into an fp32 hidden)."""
+        wk, sk, bk = TOWER[i]
+        if not quantized:
+            return _gemm_bf16(x, w[wk], w[bk], out, _EPI_BF16_RGELU if gelu else _EPI_BF16, s)
+        xq, sx = _quant_rows(x, s)
+        _gemm_s8(xq, sx, w[wk], w[sk], w[bk], out, _EPI[_GELU] if gelu else _EPI_Q_BF16, s)
+        return out
 
     def fuse(xv, xa, kv, ka, mask):    # per-stream adapter hiddens, then fuse.cu
         h = empty(2, M, D)
@@ -197,24 +264,29 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask):
         return y
 
     v2, a2 = v.view(M, C), a.view(M, C)
-    xn = empty(2 * M, C)                   # LN1 of [v; a], one 2*BT slab
+    xn = empty(2 * M, C)                   # LN1 of [v; a], one 2*BT slab, in bf16
     _ln_bf16(v2, w["ln1_w"], w["ln1_b"], s, out=xn[:M])
     _ln_bf16(a2, w["ln1_w"], w["ln1_b"], s, out=xn[M:])
-    qkv = _gemm_bf16(xn, w["w_qkv"], w["b_qkv"], empty(2 * M, 3 * C), _EPI_BF16, s)
+    qkv = tower(xn, 0, empty(2 * M, 3 * C))
     o = _attn_core(qkv.view(2 * BT, N, 3 * C), bias, heads, s)
-    att = _gemm_bf16(o.view(2 * M, C), w["w_proj"], w["b_proj"], empty(2 * M, C), _EPI_BF16, s)
+    att = tower(o.view(2 * M, C), 1, empty(2 * M, C))
     vs, as_ = att[:M], att[M:]
     fv, fa = fuse(vs, as_, "s2v", "s2a", fuse_mask)
     x1 = residual(fv, fa, "s2v", "s2a", (v2, vs), (a2, as_))
     xn2 = _ln_bf16(x1, w["ln2_w"], w["ln2_b"], s)
-    hid = _gemm_bf16(xn2, w["w1"], w["b1"], empty(2 * M, Hd), _EPI_BF16_RGELU, s)
-    n = _gemm_bf16(hid, w["w2"], w["b2"], empty(2 * M, C), _EPI_BF16, s)
+    hid = tower(xn2, 2, empty(2 * M, Hd, dtype=f32 if quantized else bf), gelu=True)
+    n = tower(hid, 3, empty(2 * M, C))
     fv2, fa2 = fuse(n[:M], n[M:], "sv", "sa", None)
     y = residual(fv2, fa2, "sv", "sa", (x1[:M], n[:M]), (x1[M:], n[M:]))
     return y[:M].view(BT, N, C), y[M:].view(BT, N, C)
 
 
+def _swin_block_q_cuda(v, a, w, heads, bias, fuse_mask):
+    return _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=True)
+
+
 swin_block = _Kernel("K4", "swin_block", swin_block_plain, _swin_block_cuda)
+swin_block_q = _Kernel("K4", "swin_block_q", swin_block_q_plain, _swin_block_q_cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +301,9 @@ def swin_whole_block_enabled(st) -> bool:
 
 
 def swin_fusion_whole_block(blk, v, a, st):
-    """The post-temporal fusion block in K4. v, a: (BT, H*W, C). The bias
+    """The post-temporal fusion block in K4, its int8 variant for an int8
+    tower (`quantized = "kernel_q" in p["attn"]["qkv"]`, :469). v, a: (BT,
+    H*W, C). The bias
     is gathered from the block's table on every call, as JAX does in its
     jit; the index and masks are built once per geometry and device."""
     index, attn_mask, fuse_mask = _geo_tensors(st.H, st.W, st.window_size, st.shift_size,
@@ -238,4 +312,5 @@ def swin_fusion_whole_block(blk, v, a, st):
     v, a = v.contiguous(), a.contiguous()     # the temporal transpose is a view at B = 1
     bias = gather_bias(blk.attn.relative_position_bias_table, index, st.num_heads, N)
     bias = (bias + attn_mask)[None].contiguous()
-    return swin_block(v, a, block_weights(blk), st.num_heads, bias, fuse_mask)
+    kernel = swin_block_q if blk.attn.qkv.quantized else swin_block
+    return kernel(v, a, block_weights(blk), st.num_heads, bias, fuse_mask)

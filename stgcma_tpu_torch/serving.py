@@ -28,8 +28,8 @@ class MultiTaskServer:
         self._fns: Dict[str, Callable] = {}
 
     def add_ave(self, name: str, cfg: SwinConfig, model: SwinAVE):
-        """Serve a Swin AVE `model` (left as it is: the server keeps a cast
-        copy)."""
+        """Serve a Swin AVE `model`, float or with an int8 tower (left as it
+        is: the server keeps a cast copy)."""
         m = cast_tree(model, self.dtype).to(self.device).eval()
         self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch["a"], batch["v"])
 

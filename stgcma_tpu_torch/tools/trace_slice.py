@@ -1,12 +1,14 @@
 """Where the time of one serving forward goes on the card.
 
-    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--seed 0]
-        [--out DIR]
+    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--int8]
+        [--seed 0] [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
 seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
-int8 towers; `swin` is Swin-Base in multimodal mode, bf16; `swin-fusion` is
-Swin-Base in fusion mode (the STG-CMA exchange), bf16. For each task it
+int8 towers; `swin` is Swin-Base in multimodal mode; `swin-fusion` is
+Swin-Base in fusion mode (the STG-CMA exchange); the Swin models serve a
+bf16 tower, or with `--int8` the tower made int8 by `quantize_swin_tower`
+(`--int8` takes a Swin model). For each task it
 prints the median wall time of 5 untraced B = 8 requests, then traces
 one request with torch.profiler and prints the device time summed over all
 kernels, the share of the untraced wall time it covers (the rest is the
@@ -42,9 +44,12 @@ PORT_KERNELS = ("gemm_kernel", "attn_mma_kernel", "quant_rows_kernel", "ln_bf16_
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("clip", "swin", "swin-fusion"), default="clip")
+    ap.add_argument("--int8", action="store_true", help="serve the Swin tower in int8")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
+    if args.int8 and args.model == "clip":
+        ap.error("--int8 takes a Swin model (clip serves its bf16 and int8 towers already)")
     if not torch.cuda.is_available():
         print("trace_slice: no CUDA device", file=sys.stderr)
         return 1
@@ -55,7 +60,8 @@ def main(argv=None) -> int:
     if args.model in ("swin", "swin-fusion"):
         ftmode = "multimodal" if args.model == "swin" else "fusion"
         cfg = swin_base(ftmode=ftmode, label_dim=29)
-        srv.add_ave(f"swin_{ftmode}_bf16", cfg, random_swin_ave(cfg, args.seed))
+        srv.add_ave(f"swin_{ftmode}_{'int8' if args.int8 else 'bf16'}", cfg,
+                    random_swin_ave(cfg, args.seed, int8=args.int8))
         n = cfg.img_size
         batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
                  "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}

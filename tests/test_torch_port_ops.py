@@ -67,10 +67,17 @@ def test_layernorm_linear_acts_match_jax(dtype):
 
 
 def test_quantized_linear_refuses_plain_linear():
+    """`linear` on a quantized layer takes the int8 path (`int8_matmul`, as
+    the JAX `linear` routes "kernel_q"), not a float product."""
     rng = np.random.RandomState(1)
-    ql = quant.quantize_linear_params(_module(common.Linear, jax_lin(rng, 8, 4), 8, 4))
-    with pytest.raises(ValueError, match="int8 kernels"):
-        common.linear(ql, torch.zeros(2, 8))
+    lin = jax_lin(rng, 8, 4)
+    ql = quant.quantize_linear_params(_module(common.Linear, lin, 8, 4))
+    x = (rng.randn(2, 8) * 3).astype(np.float32)
+    ref = jax_common.linear(jax_quant.quantize_linear_params(lin), jnp.asarray(x))
+    out = common.linear(ql, t(x))
+    assert rel(out, np.asarray(ref)) <= 1e-6
+    plain = x @ np.asarray(lin["kernel"]) + np.asarray(lin["bias"])
+    assert rel(out, plain) > 1e-4
 
 
 def test_quantize_weight_bit_exact():

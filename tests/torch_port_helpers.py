@@ -26,6 +26,24 @@ def rel(x, ref):
     return float(np.max(np.abs(x - ref))) / (float(np.max(np.abs(ref))) + 1e-12)
 
 
+def rows_agree(x, ref, tight=1e-5, loose=1e-2, frac=0.1):
+    """The int8 comparison of two implementations of one arithmetic: every
+    row (last axis) within `tight` of max |ref|, except rows where an
+    activation lands on a rounding boundary on one side only, where one
+    int8 code (or, in bf16, one rounded q, k or v element) moves by one
+    step and that row, or the rows attending to the moved key, move by up
+    to `loose`; those rows are at most `frac` of all. Returns (max error,
+    rows beyond tight, rows) relative to max |ref|, and asserts."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float()
+    x = np.asarray(x, np.float64)
+    ref = np.asarray(ref, np.float64).reshape(x.shape)
+    d = np.abs(x - ref).reshape(-1, x.shape[-1]) / (float(np.max(np.abs(ref))) + 1e-12)
+    moved = int((d.max(axis=-1) > tight).sum())
+    assert d.max() <= loose and moved <= frac * d.shape[0], (float(d.max()), moved, d.shape[0])
+    return float(d.max()), moved, d.shape[0]
+
+
 def t(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(dtype)
 
