@@ -22,14 +22,23 @@ line:
      the int8 Swin tower, K2 at the five Swin sites (stage 0-1 shifted
      windows, stage 0-2 temporal), K3 with erf-GELU at the stage 0-1 FFNs
      and K4's int8 variant (live adapters and gates, and its five wiring
-     faults) at stages 2 and 3;
+     faults) at stages 2 and 3; for the fused CLIP block, K12 (everything
+     after the temporal stage of a CLIP fusion block, float and int8, live
+     adapters and gates, and its five wiring faults) at v (80, 197, 768) / a
+     (80, 49, 768) and K13 (the temporal stage with a live T_Adapter, float
+     and int8) at the video and audio rows;
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
      per forward, B = 1 logits held against the same model on the CPU (plain
      versions), and clips/s:
      - AVE-29 with CLIP ViT-B/16 in fusion mode at full width (12 layers,
        C = 768, T = 10 frames at 224^2, 102x128 fbank audio), a bf16 and an
-       int8 task;
+       int8 task, and the same two models in the fused-block configuration
+       (STGCMA_CLIP_TADAPT_FUSED=1 and STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice
+       and K12 once a block, no K1-K3), whose B = 8 logits are also held
+       against the unfused task's on the card; the models run with live
+       adapters and gates, and the B = 1 check also fails unless zeroing the
+       gates moves the card's logits; one `multimodal` bf16 task at depth 2;
      - AVE-29 with Swin-Base at full width and depth (depths 2/2/18/2, C =
        128..1024, T = 10 frames at 224^2, 224x224 fbank audio), bf16, in
        multimodal mode (no fusion) and in fusion mode (the STG-CMA exchange),
@@ -42,6 +51,8 @@ The line before the last is one JSON object {"kernels": [...]}; the last is
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -60,7 +71,11 @@ TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 throug
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
 H100_FP32 = 67e12    # fp32 outside the tensor cores (LayerNorm arithmetic)
 SFU_PER_SM_CLOCK, H100_SMS = 16, 132   # exps per clock per SM (special function units)
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
+TOL_FUSED = 5e-2     # max |fused - unfused| / max |unfused| over the B = 8 logits on the
+                     # card: the two configurations round to bf16 at other points (the
+                     # FFN hidden, the adapters, the fusion) through 12 blocks
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K12", "K13")
+CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
 # each kernel's name in the kernels line, the TPU kernel it replaces, and its
 # CUDA sources in stgcma_tpu_torch/csrc/
 META = {
@@ -79,6 +94,12 @@ META = {
     "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676", ["gemm.cu", "rowprep.cu"]),
     "K8": ("K8 wmsa (window-attention core)", "stgcma_tpu/ops/pallas_attn.py:230", ["attn.cu"]),
     "K9": ("K9 layernorm", "stgcma_tpu/ops/pallas_attn.py:755", ["rowprep.cu"]),
+    "K12": ("K12 clip_fusion_block + clip_fusion_block_q (whole CLIP fusion block after the "
+            "temporal stage, bf16 and int8 variants)", "stgcma_tpu/ops/pallas_clip_block.py:168",
+            ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
+    "K13": ("K13 clip_tadapt + clip_tadapt_q (temporal stage + T_Adapter, bf16 and int8 "
+            "variants)", "stgcma_tpu/ops/pallas_clip_block.py:350",
+            ["rowprep.cu", "gemm.cu", "attn.cu"]),
 }
 
 
@@ -99,8 +120,9 @@ def smi_line():
 
 
 def launches():
-    """{"K1": launches, ...} of every kernel, summed over its wrappers (K4 has
-    a bf16 and an int8 one)."""
+    """{"K1": launches, ...} of every kernel, summed over its wrappers (K4,
+    K12 and K13 have a bf16 and an int8 one)."""
+    from stgcma_tpu_torch.ops import clip_block  # noqa: F401  (registers K12, K13)
     from stgcma_tpu_torch.ops import fused_attn as FA
     from stgcma_tpu_torch.ops import swin_block  # noqa: F401  (registers K4)
     by_id = FA.launches_by_id()
@@ -523,24 +545,25 @@ def library_k4(v, a, w, heads, bias, fuse_mask):
     return run
 
 
-def live_k4_weights(w, g):
-    """K4's weights with the four adapters and the gates drawn where the
-    fusion moves the block's output: with the tower's N(0, 0.02) adapters it
+def live_k4_weights(w, g, keys=("s2v", "s2a", "sv", "sa")):
+    """K4's weights (K12's or K13's with their adapter `keys`) with the
+    adapters and the gates drawn where the fusion moves the block's output:
+    with the tower's N(0, 0.02) adapters it
     moves it by ~1e-3, under the check's tolerance. D_fc1 N(0, 2.26^2 / C)
     and D_fc2 N(0, 0.566^2 / D) (both 0.1 at stage 2, C = 512 and D = 32),
     their biases N(0, 0.1), gates 0.8 and -0.6 as at K5 and K6."""
     import torch
-    from stgcma_tpu_torch.ops.swin_block import ADAPTERS
-    C, D = w["w_qkv"].shape[1], w["s2v_w1"].shape[0]
+    C, D = w["w_qkv"].shape[1], w[f"{keys[0]}_w1"].shape[0]
     std = {"w1": 2.26 / C ** 0.5, "w2": 0.566 / D ** 0.5, "b1": 0.1, "b2": 0.1}
     live = dict(w)
-    for key, _ in ADAPTERS:
+    for key in keys:
         for p, sd in std.items():
             t = w[f"{key}_{p}"]
             live[f"{key}_{p}"] = (torch.randn(t.shape, generator=g, device=t.device) * sd
                                   ).to(t.dtype)
-    live["gate_v"] = torch.full_like(w["gate_v"], 0.8)
-    live["gate_a"] = torch.full_like(w["gate_a"], -0.6)
+    if "gate_v" in w:
+        live["gate_v"] = torch.full_like(w["gate_v"], 0.8)
+        live["gate_a"] = torch.full_like(w["gate_a"], -0.6)
     return live
 
 
@@ -721,25 +744,266 @@ def phase_int8_swin_kernels(cfg):
     return results
 
 
+def clip_block_bound(BT, Nv, Na, C, heads, D, sfu, int8):
+    """K12 per call, both streams: qkv, proj and the FFN (hidden 4C) over the
+    BT * (Nv + Na) rows (at the int8 rate in the int8 variant), the attention
+    grams of each stream, the eight adapter products and both fusions on the
+    tensor cores; one exp per attention and fusion gram entry on the special
+    function units. Bytes: v, a read and both outputs written once, the tower
+    weights (int8 with their bf16 scales in the int8 variant), the adapters."""
+    M = BT * (Nv + Na)
+    tower = 2 * M * C * 3 * C + 2 * M * C * C + 2 * 2 * M * C * 4 * C
+    rest = (4 * BT * (Nv * Nv + Na * Na) * C + 8 * M * C * D + 2 * 3 * 2 * BT * Nv * Na * D)
+    exps = BT * heads * (Nv * Nv + Na * Na) + 2 * BT * Nv * Na
+    wbytes = (12 * C * C + 9 * C * 2 if int8 else 2 * 12 * C * C) + 2 * 8 * C * D
+    t_ops = max(tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16, exps / sfu)
+    t_bytes = (2 * M * C * 2 + wbytes) / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tadapt_bound(R, T, C, heads, D, sfu, int8):
+    """K13 per call: qkv and proj over the R * T rows (int8 rate in the int8
+    variant), the T x T grams, the two adapter products; x read and written
+    once, the weights once."""
+    M = R * T
+    tower = 2 * M * C * 3 * C + 2 * M * C * C
+    rest = 4 * R * T * T * C + 4 * M * C * D
+    wbytes = (4 * C * C + 4 * C * 2 if int8 else 2 * 4 * C * C) + 2 * 2 * C * D
+    t_ops = max(tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16,
+                R * heads * T * T / sfu)
+    t_bytes = (2 * M * C * 2 + wbytes) / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _library_tower(w, int8):
+    """A tower product from PyTorch's own calls: `F.linear`, or the
+    row-quantized `torch._int_mm` for an int8 tower (fp32 out)."""
+    import torch.nn.functional as F
+
+    def tower(x, wk, sk, bk):
+        if not int8:
+            return F.linear(x, w[wk], w[bk])
+        return library_qmm(x.reshape(-1, x.shape[-1]), w[wk], w[sk], w[bk]
+                           ).view(*x.shape[:-1], -1)
+    return tower
+
+
+def _library_attn(x, w, heads, tower):
+    """layer_norm -> qkv -> scaled_dot_product_attention -> proj, in x's dtype."""
+    import torch.nn.functional as F
+    B_, N, C = x.shape
+    xn = F.layer_norm(x, (C,), w["ln1_w"], w["ln1_b"])
+    q, k, v = tower(xn, "w_qkv", "s_qkv", "b_qkv").to(x.dtype).view(
+        B_, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B_, N, C)
+    return tower(o, "w_proj", "s_proj", "b_proj").to(x.dtype)
+
+
+def library_k12(v, a, w, heads):
+    """K12 from PyTorch's own calls (timed only): layer_norm, linear or
+    `torch._int_mm`, scaled_dot_product_attention (scale 1 for the fusions),
+    gelu and the sigmoid of QuickGELU."""
+    import torch
+    import torch.nn.functional as F
+    int8 = "s_qkv" in w
+    tower = _library_tower(w, int8)
+    BT, Nv, C = v.shape
+
+    def fuse_out(xv, xa, kv, ka, rv, ra):
+        hv = F.gelu(F.linear(xv, w[f"{kv}_w1"], w[f"{kv}_b1"]))
+        ha = F.gelu(F.linear(xa, w[f"{ka}_w1"], w[f"{ka}_b1"]))
+        fv = hv + w["gate_v"] * F.scaled_dot_product_attention(hv, ha, ha, scale=1.0)
+        fa = ha + w["gate_a"] * F.scaled_dot_product_attention(ha, hv, hv, scale=1.0)
+        return (rv + xv + F.linear(fv, w[f"{kv}_w2"], w[f"{kv}_b2"]),
+                ra + xa + F.linear(fa, w[f"{ka}_w2"], w[f"{ka}_b2"]))
+
+    def run():
+        vs, as_ = _library_attn(v, w, heads, tower), _library_attn(a, w, heads, tower)
+        v1, a1 = fuse_out(vs, as_, "sv", "sa", v, a)
+        x = torch.cat([v1.view(-1, C), a1.view(-1, C)])
+        h = tower(F.layer_norm(x, (C,), w["ln2_w"], w["ln2_b"]), "w1", "s1", "b1")
+        n = tower(h * torch.sigmoid(1.702 * h), "w2", "s2", "b2").to(v.dtype)
+        vn, an = n[:BT * Nv].view(BT, Nv, C), n[BT * Nv:].view(BT, -1, C)
+        return fuse_out(vn, an, "mv", "ma", v1, a1)
+    return run
+
+
+def library_k13(x, w, heads):
+    import torch.nn.functional as F
+    tower = _library_tower(w, "s_qkv" in w)
+
+    def run():
+        o = _library_attn(x, w, heads, tower)
+        return x + F.linear(F.gelu(F.linear(o, w["ad_w1"], w["ad_b1"])), w["ad_w2"], w["ad_b2"])
+    return run
+
+
+def k12_faults(w):
+    """{fault: weights} on which K12 computes what a K12 with that wiring
+    fault would compute on the true ones."""
+    def swap(src, pairs):
+        out = dict(src)
+        for k1, k2 in pairs:
+            for p in ("w1", "b1", "w2", "b2"):
+                out[f"{k1}_{p}"], out[f"{k2}_{p}"] = src[f"{k2}_{p}"], src[f"{k1}_{p}"]
+        return out
+    return {"fusion skipped": {**w, "gate_v": w["gate_v"] * 0, "gate_a": w["gate_a"] * 0},
+            "gates swapped": {**w, "gate_v": w["gate_a"], "gate_a": w["gate_v"]},
+            "S and MLP adapters swapped": swap(w, (("sv", "mv"), ("sa", "ma"))),
+            "video and audio adapters swapped": swap(w, (("sv", "sa"), ("mv", "ma")))}
+
+
+@contextlib.contextmanager
+def second_ln_skipped():
+    """K12's composition with its third LayerNorm launch (LN2; the first two
+    are LN1 of the video and the audio rows) replaced by a copy."""
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    real, calls = PCB._ln_bf16, []
+
+    def faulty(x2, ln_w, ln_b, s, out=None):
+        calls.append(1)
+        if len(calls) != 3:
+            return real(x2, ln_w, ln_b, s, out=out)
+        return x2.clone() if out is None else out.copy_(x2)
+    PCB._ln_bf16 = faulty
+    try:
+        yield
+    finally:
+        PCB._ln_bf16 = real
+    if len(calls) != 3:
+        fail(f"K12 made {len(calls)} LayerNorm launches, expected 3")
+
+
+def check_k12_faults(name, args, kernel, plain, tol):
+    """The K12 check fails where it must: K12 (`kernel`, either variant) with
+    each wiring fault (run on the inputs of `k12_faults`, or with its second
+    LayerNorm skipped) is held to its plain version on the true inputs, and
+    must differ by more than the tolerance."""
+    import torch
+    v, a, w, heads = args
+    ref = _flat(plain(*args))
+    scale = ref.abs().max().item()
+    moved = {}
+
+    def hold(fault, out):
+        torch.cuda.synchronize()
+        moved[fault] = (_flat(out) - ref).abs().max().item() / scale
+        if not moved[fault] > tol:
+            fail(f"{name}: a K12 with '{fault}' passes the check ({moved[fault]:.4g} of "
+                 f"max |plain| from the plain version, tol {tol})")
+    for fault, wf in k12_faults(w).items():
+        hold(fault, kernel(v, a, wf, heads))
+    with second_ln_skipped():
+        hold("second LN skipped", kernel(v, a, w, heads))
+    log(f"  {name}: K12 with a fault vs plain (rel, must exceed {tol}): "
+        + ", ".join(f"{k} {x:.4g}" for k, x in moved.items()))
+    return moved
+
+
+def phase_clip_block_kernels(cfg):
+    """K12 and K13, float and int8, at the shapes of CLIP ViT-B/16 fusion at
+    B = 8: the block's tower from `random_clip_ave` (quantized for int8) with
+    live adapters and gates; K12 once more with each of its wiring faults."""
+    import torch
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops.common import cast_tree
+    from stgcma_tpu_torch.ops.quant import quantize_clip_tower
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    dev, bf = "cuda", torch.bfloat16
+    sfu = sfu_rate()
+    C, heads, T = cfg.embed_dim, cfg.heads, cfg.num_frames
+    Nv, Na, BT = cfg.num_patches + 1, cfg.num_patches_audio + 1, B * cfg.num_frames
+    results = {"K12": [], "K13": []}
+
+    def stream(*shape):
+        # residual streams at std 0.1, as at K4: the LNs make the inner work
+        # the same at any scale, and the block's own terms set max |plain|
+        return (torch.randn(*shape, generator=g, device=dev) * 0.1).to(bf)
+
+    for int8 in (False, True):
+        bb = random_clip_ave(cfg, SEED).backbone
+        blk = cast_tree((quantize_clip_tower(bb) if int8 else bb).resblocks[0], bf).to(dev)
+        tol = TOL_KERNEL_Q if int8 else TOL_KERNEL
+        tag = " int8" if int8 else ""
+        w = live_k4_weights(PCB.block_weights(blk), g, [k for k, _ in PCB.ADAPTERS])
+        D = w["sv_w1"].shape[0]
+        kernel, plain = ((PCB.clip_fusion_block_q, PCB.fusion_block_q_plain) if int8
+                         else (PCB.clip_fusion_block, PCB.fusion_block_plain))
+        v, a = stream(BT, Nv, C), stream(BT, Na, C)
+        name = f"K12{tag} v {(BT, Nv, C)} a {(BT, Na, C)} h{heads} D {D}"
+        args = (v, a, w, heads)
+        with torch.inference_mode():
+            row = check_kernel(name, kernel, plain, args, {},
+                               clip_block_bound(BT, Nv, Na, C, heads, D, sfu, int8),
+                               library_k12(v, a, w, heads), tol)
+            row["faults_rel"] = check_k12_faults(name, args, kernel, plain, tol)
+        results["K12"].append(row)
+        del v, a, args
+
+        kernel, plain = ((PCB.clip_tadapt_q, PCB.tadapt_q_plain) if int8
+                         else (PCB.clip_tadapt, PCB.tadapt_plain))
+        for site, adapter, R in (("video rows", blk.T_Adapter, B * Nv),
+                                 ("audio rows", blk.T_Adapter_Audio, B * Na)):
+            wt = live_k4_weights(PCB.tadapt_weights(blk.attn, blk.ln_1, adapter), g, ["ad"])
+            x = stream(R, T, C)
+            name = f"K13{tag} {site} {(R, T, C)} h{heads} D {D}"
+            with torch.inference_mode():
+                row = check_kernel(name, kernel, plain, (x, wt, heads), {},
+                                   tadapt_bound(R, T, C, heads, D, sfu, int8),
+                                   library_k13(x, wt, heads), tol)
+                # the T_Adapter is live: without it K13 returns x itself
+                moved = (kernel(x, wt, heads).float() - x.float()).abs().max().item()
+                scale = plain(x, wt, heads).float().abs().max().item()
+            if not moved > tol * scale:
+                fail(f"{name}: the T_Adapter moves x by {moved:.4g}, not beyond {tol} * "
+                     f"{scale:.4g}: the check is blind to the kernel")
+            row["adapter_moves_rel"] = moved / scale
+            results["K13"].append(row)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slices
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def clip_switches(task):
+    """The two switches of the fused CLIP block, on for a task whose name has
+    `_fused_` and off for any other (they are read at call time)."""
+    old = {k: os.environ.get(k) for k in CLIP_SWITCHES}
+    for k in CLIP_SWITCHES:
+        os.environ[k] = "1" if "_fused_" in task else "0"
+    try:
+        yield
+    finally:
+        for k, val in old.items():
+            if val is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = val
+
+
+def predict(srv, task, batch):
+    with clip_switches(task):
+        return srv.predict(task, batch)
+
 
 def drive(srv, requests, want, smi):
     """The main path of each task: every launch count set to 0 just before a
     request and read just after; B = 8 logits finite and of the expected
     shape. Returns ({kernel: launches summed over all requests}, {task:
-    clips/s})."""
+    clips/s}, {task: the last request's logits})."""
     import numpy as np
     from stgcma_tpu_torch.ops import fused_attn as FA
     totals = {k: 0 for k in KERNELS}
-    clips = {}
+    clips, last = {}, {}
     for task, (reqs, shape) in requests.items():
         times = []
         for i, req in enumerate(reqs):
             FA.reset_launches()
             t1 = time.perf_counter()
-            out = srv.predict(task, req)
+            out = predict(srv, task, req)
             times.append(time.perf_counter() - t1)
             got = launches()
             if got != want[task]:
@@ -751,11 +1015,12 @@ def drive(srv, requests, want, smi):
         steady = sorted(times[1:])
         med = steady[len(steady) // 2]
         clips[task] = B / med
+        last[task] = out
         log(f"  {task}: {len(reqs)} requests of B={B}, logits {out.shape} finite; "
             f"launches per forward {want[task]}; first request {times[0] * 1e3:.1f} ms, "
             f"median of the other {len(steady)} {med * 1e3:.2f} ms (min {steady[0] * 1e3:.2f}, "
             f"max {steady[-1] * 1e3:.2f}) = {clips[task]:.2f} clips/s on {smi}")
-    return totals, clips
+    return totals, clips, last
 
 
 def check_against_cpu(srv, cpu, one):
@@ -765,9 +1030,9 @@ def check_against_cpu(srv, cpu, one):
     cards = {}
     for task in cpu.tasks():
         t1 = time.perf_counter()
-        ref = cpu.predict(task, one)
+        ref = predict(cpu, task, one)
         cpu_s = time.perf_counter() - t1
-        got = srv.predict(task, one)
+        got = predict(srv, task, one)
         err = float(np.abs(got - ref).max())
         scale = float(np.abs(ref).max())
         if not err <= TOL_SLICE * scale:
@@ -796,20 +1061,42 @@ def live_fusion_adapters_(model, seed):
     return model
 
 
-def check_fusion_is_live(srv, cfg, model, task, one, card):
+def live_clip_adapters_(model, seed):
+    """In place: every CLIP block's six adapters (the four fusion adapters
+    and both T_Adapters) and gates drawn by `live_k4_weights`, so that the
+    exchange and the temporal adapters move the logits well beyond the
+    card-vs-CPU tolerance (`random_clip_ave` draws the gates N(0, 0.5) but
+    every adapter linear N(0, 0.02)). Returns the model."""
+    import torch
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.backbone.resblocks:
+            sets = [(PCB.block_weights(blk), [k for k, _ in PCB.ADAPTERS])]
+            sets += [(PCB.tadapt_weights(blk.attn, blk.ln_1, ad), ["ad"])
+                     for ad in (blk.T_Adapter, blk.T_Adapter_Audio)]
+            for w, keys in sets:
+                for k, t in live_k4_weights(w, g, keys).items():
+                    if t is not w[k]:
+                        w[k].copy_(t)
+    return model
+
+
+def check_fusion_is_live(srv, cfg, model, task, one, card, add=None):
     """The B = 1 check sees the exchange: the same model with every gate
-    zeroed must move the card's logits beyond the card-vs-CPU tolerance."""
+    zeroed must move the card's logits beyond the card-vs-CPU tolerance.
+    `add`: the server's method that takes the model (`srv.add_ave` if none)."""
     import copy
     import numpy as np
     import torch
     zero = copy.deepcopy(model)
     with torch.no_grad():
-        for layer in zero.backbone.layers:
-            for blk in layer.blocks:
-                blk.gate_v.zero_()
-                blk.gate_a.zero_()
-    srv.add_ave(task + "_gates0", cfg, zero)
-    moved = float(np.abs(srv.predict(task + "_gates0", one) - card).max())
+        for m in zero.modules():
+            if hasattr(m, "gate_v"):
+                m.gate_v.zero_()
+                m.gate_a.zero_()
+    (add or srv.add_ave)(task + "_gates0", cfg, zero)
+    moved = float(np.abs(predict(srv, task + "_gates0", one) - card).max())
     scale = float(np.abs(card).max())
     if not moved > TOL_SLICE * scale:
         fail(f"{task} B=1: zeroing the gates moves the card's logits by {moved:.4g}, not "
@@ -818,41 +1105,97 @@ def check_fusion_is_live(srv, cfg, model, task, one, card):
         f"({moved / scale:.4g} of max |logit|, must exceed {TOL_SLICE})")
 
 
+def clip_batch(cfg, rng, b):
+    """One request of b clips for a CLIP AVE: fbank audio and frames, fp32."""
+    import numpy as np
+    T, n = cfg.num_frames, cfg.input_resolution
+    return {"a": rng.randn(b, T, cfg.audio_tdim, cfg.audio_fdim).astype(np.float32),
+            "v": rng.randn(b, T, n, n, 3).astype(np.float32)}
+
+
 def phase_clip_slice(cfg, smi):
+    """CLIP ViT-B/16 fusion, bf16 and int8 towers, each in the default
+    configuration (K1, or K2 + K3) and in the fused-block one (K13 + K12)."""
     import numpy as np
     from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.nn.clip_vit import launches_per_forward
     from stgcma_tpu_torch.ops.quant import quantize_clip_tower
     from stgcma_tpu_torch.serving import MultiTaskServer
 
     t0 = time.perf_counter()
-    model = random_clip_ave(cfg, SEED)
-    model_q = random_clip_ave(cfg, SEED)
+    model = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED)
+    model_q = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED)
     model_q.backbone = quantize_clip_tower(model_q.backbone)
+    models = {"ave29_bf16": model, "ave29_int8": model_q,
+              "ave29_clip_fused_bf16": model, "ave29_clip_fused_int8": model_q}
     srv = MultiTaskServer(device="cuda")
-    srv.add_clip_ave("ave29_bf16", cfg, model)
-    srv.add_clip_ave("ave29_int8", cfg, model_q)
-    log(f"  set-up: random weights, int8 tower, server on the card: "
-        f"{time.perf_counter() - t0:.1f} s; tasks {srv.tasks()}")
+    cpu = MultiTaskServer(device="cpu")
+    for task, m in models.items():
+        srv.add_clip_ave(task, cfg, m)
+        cpu.add_clip_ave(task, cfg, m)
+    log(f"  set-up: random weights with live adapters and gates, int8 tower, server on the "
+        f"card: {time.perf_counter() - t0:.1f} s; tasks {srv.tasks()}")
 
     rng = np.random.RandomState(SEED)
 
     def batch(b):
-        return {"a": rng.randn(b, cfg.num_frames, cfg.audio_tdim, cfg.audio_fdim).astype(np.float32),
-                "v": rng.randn(b, cfg.num_frames, cfg.input_resolution,
-                               cfg.input_resolution, 3).astype(np.float32)}
+        return clip_batch(cfg, rng, b)
 
     shape = (B * cfg.num_frames, cfg.label_dim)
-    requests = {task: ([batch(B) for _ in range(4)], shape) for task in srv.tasks()}
+    reqs = [batch(B) for _ in range(4)]          # the same requests for every task
+    requests = {task: (reqs, shape) for task in models}
     # 4 attention sites (temporal/spatial x video/audio) and 2 FFNs a block:
-    # 48 K1, or 48 K2 + 24 K3, a forward at 12 layers
+    # 48 K1, or 48 K2 + 24 K3, a forward at 12 layers; fused: the 2 temporal
+    # stages in K13 and the rest of the block in K12, and no K1, K2 or K3
     L = cfg.layers
     none = {k: 0 for k in KERNELS}
     want = {"ave29_bf16": {**none, "K1": 4 * L},
-            "ave29_int8": {**none, "K2": 4 * L, "K3": 2 * L}}
-    totals, clips = drive(srv, requests, want, smi)
-    cpu = MultiTaskServer(device="cpu")
-    cpu.add_clip_ave("ave29_bf16", cfg, model)
-    cpu.add_clip_ave("ave29_int8", cfg, model_q)
+            "ave29_int8": {**none, "K2": 4 * L, "K3": 2 * L},
+            "ave29_clip_fused_bf16": {**none, "K13": 2 * L, "K12": L},
+            "ave29_clip_fused_int8": {**none, "K13": 2 * L, "K12": L}}
+    for task, w in want.items():                 # the policy functions say the same
+        with clip_switches(task):
+            derived = launches_per_forward(cfg, quantized=task.endswith("int8"))
+        if {k: n for k, n in w.items() if n} != derived:
+            fail(f"{task}: launches_per_forward gives {derived}, expected {w}")
+    totals, clips, last = drive(srv, requests, want, smi)
+    for tower in ("bf16", "int8"):               # card vs card: fused against unfused
+        ref, got = last[f"ave29_{tower}"], last[f"ave29_clip_fused_{tower}"]
+        err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        if not err <= TOL_FUSED * scale:
+            fail(f"ave29_clip_fused_{tower} B={B}: max |fused - unfused| = {err:.4g} > "
+                 f"{TOL_FUSED} * {scale:.4g}")
+        log(f"  ave29_clip_fused_{tower} B={B} fused vs unfused on the card: max_abs_err "
+            f"{err:.4g} (max |unfused| {scale:.4g}, tol {TOL_FUSED} rel); "
+            f"{clips[f'ave29_clip_fused_{tower}']:.2f} against {clips[f'ave29_{tower}']:.2f} "
+            f"clips/s")
+    one = batch(1)
+    cards = check_against_cpu(srv, cpu, one)
+    for task, m in models.items():
+        check_fusion_is_live(srv, cfg, m, task, one, cards[task], add=srv.add_clip_ave)
+    return totals, clips
+
+
+def phase_clip_multimodal_slice(cfg, smi):
+    """CLIP ViT-B/16 in `multimodal` mode (two streams, no exchange) at full
+    width, bf16, depth cut to `cfg.layers`: K1 at the temporal and spatial
+    site of each stream, none of K12/K13; B = 1 card vs CPU."""
+    import numpy as np
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.serving import MultiTaskServer
+    task = "ave29_clip_mm_bf16"
+    model = random_clip_ave(cfg, SEED)
+    srv, cpu = MultiTaskServer(device="cuda"), MultiTaskServer(device="cpu")
+    srv.add_clip_ave(task, cfg, model)
+    cpu.add_clip_ave(task, cfg, model)
+    rng = np.random.RandomState(SEED)
+
+    def batch(b):
+        return clip_batch(cfg, rng, b)
+
+    requests = {task: ([batch(B) for _ in range(3)], (B * cfg.num_frames, cfg.label_dim))}
+    want = {task: {**{k: 0 for k in KERNELS}, "K1": 4 * cfg.layers}}
+    totals, clips, _ = drive(srv, requests, want, smi)
     check_against_cpu(srv, cpu, batch(1))
     return totals, clips
 
@@ -883,7 +1226,7 @@ def phase_swin_slice(cfg, smi, int8=False):
 
     requests = {task: ([batch(B) for _ in range(4)], (B * cfg.num_ttokens, cfg.label_dim))}
     want = {task: {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B, quantized=int8)}}
-    totals, clips = drive(srv, requests, want, smi)
+    totals, clips, _ = drive(srv, requests, want, smi)
     cpu = MultiTaskServer(device="cpu")
     cpu.add_ave(task, cfg, model)
     one = batch(1)
@@ -909,6 +1252,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions: true fp32
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     smi = smi_line()
     log(f"[1/4] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)} "
@@ -931,16 +1275,22 @@ def main():
     swin_cfg = swin_base(ftmode="multimodal", label_dim=29)
     fusion_cfg = swin_base(ftmode="fusion", label_dim=29)
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel, "
-        f"{TOL_KERNEL_Q} for K4's int8 variant)")
+        f"{TOL_KERNEL_Q} for the int8 variants of K4, K12 and K13)")
     results = phase_kernels(cfg)
     for phase in (phase_swin_kernels(swin_cfg), phase_fusion_kernels(fusion_cfg),
-                  phase_int8_swin_kernels(fusion_cfg)):
+                  phase_int8_swin_kernels(fusion_cfg), phase_clip_block_kernels(cfg)):
         for k, rows in phase.items():
             results.setdefault(k, []).extend(rows)
 
     log(f"[4/4] slice: CLIP ViT-B/16 fusion AVE-29, {cfg.layers} layers, C={cfg.embed_dim}, "
-        f"T={cfg.num_frames}, bf16 and int8 towers")
+        f"T={cfg.num_frames}, bf16 and int8 towers, default and fused-block configurations")
     totals, clips = phase_clip_slice(cfg, smi)
+    mm_cfg = dataclasses.replace(cfg, ftmode="multimodal", layers=2)
+    log(f"[4/4] slice: CLIP ViT-B/16 multimodal AVE-29, depth cut to {mm_cfg.layers} layers, "
+        f"C={mm_cfg.embed_dim}, bf16")
+    mm_totals, mm_clips = phase_clip_multimodal_slice(mm_cfg, smi)
+    clips.update(mm_clips)
+    totals = {k: totals[k] + mm_totals[k] for k in KERNELS}
     for scfg, int8 in ((swin_cfg, False), (fusion_cfg, False), (fusion_cfg, True)):
         log(f"[4/4] slice: Swin-Base {scfg.ftmode} AVE-29, depths {scfg.depths}, "
             f"C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, "
@@ -962,6 +1312,7 @@ def main():
                         "replaces": replaces, "launches": launches, **head,
                         "shapes": rows})
     log("clips/s: " + ", ".join(f"{t} {c:.2f}" for t, c in clips.items()) + f" on {smi}")
+    log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

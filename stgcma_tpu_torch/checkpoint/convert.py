@@ -56,8 +56,10 @@ def params_from_jax(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def clip_ave_from_jax(cfg: ClipConfig, tree: Any, device="cuda") -> ClipAVE:
-    """A ClipAVE holding the JAX tree's weights (float, or an int8 tower made
-    by the JAX `quantize_clip_tower`)."""
+    """A ClipAVE of cfg.ftmode holding the JAX tree's weights (float, or an
+    int8 tower made by the JAX `quantize_clip_tower`). Loads strictly: the
+    tree of each mode has that mode's adapters only, and the single-stream
+    modes the `ln`/`fc` head in place of `fc1`/`fc2`."""
     device = resolve_device(device)
     state = params_from_jax(tree)
     model = ClipAVE(cfg)

@@ -1,4 +1,4 @@
-// Bidirectional gated cross-modal fusion (the STG-CMA exchange) of K4, K5 and K6:
+// Bidirectional gated cross-modal fusion (the STG-CMA exchange) of K4, K5, K6 and K12:
 //   vo = vh + bf16(gv * softmax(vh . ah^T + mask) . ah)
 //   ao = ah + bf16(ga * softmax(ah . vh^T + mask^T) . vh)
 // per batch row b, with unscaled fp32 logits and an optional additive mask (Nv, Na).
@@ -8,7 +8,10 @@
 // (:1103) and _bidir_fuse_kernel (:1051: the full stage grid, N = 3136 or 784),
 // and the two _fuse calls inside K4 _swin_block_kernel
 // (stgcma_tpu/ops/pallas_swin_block.py:354: N = 196 with the -1e30 per-window
-// fuse mask, N = 49 unmasked).
+// fuse mask, N = 49 unmasked), and the two _xfuse calls inside K12
+// _fusion_block_kernel (stgcma_tpu/ops/pallas_clip_block.py:141: Nv = 197
+// video against Na = 49 audio tokens, D = 48, unmasked, without its pad to
+// multiples of 16 and the pad keys' mask).
 // The TPU kernels hold the whole (Nv, Na) fp32 gram on chip (39 MB at stage 0).
 // An H100 block has at most 227 KB of shared memory, so this kernel tiles
 // both directions flash-style: a block owns 64 query rows of one direction
@@ -33,7 +36,7 @@
 // products, as attn.cu; one warp owns 16 query rows, 4 warps a block; the
 // key tile sits in shared memory as K (keys x D) and V^T (D x keys), the
 // probabilities' accumulator fragments are reused as the A operand of p.v.
-// D in {16, 32, 64}; any Nv, Na >= 1.
+// D in {16, 32, 48, 64}; any Nv, Na >= 1.
 #include <math.h>
 
 #include "common.cuh"
@@ -240,7 +243,7 @@ int launch(const Dir& d0, const Dir& d1, const float* mask, int B, cudaStream_t 
 
 // vh (B, Nv, D), ah (B, Na, D), vo/ao likewise, all bf16 and contiguous; gv, ga: (1,)
 // bf16; mask: nullable (Nv, Na) fp32, added to the (Nv, Na) gram in both directions.
-// D in {16, 32, 64}; B <= 65535.
+// D in {16, 32, 48, 64}; B <= 65535.
 STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const void* ga,
                            const void* mask, void* vo, void* ao, int B, int Nv, int Na, int D,
                            cudaStream_t stream) {
@@ -252,6 +255,7 @@ STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const
   const float* m = static_cast<const float*>(mask);
   if (D == 16) return launch<16>(d0, d1, m, B, stream);
   if (D == 32) return launch<32>(d0, d1, m, B, stream);
+  if (D == 48) return launch<48>(d0, d1, m, B, stream);
   if (D == 64) return launch<64>(d0, d1, m, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

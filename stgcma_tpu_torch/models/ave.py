@@ -1,9 +1,11 @@
 """AVE-29 audio-visual event localization, CLIP and Swin flavors.
 
-Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) in
-`fusion` mode and the Swin half (:44-62) in `multimodal` and `fusion` modes,
-float or int8 towers, each with the dual MLP head Linear(2C, 512) ->
-Linear(512, label_dim), without dropout (serving). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
+Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) in its
+four ftmodes and the Swin half (:44-62) in `multimodal` and `fusion` modes,
+float or int8 towers. The two-stream modes carry the dual MLP head
+Linear(2C, 512) -> Linear(512, label_dim), without dropout (serving); CLIP's
+`videoonly` and `audioonly` the single-stream head LayerNorm(C) -> Linear(C,
+label_dim). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
 224, 224, 3) -> logits (B*T, label_dim).
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from torch import nn
 from ..configs import ClipConfig, SwinConfig
 from ..nn import swin
 from ..nn.clip_vit import ClipBackbone, clip_backbone_apply, init_clip_backbone_
-from ..ops.common import LayerNorm, Linear, linear, resolve_device
+from ..ops.common import LayerNorm, Linear, layernorm, linear, resolve_device
 from ..ops.quant import quantize_swin_tower
 
 
@@ -25,11 +27,28 @@ class MlpHead(nn.Module):
         self.fc2 = Linear(512, label_dim)
 
 
+class SingleHead(nn.Module):
+    """The single-stream head (`_mlp_head_init(dual=False)` :27)."""
+
+    def __init__(self, in_dim: int, label_dim: int):
+        super().__init__()
+        self.ln = LayerNorm(in_dim)
+        self.fc = Linear(in_dim, label_dim)
+
+
+def mlp_head_apply(head, x):
+    """`_mlp_head_apply` (:30) without dropout: fc2(fc1(x)), or fc(ln(x))."""
+    if isinstance(head, MlpHead):
+        return linear(head.fc2, linear(head.fc1, x))
+    return linear(head.fc, layernorm(head.ln, x))
+
+
 class ClipAVE(nn.Module):
     def __init__(self, cfg: ClipConfig):
         super().__init__()
         self.backbone = ClipBackbone(cfg)
-        self.mlp_head = MlpHead(cfg.embed_dim, cfg.label_dim)
+        dual = cfg.ftmode in ("multimodal", "fusion")
+        self.mlp_head = (MlpHead if dual else SingleHead)(cfg.embed_dim, cfg.label_dim)
 
 
 def init_clip_ave(cfg: ClipConfig, generator: torch.Generator = None,
@@ -41,24 +60,33 @@ def init_clip_ave(cfg: ClipConfig, generator: torch.Generator = None,
     model = ClipAVE(cfg)
     init_clip_backbone_(model.backbone, cfg, g)
     with torch.no_grad():
-        for lin in (model.mlp_head.fc1, model.mlp_head.fc2):
-            nn.init.trunc_normal_(lin.weight, std=0.02, a=-0.04, b=0.04, generator=g)
+        for lin in model.mlp_head.children():
+            if isinstance(lin, Linear):
+                nn.init.trunc_normal_(lin.weight, std=0.02, a=-0.04, b=0.04, generator=g)
     return model.to(device)
 
 
-def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a, v):
-    """Forward in fusion mode. Returns logits (B*T, label_dim)."""
+def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a=None, v=None):
+    """Forward in cfg.ftmode: the class-token features of the mode's streams,
+    concatenated as (a, v) in the two-stream modes, through the head
+    (`apply_clip_ave` :76). `videoonly` needs no a, `audioonly` no v. Returns
+    logits (B*T, label_dim)."""
     feats = clip_backbone_apply(model.backbone, cfg, a=a, v=v)
-    pooled = torch.cat([feats["a"], feats["v"]], dim=-1)
-    return linear(model.mlp_head.fc2, linear(model.mlp_head.fc1, pooled))
+    if cfg.ftmode == "videoonly":
+        pooled = feats["v"]
+    elif cfg.ftmode == "audioonly":
+        pooled = feats["a"]
+    else:
+        pooled = torch.cat([feats["a"], feats["v"]], dim=-1)
+    return mlp_head_apply(model.mlp_head, pooled)
 
 
 def random_clip_ave(cfg: ClipConfig, seed: int) -> ClipAVE:
-    """A ClipAVE on the CPU with every leaf drawn from one seeded generator,
-    for smoke runs and measurements: linears N(0, 0.02), LayerNorm weights
-    1 + N(0, 0.1), gates N(0, 0.5), embeddings N(0, C^-1/2), patch convs
-    uniform(+-1/sqrt(fan_in)). Unlike the training init, the gates and the
-    adapters' D_fc2 are non-zero, so fusion and adapters are live."""
+    """A ClipAVE of cfg.ftmode on the CPU with every leaf drawn from one seeded
+    generator, for smoke runs and measurements: linears N(0, 0.02), LayerNorm
+    weights 1 + N(0, 0.1), gates N(0, 0.5), embeddings N(0, C^-1/2), patch
+    convs uniform(+-1/sqrt(fan_in)). Unlike the training init, the gates and
+    the adapters' D_fc2 are non-zero, so fusion and adapters are live."""
     g = torch.Generator().manual_seed(seed)
     model = ClipAVE(cfg)
     with torch.no_grad():
@@ -71,7 +99,7 @@ def random_clip_ave(cfg: ClipConfig, seed: int) -> ClipAVE:
                 p.normal_(0.0, cfg.embed_dim ** -0.5, generator=g)
             elif leaf in ("gate_v", "gate_a"):
                 p.normal_(0.0, 0.5, generator=g)
-            elif ".ln_" in f".{name}" and leaf == "weight":
+            elif (".ln_" in f".{name}" or name == "mlp_head.ln.weight") and leaf == "weight":
                 p.normal_(1.0, 0.1, generator=g)
             else:
                 p.normal_(0.0, 0.02, generator=g)
@@ -124,7 +152,7 @@ def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a, v):
     to the head. Returns logits (B*T, label_dim)."""
     feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
     pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
-    return linear(model.mlp_head.fc2, linear(model.mlp_head.fc1, pooled))
+    return mlp_head_apply(model.mlp_head, pooled)
 
 
 def random_swin_ave(cfg: SwinConfig, seed: int, int8: bool = False) -> SwinAVE:

@@ -1,17 +1,28 @@
 """CLIP visual tower with ST-adapters + STG-CMA token-level fusion.
 
-Port of `stgcma_tpu/nn/clip_vit.py` in `fusion` mode (the main path):
-`_embed`, the default branch of `_t_adapt`, `_attn_ln`, `_ffn_clip`, the
-non-`qf` branch of `_fusion`, `_ln_post_cls` and `clip_backbone_apply`.
-The modules below only hold parameters, named as the JAX tree's keys; the
-functions read them. Tokens are batch-first (BT, N, C). The attention at
-both sites goes through K1 (float tower) or K2 (int8 tower), the int8 FFN
-through K3 (ops/fused_attn.py). Unlike the TPU path there is no resident
-pad: the video stream keeps its 197 tokens.
+Port of `stgcma_tpu/nn/clip_vit.py` in its four ftmodes (`fusion`, the main
+path, `multimodal`, `videoonly`, `audioonly`): `_embed`, `_t_adapt`,
+`_attn_ln`, `_ffn_clip`, `_single`, `_fusion`, `clip_block_apply`,
+`_ln_post_cls` and `clip_backbone_apply`, with the JAX routing in the JAX
+order. The modules below only hold parameters, named as the JAX tree's keys;
+the functions read them. Tokens are batch-first (BT, N, C).
+
+By default the attention at both sites goes through K1 (float tower) or K2
+(int8 tower) and the int8 FFN through K3 (ops/fused_attn.py). Two switches of
+the JAX package, read at call time and off by default, select the fused
+block of ops/clip_block.py: `STGCMA_CLIP_TADAPT_FUSED=1` takes the temporal
+stage with its T_Adapter in K13, `STGCMA_CLIP_WHOLE_BLOCK=1` everything after
+it in K12 (`fusion` mode only), so that a block is three kernels. Unlike the
+JAX package on the CPU, the port takes these entry points on the CPU too and
+runs their plain versions there, as every other kernel of the port does. The
+int8 adapter-fused kernels (`STGCMA_QFUSE_ADAPTERS=1`) and the transpose-free
+temporal kernel (`STGCMA_TV2=1`) are not ported and raise. Unlike the TPU
+path there is no resident pad: the video stream keeps its 197 tokens.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict
 
 import torch
@@ -21,7 +32,8 @@ from ..configs import ClipConfig
 from ..ops.attention import cross_modal_fuse
 from ..ops.common import LayerNorm, Linear, layernorm, linear, quick_gelu
 from ..ops.conv import conv2d
-from ..ops.fused_attn import clip_attention_block, ffn_q_megakernel
+from ..ops.clip_block import clip_fusion_spatial_block, clip_temporal_adapt_block
+from ..ops.fused_attn import BLOCK_KERNEL_MAX_HEADS, clip_attention_block, ffn_q_megakernel
 from .adapters import Adapter, adapter_apply, adapter_hidden, adapter_out
 
 
@@ -39,11 +51,29 @@ class Mlp(nn.Module):
         self.c_proj = Linear(4 * d, d)
 
 
-class ClipBlock(nn.Module):
-    """One fusion-mode resblock: the frozen CLIP block plus both streams'
-    adapters and the two fusion gates."""
+# ftmode -> block mode (`clip_vit.py:25`)
+MODES = {"videoonly": "video_adapt", "audioonly": "audio_adapt",
+         "multimodal": "multimodal_adapt_no_fusion", "fusion": "fusion_adapt"}
+ADAPTER_KINDS = ("S_Adapter", "T_Adapter", "MLP_Adapter")
+TADAPT_MAX_FRAMES = 16                # K13 (and the unported K14) at T <= 16 (`clip_vit.py:139`)
 
-    def __init__(self, cfg: ClipConfig):
+
+def adapter_names(mode: str):
+    """The adapters a block of `mode` holds (`clip_block_init` :50-59): the
+    video ones unless the mode is audio-only, the `_Audio` ones unless it is
+    video-only."""
+    if mode not in MODES.values():
+        raise ValueError(f"unknown CLIP block mode {mode!r}")
+    video = [] if mode == "audio_adapt" else list(ADAPTER_KINDS)
+    audio = [] if mode == "video_adapt" else [k + "_Audio" for k in ADAPTER_KINDS]
+    return tuple(video + audio)
+
+
+class ClipBlock(nn.Module):
+    """One resblock: the frozen CLIP block, the adapters of its mode and the
+    two fusion gates (held in every mode, as in the JAX tree)."""
+
+    def __init__(self, cfg: ClipConfig, mode: str = "fusion_adapt"):
         super().__init__()
         d, r = cfg.embed_dim, cfg.adapter_ratio
         self.ln_1 = LayerNorm(d)
@@ -52,8 +82,7 @@ class ClipBlock(nn.Module):
         self.mlp = Mlp(d)
         self.gate_v = nn.Parameter(torch.zeros(1))
         self.gate_a = nn.Parameter(torch.zeros(1))
-        for name in ("S_Adapter", "T_Adapter", "MLP_Adapter", "S_Adapter_Audio",
-                     "T_Adapter_Audio", "MLP_Adapter_Audio"):
+        for name in adapter_names(mode):
             setattr(self, name, Adapter(d, r))
 
 
@@ -68,9 +97,8 @@ class PatchConv(nn.Module):
 class ClipBackbone(nn.Module):
     def __init__(self, cfg: ClipConfig):
         super().__init__()
-        if cfg.ftmode != "fusion":
-            raise NotImplementedError(
-                f"ftmode {cfg.ftmode!r}: the port runs 'fusion' only so far")
+        if cfg.ftmode not in MODES:
+            raise ValueError(f"unknown CLIP ftmode {cfg.ftmode!r}; one of {sorted(MODES)}")
         d, T = cfg.embed_dim, cfg.num_frames
         self.conv1 = PatchConv(3, d, cfg.patch_size)
         self.conv1_audio = PatchConv(1, d, cfg.patch_size)
@@ -82,7 +110,8 @@ class ClipBackbone(nn.Module):
         self.temporal_embedding_audio = nn.Parameter(torch.zeros(1, T, d))
         self.ln_pre = LayerNorm(d)
         self.ln_post = LayerNorm(d)
-        self.resblocks = nn.ModuleList(ClipBlock(cfg) for _ in range(cfg.layers))
+        self.resblocks = nn.ModuleList(ClipBlock(cfg, MODES[cfg.ftmode])
+                                       for _ in range(cfg.layers))
 
 
 def init_clip_backbone_(bb: ClipBackbone, cfg: ClipConfig, g: torch.Generator):
@@ -103,8 +132,7 @@ def init_clip_backbone_(bb: ClipBackbone, cfg: ClipConfig, g: torch.Generator):
                 nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04,
                                       generator=g)
         for blk in bb.resblocks:
-            for name in ("S_Adapter", "T_Adapter", "MLP_Adapter", "S_Adapter_Audio",
-                         "T_Adapter_Audio", "MLP_Adapter_Audio"):
+            for name in adapter_names(MODES[cfg.ftmode]):
                 getattr(blk, name).D_fc2.weight.zero_()
 
 
@@ -127,14 +155,47 @@ def _embed(bb: ClipBackbone, x, conv: PatchConv, pos, t_emb, cfg: ClipConfig):
     return layernorm(bb.ln_pre, y.reshape(BT, N, D))
 
 
+def clip_tadapt_fused_enabled() -> bool:
+    """`STGCMA_CLIP_TADAPT_FUSED=1`: the temporal stage in K13 (off by default,
+    `clip_vit.py:154`). Read at call time."""
+    return os.environ.get("STGCMA_CLIP_TADAPT_FUSED", "0") == "1"
+
+
+def clip_whole_block_enabled() -> bool:
+    """`STGCMA_CLIP_WHOLE_BLOCK=1`: everything after the temporal stage of a
+    fusion block in K12 (off by default, `clip_vit.py:210`). Read at call time."""
+    return os.environ.get("STGCMA_CLIP_WHOLE_BLOCK", "0") == "1"
+
+
+def _refuse_unported_opt_ins(blk: ClipBlock, heads: int, T: int):
+    """The JAX package's opt-in routes through kernels that are not ported
+    raise, where JAX would take them (`clip_vit.py:106-116`, :126, :139-148)."""
+    if heads > BLOCK_KERNEL_MAX_HEADS:
+        return
+    if blk.attn.in_proj.quantized and os.environ.get("STGCMA_QFUSE_ADAPTERS", "0") == "1":
+        raise NotImplementedError(
+            "STGCMA_QFUSE_ADAPTERS=1 takes the int8 adapter-fused kernels K11, which are not "
+            "ported yet (ROADMAP.md, section 2)")
+    if T <= TADAPT_MAX_FRAMES and os.environ.get("STGCMA_TV2", "0") == "1":
+        raise NotImplementedError(
+            "STGCMA_TV2=1 takes the transpose-free temporal kernel K14, which is not ported "
+            "yet (ROADMAP.md, section 2)")
+
+
 def _t_adapt(blk: ClipBlock, x, heads: int, T: int, adapter: Adapter):
     """Temporal adaptation: attention over the frame axis + no-skip
-    T_Adapter + residual. x: (B*T, N, C)."""
+    T_Adapter + residual, in K13 when `clip_tadapt_fused_enabled()` (<= 16
+    heads and frames), else K1/K2 and the adapter in torch. x: (B*T, N, C)."""
     BT, N, C = x.shape
     B = BT // T
+    _refuse_unported_opt_ins(blk, heads, T)
     xt = x.reshape(B, T, N, C).transpose(1, 2).reshape(B * N, T, C).contiguous()
-    attn_out = clip_attention_block(blk.attn, blk.ln_1, xt, heads)
-    xt = xt + adapter_apply(adapter, attn_out, skip=False)
+    if (clip_tadapt_fused_enabled() and heads <= BLOCK_KERNEL_MAX_HEADS
+            and T <= TADAPT_MAX_FRAMES):
+        xt = clip_temporal_adapt_block(blk.attn, blk.ln_1, adapter, xt, heads)
+    else:
+        attn_out = clip_attention_block(blk.attn, blk.ln_1, xt, heads)
+        xt = xt + adapter_apply(adapter, attn_out, skip=False)
     return xt.reshape(B, N, T, C).transpose(1, 2).reshape(BT, N, C).contiguous()
 
 
@@ -145,11 +206,27 @@ def _ffn_clip(blk: ClipBlock, x):
     return linear(blk.mlp.c_proj, quick_gelu(linear(blk.mlp.c_fc, layernorm(blk.ln_2, x))))
 
 
+def _single(blk: ClipBlock, x, cfg: ClipConfig, sfx: str):
+    """video_adapt / audio_adapt (`clip_vit.py:178-197`, without the `qf`
+    branch): one stream through the temporal stage, the spatial attention with
+    its skip adapter and the FFN with its no-skip adapter. sfx: "" or "_Audio"."""
+    h = cfg.heads
+    x = _t_adapt(blk, x, h, cfg.num_frames, getattr(blk, "T_Adapter" + sfx))
+    x = x + adapter_apply(getattr(blk, "S_Adapter" + sfx),
+                          clip_attention_block(blk.attn, blk.ln_1, x, h), skip=True)
+    xn = _ffn_clip(blk, x)
+    return x + xn + adapter_apply(getattr(blk, "MLP_Adapter" + sfx), xn, skip=False)
+
+
 def _fusion(blk: ClipBlock, v, a, cfg: ClipConfig):
-    """fusion_adapt — token-level STG-CMA (CLIP_AVE.py:359-430)."""
+    """fusion_adapt — token-level STG-CMA (CLIP_AVE.py:359-430). After the
+    temporal stage, K12 when `clip_whole_block_enabled()` (<= 16 heads)."""
     h = cfg.heads
     v = _t_adapt(blk, v, h, cfg.num_frames, blk.T_Adapter)
     a = _t_adapt(blk, a, h, cfg.num_frames, blk.T_Adapter_Audio)
+
+    if clip_whole_block_enabled() and h <= BLOCK_KERNEL_MAX_HEADS:
+        return clip_fusion_spatial_block(blk, v, a, h)
 
     vs = clip_attention_block(blk.attn, blk.ln_1, v, h)
     a_s = clip_attention_block(blk.attn, blk.ln_1, a, h)
@@ -169,13 +246,51 @@ def _fusion(blk: ClipBlock, v, a, cfg: ClipConfig):
     return v, a
 
 
-def clip_backbone_apply(bb: ClipBackbone, cfg: ClipConfig, a, v) -> Dict[str, torch.Tensor]:
-    """Per-stream class-token features (BT, D) after ln_post.
-    v: (B, T, H, W, 3); a: (B, T, La, Fa) fbank."""
-    vt = _embed(bb, v, bb.conv1, bb.positional_embedding, bb.temporal_embedding, cfg)
-    at = _embed(bb, a[..., None], bb.conv1_audio, bb.positional_embedding_audio,
-                bb.temporal_embedding_audio, cfg)
+def clip_block_apply(blk: ClipBlock, x, cfg: ClipConfig, mode: str):
+    """One block in `mode` (`clip_vit.py:259-269`); x is one stream's tokens,
+    or the pair (v, a) in the two-stream modes."""
+    if mode == "video_adapt":
+        return _single(blk, x, cfg, "")
+    if mode == "audio_adapt":
+        return _single(blk, x, cfg, "_Audio")
+    if mode == "multimodal_adapt_no_fusion":
+        return _single(blk, x[0], cfg, ""), _single(blk, x[1], cfg, "_Audio")
+    if mode == "fusion_adapt":
+        return _fusion(blk, x[0], x[1], cfg)
+    raise ValueError(mode)
+
+
+def launches_per_forward(cfg: ClipConfig, quantized: bool = False) -> Dict[str, int]:
+    """{kernel id: launches} of one forward of `cfg` under the switches as
+    they are now (ids with no launch left out): per block and stream one
+    temporal and one spatial attention site and, for an int8 tower, one FFN
+    site; K13 takes the temporal sites and K12 a whole fusion block's rest."""
+    streams = 1 if cfg.ftmode in ("videoonly", "audioonly") else 2
+    kernel_ok = cfg.heads <= BLOCK_KERNEL_MAX_HEADS
+    tadapt = clip_tadapt_fused_enabled() and kernel_ok and cfg.num_frames <= TADAPT_MAX_FRAMES
+    whole = clip_whole_block_enabled() and kernel_ok and cfg.ftmode == "fusion"
+    sites = streams * cfg.layers
+    attn = (0 if tadapt else sites) + (0 if whole else sites)
+    out = {"K2" if quantized else "K1": attn, "K3": sites if quantized and not whole else 0,
+           "K12": cfg.layers if whole else 0, "K13": sites if tadapt else 0}
+    return {k: n for k, n in out.items() if n}
+
+
+def clip_backbone_apply(bb: ClipBackbone, cfg: ClipConfig, a=None, v=None
+                        ) -> Dict[str, torch.Tensor]:
+    """Per-stream class-token features (BT, D) after ln_post, for the streams
+    of cfg.ftmode. v: (B, T, H, W, 3); a: (B, T, La, Fa) fbank."""
+    mode = MODES[cfg.ftmode]
+    streams = {}
+    if cfg.ftmode != "audioonly":
+        streams["v"] = _embed(bb, v, bb.conv1, bb.positional_embedding, bb.temporal_embedding,
+                              cfg)
+    if cfg.ftmode != "videoonly":
+        streams["a"] = _embed(bb, a[..., None], bb.conv1_audio, bb.positional_embedding_audio,
+                              bb.temporal_embedding_audio, cfg)
+    x = tuple(streams.values()) if len(streams) == 2 else next(iter(streams.values()))
     for blk in bb.resblocks:
-        vt, at = _fusion(blk, vt, at, cfg)
+        x = clip_block_apply(blk, x, cfg, mode)
     # LayerNorm is per token, so normalizing the class token alone is exact
-    return {"v": layernorm(bb.ln_post, vt[:, 0]), "a": layernorm(bb.ln_post, at[:, 0])}
+    outs = x if isinstance(x, tuple) else (x,)
+    return {k: layernorm(bb.ln_post, t[:, 0]) for k, t in zip(streams, outs)}

@@ -36,9 +36,10 @@ SIGNATURES = {
     },
     "gemm.cu": {
         # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU,
-        # 5: + bias -> bf16 -> erf-GELU), stream
+        # 5: + bias -> bf16 -> erf-GELU, 7: + bias -> QuickGELU), stream
         "stg_gemm_bf16": [P, P, P, P, I, I, I, I, P],
-        # A, W, bias, R1, R2, C, M, N, K, stream: C = bf16(bf16(R1 + R2) + bf16(A.W^T + b))
+        # A, W, bias, R1, R2 (nullable), C, M, N, K, stream: C = bf16(bf16(R1 + R2) +
+        # bf16(A.W^T + b)), or bf16(R1 + bf16(A.W^T + b)) without R2
         "stg_gemm_bf16_res2": [P, P, P, P, P, P, I, I, I, P],
         # A, sa, W, ws, bias, C, M, N, K, epilogue, stream
         "stg_gemm_s8": [P, P, P, P, P, P, I, I, I, I, P],

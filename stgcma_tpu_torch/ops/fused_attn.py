@@ -55,6 +55,7 @@ from .common import linear
 _QUICK_GELU, _GELU = "quick_gelu", "gelu"
 _EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
 _EPI_BF16, _EPI_Q_BF16, _EPI_BF16_GELU, _EPI_BF16_RGELU = 0, 1, 4, 5
+_EPI_BF16_QUICKGELU = 7               # K12's float fc1: QuickGELU in fp32, one rounding
 _LN_EPS = 1e-5                        # the TPU kernels' LayerNorm eps
 
 # Swin routing thresholds of the JAX package
@@ -63,6 +64,7 @@ LN_KERNEL_MIN_ELEMS = 1 << 20         # K9 at >= 2^20 elements (pallas_attn.py:8
 FFN_KERNEL_MIN_HIDDEN_BYTES = 96 << 20   # K7 when the hidden is >= 96 MiB (swin.py:204-210)
 FLASH_MIN_TOKENS = 120                # K6 from 120 tokens (pallas_attn.py:1023)
 FLASH_MAX_KEY_BYTES = 16 << 20        # K6 while Na * D * 4 <= 16 MiB, else K10 (:1033-1034)
+FUSE_WIDTHS = (16, 32, 48, 64)        # adapter widths D that csrc/fuse.cu instantiates
 
 
 # ---------------------------------------------------------------------------
@@ -251,11 +253,13 @@ def _gemm_s8(a, sa, wq, ws, bias, out, epi, s):
         M, wq.shape[0], K, epi, s))
 
 
-def _attn_core(qkv, bias, heads, s):
+def _attn_core(qkv, bias, heads, s, out=None):
+    """The attention core over a packed qkv (B_, N, 3C) into merged heads
+    (B_, N, C) (`out`, contiguous bf16, when given)."""
     B_, N, C3 = qkv.shape
     C = C3 // 3
     dh = C // heads
-    o = torch.empty((B_, N, C), dtype=torch.bfloat16, device=qkv.device)
+    o = torch.empty((B_, N, C), dtype=torch.bfloat16, device=qkv.device) if out is None else out
     scale = float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
     nWb = 1 if bias is None else bias.shape[0]
     cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_core(
@@ -440,8 +444,8 @@ def _fuse_cuda(vh, ah, gate_v, gate_a, mask=None):
         shapes["mask"] = (mask, (Nv, Na))
     _check_cuda(vh, named)
     _check_shapes(shapes)
-    if D not in (16, 32, 64) or B > 65535:
-        raise ValueError(f"the fusion kernel takes D in (16, 32, 64) and B <= 65535, got "
+    if D not in FUSE_WIDTHS or B > 65535:
+        raise ValueError(f"the fusion kernel takes D in {FUSE_WIDTHS} and B <= 65535, got "
                          f"B={B}, D={D}")
     vo, ao = torch.empty_like(vh), torch.empty_like(ah)
     cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_fuse_bidir(

@@ -34,10 +34,10 @@ import torch
 
 from . import cuda_lib
 from .attention import gather_bias
-from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU, _Kernel,
-                         _attn_core, _check_cuda, _check_shapes, _erf_gelu, _fuse_cuda,
-                         _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32, _ptr,
-                         _quant_rows, _stream, dotq, fuse_plain)
+from .fused_attn import (FUSE_WIDTHS, _EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU,
+                         _Kernel, _attn_core, _check_cuda, _check_shapes, _erf_gelu,
+                         _fuse_cuda, _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
+                         _ptr, _quant_rows, _stream, dotq, fuse_plain)
 from .window import relative_position_index
 
 WHOLE_BLOCK_MAX_GRID = 256            # K4 for grids of <= 256 tokens (pallas_swin_block.py:587)
@@ -106,6 +106,26 @@ TOWER = (("w_qkv", "s_qkv", "b_qkv"), ("w_proj", "s_proj", "b_proj"),
          ("w1", "s1", "b1"), ("w2", "s2", "b2"))
 
 
+def tower_weights(w: dict, linears) -> dict:
+    """Add the tower products' operands to w under TOWER's names, one linear
+    per entry of TOWER in order: the float `weight`, or the int8 `weight_q`
+    with its per-output-channel scale."""
+    for (wk, sk, bk), lin in zip(TOWER, linears):
+        w[bk] = lin.bias
+        if lin.quantized:
+            w[wk], w[sk] = lin.weight_q, lin.weight_s
+        else:
+            w[wk] = lin.weight
+    return w
+
+
+def adapter_weights(w: dict, key: str, ad) -> dict:
+    """Add an Adapter's two linears to w as `<key>_w1`, `_b1`, `_w2`, `_b2`."""
+    w.update({f"{key}_w1": ad.D_fc1.weight, f"{key}_b1": ad.D_fc1.bias,
+              f"{key}_w2": ad.D_fc2.weight, f"{key}_b2": ad.D_fc2.bias})
+    return w
+
+
 def block_weights(blk) -> dict:
     """The tensors of a fusion-mode SwinBlock that K4 reads, by short name.
     For an int8 tower the four products' weights are the int8 `weight_q`,
@@ -113,17 +133,9 @@ def block_weights(blk) -> dict:
     w = {"ln1_w": blk.norm1.weight, "ln1_b": blk.norm1.bias,
          "ln2_w": blk.norm2.weight, "ln2_b": blk.norm2.bias,
          "gate_v": blk.gate_v, "gate_a": blk.gate_a}
-    for (wk, sk, bk), lin in zip(TOWER, (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1,
-                                         blk.mlp.fc2)):
-        w[bk] = lin.bias
-        if lin.quantized:
-            w[wk], w[sk] = lin.weight_q, lin.weight_s
-        else:
-            w[wk] = lin.weight
+    tower_weights(w, (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2))
     for key, attr in ADAPTERS:
-        ad = getattr(blk, attr)
-        w.update({f"{key}_w1": ad.D_fc1.weight, f"{key}_b1": ad.D_fc1.bias,
-                  f"{key}_w2": ad.D_fc2.weight, f"{key}_b2": ad.D_fc2.bias})
+        adapter_weights(w, key, getattr(blk, attr))
     return w
 
 
@@ -190,7 +202,8 @@ def swin_block_q_plain(v, a, w, heads, bias, fuse_mask):
 # ---------------------------------------------------------------------------
 
 def _gemm_res2(a, w, b, r1, r2, out, s):
-    """out = bf16(bf16(r1 + r2) + bf16(a . w^T + b))."""
+    """out = bf16(bf16(r1 + r2) + bf16(a . w^T + b)); with r2 None, out =
+    bf16(r1 + bf16(a . w^T + b))."""
     M, K = a.shape
     cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16_res2(
         _ptr(a), _ptr(w), _ptr(b), _ptr(r1), _ptr(r2), _ptr(out), M, w.shape[0], K, s))
@@ -207,9 +220,9 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
     if C % heads or C // heads not in (32, 64) or N > 256:
         raise ValueError(f"K4 takes N <= 256 tokens and heads of width 32 or 64, got N={N}, "
                          f"C={C}, heads={heads}")
-    if C % step or Hd % step or D not in (16, 32, 64):
+    if C % step or Hd % step or D not in FUSE_WIDTHS:
         raise ValueError(f"K4 takes C and the FFN hidden in multiples of {step} and adapter "
-                         f"widths 16, 32 or 64, got C={C}, hidden={Hd}, D={D}")
+                         f"widths in {FUSE_WIDTHS}, got C={C}, hidden={Hd}, D={D}")
     int8_keys = {wk for wk, _, _ in TOWER} if quantized else set()
     scale_keys = {sk for _, sk, _ in TOWER}
     if quantized != all(k in w for k in scale_keys):

@@ -1,7 +1,7 @@
 """Batched AV serving on one device.
 
 Port of `stgcma_tpu/serving.py::MultiTaskServer` (:49-121) with the AVE
-tasks, Swin (`add_ave`) and CLIP (`add_clip_ave`): float parameters and float
+tasks, Swin (`add_ave`) and CLIP (`add_clip_ave`, any ftmode): float parameters and float
 inputs are cast to the serving dtype (bf16 by default, the int8 tower's
 scales and the Swin bias tables included, as the JAX `cast_tree` does) and
 the logits come back as float32 numpy. The mesh and shard options and
@@ -34,9 +34,11 @@ class MultiTaskServer:
         self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch["a"], batch["v"])
 
     def add_clip_ave(self, name: str, cfg: ClipConfig, model: ClipAVE):
-        """Serve `model` (left as it is: the server keeps a cast copy)."""
+        """Serve a CLIP AVE `model` of any ftmode, float or with an int8 tower
+        (left as it is: the server keeps a cast copy). A `videoonly` task's
+        batches need no "a", an `audioonly` task's no "v"."""
         m = cast_tree(model, self.dtype).to(self.device).eval()
-        self._fns[name] = lambda batch: apply_clip_ave(m, cfg, batch["a"], batch["v"])
+        self._fns[name] = lambda batch: apply_clip_ave(m, cfg, batch.get("a"), batch.get("v"))
 
     def tasks(self):
         return sorted(self._fns)

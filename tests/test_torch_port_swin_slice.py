@@ -183,9 +183,14 @@ def test_launch_counts_match_the_forward(monkeypatch, routes):
 
 @pytest.mark.parametrize("ftmode", ["audioonly", "videoonly"])
 def test_unported_ftmodes_raise(ftmode):
+    """What still raises: the Swin single-stream modes. The CLIP tower takes
+    the modes of the same names."""
     cfg = swin_tiny_test(**{**TINY, "ftmode": ftmode})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         random_swin_ave(cfg, 0)
+    from stgcma_tpu_torch.configs import clip_tiny_test
+    from stgcma_tpu_torch.models.ave import SingleHead, random_clip_ave
+    assert isinstance(random_clip_ave(clip_tiny_test(ftmode=ftmode), 0).mlp_head, SingleHead)
 
 
 def test_random_swin_ave_is_seeded_and_live():

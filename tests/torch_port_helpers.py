@@ -5,6 +5,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
+# The suite runs in several worker processes at once. torch's default of one
+# intra-op thread per core in each of them oversubscribes the host, which
+# starves the suite's tests that depend on timers and sleeps
+# (tests/test_bench_extras.py); the port's tiny shapes gain nothing from more.
+torch.set_num_threads(2)
+
 # env switches of the JAX package that select opt-in kernel variants; the
 # port follows the default path, so every comparison clears them
 JAX_OPT_INS = ("STGCMA_QFUSE_ADAPTERS", "STGCMA_FUSED_FFN", "STGCMA_TV2",
