@@ -8,46 +8,67 @@ line:
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels of stgcma_tpu_torch/csrc/ (in parallel);
   3. kernels against their plain PyTorch versions on the card, at the B = 8
-     shapes of the two paths, with the stated tolerance, each timed beside
-     its bound and a yardstick composed of PyTorch's own calls: K1 (bf16
+     shapes of the paths, with the stated tolerance, each timed beside its
+     bound and a yardstick composed of PyTorch's own calls: K1 (bf16
      attention block), K2 (its int8 twin) and K3 (int8 FFN) at the CLIP
      sites; K1 at the Swin window sites (with their bias and shift mask) and
      temporal sites, K7 (bf16 FFN), K8 (window-attention core, small and
      blocked bias) and K9 (LayerNorm) at the Swin sites; K4 (the whole Swin
      fusion block, with live adapters and gates, and once more with each of
      its wiring faults, which must fail the check) at stages 2 (shifted and
-     unshifted) and 3, K5 (per-window
-     fusion) and K6 (full-grid fusion) at stages 0 and 1, and K6 at one odd
-     shape (Nv != Na, neither a multiple of the kernel's 64-row tile); for
-     the int8 Swin tower, K2 at the five Swin sites (stage 0-1 shifted
-     windows, stage 0-2 temporal), K3 with erf-GELU at the stage 0-1 FFNs
-     and K4's int8 variant (live adapters and gates, and its five wiring
-     faults) at stages 2 and 3; for the fused CLIP block, K12 (everything
-     after the temporal stage of a CLIP fusion block, float and int8, live
-     adapters and gates, and its five wiring faults) at v (80, 197, 768) / a
-     (80, 49, 768) and K13 (the temporal stage with a live T_Adapter, float
-     and int8) at the video and audio rows;
+     unshifted) and 3, K5 (per-window fusion) and K6 (full-grid fusion) at
+     stages 0 and 1, and K6 at one odd shape (Nv != Na, neither a multiple
+     of the kernel's 64-row tile); for the int8 Swin tower, K2 at the five
+     Swin sites (stage 0-1 shifted windows, stage 0-2 temporal), K3 with
+     erf-GELU at the stage 0-1 FFNs and K4's int8 variant (live adapters and
+     gates, and its five wiring faults) at stages 2 and 3; for the fused CLIP
+     block, K12 (everything after the temporal stage of a CLIP fusion block,
+     float and int8, live adapters and gates, and its five wiring faults) at
+     v (80, 197, 768) / a (80, 49, 768) and K13 (the temporal stage with a
+     live T_Adapter, float and int8) at the video and audio rows; K11's three
+     int8 adapter-fused bodies at the CLIP sites (the hidden-only temporal
+     body at (1576 / 392, 10, 768), the spatial body at (80, 197 / 49, 768),
+     the FFN body at (15760 / 3920, 768)), each with a live adapter and once
+     more with each of its two wiring faults (the S and MLP adapters swapped,
+     the hidden taken before the GELU); for the repairs of the larger
+     presets, K1 and K2 at CLIP ViT-L/14's 257 tokens (80, 257, 1024) h16,
+     K12 and K13, float and int8, at the ViT-L/14 shapes (v (80, 257, 1024),
+     a (80, 64, 1024), D 64), and K5, K6 and K4 at Swin-Large's adapter width
+     96 (K5 (5120 / 1280, 49, 96), K6 (80, 3136 / 784, 96), K4 at stage 2
+     (80, 196, 768) h24 and stage 3 (80, 49, 1536) h48);
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
-     per forward, B = 1 logits held against the same model on the CPU (plain
-     versions), and clips/s:
+     per forward, and clips/s:
      - AVE-29 with CLIP ViT-B/16 in fusion mode at full width (12 layers,
        C = 768, T = 10 frames at 224^2, 102x128 fbank audio), a bf16 and an
-       int8 task, and the same two models in the fused-block configuration
+       int8 task, the same two models in the fused-block configuration
        (STGCMA_CLIP_TADAPT_FUSED=1 and STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice
-       and K12 once a block, no K1-K3), whose B = 8 logits are also held
-       against the unfused task's on the card; the models run with live
-       adapters and gates, and the B = 1 check also fails unless zeroing the
-       gates moves the card's logits; one `multimodal` bf16 task at depth 2;
+       and K12 once a block, no K1-K3), and the int8 model with the
+       adapter-fused kernels (`ave29_clip_qfuse_int8`,
+       STGCMA_QFUSE_ADAPTERS=1: K11 at the six sites of a block, no K2 or
+       K3); the B = 8 logits of the last three are held against the default
+       configuration's on the card; every model runs with live adapters and
+       gates, the B = 1 logits are held against the same model on the CPU
+       (plain versions), and zeroing the gates must move the card's logits;
+       one `multimodal` bf16 task at depth 2;
+     - AVE-29 with CLIP ViT-L/14 in fusion mode at full width and depth (24
+       layers, C = 1024, 257 video and 64 audio tokens), bf16, in the default
+       and the fused-block configuration, fused held against default on the
+       card, B = 1 against the CPU at depth 2 (the plain versions' forward at
+       full depth costs more than the rest of the script);
      - AVE-29 with Swin-Base at full width and depth (depths 2/2/18/2, C =
        128..1024, T = 10 frames at 224^2, 224x224 fbank audio), bf16, in
        multimodal mode (no fusion) and in fusion mode (the STG-CMA exchange),
-       and in fusion mode with the int8 tower (`quantize_swin_tower`). The
-       fusion models run with live fusion adapters and gates, and their B = 1
-       check also fails unless zeroing the gates moves the card's logits
-       beyond the tolerance.
-The line before the last is one JSON object {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
+       and in fusion mode with the int8 tower (`quantize_swin_tower`), B = 1
+       against the CPU; and Swin-Large fusion bf16 at full width and depth
+       (C = 192..1536, adapter width 96 at every stage, 24 and 48 heads at
+       stages 2-3), B = 1 against the CPU at depths 2/2/2/2. The fusion
+       models run with live fusion
+       adapters and gates, and zeroing the gates must move the card's B = 1
+       logits beyond the tolerance.
+The script logs its total wall time. The line before the last is one JSON
+object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
@@ -63,9 +84,15 @@ SEED = 0
 B = 8
 TOL_KERNEL = 2e-2    # max |kernel - plain| / max |plain|, bf16 outputs: a few
                      # bf16 steps where an intermediate rounds the other way
-TOL_KERNEL_Q = 3e-2  # K4's int8 variant: where a bf16 intermediate rounds the other
-                     # way before one of its four row quantizations, codes move by one
-                     # step; ~1 bf16 step of max |plain| more than the float K4 at stage 3
+TOL_KERNEL_Q = 3e-2  # the int8 variants of K4, K12, K13 and K11: where a bf16 intermediate
+                     # rounds the other way before one of their row quantizations, codes
+                     # move by one step; ~1 bf16 step of max |plain| more than the float K4
+TOL_K4_LARGE = 3e-2  # the float K4 at Swin-Large (C = 768 / 1536, D = 96): the FFN output
+                     # that feeds the second fusion's adapter is ~3x Swin-Base stage 2's at
+                     # the same random tower, which sharpens the fusion's unscaled softmax,
+                     # so a one-ulp bf16 flip of a hidden moves a fused row by several bf16
+                     # steps (stage 3: 2.04% of max |plain| where Swin-Base stays at ~1.1%);
+                     # the log counts the outputs past TOL_KERNEL
 TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 through
                      # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
@@ -74,8 +101,9 @@ SFU_PER_SM_CLOCK, H100_SMS = 16, 132   # exps per clock per SM (special function
 TOL_FUSED = 5e-2     # max |fused - unfused| / max |unfused| over the B = 8 logits on the
                      # card: the two configurations round to bf16 at other points (the
                      # FFN hidden, the adapters, the fusion) through 12 blocks
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K12", "K13")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K11", "K12", "K13")
 CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
+QFUSE = "STGCMA_QFUSE_ADAPTERS"
 # each kernel's name in the kernels line, the TPU kernel it replaces, and its
 # CUDA sources in stgcma_tpu_torch/csrc/
 META = {
@@ -94,6 +122,9 @@ META = {
     "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676", ["gemm.cu", "rowprep.cu"]),
     "K8": ("K8 wmsa (window-attention core)", "stgcma_tpu/ops/pallas_attn.py:230", ["attn.cu"]),
     "K9": ("K9 layernorm", "stgcma_tpu/ops/pallas_attn.py:755", ["rowprep.cu"]),
+    "K11": ("K11 win_block_qd + win_block_qh + ffn_qh (int8 attention block or FFN with the "
+            "adapter's down-projection and GELU; pallas_attn.py:1486, :1503, :1674)",
+            "stgcma_tpu/ops/pallas_attn.py:1486", ["rowprep.cu", "gemm.cu", "attn.cu"]),
     "K12": ("K12 clip_fusion_block + clip_fusion_block_q (whole CLIP fusion block after the "
             "temporal stage, bf16 and int8 variants)", "stgcma_tpu/ops/pallas_clip_block.py:168",
             ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
@@ -121,7 +152,7 @@ def smi_line():
 
 def launches():
     """{"K1": launches, ...} of every kernel, summed over its wrappers (K4,
-    K12 and K13 have a bf16 and an int8 one)."""
+    K12 and K13 have a bf16 and an int8 one, K11 three bodies)."""
     from stgcma_tpu_torch.ops import clip_block  # noqa: F401  (registers K12, K13)
     from stgcma_tpu_torch.ops import fused_attn as FA
     from stgcma_tpu_torch.ops import swin_block  # noqa: F401  (registers K4)
@@ -331,6 +362,143 @@ def phase_kernels(cfg):
         results["K3"].append(check_kernel(
             f"K3 {site} {(M, C)}", FA.ffn_q, FA.ffn_q_plain, args + (act,), {},
             ffn_bound(M, C), library_ffn(args, act)))
+    return results
+
+
+def adapter_operands(g, C, D):
+    """A live adapter's D_fc1 (D, C) and its bias, bf16, drawn as
+    `live_k4_weights` draws them: N(0, 2.26^2 / C) and N(0, 0.1)."""
+    import torch
+    bf = torch.bfloat16
+    return ((torch.randn(D, C, generator=g, device="cuda") * (2.26 / C ** 0.5)).to(bf),
+            (torch.randn(D, generator=g, device="cuda") * 0.1).to(bf))
+
+
+def k11_bound(M, C, D, tower_ops, gram_ops, wbytes, emit_o):
+    """K11 per call: K2's or K3's work (int8 tower products, bf16 grams) and
+    the adapter product (M, C) x (C, D) on the tensor cores; x read, o (where
+    it is emitted) and the hidden written once, the weights read once."""
+    t_ops = tower_ops / H100_INT8 + (gram_ops + 2 * M * C * D) / H100_BF16
+    nbytes = M * C * 2 * (2 if emit_o else 1) + M * D * 2 + wbytes + (D * C + D) * 2
+    t_bytes = nbytes / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_k11(kind, args, heads):
+    """K2's or K3's composition from PyTorch's own calls (`_int_mm`), then
+    `F.linear` and `F.gelu` for the hidden (timed only)."""
+    import torch.nn.functional as F
+    wd, bd = args[-3], args[-2]
+    if kind == "ffn_qh":
+        base = library_ffn(args[:9], "quick_gelu")
+    else:
+        inner = library_block(args[:9], heads, True)
+
+        def base():
+            return inner().view(args[0].shape)
+
+    def run():
+        o = base()
+        h = F.gelu(F.linear(o, wd, bd))
+        return h if kind == "qd" else (o, h)
+    return run
+
+
+@contextlib.contextmanager
+def hidden_before_gelu():
+    """K11's adapter product with the plain epilogue in place of the erf-GELU
+    one: the hidden taken before the GELU."""
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    real = FA._EPI_BF16_GELU
+    FA._EPI_BF16_GELU = FA._EPI_BF16
+    try:
+        yield
+    finally:
+        FA._EPI_BF16_GELU = real
+
+
+def check_k11_faults(name, kernel, plain, args, other, tol):
+    """The K11 check fails where it must: K11 with the S and MLP adapters
+    swapped (run with `other`, the other adapter's D_fc1) and K11 taking its
+    hidden before the GELU are held to the plain version on the true inputs,
+    and must differ by more than the tolerance."""
+    import torch
+    ref = _flat(plain(*args))
+    scale = ref.abs().max().item()
+    runs = {"S and MLP adapters swapped": lambda: kernel(*args[:-3], *other, args[-1]),
+            "hidden taken before the GELU": lambda: kernel(*args)}
+    moved = {}
+    for fault, run in runs.items():
+        with (hidden_before_gelu() if "GELU" in fault else contextlib.nullcontext()):
+            out = _flat(run())
+        torch.cuda.synchronize()
+        moved[fault] = (out - ref).abs().max().item() / scale
+        if not moved[fault] > tol:
+            fail(f"{name}: a K11 with '{fault}' passes the check ({moved[fault]:.4g} of "
+                 f"max |plain| from the plain version, tol {tol})")
+    log(f"  {name}: K11 with a fault vs plain (rel, must exceed {tol}): "
+        + ", ".join(f"{k} {x:.4g}" for k, x in moved.items()))
+    return moved
+
+
+def phase_k11_kernels(cfg):
+    """K11's three bodies at the sites of CLIP ViT-B/16 fusion with the int8
+    tower at B = 8: the temporal hidden-only body at the video and audio
+    rows, the spatial body emitting (o, hidden) at the video and audio
+    frames, the FFN body at the video and audio tokens; each with a live
+    adapter, and once more with each of its two wiring faults."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    C, heads, T = cfg.embed_dim, cfg.heads, cfg.num_frames
+    D, dh = int(C * cfg.adapter_ratio), C // heads
+    Nv, Na = cfg.num_patches + 1, cfg.num_patches_audio + 1
+    wattn = 4 * C * C + 4 * C * 2 * 2 + 2 * C * 2         # int8 weights, bf16 scales, biases, LN
+    wffn = 8 * C * C + 5 * C * 2 * 2 + 2 * C * 2
+    sites = [("qd", "video temporal", B * Nv, T), ("qd", "audio temporal", B * Na, T),
+             ("qh", "video spatial", B * T, Nv), ("qh", "audio spatial", B * T, Na),
+             ("ffn_qh", "video", B * T * Nv, None), ("ffn_qh", "audio", B * T * Na, None)]
+    kernels = {"qd": FA.win_block_qd, "qh": FA.win_block_qh, "ffn_qh": FA.ffn_qh}
+    rows = []
+    for kind, site, Bq, N in sites:
+        kernel = kernels[kind]
+        plain = kernel.plain
+        if N is None:
+            M, shape = Bq, (Bq, C)
+            args = make_ffn_inputs(g, M, C) + adapter_operands(g, C, D) + ("quick_gelu",)
+            bound = k11_bound(M, C, D, 16 * M * C * C, 0, wffn, True)
+        else:
+            M, shape = Bq * N, (Bq, N, C)
+            base, _ = make_block_inputs(g, Bq, N, C, heads, True)
+            args = base + adapter_operands(g, C, D) + (heads,)
+            bound = k11_bound(M, C, D, 8 * M * C * C, 4 * Bq * heads * N * N * dh, wattn,
+                              kind == "qh")
+        name = f"K11 {kind} {site} {shape} D {D}"
+        row = check_kernel(name, kernel, plain, args, {}, bound, library_k11(kind, args, heads),
+                           TOL_KERNEL_Q)
+        row["faults_rel"] = check_k11_faults(name, kernel, plain, args,
+                                             adapter_operands(g, C, D), TOL_KERNEL_Q)
+        rows.append(row)
+        del args
+    return {"K11": rows}
+
+
+def phase_l14_kernels(cfg):
+    """K1 and K2 at CLIP ViT-L/14's spatial site, 257 tokens (the attention
+    core's key-streaming kernel), at B = 8."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    C, heads = cfg.embed_dim, cfg.heads
+    Bq, N = B * cfg.num_frames, cfg.num_patches + 1
+    results = {"K1": [], "K2": []}
+    for kname, kernel, plain, int8 in (("K1", FA.win_block, FA.win_block_plain, False),
+                                       ("K2", FA.win_block_q, FA.win_block_q_plain, True)):
+        args, _ = make_block_inputs(g, Bq, N, C, heads, int8)
+        results[kname].append(check_kernel(
+            f"{kname} CLIP-L/14 video spatial {(Bq, N, C)} h{heads}", kernel, plain,
+            args + (heads,), {}, block_bound(Bq, N, C, heads, int8, 0),
+            library_block(args, heads, int8)))
     return results
 
 
@@ -551,10 +719,16 @@ def live_k4_weights(w, g, keys=("s2v", "s2a", "sv", "sa")):
     with the tower's N(0, 0.02) adapters it
     moves it by ~1e-3, under the check's tolerance. D_fc1 N(0, 2.26^2 / C)
     and D_fc2 N(0, 0.566^2 / D) (both 0.1 at stage 2, C = 512 and D = 32),
-    their biases N(0, 0.1), gates 0.8 and -0.6 as at K5 and K6."""
+    their biases N(0, 0.1), gates 0.8 and -0.6 as at K5 and K6. Above D = 32
+    D_fc1's std carries a factor (32 / D)^(1/4), so that the fusion's
+    unscaled logits, sums over D products of two hiddens, keep their spread
+    at D = 32: wider, the softmax turns so sharp that a one-ulp bf16 flip of
+    a hidden moves a fused row by several percent (Swin-Large stage 3, D =
+    96: 104 of 12 M outputs past 2e-2 as drawn without it, none with it)."""
     import torch
     C, D = w["w_qkv"].shape[1], w[f"{keys[0]}_w1"].shape[0]
-    std = {"w1": 2.26 / C ** 0.5, "w2": 0.566 / D ** 0.5, "b1": 0.1, "b2": 0.1}
+    std = {"w1": 2.26 / C ** 0.5 * min(1.0, (32 / D) ** 0.25), "w2": 0.566 / D ** 0.5,
+           "b1": 0.1, "b2": 0.1}
     live = dict(w)
     for key in keys:
         for p, sd in std.items():
@@ -609,9 +783,11 @@ def check_k4_faults(name, args, kernel, plain, tol):
     return moved
 
 
-def phase_fusion_kernels(cfg):
-    """K4, K5 and K6 at the shapes of Swin-Base fusion at B = 8, and K6 at
-    one odd shape."""
+def phase_fusion_kernels(cfg, tower="Swin", odd=True, k4_tol=TOL_KERNEL):
+    """K4, K5 and K6 at the shapes of `cfg` (Swin-Base, or Swin-Large with
+    its adapter width 96 at every stage) fusion at B = 8, and with `odd` K6
+    at one odd shape. `tower` names the tower in the rows' names; K4 is held
+    at `k4_tol`."""
     import torch
     from stgcma_tpu_torch.ops import fused_attn as FA
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -633,7 +809,7 @@ def phase_fusion_kernels(cfg):
         R = BT * (H // ws) ** 2
         vh, ah = hidden(R, ws * ws, D), hidden(R, ws * ws, D)
         results["K5"].append(check_kernel(
-            f"K5 Swin stage {s} windows {(R, ws * ws, D)}", FA.win_fuse, FA.fuse_plain,
+            f"K5 {tower} stage {s} windows {(R, ws * ws, D)}", FA.win_fuse, FA.fuse_plain,
             (vh, ah, gv, ga), {}, fuse_bound(R, ws * ws, ws * ws, D, sfu),
             library_fuse(vh, ah, gv, ga)))
     for s in (0, 1):
@@ -642,20 +818,22 @@ def phase_fusion_kernels(cfg):
         vh, ah = hidden(BT, H * H, D), hidden(BT, H * H, D)
         with torch.inference_mode():
             results["K6"].append(check_kernel(
-                f"K6 Swin stage {s} full grid {(BT, H * H, D)}", FA.bidir_fuse, FA.fuse_plain,
+                f"K6 {tower} stage {s} full grid {(BT, H * H, D)}", FA.bidir_fuse,
+                FA.fuse_plain,
                 (vh, ah, gv, ga), {}, fuse_bound(BT, H * H, H * H, D, sfu),
                 library_fuse(vh, ah, gv, ga)))
-    Bo, Nv, Na, D = 3, 300, 170, 16            # the kernel's own tiling at ragged edges
-    vh, ah = hidden(Bo, Nv, D), hidden(Bo, Na, D)
-    results["K6"].append(check_kernel(
-        f"K6 odd shape vh {(Bo, Nv, D)} ah {(Bo, Na, D)}", FA.bidir_fuse, FA.fuse_plain,
-        (vh, ah, gv, ga), {}, fuse_bound(Bo, Nv, Na, D, sfu), library_fuse(vh, ah, gv, ga)))
+    if odd:
+        Bo, Nv, Na, D = 3, 300, 170, 16        # the kernel's own tiling at ragged edges
+        vh, ah = hidden(Bo, Nv, D), hidden(Bo, Na, D)
+        results["K6"].append(check_kernel(
+            f"K6 odd shape vh {(Bo, Nv, D)} ah {(Bo, Na, D)}", FA.bidir_fuse, FA.fuse_plain,
+            (vh, ah, gv, ga), {}, fuse_bound(Bo, Nv, Na, D, sfu), library_fuse(vh, ah, gv, ga)))
 
-    results["K4"] = k4_rows(cfg, g, sfu, int8=False)
+    results["K4"] = k4_rows(cfg, g, sfu, int8=False, tower=tower, tol=k4_tol)
     return results
 
 
-def k4_rows(cfg, g, sfu, int8):
+def k4_rows(cfg, g, sfu, int8, tower="Swin", tol=None):
     """K4 (its int8 variant for `int8`) at stage 2 unshifted and shifted and
     stage 3 of `cfg`, the block's tower from `random_swin_ave` (quantized for
     int8) with live adapters and gates, and the five wiring faults."""
@@ -669,7 +847,7 @@ def k4_rows(cfg, g, sfu, int8):
     BT = B * cfg.num_ttokens
     kernel, plain = ((SB.swin_block_q, SB.swin_block_q_plain) if int8
                      else (SB.swin_block, SB.swin_block_plain))
-    tol = TOL_KERNEL_Q if int8 else TOL_KERNEL
+    tol = tol or (TOL_KERNEL_Q if int8 else TOL_KERNEL)
     model = random_swin_ave(cfg, SEED, int8=int8)
     statics = backbone_statics(cfg)
     rows = []
@@ -688,7 +866,7 @@ def k4_rows(cfg, g, sfu, int8):
         v = (torch.randn(BT, N, C, generator=g, device=dev) * 0.1).to(bf)
         a = (torch.randn(BT, N, C, generator=g, device=dev) * 0.1).to(bf)
         D = w["s2v_w1"].shape[0]
-        name = (f"K4{' int8' if int8 else ''} Swin stage {s} block {i} {(BT, N, C)} "
+        name = (f"K4{' int8' if int8 else ''} {tower} stage {s} block {i} {(BT, N, C)} "
                 f"h{st.num_heads} shift {st.shift_size} D {D}")
         args = (v, a, w, st.num_heads, bias, fuse_mask)
         with torch.inference_mode():
@@ -900,10 +1078,11 @@ def check_k12_faults(name, args, kernel, plain, tol):
     return moved
 
 
-def phase_clip_block_kernels(cfg):
-    """K12 and K13, float and int8, at the shapes of CLIP ViT-B/16 fusion at
-    B = 8: the block's tower from `random_clip_ave` (quantized for int8) with
-    live adapters and gates; K12 once more with each of its wiring faults."""
+def phase_clip_block_kernels(cfg, tag=""):
+    """K12 and K13, float and int8, at the shapes of `cfg` (CLIP ViT-B/16 or
+    ViT-L/14) fusion at B = 8: the first block's tower from `random_clip_ave`
+    (quantized for int8) with live adapters and gates; K12 once more with
+    each of its wiring faults. `tag` prefixes the rows' names."""
     import torch
     from stgcma_tpu_torch.models.ave import random_clip_ave
     from stgcma_tpu_torch.ops import clip_block as PCB
@@ -922,16 +1101,17 @@ def phase_clip_block_kernels(cfg):
         return (torch.randn(*shape, generator=g, device=dev) * 0.1).to(bf)
 
     for int8 in (False, True):
-        bb = random_clip_ave(cfg, SEED).backbone
+        # one block: the draws of block 0 come before those of any later block
+        bb = random_clip_ave(dataclasses.replace(cfg, layers=1), SEED).backbone
         blk = cast_tree((quantize_clip_tower(bb) if int8 else bb).resblocks[0], bf).to(dev)
         tol = TOL_KERNEL_Q if int8 else TOL_KERNEL
-        tag = " int8" if int8 else ""
+        qtag = " int8" if int8 else ""
         w = live_k4_weights(PCB.block_weights(blk), g, [k for k, _ in PCB.ADAPTERS])
         D = w["sv_w1"].shape[0]
         kernel, plain = ((PCB.clip_fusion_block_q, PCB.fusion_block_q_plain) if int8
                          else (PCB.clip_fusion_block, PCB.fusion_block_plain))
         v, a = stream(BT, Nv, C), stream(BT, Na, C)
-        name = f"K12{tag} v {(BT, Nv, C)} a {(BT, Na, C)} h{heads} D {D}"
+        name = f"K12{qtag} {tag}v {(BT, Nv, C)} a {(BT, Na, C)} h{heads} D {D}"
         args = (v, a, w, heads)
         with torch.inference_mode():
             row = check_kernel(name, kernel, plain, args, {},
@@ -947,7 +1127,7 @@ def phase_clip_block_kernels(cfg):
                                  ("audio rows", blk.T_Adapter_Audio, B * Na)):
             wt = live_k4_weights(PCB.tadapt_weights(blk.attn, blk.ln_1, adapter), g, ["ad"])
             x = stream(R, T, C)
-            name = f"K13{tag} {site} {(R, T, C)} h{heads} D {D}"
+            name = f"K13{qtag} {tag}{site} {(R, T, C)} h{heads} D {D}"
             with torch.inference_mode():
                 row = check_kernel(name, kernel, plain, (x, wt, heads), {},
                                    tadapt_bound(R, T, C, heads, D, sfu, int8),
@@ -969,11 +1149,13 @@ def phase_clip_block_kernels(cfg):
 
 @contextlib.contextmanager
 def clip_switches(task):
-    """The two switches of the fused CLIP block, on for a task whose name has
-    `_fused_` and off for any other (they are read at call time)."""
-    old = {k: os.environ.get(k) for k in CLIP_SWITCHES}
-    for k in CLIP_SWITCHES:
-        os.environ[k] = "1" if "_fused_" in task else "0"
+    """The switches read at call time: the two of the fused CLIP block on for
+    a task whose name has `_fused_`, STGCMA_QFUSE_ADAPTERS (K11) for one with
+    `_qfuse_`, each off for any other task."""
+    want = {**{k: "_fused_" in task for k in CLIP_SWITCHES}, QFUSE: "_qfuse_" in task}
+    old = {k: os.environ.get(k) for k in want}
+    for k, on in want.items():
+        os.environ[k] = "1" if on else "0"
     try:
         yield
     finally:
@@ -1115,7 +1297,8 @@ def clip_batch(cfg, rng, b):
 
 def phase_clip_slice(cfg, smi):
     """CLIP ViT-B/16 fusion, bf16 and int8 towers, each in the default
-    configuration (K1, or K2 + K3) and in the fused-block one (K13 + K12)."""
+    configuration (K1, or K2 + K3) and in the fused-block one (K13 + K12),
+    and the int8 tower with the adapter-fused kernels (K11 alone)."""
     import numpy as np
     from stgcma_tpu_torch.models.ave import random_clip_ave
     from stgcma_tpu_torch.nn.clip_vit import launches_per_forward
@@ -1127,7 +1310,8 @@ def phase_clip_slice(cfg, smi):
     model_q = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED)
     model_q.backbone = quantize_clip_tower(model_q.backbone)
     models = {"ave29_bf16": model, "ave29_int8": model_q,
-              "ave29_clip_fused_bf16": model, "ave29_clip_fused_int8": model_q}
+              "ave29_clip_fused_bf16": model, "ave29_clip_fused_int8": model_q,
+              "ave29_clip_qfuse_int8": model_q}
     srv = MultiTaskServer(device="cuda")
     cpu = MultiTaskServer(device="cpu")
     for task, m in models.items():
@@ -1146,33 +1330,79 @@ def phase_clip_slice(cfg, smi):
     requests = {task: (reqs, shape) for task in models}
     # 4 attention sites (temporal/spatial x video/audio) and 2 FFNs a block:
     # 48 K1, or 48 K2 + 24 K3, a forward at 12 layers; fused: the 2 temporal
-    # stages in K13 and the rest of the block in K12, and no K1, K2 or K3
+    # stages in K13 and the rest of the block in K12, and no K1, K2 or K3;
+    # qfuse: the 6 sites of a block in K11 (2 qd, 2 qh, 2 ffn_qh), no K2 or K3
     L = cfg.layers
     none = {k: 0 for k in KERNELS}
     want = {"ave29_bf16": {**none, "K1": 4 * L},
             "ave29_int8": {**none, "K2": 4 * L, "K3": 2 * L},
             "ave29_clip_fused_bf16": {**none, "K13": 2 * L, "K12": L},
-            "ave29_clip_fused_int8": {**none, "K13": 2 * L, "K12": L}}
+            "ave29_clip_fused_int8": {**none, "K13": 2 * L, "K12": L},
+            "ave29_clip_qfuse_int8": {**none, "K11": 6 * L}}
     for task, w in want.items():                 # the policy functions say the same
         with clip_switches(task):
             derived = launches_per_forward(cfg, quantized=task.endswith("int8"))
         if {k: n for k, n in w.items() if n} != derived:
             fail(f"{task}: launches_per_forward gives {derived}, expected {w}")
     totals, clips, last = drive(srv, requests, want, smi)
-    for tower in ("bf16", "int8"):               # card vs card: fused against unfused
-        ref, got = last[f"ave29_{tower}"], last[f"ave29_clip_fused_{tower}"]
-        err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
-        if not err <= TOL_FUSED * scale:
-            fail(f"ave29_clip_fused_{tower} B={B}: max |fused - unfused| = {err:.4g} > "
-                 f"{TOL_FUSED} * {scale:.4g}")
-        log(f"  ave29_clip_fused_{tower} B={B} fused vs unfused on the card: max_abs_err "
-            f"{err:.4g} (max |unfused| {scale:.4g}, tol {TOL_FUSED} rel); "
-            f"{clips[f'ave29_clip_fused_{tower}']:.2f} against {clips[f'ave29_{tower}']:.2f} "
-            f"clips/s")
+    for task, base in (("ave29_clip_fused_bf16", "ave29_bf16"),   # card vs card: against
+                       ("ave29_clip_fused_int8", "ave29_int8"),   # the default configuration
+                       ("ave29_clip_qfuse_int8", "ave29_int8")):
+        hold_logits(task, base, last, clips)
     one = batch(1)
     cards = check_against_cpu(srv, cpu, one)
     for task, m in models.items():
         check_fusion_is_live(srv, cfg, m, task, one, cards[task], add=srv.add_clip_ave)
+    return totals, clips
+
+
+def hold_logits(task, base, last, clips):
+    """Card vs card: the last B = 8 logits of `task` within TOL_FUSED of those
+    of `base`, the same model in the default configuration."""
+    import numpy as np
+    ref, got = last[base], last[task]
+    err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    if not err <= TOL_FUSED * scale:
+        fail(f"{task} B={B}: max |{task} - {base}| = {err:.4g} > {TOL_FUSED} * {scale:.4g}")
+    log(f"  {task} B={B} against {base} on the card: max_abs_err {err:.4g} (max |{base}| "
+        f"{scale:.4g}, tol {TOL_FUSED} rel); {clips[task]:.2f} against {clips[base]:.2f} clips/s")
+
+
+def phase_clip_l14_slice(cfg, smi, cpu_layers=2):
+    """CLIP ViT-L/14 fusion (257 video and 64 audio tokens, 16 heads, C =
+    1024), bf16, in the default configuration (K1 at all four sites, the
+    spatial video site through the key-streaming attention core) and in the
+    fused-block one (K13 + K12, whose video attention streams too); exact
+    launches from `launches_per_forward`, fused held against default on the
+    card. The B = 1 check against the CPU runs the same two configurations
+    on a model cut to `cpu_layers` layers: at full depth the plain versions'
+    forward costs more than the rest of this script."""
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.nn.clip_vit import launches_per_forward
+    from stgcma_tpu_torch.serving import MultiTaskServer
+    import numpy as np
+    t0 = time.perf_counter()
+    model = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED)
+    cut_cfg = dataclasses.replace(cfg, layers=cpu_layers)
+    cut = live_clip_adapters_(random_clip_ave(cut_cfg, SEED), SEED)
+    srv, cpu = MultiTaskServer(device="cuda"), MultiTaskServer(device="cpu")
+    tasks = ("ave29_clip_l14_bf16", "ave29_clip_l14_fused_bf16")
+    for task in tasks:
+        srv.add_clip_ave(task, cfg, model)
+        for server in (srv, cpu):          # the switches follow `_fused_` in the name
+            server.add_clip_ave(f"{task}_depth{cpu_layers}", cut_cfg, cut)
+    log(f"  set-up: random weights with live adapters and gates, server on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(SEED)
+    reqs = [clip_batch(cfg, rng, B) for _ in range(3)]
+    requests = {task: (reqs, (B * cfg.num_frames, cfg.label_dim)) for task in tasks}
+    want = {}
+    for task in tasks:
+        with clip_switches(task):
+            want[task] = {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg)}
+    totals, clips, last = drive(srv, requests, want, smi)
+    hold_logits(tasks[1], tasks[0], last, clips)
+    check_against_cpu(srv, cpu, clip_batch(cfg, rng, 1))
     return totals, clips
 
 
@@ -1200,14 +1430,19 @@ def phase_clip_multimodal_slice(cfg, smi):
     return totals, clips
 
 
-def phase_swin_slice(cfg, smi, int8=False):
+def phase_swin_slice(cfg, smi, int8=False, preset="", cpu_depths=None):
+    """A Swin AVE-29 task (`preset`: "" for Swin-Base, "large_" for Swin-Large)
+    through MultiTaskServer, exact launches, the B = 1 logits against the
+    CPU (with `cpu_depths`, of the same configuration cut to those depths,
+    where the full one's plain forward costs too much), and for a fusion
+    model a check that zeroing the gates moves the card's logits."""
     import numpy as np
     from stgcma_tpu_torch.models.ave import random_swin_ave
     from stgcma_tpu_torch.nn.swin import launches_per_forward
     from stgcma_tpu_torch.serving import MultiTaskServer
 
     mode = {"multimodal": "mm", "fusion": "fusion"}[cfg.ftmode]
-    task = f"ave29_swin_{mode}_{'int8' if int8 else 'bf16'}"
+    task = f"ave29_swin_{preset}{mode}_{'int8' if int8 else 'bf16'}"
     t0 = time.perf_counter()
     model = random_swin_ave(cfg, SEED, int8=int8)
     if cfg.ftmode == "fusion":
@@ -1227,10 +1462,23 @@ def phase_swin_slice(cfg, smi, int8=False):
     requests = {task: ([batch(B) for _ in range(4)], (B * cfg.num_ttokens, cfg.label_dim))}
     want = {task: {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B, quantized=int8)}}
     totals, clips, _ = drive(srv, requests, want, smi)
-    cpu = MultiTaskServer(device="cpu")
-    cpu.add_ave(task, cfg, model)
     one = batch(1)
-    card = check_against_cpu(srv, cpu, one)[task]
+    cpu = MultiTaskServer(device="cpu")
+    if cpu_depths is None:
+        cpu.add_ave(task, cfg, model)
+        card = check_against_cpu(srv, cpu, one)[task]
+    else:
+        cut_cfg = dataclasses.replace(cfg, depths=cpu_depths)
+        cut = random_swin_ave(cut_cfg, SEED, int8=int8)
+        if cfg.ftmode == "fusion":
+            live_fusion_adapters_(cut, SEED)
+        cut_task = f"{task}_depths{''.join(map(str, cpu_depths))}"
+        for server in (srv, cpu):
+            server.add_ave(cut_task, cut_cfg, cut)
+        check_against_cpu(srv, cpu, one)
+        card = predict(srv, task, one)
+        if not np.isfinite(card).all():
+            fail(f"{task} B=1: non-finite logits")
     if cfg.ftmode == "fusion":
         check_fusion_is_live(srv, cfg, model, task, one, card)
     return totals, clips
@@ -1245,7 +1493,7 @@ def main():
         fail("no CUDA device: this script drives the port on the GPU only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from stgcma_tpu_torch.configs import clip_b16, swin_base
+        from stgcma_tpu_torch.configs import clip_b16, clip_l14, swin_base, swin_large
         from stgcma_tpu_torch.ops import cuda_lib
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -1272,14 +1520,22 @@ def main():
                     log(f"  {src}: {line.strip()}")
 
     cfg = clip_b16(ftmode="fusion", label_dim=29)
+    l14_cfg = clip_l14(ftmode="fusion", label_dim=29)
     swin_cfg = swin_base(ftmode="multimodal", label_dim=29)
     fusion_cfg = swin_base(ftmode="fusion", label_dim=29)
+    large_cfg = swin_large(ftmode="fusion", label_dim=29)
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel, "
-        f"{TOL_KERNEL_Q} for the int8 variants of K4, K12 and K13)")
+        f"{TOL_KERNEL_Q} for the int8 variants of K4, K12, K13, for K11 and for K4 at "
+        f"Swin-Large)")
     results = phase_kernels(cfg)
-    for phase in (phase_swin_kernels(swin_cfg), phase_fusion_kernels(fusion_cfg),
-                  phase_int8_swin_kernels(fusion_cfg), phase_clip_block_kernels(cfg)):
-        for k, rows in phase.items():
+    phases = (lambda: phase_swin_kernels(swin_cfg), lambda: phase_fusion_kernels(fusion_cfg),
+              lambda: phase_int8_swin_kernels(fusion_cfg), lambda: phase_clip_block_kernels(cfg),
+              lambda: phase_k11_kernels(cfg), lambda: phase_l14_kernels(l14_cfg),
+              lambda: phase_clip_block_kernels(l14_cfg, tag="CLIP-L/14 "),
+              lambda: phase_fusion_kernels(large_cfg, tower="Swin-Large", odd=False,
+                                           k4_tol=TOL_K4_LARGE))
+    for phase in phases:
+        for k, rows in phase().items():
             results.setdefault(k, []).extend(rows)
 
     log(f"[4/4] slice: CLIP ViT-B/16 fusion AVE-29, {cfg.layers} layers, C={cfg.embed_dim}, "
@@ -1291,11 +1547,19 @@ def main():
     mm_totals, mm_clips = phase_clip_multimodal_slice(mm_cfg, smi)
     clips.update(mm_clips)
     totals = {k: totals[k] + mm_totals[k] for k in KERNELS}
-    for scfg, int8 in ((swin_cfg, False), (fusion_cfg, False), (fusion_cfg, True)):
-        log(f"[4/4] slice: Swin-Base {scfg.ftmode} AVE-29, depths {scfg.depths}, "
-            f"C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, "
+    log(f"[4/4] slice: CLIP ViT-L/14 fusion AVE-29, {l14_cfg.layers} layers, "
+        f"C={l14_cfg.embed_dim}, {l14_cfg.num_patches + 1} video tokens, bf16, default and "
+        f"fused-block configurations")
+    l14_totals, l14_clips = phase_clip_l14_slice(l14_cfg, smi)
+    clips.update(l14_clips)
+    totals = {k: totals[k] + l14_totals[k] for k in KERNELS}
+    for scfg, int8, preset in ((swin_cfg, False, ""), (fusion_cfg, False, ""),
+                               (fusion_cfg, True, ""), (large_cfg, False, "large_")):
+        log(f"[4/4] slice: Swin-{'Large' if preset else 'Base'} {scfg.ftmode} AVE-29, depths "
+            f"{scfg.depths}, C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, "
             f"{'int8 tower' if int8 else 'bf16'}")
-        swin_totals, swin_clips = phase_swin_slice(scfg, smi, int8)
+        swin_totals, swin_clips = phase_swin_slice(scfg, smi, int8, preset,
+                                                   cpu_depths=(2, 2, 2, 2) if preset else None)
         clips.update(swin_clips)
         totals = {k: totals[k] + swin_totals[k] for k in KERNELS}
 

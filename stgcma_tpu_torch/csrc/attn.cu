@@ -18,21 +18,37 @@
 //     small bias (P <= 128, held whole) and the blocked bias (P a multiple
 //     of 128, tiled along the rows).
 // Differences from the TPU layout, on purpose: no 8-row block-diagonal
-// packing of the T = 10 temporal site, no 197 -> 208 resident pad and no
-// 49 -> 64 window pad; each row attends over its own N tokens (exp(-1e30 - m)
-// was exactly 0 there, so the math is the same).
+// packing of the T = 10 temporal site, no 197 -> 208 resident pad, no
+// 257 -> 272 pad of CLIP ViT-L/14's spatial site and no 49 -> 64 window pad;
+// each row attends over its own N tokens (exp(-1e30 - m) was exactly 0
+// there, so the math is the same).
 // Bound on the H100: operations at the CLIP spatial sites (N = 197: ~9.5
 // GFLOP a B = 8 call), bytes at the temporal and window sites (N = 10 or
 // 49: the q, k, v reads dominate).
-// Design: both products on tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate). One warp owns a 16-query tile: its logits and probabilities
-// stay in registers, and the probabilities' accumulator fragments are reused
-// as the A operand of p.v. A block holds K (keys x dh) and V^T (dh x keys)
-// of one (row, head) in shared memory, loaded once for all its query tiles;
-// for N <= 48 a block serves several (row, head) pairs, so the T = 10
-// temporal site packs 4 to a block. Keys are padded to 16 * KT (KT chosen
-// per call from N, at most 256 keys) and masked to -inf. Shared-memory row
-// strides are padded so the fragment loads are free of bank conflicts.
+// Design, N <= 256 (attn_mma_kernel): both products on tensor cores
+// (mma.sync m16n8k16, bf16 in, fp32 accumulate). One warp owns a 16-query
+// tile: its logits and probabilities stay in registers, and the
+// probabilities' accumulator fragments are reused as the A operand of p.v. A
+// block holds K (keys x dh) and V^T (dh x keys) of one (row, head) in shared
+// memory, loaded once for all its query tiles; for N <= 48 a block serves
+// several (row, head) pairs, so the T = 10 temporal site packs 4 to a block.
+// Keys are padded to 16 * KT (KT chosen per call from N, at most 256 keys)
+// and masked to -inf. Shared-memory row strides are padded so the fragment
+// loads are free of bank conflicts.
+// Design, N > 256 (attn_stream_kernel; CLIP ViT-L/14's 257 tokens): the
+// logits of a row no longer fit the registers of one warp, so K and V are
+// streamed through shared memory in tiles of 64 keys, and a block owns 64
+// query rows of one (row, head). It runs two passes over the key tiles:
+// pass 1 keeps a running max and sum per query row (the sum rescaled by
+// exp(m_old - m_new) when the max grows); pass 2 recomputes the logits and
+// forms p = exp(s - m) / l, rounded to bf16, for p.v accumulated in fp32.
+// Two passes, not the one-pass online softmax of fuse.cu: the probabilities
+// are rounded to bf16 after the division, as here below 256 keys and as the
+// TPU kernel does (JAX `_pnorm`), so both kernels round at the same point;
+// the price is q.k^T computed twice (+50% tensor work at N = 257, where the
+// attention core is ~10% of a request). The key-tile loop puts no limit on
+// N; the grid does: blockIdx.y walks the query tiles, at most 65535 of them
+// (ATTN_MAX_TOKENS in ops/fused_attn.py).
 #include <math.h>
 
 #include "common.cuh"
@@ -216,6 +232,161 @@ __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// N > 256: keys streamed through shared memory, two passes
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamRows = 16 * kWarps;   // query rows of one (row, head) per block
+constexpr int kStreamKeys = 64;            // keys per shared-memory tile
+constexpr int kMaxQueryTiles = 65535;      // gridDim.y
+
+// s[nt] = q . k^T of keys j0 + nt*8 + 2t (+1) for rows r0 (elements 0, 1) and
+// r1 (2, 3), + bias; keys past N are -inf
+template <int DH, int LDK>
+__device__ __forceinline__ void tile_logits(float (&s)[kStreamKeys / 8][4],
+                                            const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                            const float* bias, int j0, int r0, int r1, int N,
+                                            int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < kStreamKeys / 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const bf16* krow = ks + (nt * 8 + g) * LDK + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
+               *reinterpret_cast<const uint32_t*>(krow + kk * 16),
+               *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = j0 + nt * 8 + 2 * t + (e & 1);
+      const int row = e < 2 ? r0 : r1;
+      if (key >= N) {
+        s[nt][e] = -INFINITY;
+      } else if (bias != nullptr && row < N) {
+        s[nt][e] = __fadd_rn(s[nt][e], bias[static_cast<size_t>(row) * N + key]);
+      }
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
+    const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int N, int heads,
+    float scale) {
+  constexpr int LDK = DH + 8;            // K row stride (bf16)
+  constexpr int LDV = kStreamKeys + 8;   // V^T row stride (bf16)
+  __shared__ __align__(16) bf16 ks[kStreamKeys * LDK];
+  __shared__ __align__(16) bf16 vt[DH * LDV];
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int C = heads * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = static_cast<int>(blockIdx.y) * kStreamRows + warp * 16 + g, r1 = r0 + 8;
+  const size_t base = static_cast<size_t>(b) * N * ld + static_cast<size_t>(h) * DH;
+  const float* bias = bm == nullptr ? nullptr
+      : bm + (static_cast<size_t>(b % nWb) * heads + h) * static_cast<size_t>(N) * N;
+
+  uint32_t qa[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int c0 = kk * 16 + 2 * t;
+    qa[kk][0] = load_q2(q + base, r0, c0, N, ld, scale);
+    qa[kk][1] = load_q2(q + base, r1, c0, N, ld, scale);
+    qa[kk][2] = load_q2(q + base, r0, c0 + 8, N, ld, scale);
+    qa[kk][3] = load_q2(q + base, r1, c0 + 8, N, ld, scale);
+  }
+
+  // K (and in pass 2 V^T) of keys j0 .. j0 + 63 into shared memory, zeros past N
+  auto load_tile = [&](int j0, bool with_v) {
+    __syncthreads();                       // the previous tile is consumed
+    for (int i = threadIdx.x; i < kStreamKeys * (DH / 2); i += blockDim.x) {
+      const int j = i / (DH / 2), w = i % (DH / 2);
+      uint32_t kw = 0u, vw = 0u;
+      if (j0 + j < N) {
+        const size_t off = base + static_cast<size_t>(j0 + j) * ld;
+        kw = reinterpret_cast<const uint32_t*>(k + off)[w];
+        if (with_v) vw = reinterpret_cast<const uint32_t*>(v + off)[w];
+      }
+      *reinterpret_cast<uint32_t*>(ks + j * LDK + 2 * w) = kw;
+      if (with_v) {
+        const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
+        vt[(2 * w) * LDV + j] = v2.x;
+        vt[(2 * w + 1) * LDV + j] = v2.y;
+      }
+    }
+    __syncthreads();
+  };
+
+  // pass 1: the row max m and the row sum l = sum exp(s - m)
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float s[kStreamKeys / 8][4];
+  for (int j0 = 0; j0 < N; j0 += kStreamKeys) {
+    load_tile(j0, false);
+    tile_logits<DH, LDK>(s, qa, ks, bias, j0, r0, r1, N, g, t);
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kStreamKeys / 8; ++nt) {
+      tm0 = fmaxf(tm0, fmaxf(s[nt][0], s[nt][1]));
+      tm1 = fmaxf(tm1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(tm0)), mn1 = fmaxf(m1, quad_max(tm1));
+    float ts0 = 0.f, ts1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kStreamKeys / 8; ++nt) {
+      ts0 += expf(__fsub_rn(s[nt][0], mn0)) + expf(__fsub_rn(s[nt][1], mn0));
+      ts1 += expf(__fsub_rn(s[nt][2], mn1)) + expf(__fsub_rn(s[nt][3], mn1));
+    }
+    // exp(-inf - m) = 0 on the first tile, whose l is still 0
+    l0 = l0 * expf(m0 - mn0) + quad_sum(ts0);
+    l1 = l1 * expf(m1 - mn1) + quad_sum(ts1);
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  // pass 2: p = exp(s - m) / l rounded to bf16, p.v summed in fp32
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  for (int j0 = 0; j0 < N; j0 += kStreamKeys) {
+    load_tile(j0, true);
+    tile_logits<DH, LDK>(s, qa, ks, bias, j0, r0, r1, N, g, t);
+#pragma unroll
+    for (int kc = 0; kc < kStreamKeys / 16; ++kc) {
+      const float* p0 = s[2 * kc];
+      const float* p1 = s[2 * kc + 1];
+      const uint32_t a0 = pack_bf16x2(__fdiv_rn(expf(__fsub_rn(p0[0], m0)), l0),
+                                      __fdiv_rn(expf(__fsub_rn(p0[1], m0)), l0));
+      const uint32_t a1 = pack_bf16x2(__fdiv_rn(expf(__fsub_rn(p0[2], m1)), l1),
+                                      __fdiv_rn(expf(__fsub_rn(p0[3], m1)), l1));
+      const uint32_t a2 = pack_bf16x2(__fdiv_rn(expf(__fsub_rn(p1[0], m0)), l0),
+                                      __fdiv_rn(expf(__fsub_rn(p1[1], m0)), l0));
+      const uint32_t a3 = pack_bf16x2(__fdiv_rn(expf(__fsub_rn(p1[2], m1)), l1),
+                                      __fdiv_rn(expf(__fsub_rn(p1[3], m1)), l1));
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const bf16* vrow = vt + (nd * 8 + g) * LDV + kc * 16 + 2 * t;
+        mma_bf16(acc[nd], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(vrow),
+                 *reinterpret_cast<const uint32_t*>(vrow + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    const int col = h * DH + nd * 8 + 2 * t;
+    if (r0 < N)
+      *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r0) * C + col) =
+          __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+    if (r1 < N)
+      *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r1) * C + col) =
+          __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   int ld;               // elements between consecutive tokens of q, k and v
@@ -244,6 +415,17 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 template <int DH>
+int launch_stream(const Args& a, cudaStream_t stream) {
+  const int q_tiles = ceil_div(a.N, kStreamRows);
+  if (q_tiles > kMaxQueryTiles) return static_cast<int>(cudaErrorInvalidValue);
+  attn_stream_kernel<DH><<<dim3(a.BH, q_tiles), kWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.ld, static_cast<const float*>(a.bm), a.nWb,
+      static_cast<bf16*>(a.o), a.N, a.heads, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
 int launch_dh(const Args& a, cudaStream_t stream) {
   const int kt = ceil_div(a.N, 16);
   if (kt <= 1) return launch<DH, 1>(a, stream);
@@ -252,7 +434,7 @@ int launch_dh(const Args& a, cudaStream_t stream) {
   if (kt <= 8) return launch<DH, 8>(a, stream);
   if (kt <= 13) return launch<DH, 13>(a, stream);
   if (kt <= 16) return launch<DH, 16>(a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stream<DH>(a, stream);
 }
 
 int launch_any(const Args& a, int dh, cudaStream_t stream) {
@@ -263,8 +445,8 @@ int launch_any(const Args& a, int dh, cudaStream_t stream) {
 
 }  // namespace
 
-// K1/K2: qkv (B_, N, 3 * heads * dh) bf16; o: (B_, N, heads * dh) bf16; N <= 256,
-// dh in {32, 64}
+// K1/K2: qkv (B_, N, 3 * heads * dh) bf16; o: (B_, N, heads * dh) bf16; N up to
+// 65535 * 64 (keys streamed past 256), dh in {32, 64}
 STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int B, int N,
                           int heads, int dh, float scale, cudaStream_t stream) {
   const int C = heads * dh;
@@ -274,7 +456,7 @@ STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int
 }
 
 // K8: q (pre-scaled), k, v, o (R, N, dh) bf16; bm (P, N, N) fp32, row r taking bm[r % P];
-// N <= 256, dh in {32, 64}
+// N up to 65535 * 64, dh in {32, 64}
 STG_API int stg_attn_qkv(const void* q, const void* k, const void* v, const void* bm, int P,
                          void* o, int R, int N, int dh, cudaStream_t stream) {
   const Args a{q, k, v, dh, bm, P, o, R, N, 1, 1.0f};

@@ -36,7 +36,9 @@
 // products, as attn.cu; one warp owns 16 query rows, 4 warps a block; the
 // key tile sits in shared memory as K (keys x D) and V^T (D x keys), the
 // probabilities' accumulator fragments are reused as the A operand of p.v.
-// D in {16, 32, 48, 64}; any Nv, Na >= 1.
+// D in {16, 32, 48, 64, 96} (96: Swin-Large's adapter width at every stage, six
+// k16 steps; its static shared memory is 64 * 104 * 2 + 96 * 72 * 2 bytes,
+// ~27 KB); any Nv, Na >= 1.
 #include <math.h>
 
 #include "common.cuh"
@@ -243,7 +245,7 @@ int launch(const Dir& d0, const Dir& d1, const float* mask, int B, cudaStream_t 
 
 // vh (B, Nv, D), ah (B, Na, D), vo/ao likewise, all bf16 and contiguous; gv, ga: (1,)
 // bf16; mask: nullable (Nv, Na) fp32, added to the (Nv, Na) gram in both directions.
-// D in {16, 32, 48, 64}; B <= 65535.
+// D in {16, 32, 48, 64, 96}; B <= 65535.
 STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const void* ga,
                            const void* mask, void* vo, void* ao, int B, int Nv, int Na, int D,
                            cudaStream_t stream) {
@@ -257,5 +259,6 @@ STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const
   if (D == 32) return launch<32>(d0, d1, m, B, stream);
   if (D == 48) return launch<48>(d0, d1, m, B, stream);
   if (D == 64) return launch<64>(d0, d1, m, B, stream);
+  if (D == 96) return launch<96>(d0, d1, m, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

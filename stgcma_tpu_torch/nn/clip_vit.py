@@ -8,16 +8,22 @@ order. The modules below only hold parameters, named as the JAX tree's keys;
 the functions read them. Tokens are batch-first (BT, N, C).
 
 By default the attention at both sites goes through K1 (float tower) or K2
-(int8 tower) and the int8 FFN through K3 (ops/fused_attn.py). Two switches of
-the JAX package, read at call time and off by default, select the fused
-block of ops/clip_block.py: `STGCMA_CLIP_TADAPT_FUSED=1` takes the temporal
-stage with its T_Adapter in K13, `STGCMA_CLIP_WHOLE_BLOCK=1` everything after
-it in K12 (`fusion` mode only), so that a block is three kernels. Unlike the
-JAX package on the CPU, the port takes these entry points on the CPU too and
-runs their plain versions there, as every other kernel of the port does. The
-int8 adapter-fused kernels (`STGCMA_QFUSE_ADAPTERS=1`) and the transpose-free
-temporal kernel (`STGCMA_TV2=1`) are not ported and raise. Unlike the TPU
-path there is no resident pad: the video stream keeps its 197 tokens.
+(int8 tower) and the int8 FFN through K3 (ops/fused_attn.py). Three switches
+of the JAX package, read at call time and off by default, select other
+kernels:
+- `STGCMA_CLIP_TADAPT_FUSED=1` takes the temporal stage with its T_Adapter
+  in K13, `STGCMA_CLIP_WHOLE_BLOCK=1` everything after it in K12 (`fusion`
+  mode only), so that a block is three kernels (ops/clip_block.py);
+- `STGCMA_QFUSE_ADAPTERS=1`, for an int8 tower only, takes the three
+  adapter-fused bodies of K11 at every site: the temporal attention emits
+  only the T_Adapter's hidden, the spatial attention and the FFN emit their
+  output and the S_Adapter's or MLP_Adapter's hidden. At the temporal site
+  it goes before K13; in `fusion` mode K12 goes before it.
+Unlike the JAX package on the CPU, the port takes these entry points on the
+CPU too and runs their plain versions there, as every other kernel of the
+port does. The transpose-free temporal kernel (`STGCMA_TV2=1`) is not ported
+and raises. Unlike the TPU path there is no resident pad: the video stream
+keeps its 197 tokens (257 at ViT-L/14).
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ from ..ops.attention import cross_modal_fuse
 from ..ops.common import LayerNorm, Linear, layernorm, linear, quick_gelu
 from ..ops.conv import conv2d
 from ..ops.clip_block import clip_fusion_spatial_block, clip_temporal_adapt_block
-from ..ops.fused_attn import BLOCK_KERNEL_MAX_HEADS, clip_attention_block, ffn_q_megakernel
+from ..ops.fused_attn import (BLOCK_KERNEL_MAX_HEADS, clip_attention_block,
+                              clip_attn_megakernel_h, ffn_q_megakernel, ffn_qh_megakernel)
 from .adapters import Adapter, adapter_apply, adapter_hidden, adapter_out
 
 
@@ -167,16 +174,24 @@ def clip_whole_block_enabled() -> bool:
     return os.environ.get("STGCMA_CLIP_WHOLE_BLOCK", "0") == "1"
 
 
-def _refuse_unported_opt_ins(blk: ClipBlock, heads: int, T: int):
-    """The JAX package's opt-in routes through kernels that are not ported
-    raise, where JAX would take them (`clip_vit.py:106-116`, :126, :139-148)."""
-    if heads > BLOCK_KERNEL_MAX_HEADS:
-        return
-    if blk.attn.in_proj.quantized and os.environ.get("STGCMA_QFUSE_ADAPTERS", "0") == "1":
-        raise NotImplementedError(
-            "STGCMA_QFUSE_ADAPTERS=1 takes the int8 adapter-fused kernels K11, which are not "
-            "ported yet (ROADMAP.md, section 2)")
-    if T <= TADAPT_MAX_FRAMES and os.environ.get("STGCMA_TV2", "0") == "1":
+def qfuse_adapters_enabled() -> bool:
+    """`STGCMA_QFUSE_ADAPTERS=1`: the int8 adapter-fused kernels K11 (off by
+    default, `clip_vit.py:106`). Read at call time."""
+    return os.environ.get("STGCMA_QFUSE_ADAPTERS", "0") == "1"
+
+
+def _qfuse_adapters(blk: ClipBlock, heads: int) -> bool:
+    """K11 at this block's sites (`_qfuse_adapters` :106 and the routes'
+    `heads <= 16`): an int8 tower with the switch set."""
+    return (blk.attn.in_proj.quantized and qfuse_adapters_enabled()
+            and heads <= BLOCK_KERNEL_MAX_HEADS)
+
+
+def _refuse_unported_opt_ins(heads: int, T: int):
+    """The JAX package's opt-in route through the kernel that is not ported
+    raises, where JAX would take it (`clip_vit.py:139-148`)."""
+    if (heads <= BLOCK_KERNEL_MAX_HEADS and T <= TADAPT_MAX_FRAMES
+            and os.environ.get("STGCMA_TV2", "0") == "1"):
         raise NotImplementedError(
             "STGCMA_TV2=1 takes the transpose-free temporal kernel K14, which is not ported "
             "yet (ROADMAP.md, section 2)")
@@ -184,12 +199,19 @@ def _refuse_unported_opt_ins(blk: ClipBlock, heads: int, T: int):
 
 def _t_adapt(blk: ClipBlock, x, heads: int, T: int, adapter: Adapter):
     """Temporal adaptation: attention over the frame axis + no-skip
-    T_Adapter + residual, in K13 when `clip_tadapt_fused_enabled()` (<= 16
-    heads and frames), else K1/K2 and the adapter in torch. x: (B*T, N, C)."""
+    T_Adapter + residual. With `_qfuse_adapters` K11 emits only the
+    T_Adapter's hidden (`clip_vit.py:126-138`); else K13 when
+    `clip_tadapt_fused_enabled()` (<= 16 heads and frames), else K1/K2 and
+    the adapter in torch. x: (B*T, N, C)."""
     BT, N, C = x.shape
     B = BT // T
-    _refuse_unported_opt_ins(blk, heads, T)
     xt = x.reshape(B, T, N, C).transpose(1, 2).reshape(B * N, T, C).contiguous()
+    if _qfuse_adapters(blk, heads):
+        h = clip_attn_megakernel_h(blk.attn, blk.ln_1, adapter, xt, heads, emit_o=False)
+        dA = h.shape[-1]
+        h = h.reshape(B, N, T, dA).transpose(1, 2).reshape(BT, N, dA)
+        return x + linear(adapter.D_fc2, h)
+    _refuse_unported_opt_ins(heads, T)
     if (clip_tadapt_fused_enabled() and heads <= BLOCK_KERNEL_MAX_HEADS
             and T <= TADAPT_MAX_FRAMES):
         xt = clip_temporal_adapt_block(blk.attn, blk.ln_1, adapter, xt, heads)
@@ -207,11 +229,19 @@ def _ffn_clip(blk: ClipBlock, x):
 
 
 def _single(blk: ClipBlock, x, cfg: ClipConfig, sfx: str):
-    """video_adapt / audio_adapt (`clip_vit.py:178-197`, without the `qf`
-    branch): one stream through the temporal stage, the spatial attention with
-    its skip adapter and the FFN with its no-skip adapter. sfx: "" or "_Audio"."""
+    """video_adapt / audio_adapt (`clip_vit.py:178-197`): one stream through
+    the temporal stage, the spatial attention with its skip adapter and the
+    FFN with its no-skip adapter; with `_qfuse_adapters` both in K11, whose
+    hiddens feed the adapters' up-projections. sfx: "" or "_Audio"."""
     h = cfg.heads
     x = _t_adapt(blk, x, h, cfg.num_frames, getattr(blk, "T_Adapter" + sfx))
+    if _qfuse_adapters(blk, h):
+        s_ad, mlp_ad = getattr(blk, "S_Adapter" + sfx), getattr(blk, "MLP_Adapter" + sfx)
+        xs, xs_h = clip_attn_megakernel_h(blk.attn, blk.ln_1, s_ad, x, h, emit_o=True)
+        x = x + xs + adapter_out(s_ad, xs_h)
+        xn, xn_h = ffn_qh_megakernel(blk.mlp, blk.ln_2, mlp_ad, x, act="quick_gelu",
+                                     keys=("c_fc", "c_proj"))
+        return x + xn + adapter_out(mlp_ad, xn_h)
     x = x + adapter_apply(getattr(blk, "S_Adapter" + sfx),
                           clip_attention_block(blk.attn, blk.ln_1, x, h), skip=True)
     xn = _ffn_clip(blk, x)
@@ -220,7 +250,9 @@ def _single(blk: ClipBlock, x, cfg: ClipConfig, sfx: str):
 
 def _fusion(blk: ClipBlock, v, a, cfg: ClipConfig):
     """fusion_adapt — token-level STG-CMA (CLIP_AVE.py:359-430). After the
-    temporal stage, K12 when `clip_whole_block_enabled()` (<= 16 heads)."""
+    temporal stage, K12 when `clip_whole_block_enabled()` (<= 16 heads); else
+    the spatial attention and the FFN in K11 with `_qfuse_adapters`, which
+    emit the adapters' hiddens with their outputs (`clip_vit.py:218-246`)."""
     h = cfg.heads
     v = _t_adapt(blk, v, h, cfg.num_frames, blk.T_Adapter)
     a = _t_adapt(blk, a, h, cfg.num_frames, blk.T_Adapter_Audio)
@@ -228,18 +260,29 @@ def _fusion(blk: ClipBlock, v, a, cfg: ClipConfig):
     if clip_whole_block_enabled() and h <= BLOCK_KERNEL_MAX_HEADS:
         return clip_fusion_spatial_block(blk, v, a, h)
 
-    vs = clip_attention_block(blk.attn, blk.ln_1, v, h)
-    a_s = clip_attention_block(blk.attn, blk.ln_1, a, h)
-    vs_h = adapter_hidden(blk.S_Adapter, vs)
-    as_h = adapter_hidden(blk.S_Adapter_Audio, a_s)
+    qf = _qfuse_adapters(blk, h)
+    if qf:
+        vs, vs_h = clip_attn_megakernel_h(blk.attn, blk.ln_1, blk.S_Adapter, v, h, emit_o=True)
+        a_s, as_h = clip_attn_megakernel_h(blk.attn, blk.ln_1, blk.S_Adapter_Audio, a, h,
+                                           emit_o=True)
+    else:
+        vs = clip_attention_block(blk.attn, blk.ln_1, v, h)
+        a_s = clip_attention_block(blk.attn, blk.ln_1, a, h)
+        vs_h = adapter_hidden(blk.S_Adapter, vs)
+        as_h = adapter_hidden(blk.S_Adapter_Audio, a_s)
     vs_h, as_h = cross_modal_fuse(vs_h, as_h, blk.gate_v, blk.gate_a)
     v = v + vs + adapter_out(blk.S_Adapter, vs_h)
     a = a + a_s + adapter_out(blk.S_Adapter_Audio, as_h)
 
-    vn = _ffn_clip(blk, v)
-    an = _ffn_clip(blk, a)
-    vn_h = adapter_hidden(blk.MLP_Adapter, vn)
-    an_h = adapter_hidden(blk.MLP_Adapter_Audio, an)
+    if qf:
+        ffn_keys = {"act": "quick_gelu", "keys": ("c_fc", "c_proj")}
+        vn, vn_h = ffn_qh_megakernel(blk.mlp, blk.ln_2, blk.MLP_Adapter, v, **ffn_keys)
+        an, an_h = ffn_qh_megakernel(blk.mlp, blk.ln_2, blk.MLP_Adapter_Audio, a, **ffn_keys)
+    else:
+        vn = _ffn_clip(blk, v)
+        an = _ffn_clip(blk, a)
+        vn_h = adapter_hidden(blk.MLP_Adapter, vn)
+        an_h = adapter_hidden(blk.MLP_Adapter_Audio, an)
     vn_h, an_h = cross_modal_fuse(vn_h, an_h, blk.gate_v, blk.gate_a)
     v = v + vn + adapter_out(blk.MLP_Adapter, vn_h)
     a = a + an + adapter_out(blk.MLP_Adapter_Audio, an_h)
@@ -264,15 +307,22 @@ def launches_per_forward(cfg: ClipConfig, quantized: bool = False) -> Dict[str, 
     """{kernel id: launches} of one forward of `cfg` under the switches as
     they are now (ids with no launch left out): per block and stream one
     temporal and one spatial attention site and, for an int8 tower, one FFN
-    site; K13 takes the temporal sites and K12 a whole fusion block's rest."""
+    site. The temporal site: K11 with `_qfuse_adapters`, else K13 with its
+    switch, else K1/K2. The rest of a fusion block: K12 with its switch; else
+    the spatial and FFN sites in K11 with `_qfuse_adapters`, else K1/K2 and
+    K3 (int8 only)."""
     streams = 1 if cfg.ftmode in ("videoonly", "audioonly") else 2
     kernel_ok = cfg.heads <= BLOCK_KERNEL_MAX_HEADS
+    qf = quantized and qfuse_adapters_enabled() and kernel_ok
     tadapt = clip_tadapt_fused_enabled() and kernel_ok and cfg.num_frames <= TADAPT_MAX_FRAMES
     whole = clip_whole_block_enabled() and kernel_ok and cfg.ftmode == "fusion"
     sites = streams * cfg.layers
-    attn = (0 if tadapt else sites) + (0 if whole else sites)
-    out = {"K2" if quantized else "K1": attn, "K3": sites if quantized and not whole else 0,
-           "K12": cfg.layers if whole else 0, "K13": sites if tadapt else 0}
+    attn_id = "K2" if quantized else "K1"
+    out = {"K12": cfg.layers if whole else 0}
+    for kid, n in (("K11" if qf else "K13" if tadapt else attn_id, sites),     # temporal
+                   ("K11" if qf else attn_id, 0 if whole else sites),          # spatial
+                   ("K11" if qf else "K3", sites if quantized and not whole else 0)):   # FFN
+        out[kid] = out.get(kid, 0) + n
     return {k: n for k, n in out.items() if n}
 
 

@@ -47,9 +47,9 @@ from __future__ import annotations
 import torch
 
 from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_QUICKGELU, _EPI_BF16_RGELU, _EPI_Q_BF16,
-                         _QUICK_GELU, FUSE_WIDTHS, _Kernel, _attn_core, _check_cuda,
-                         _check_shapes, _erf_gelu, _fuse_cuda, _gemm_bf16, _gemm_s8,
-                         _heads_attention, _ln_bf16, _ln_f32, _quant_rows, _stream, dotq,
+                         _QUICK_GELU, _Kernel, _attn_core, _check_cuda, _check_shapes, _erf_gelu,
+                         _fuse_cuda, _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
+                         _quant_rows, _stream, check_attn_shape, check_fuse_width, dotq,
                          fuse_plain)
 from .swin_block import TOWER, _gemm_res2, _lin, adapter_weights, tower_weights
 
@@ -176,9 +176,10 @@ def _check_operands(x, w, heads, quantized, n_tower, adapters, name):
     Hd = w["w1"].shape[0] if n_tower == 4 else 0
     D = w[f"{adapters[0]}_w1"].shape[0]
     step = 16 if quantized else 8      # int8 rows of 16-byte chunks in gemm.cu
-    if C % heads or C // heads not in (32, 64) or any(n > 256 for n in x.shape[1:-1]):
-        raise ValueError(f"{name} takes <= 256 tokens and heads of width 32 or 64, got "
-                         f"x {tuple(x.shape)}, heads={heads}")
+    if C % heads:
+        raise ValueError(f"{name}: C={C} is not a multiple of heads={heads}")
+    for n in x.shape[1:-1]:
+        check_attn_shape(n, C // heads, name)
     if C % step or Hd % step or D % 8:
         raise ValueError(f"{name} takes C and the FFN hidden in multiples of {step} and the "
                          f"adapter width in multiples of 8, got C={C}, hidden={Hd}, D={D}")
@@ -222,9 +223,8 @@ def _clip_block_cuda(v, a, w, heads, quantized=False):
     _check_cuda(v, {"v": (v, bf), "a": (a, bf)})
     _check_shapes({"a": (a, (BT, Na, C)), "ln2_w": (w["ln2_w"], (C,)), "ln2_b": (w["ln2_b"], (C,)),
                    "gate_v": (w["gate_v"], (1,)), "gate_a": (w["gate_a"], (1,))})
-    if Na > 256 or D not in FUSE_WIDTHS:
-        raise ValueError(f"K12 takes <= 256 audio tokens and adapter widths in {FUSE_WIDTHS}, "
-                         f"got Na={Na}, D={D}")
+    check_attn_shape(Na, C // heads, "K12")
+    check_fuse_width(D, "K12")
     s = _stream(v)
     Mv, Ma = BT * Nv, BT * Na
     M = Mv + Ma

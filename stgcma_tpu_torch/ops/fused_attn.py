@@ -1,4 +1,4 @@
-"""The port's kernels K1-K3 and K5-K9: wrappers, plain versions, launch
+"""The port's kernels K1-K3, K5-K9 and K11: wrappers, plain versions, launch
 counts, and the entry points of the CLIP and Swin towers that route to them
 (the whole Swin fusion block K4 is in ops/swin_block.py).
 
@@ -18,6 +18,18 @@ counts, and the entry points of the CLIP and Swin towers that route to them
   (:247); one kernel takes any period P.
 - K9 `layernorm`: row LayerNorm, fp32 statistics, x's dtype in and out.
   Replaces `_ln_kernel` (:755).
+- K11 `win_block_qd`, `win_block_qh`, `ffn_qh`: K2 or K3 with the
+  adapter's down-projection applied to the output, gelu(bf16(o).bf16(wd) +
+  bd) (`_adapter_down` :1472: o and wd are cast to bf16 first, whatever x's
+  dtype, the product and the erf-GELU are fp32, the hidden is rounded once).
+  `win_block_qd` returns only the hidden (replaces `_win_block_qd_kernel`
+  :1486, the CLIP temporal site, where the attention output feeds nothing
+  but the T_Adapter); `win_block_qh` returns (o, hidden) (`_win_block_qh_kernel`
+  :1503, the spatial site); `ffn_qh` returns (FFN output, MLP_Adapter hidden)
+  (`_ffn_qh_kernel` :1674). On the card each is K2's or K3's launches, o
+  rounded to bf16 by their last product's epilogue, then one `gemm.cu`
+  product with the erf-GELU epilogue (`EPI_BF16_GELU`) at N = the adapter
+  width; `win_block_qd` keeps o in a scratch buffer of its own.
 - K5 `win_fuse` and K6 `bidir_fuse`: the bidirectional gated cross-modal
   fusion vo = vh + (gv * softmax(vh.ah^T).ah), ao = ah + (ga *
   softmax(ah.vh^T).vh), unscaled fp32 logits, probabilities rounded to the
@@ -37,14 +49,17 @@ makes).
 Departures from the TPU kernels' layout, on purpose: no 8-row block-diagonal
 packing of the T = 10 temporal sites (`pallas_attn.py:622-647, :879-905`), no
 2-window packing and 49 -> 64 pad of the Swin windows (:578-608) and no
-resident pad of the 197-token video stream (`clip_vit.py:366-383`). The
-kernels take any token count N <= 256 and each row attends over its own N
-tokens.
+resident pad of the 197-token video stream (`clip_vit.py:366-383`) and no
+257 -> 272 pad of CLIP ViT-L/14's (`pallas_attn.py:906-924`). The attention
+core takes any token count up to ATTN_MAX_TOKENS (keys streamed through
+shared memory past 256) and each row attends over its own N tokens.
 The softmax divides exactly, and the activation scale uses a correctly
 rounded reciprocal (the TPU kernels' `pl.reciprocal(approx=True)` is a
 hardware approximation).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -64,7 +79,10 @@ LN_KERNEL_MIN_ELEMS = 1 << 20         # K9 at >= 2^20 elements (pallas_attn.py:8
 FFN_KERNEL_MIN_HIDDEN_BYTES = 96 << 20   # K7 when the hidden is >= 96 MiB (swin.py:204-210)
 FLASH_MIN_TOKENS = 120                # K6 from 120 tokens (pallas_attn.py:1023)
 FLASH_MAX_KEY_BYTES = 16 << 20        # K6 while Na * D * 4 <= 16 MiB, else K10 (:1033-1034)
-FUSE_WIDTHS = (16, 32, 48, 64)        # adapter widths D that csrc/fuse.cu instantiates
+FUSE_WIDTHS = (16, 32, 48, 64, 96)    # adapter widths D that csrc/fuse.cu instantiates
+ATTN_HEAD_WIDTHS = (32, 64)           # head widths dh that csrc/attn.cu instantiates
+ATTN_MAX_TOKENS = 65535 * 64          # csrc/attn.cu: past 256 tokens a block takes 64 query
+                                      # rows, at most 65535 blocks along gridDim.y
 
 
 # ---------------------------------------------------------------------------
@@ -124,27 +142,61 @@ def win_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
     return (torch.matmul(o.float(), w_proj.float().t()) + b_proj.float()).to(dt)
 
 
-def win_block_q_plain(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s,
-                      b_proj, heads, bias=None):
+def _win_block_q_core(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
+                      heads, bias=None):
+    """K2's body up to its fp32 output (`_win_block_q_core` :1425)."""
     xn = _ln_f32(x, ln_w, ln_b)
     qkv = (dotq(xn, wqkv_q, wqkv_s) + b_qkv.float()).to(torch.bfloat16)
     o = _heads_attention(qkv, heads, bias, torch.bfloat16)
-    out = dotq(o.float(), wproj_q, wproj_s) + b_proj.float()
-    return out.to(x.dtype)
+    return dotq(o.float(), wproj_q, wproj_s) + b_proj.float()
 
 
-def ffn_q_plain(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
-    xn = _ln_f32(x, ln_w, ln_b)
-    h = dotq(xn, w1_q, w1_s) + b1.float()
-    if act == _QUICK_GELU:
-        h = h * torch.sigmoid(1.702 * h)
-    else:
-        h = 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))
-    return (dotq(h, w2_q, w2_s) + b2.float()).to(x.dtype)
+def win_block_q_plain(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s,
+                      b_proj, heads, bias=None):
+    return _win_block_q_core(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
+                             heads, bias).to(x.dtype)
 
 
 def _erf_gelu(h):
     return 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))
+
+
+def _ffn_q_core(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+    """K3's body up to its fp32 output (`_ffn_q_kernel` :1616)."""
+    xn = _ln_f32(x, ln_w, ln_b)
+    h = dotq(xn, w1_q, w1_s) + b1.float()
+    h = h * torch.sigmoid(1.702 * h) if act == _QUICK_GELU else _erf_gelu(h)
+    return dotq(h, w2_q, w2_s) + b2.float()
+
+
+def ffn_q_plain(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+    return _ffn_q_core(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act).to(x.dtype)
+
+
+def _adapter_down(o, wd, bd, dt):
+    """K11's adapter hidden of the fp32 output o (`_adapter_down` :1472): o
+    and wd (D, C) cast to bf16 first, even when x is fp32, the product in
+    fp32 + bd, erf-GELU in fp32, rounded once to dt. Not the unfused
+    `adapter_hidden`, which takes o in its own dtype."""
+    bf = torch.bfloat16
+    h = torch.matmul(o.to(bf).float(), wd.to(bf).float().t()) + bd.float()
+    return _erf_gelu(h).to(dt)
+
+
+def win_block_qad_plain(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
+                        wd, bd, heads, emit_o):
+    """K2 with the adapter's down-projection: the hidden alone (`emit_o`
+    False, `_win_block_qd_kernel`), or (o in x's dtype, hidden)
+    (`_win_block_qh_kernel`)."""
+    o = _win_block_q_core(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj, heads)
+    h = _adapter_down(o, wd, bd, x.dtype)
+    return (o.to(x.dtype), h) if emit_o else h
+
+
+def ffn_qh_plain(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, wd, bd, act):
+    """K3 that also returns the adapter hidden of its output (`_ffn_qh_kernel`)."""
+    o = _ffn_q_core(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act)
+    return o.to(x.dtype), _adapter_down(o, wd, bd, x.dtype)
 
 
 def ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2):
@@ -267,14 +319,27 @@ def _attn_core(qkv, bias, heads, s, out=None):
     return o
 
 
+def check_attn_shape(N, dh, name="the attention core"):
+    """The token counts and head widths that csrc/attn.cu takes."""
+    if dh not in ATTN_HEAD_WIDTHS or not 1 <= N <= ATTN_MAX_TOKENS:
+        raise ValueError(f"{name} takes 1 to {ATTN_MAX_TOKENS} tokens and heads of width in "
+                         f"{ATTN_HEAD_WIDTHS}, got N={N}, dh={dh}")
+
+
+def check_fuse_width(D, name="the fusion kernel"):
+    """The adapter widths that csrc/fuse.cu takes."""
+    if D not in FUSE_WIDTHS:
+        raise ValueError(f"{name} takes adapter widths in {FUSE_WIDTHS}, got D={D}")
+
+
 def _check_block(x, heads, bias, weights):
     """Shared validation of K1/K2 inputs on the card."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B_, N, C), got {tuple(x.shape)}")
     B_, N, C = x.shape
-    if C % heads or C // heads not in (32, 64) or N > 256:
-        raise ValueError(f"the attention core takes N <= 256 tokens and heads of width "
-                         f"32 or 64, got N={N}, C={C}, heads={heads}")
+    if C % heads:
+        raise ValueError(f"C={C} is not a multiple of heads={heads}")
+    check_attn_shape(N, C // heads)
     named = {"x": (x, torch.bfloat16), **weights}
     if bias is not None:
         named["bias"] = (bias, torch.float32)
@@ -384,6 +449,33 @@ def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
     return out
 
 
+def _adapter_operands(x, wd, bd):
+    """Validation of K11's adapter operands on the card; returns its width D."""
+    C, D = x.shape[-1], wd.shape[0]
+    _check_cuda(x, {"wd": (wd, torch.bfloat16), "bd": (bd, torch.bfloat16)})
+    _check_shapes({"wd": (wd, (D, C)), "bd": (bd, (D,))})
+    return D
+
+
+def _win_block_qad_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
+                        wd, bd, heads, emit_o):
+    D = _adapter_operands(x, wd, bd)
+    o = _win_block_q_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
+                          heads)                 # K2's launches; o rounded to bf16
+    B_, N, C = x.shape
+    h = torch.empty((B_, N, D), dtype=torch.bfloat16, device=x.device)
+    _gemm_bf16(o.view(B_ * N, C), wd, bd, h.view(B_ * N, D), _EPI_BF16_GELU, _stream(x))
+    return (o, h) if emit_o else h
+
+
+def _ffn_qh_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, wd, bd, act):
+    D = _adapter_operands(x, wd, bd)
+    o = _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act)   # K3's launches
+    h = torch.empty((x.shape[0], D), dtype=torch.bfloat16, device=x.device)
+    _gemm_bf16(o, wd, bd, h, _EPI_BF16_GELU, _stream(x))
+    return o, h
+
+
 def _ffn_cuda(x, ln_w, ln_b, w1, b1, w2, b2):
     if x.dim() != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
@@ -412,10 +504,9 @@ def _wmsa_cuda(q, k, v, bm):
     bf = torch.bfloat16
     _check_cuda(q, {"q": (q, bf), "k": (k, bf), "v": (v, bf), "bm": (bm, torch.float32)})
     _check_shapes({"k": (k, (R, N, dh)), "v": (v, (R, N, dh)), "bm": (bm, (P, N, N))})
-    if dh not in (32, 64) or N > 256 or R % P:
-        raise ValueError(f"the attention core takes N <= 256 tokens, heads of width 32 or "
-                         f"64 and R a multiple of the bias period; got R={R}, N={N}, "
-                         f"dh={dh}, P={P}")
+    check_attn_shape(N, dh)
+    if R % P:
+        raise ValueError(f"R={R} is not a multiple of the bias period P={P}")
     o = torch.empty_like(q)
     cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_qkv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bm), P, _ptr(o), R, N, dh, _stream(q)))
@@ -444,9 +535,9 @@ def _fuse_cuda(vh, ah, gate_v, gate_a, mask=None):
         shapes["mask"] = (mask, (Nv, Na))
     _check_cuda(vh, named)
     _check_shapes(shapes)
-    if D not in FUSE_WIDTHS or B > 65535:
-        raise ValueError(f"the fusion kernel takes D in {FUSE_WIDTHS} and B <= 65535, got "
-                         f"B={B}, D={D}")
+    check_fuse_width(D)
+    if B > 65535:
+        raise ValueError(f"the fusion kernel takes B <= 65535, got B={B}")
     vo, ao = torch.empty_like(vh), torch.empty_like(ah)
     cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_fuse_bidir(
         _ptr(vh), _ptr(ah), _ptr(gate_v), _ptr(gate_a), _ptr(mask), _ptr(vo), _ptr(ao),
@@ -462,6 +553,11 @@ bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda)
 ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda)
 wmsa = _Kernel("K8", "wmsa", wmsa_plain, _wmsa_cuda)
 layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda)
+win_block_qd = _Kernel("K11", "win_block_qd", functools.partial(win_block_qad_plain, emit_o=False),
+                       functools.partial(_win_block_qad_cuda, emit_o=False))
+win_block_qh = _Kernel("K11", "win_block_qh", functools.partial(win_block_qad_plain, emit_o=True),
+                       functools.partial(_win_block_qad_cuda, emit_o=True))
+ffn_qh = _Kernel("K11", "ffn_qh", ffn_qh_plain, _ffn_qh_cuda)
 
 
 def reset_launches():
@@ -471,7 +567,7 @@ def reset_launches():
 
 def launches_by_id():
     """{kernel id: launches summed over its wrappers} (K4's two variants are
-    two wrappers under one id)."""
+    two wrappers under one id, K11's three bodies three)."""
     out = {}
     for k in KERNELS:
         out[k.id] = out.get(k.id, 0) + k.launches
@@ -507,6 +603,33 @@ def ffn_q_megakernel(mlp, ln, x, act: str = _GELU, keys=("fc1", "fc2")):
                 fc1.weight_q, fc1.weight_s, fc1.bias,
                 fc2.weight_q, fc2.weight_s, fc2.bias, act)
     return out.reshape(shape)
+
+
+def clip_attn_megakernel_h(attn, ln, adapter, x, heads: int, emit_o: bool):
+    """LN + int8 self-attention + out-proj over the middle axis of x (B_, N,
+    C), with the adapter's down-projection and GELU in K11
+    (`pallas_attn.py::clip_attn_megakernel_h` :927, without its packing and
+    padding): the hidden (B_, N, D) alone (`emit_o` False, the temporal
+    site), or (attention output, hidden) (the spatial site). Takes an int8
+    tower only, as the JAX function does."""
+    if not attn.in_proj.quantized:
+        raise ValueError("clip_attn_megakernel_h takes an int8 tower (quantize_clip_tower)")
+    kernel = win_block_qh if emit_o else win_block_qd
+    return kernel(x, ln.weight, ln.bias, attn.in_proj.weight_q, attn.in_proj.weight_s,
+                  attn.in_proj.bias, attn.out_proj.weight_q, attn.out_proj.weight_s,
+                  attn.out_proj.bias, adapter.D_fc1.weight, adapter.D_fc1.bias, heads)
+
+
+def ffn_qh_megakernel(mlp, ln, adapter, x, act: str = _GELU, keys=("fc1", "fc2")):
+    """LN + int8 FFN over x (..., C) that also returns the adapter hidden of
+    its output, in K11 (`pallas_attn.py::ffn_qh_megakernel` :1724, its
+    defaults as `ffn_q_megakernel`'s). Returns (FFN output, hidden (..., D))."""
+    shape = x.shape
+    fc1, fc2 = (getattr(mlp, k) for k in keys)
+    o, h = ffn_qh(x.reshape(-1, shape[-1]), ln.weight, ln.bias,
+                  fc1.weight_q, fc1.weight_s, fc1.bias, fc2.weight_q, fc2.weight_s, fc2.bias,
+                  adapter.D_fc1.weight, adapter.D_fc1.bias, act)
+    return o.reshape(shape), h.reshape(shape[:-1] + (h.shape[-1],))
 
 
 # ---------------------------------------------------------------------------

@@ -34,10 +34,11 @@ import torch
 
 from . import cuda_lib
 from .attention import gather_bias
-from .fused_attn import (FUSE_WIDTHS, _EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU,
+from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU,
                          _Kernel, _attn_core, _check_cuda, _check_shapes, _erf_gelu,
                          _fuse_cuda, _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
-                         _ptr, _quant_rows, _stream, dotq, fuse_plain)
+                         _ptr, _quant_rows, _stream, check_attn_shape, check_fuse_width, dotq,
+                         fuse_plain)
 from .window import relative_position_index
 
 WHOLE_BLOCK_MAX_GRID = 256            # K4 for grids of <= 256 tokens (pallas_swin_block.py:587)
@@ -217,12 +218,14 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
     Hd, D = w["w1"].shape[0], w["s2v_w1"].shape[0]
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     step = 16 if quantized else 8      # int8 rows of 16-byte chunks in gemm.cu
-    if C % heads or C // heads not in (32, 64) or N > 256:
-        raise ValueError(f"K4 takes N <= 256 tokens and heads of width 32 or 64, got N={N}, "
-                         f"C={C}, heads={heads}")
-    if C % step or Hd % step or D not in FUSE_WIDTHS:
-        raise ValueError(f"K4 takes C and the FFN hidden in multiples of {step} and adapter "
-                         f"widths in {FUSE_WIDTHS}, got C={C}, hidden={Hd}, D={D}")
+    if C % heads or N > WHOLE_BLOCK_MAX_GRID:
+        raise ValueError(f"K4 takes grids of <= {WHOLE_BLOCK_MAX_GRID} tokens and C a multiple "
+                         f"of heads, got N={N}, C={C}, heads={heads}")
+    check_attn_shape(N, C // heads, "K4")
+    check_fuse_width(D, "K4")
+    if C % step or Hd % step:
+        raise ValueError(f"K4 takes C and the FFN hidden in multiples of {step}, got C={C}, "
+                         f"hidden={Hd}")
     int8_keys = {wk for wk, _, _ in TOWER} if quantized else set()
     scale_keys = {sk for _, sk, _ in TOWER}
     if quantized != all(k in w for k in scale_keys):

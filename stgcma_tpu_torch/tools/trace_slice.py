@@ -1,7 +1,7 @@
 """Where the time of one serving forward goes on the card.
 
     python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--int8]
-        [--fused] [--seed 0] [--out DIR]
+        [--fused] [--qfuse] [--seed 0] [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
 seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
@@ -10,10 +10,12 @@ Swin-Base in fusion mode (the STG-CMA exchange); the Swin models serve a
 bf16 tower, or with `--int8` the tower made int8 by `quantize_swin_tower`
 (`--int8` takes a Swin model). With `--fused` the CLIP model also serves
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
-STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block), and each task's
-library kernels (cuBLAS, cuDNN, PyTorch's attention) are listed by name: in
-the fused configuration only the embed's convolutions and the head's two
-linears remain, whatever the depth. For each task it
+STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
+it also serves the int8 tower with the adapter-fused kernels
+(STGCMA_QFUSE_ADAPTERS=1: K11 at the six sites of a block). With either
+flag each task's library kernels (cuBLAS, cuDNN, PyTorch's attention) are
+listed by name: in the fused configuration only the embed's convolutions and
+the head's two linears remain, whatever the depth. For each task it
 prints the median wall time of 5 untraced B = 8 requests, then traces
 one request with torch.profiler and prints the device time summed over all
 kernels, the share of the untraced wall time it covers (the rest is the
@@ -42,6 +44,7 @@ from ..serving import MultiTaskServer
 
 B, REQUESTS = 8, 5
 CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
+QFUSE = "STGCMA_QFUSE_ADAPTERS"
 # kernel-name fragments of library kernels: cuBLAS/CUTLASS GEMMs, cuDNN, PyTorch's attention
 LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv", "fmha",
                    "flash", "attention", "convolve", "nchwtonhwc", "nhwctonchw", "nhwcaddpadding")
@@ -56,13 +59,15 @@ def main(argv=None) -> int:
     ap.add_argument("--int8", action="store_true", help="serve the Swin tower in int8")
     ap.add_argument("--fused", action="store_true",
                     help="also serve the CLIP model in the fused-block configuration")
+    ap.add_argument("--qfuse", action="store_true",
+                    help="also serve the CLIP int8 tower with the adapter-fused kernels (K11)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
     if args.int8 and args.model == "clip":
         ap.error("--int8 takes a Swin model (clip serves its bf16 and int8 towers already)")
-    if args.fused and args.model != "clip":
-        ap.error("--fused takes the CLIP model")
+    if (args.fused or args.qfuse) and args.model != "clip":
+        ap.error("--fused and --qfuse take the CLIP model")
     if not torch.cuda.is_available():
         print("trace_slice: no CUDA device", file=sys.stderr)
         return 1
@@ -88,6 +93,8 @@ def main(argv=None) -> int:
         if args.fused:                  # the switches are read at call time
             srv.add_clip_ave("fused_bf16", cfg, model)
             srv.add_clip_ave("fused_int8", cfg, model_q)
+        if args.qfuse:
+            srv.add_clip_ave("qfuse_int8", cfg, model_q)
         batch = {"a": rng.randn(B, cfg.num_frames, cfg.audio_tdim,
                                 cfg.audio_fdim).astype(np.float32),
                  "v": rng.randn(B, cfg.num_frames, cfg.input_resolution,
@@ -97,6 +104,7 @@ def main(argv=None) -> int:
     for task in srv.tasks():
         for k in CLIP_SWITCHES:
             os.environ[k] = "1" if task.startswith("fused_") else "0"
+        os.environ[QFUSE] = "1" if task.startswith("qfuse_") else "0"
         srv.predict(task, batch)                          # warm-up
         walls = []
         for _ in range(REQUESTS):
@@ -121,7 +129,7 @@ def main(argv=None) -> int:
               f"{100 * dev_us / 1e3 / (wall * 1e3):.1f}% of the untraced wall time; "
               f"port kernels {port_us / 1e3:.2f} ms ({100 * port_us / max(dev_us, 1):.1f}% "
               f"of device time)")
-        if args.fused:
+        if args.fused or args.qfuse:
             print(f"[{task}] library kernels: {sum(e.count for e in library)} launches, "
                   f"{sum(e.self_device_time_total for e in library) / 1e3:.3f} ms: "
                   + "; ".join(f"x{e.count} {e.key[:60]}" for e in library))

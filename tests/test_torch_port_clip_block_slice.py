@@ -346,12 +346,10 @@ def test_switches_are_read_at_call_time_and_default_off(monkeypatch):
     assert clip_vit.clip_whole_block_enabled()
 
 
-@pytest.mark.parametrize("switch,int8", [("STGCMA_QFUSE_ADAPTERS", True), ("STGCMA_TV2", False),
-                                         ("STGCMA_TV2", True)])
+@pytest.mark.parametrize("switch,int8", [("STGCMA_TV2", False), ("STGCMA_TV2", True)])
 def test_unported_opt_ins_raise(monkeypatch, switch, int8):
-    """K11 (adapter-fused int8 kernels) and K14 (transpose-free temporal
-    kernel) are not ported: their switches raise where JAX would take them,
-    never a silent default."""
+    """K14 (transpose-free temporal kernel) is not ported: its switch raises
+    where JAX would take it, never a silent default."""
     clear_opt_ins(monkeypatch)
     monkeypatch.setenv(switch, "1")
     cfg = ClipConfig(ftmode="fusion", **TINY)
@@ -361,6 +359,29 @@ def test_unported_opt_ins_raise(monkeypatch, switch, int8):
     a, v = _inputs(B=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         apply_clip_ave(model, cfg, t(a), t(v))
+
+
+def test_qfuse_switch_takes_k11_on_an_int8_tower(monkeypatch):
+    """`STGCMA_QFUSE_ADAPTERS=1` on an int8 tower takes K11 at every site of
+    a fusion block, and no K2 or K3 (it raised while K11 was not ported)."""
+    clear_opt_ins(monkeypatch)
+    monkeypatch.setenv("STGCMA_QFUSE_ADAPTERS", "1")
+    cfg = ClipConfig(ftmode="fusion", **TINY)
+    model = random_clip_ave(cfg, 0)
+    model.backbone = quantize_clip_tower(model.backbone)
+    seen = []
+    for kern in FA.KERNELS:
+        def spy(*args, _plain=kern.plain, _name=kern.name, **kw):
+            seen.append(_name)
+            return _plain(*args, **kw)
+        monkeypatch.setattr(kern, "plain", spy)
+    a, v = _inputs(B=1)
+    with torch.inference_mode():
+        out = apply_clip_ave(model, cfg, t(a), t(v))
+    assert torch.isfinite(out).all()
+    L = cfg.layers
+    assert sorted(seen) == sorted(["win_block_qd (K11)"] * 2 * L + ["win_block_qh (K11)"] * 2 * L
+                                  + ["ffn_qh (K11)"] * 2 * L)
 
 
 def test_qfuse_switch_is_ignored_by_a_float_tower_as_in_jax(monkeypatch):
