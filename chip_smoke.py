@@ -35,7 +35,16 @@ line:
      K12 and K13, float and int8, at the ViT-L/14 shapes (v (80, 257, 1024),
      a (80, 64, 1024), D 64), and K5, K6 and K4 at Swin-Large's adapter width
      96 (K5 (5120 / 1280, 49, 96), K6 (80, 3136 / 784, 96), K4 at stage 2
-     (80, 196, 768) h24 and stage 3 (80, 49, 1536) h48);
+     (80, 196, 768) h24 and stage 3 (80, 49, 1536) h48); K14 (the temporal
+     stage in the tower's own layout), float and int8, at the CLIP-B/16
+     video and audio rows (80, 197 / 49, 768), T = 10, with a live T_Adapter
+     and, at the video rows, its three wiring faults (the attention over the
+     tokens of a frame, the T_Adapter skipped, the residual rounded twice),
+     float at the CLIP-L/14 video rows (80, 257, 1024) and with a (16, 10,
+     10) bias and no adapter at (80, 196, 512) h16; K10 (unscaled attention)
+     through the K10 route of the full-grid fusion at K6's odd shape and at
+     the stage grids of Swin-Base cut to 168^2 ((80, 1764, 16), (80, 441,
+     32)), with its fault (the dh^-1/2 scale applied);
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
      per forward, and clips/s:
@@ -46,8 +55,11 @@ line:
        and K12 once a block, no K1-K3), and the int8 model with the
        adapter-fused kernels (`ave29_clip_qfuse_int8`,
        STGCMA_QFUSE_ADAPTERS=1: K11 at the six sites of a block, no K2 or
-       K3); the B = 8 logits of the last three are held against the default
-       configuration's on the card; every model runs with live adapters and
+       K3), and both towers with the transpose-free temporal stage
+       (`ave29_clip_tv2_bf16` / `_int8`, STGCMA_TV2=1: K14 at the two
+       temporal sites of a block); the B = 8 logits of the last five are held
+       against the default configuration's on the card; every model runs
+       with live adapters and
        gates, the B = 1 logits are held against the same model on the CPU
        (plain versions), and zeroing the gates must move the card's logits;
        one `multimodal` bf16 task at depth 2;
@@ -62,8 +74,10 @@ line:
        and in fusion mode with the int8 tower (`quantize_swin_tower`), B = 1
        against the CPU; and Swin-Large fusion bf16 at full width and depth
        (C = 192..1536, adapter width 96 at every stage, 24 and 48 heads at
-       stages 2-3), B = 1 against the CPU at depths 2/2/2/2. The fusion
-       models run with live fusion
+       stages 2-3), B = 1 against the CPU at depths 2/2/2/2; and Swin-Base
+       fusion bf16 cut to 168^2 and depths 2/2 (`ave29_swin_k10_bf16`), whose
+       stage grids of 42^2 and 21^2 tokens take the full-grid fusion's K10
+       route, B = 1 against the CPU. The fusion models run with live fusion
        adapters and gates, and zeroing the gates must move the card's B = 1
        logits beyond the tolerance.
 The script logs its total wall time. The line before the last is one JSON
@@ -101,9 +115,16 @@ SFU_PER_SM_CLOCK, H100_SMS = 16, 132   # exps per clock per SM (special function
 TOL_FUSED = 5e-2     # max |fused - unfused| / max |unfused| over the B = 8 logits on the
                      # card: the two configurations round to bf16 at other points (the
                      # FFN hidden, the adapters, the fusion) through 12 blocks
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K11", "K12", "K13")
+TOL_K14_MOVED = 0.2  # the share of K14's float outputs that may differ from the plain version's
+                     # bits (both round at the same points; a last-bit difference of an fp32
+                     # sum rounds an intermediate the other way); K14 with its residual
+                     # rounded twice must move more of them, though each by one bf16 step
+                     # (on an H100 at the CLIP-B/16 video rows: 0.092 against 0.32)
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13",
+           "K14")
 CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
 QFUSE = "STGCMA_QFUSE_ADAPTERS"
+TV2 = "STGCMA_TV2"
 # each kernel's name in the kernels line, the TPU kernel it replaces, and its
 # CUDA sources in stgcma_tpu_torch/csrc/
 META = {
@@ -122,6 +143,9 @@ META = {
     "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676", ["gemm.cu", "rowprep.cu"]),
     "K8": ("K8 wmsa (window-attention core)", "stgcma_tpu/ops/pallas_attn.py:230", ["attn.cu"]),
     "K9": ("K9 layernorm", "stgcma_tpu/ops/pallas_attn.py:755", ["rowprep.cu"]),
+    "K10": ("K10 unscaled_attention (softmax(q.k^T).v, unscaled: the full-grid fusion's route "
+            "where a stage grid is not a multiple of 16)", "stgcma_tpu/ops/pallas_attn.py:137",
+            ["fuse.cu"]),
     "K11": ("K11 win_block_qd + win_block_qh + ffn_qh (int8 attention block or FFN with the "
             "adapter's down-projection and GELU; pallas_attn.py:1486, :1503, :1674)",
             "stgcma_tpu/ops/pallas_attn.py:1486", ["rowprep.cu", "gemm.cu", "attn.cu"]),
@@ -130,6 +154,9 @@ META = {
             ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
     "K13": ("K13 clip_tadapt + clip_tadapt_q (temporal stage + T_Adapter, bf16 and int8 "
             "variants)", "stgcma_tpu/ops/pallas_clip_block.py:350",
+            ["rowprep.cu", "gemm.cu", "attn.cu"]),
+    "K14": ("K14 clip_tv2 + clip_tv2_q (temporal stage + T_Adapter in the tower's (B*T, N, C) "
+            "layout, no transposes, bf16 and int8 variants)", "stgcma_tpu/ops/pallas_attn.py:1757",
             ["rowprep.cu", "gemm.cu", "attn.cu"]),
 }
 
@@ -152,8 +179,8 @@ def smi_line():
 
 def launches():
     """{"K1": launches, ...} of every kernel, summed over its wrappers (K4,
-    K12 and K13 have a bf16 and an int8 one, K11 three bodies)."""
-    from stgcma_tpu_torch.ops import clip_block  # noqa: F401  (registers K12, K13)
+    K12, K13 and K14 have a bf16 and an int8 one, K11 three bodies)."""
+    from stgcma_tpu_torch.ops import clip_block  # noqa: F401  (registers K12-K14)
     from stgcma_tpu_torch.ops import fused_attn as FA
     from stgcma_tpu_torch.ops import swin_block  # noqa: F401  (registers K4)
     by_id = FA.launches_by_id()
@@ -1143,6 +1170,250 @@ def phase_clip_block_kernels(cfg, tag=""):
     return results
 
 
+def library_k14(x, w, heads, T, bias):
+    """K14 from PyTorch's own calls (timed only): layer_norm, linear (or
+    `torch._int_mm`), scaled_dot_product_attention over a permuted view of
+    each token's T frames (the bias as a float mask), linear, gelu, linear."""
+    import torch.nn.functional as F
+    tower = _library_tower(w, "s_qkv" in w)
+    BT, N, C = x.shape
+    dh = C // heads
+    mask = None if bias is None else bias.to(x.dtype)
+
+    def run():
+        qkv = tower(F.layer_norm(x, (C,), w["ln1_w"], w["ln1_b"]), "w_qkv", "s_qkv", "b_qkv")
+        q, k, v = (t.reshape(-1, heads, T, dh) for t in qkv.to(x.dtype).view(
+            BT // T, T, N, 3, heads, dh).permute(3, 0, 2, 4, 1, 5))     # (B * N, h, T, dh)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        o = o.view(BT // T, N, heads, T, dh).permute(0, 3, 1, 2, 4).reshape(BT, N, C)
+        o = tower(o, "w_proj", "s_proj", "b_proj")
+        if "ad_w1" not in w:
+            return o.to(x.dtype)
+        h = F.gelu(F.linear(o.to(x.dtype), w["ad_w1"], w["ad_b1"]))
+        return x + F.linear(h, w["ad_w2"], w["ad_b2"])
+    return run
+
+
+@contextlib.contextmanager
+def k14_core_over_tokens():
+    """K14's composition with its attention core over the N tokens of each
+    frame (the contiguous (B*T, N) rows of K1's core) in place of the T
+    frames of each token: the layout K14 exists to avoid."""
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    real = PCB._attn_core_t
+
+    def faulty(qkv, bias, heads, Bn, T, s, out):
+        Ns, C3 = qkv.shape[2], qkv.shape[3]
+        PCB._attn_core(qkv.view(Bn * T, Ns, C3), None, heads, s, out=out.view(Bn * T, Ns, C3 // 3))
+        return out
+    PCB._attn_core_t = faulty
+    try:
+        yield
+    finally:
+        PCB._attn_core_t = real
+
+
+@contextlib.contextmanager
+def k14_residual_rounded_twice():
+    """K14's output product with K13's epilogue, bf16(x + bf16(acc + b2)), in
+    place of its own, bf16(x + (acc + b2))."""
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    real = PCB._EPI_BF16_RESF
+    PCB._EPI_BF16_RESF = FA._EPI_BF16_RES1
+    try:
+        yield
+    finally:
+        PCB._EPI_BF16_RESF = real
+
+
+def share_moved(out, ref):
+    """The share of outputs whose bits differ from the plain version's."""
+    return float((out.float() != ref.float()).float().mean())
+
+
+def check_k14_faults(name, args, kernel, plain, tol, bits):
+    """The K14 check fails where it must: K14 with its attention over the N
+    tokens of a frame (`k14_core_over_tokens`) and K14 without its T_Adapter
+    (the adapter's output weights zeroed: x itself comes out) differ from the
+    plain version on the true inputs by more than the tolerance; with `bits`
+    (the float variant) K14 moves at most TOL_K14_MOVED of its outputs'
+    bits from the plain version's, and K14 with its residual rounded twice
+    more."""
+    import torch
+    x, w, heads, T = args
+    ref = plain(*args)
+    scale = ref.float().abs().max().item()
+    no_adapter = {**w, "ad_w2": w["ad_w2"] * 0, "ad_b2": w["ad_b2"] * 0}
+    runs = {"attention over the tokens of a frame": (k14_core_over_tokens, w),
+            "T_Adapter skipped": (contextlib.nullcontext, no_adapter)}
+    moved = {}
+    for fault, (ctx, wf) in runs.items():
+        with ctx():
+            out = kernel(x, wf, heads, T)
+        torch.cuda.synchronize()
+        moved[fault] = (out.float() - ref.float()).abs().max().item() / scale
+        if not moved[fault] > tol:
+            fail(f"{name}: a K14 with '{fault}' passes the check ({moved[fault]:.4g} of "
+                 f"max |plain| from the plain version, tol {tol})")
+    if bits:
+        own = share_moved(kernel(*args), ref)
+        with k14_residual_rounded_twice():
+            twice = share_moved(kernel(*args), ref)
+        if not own <= TOL_K14_MOVED < twice:
+            fail(f"{name}: K14 moves {own:.4g} of its outputs' bits from the plain version, "
+                 f"K14 with its residual rounded twice {twice:.4g}: the bar {TOL_K14_MOVED} "
+                 f"does not separate them")
+        moved["outputs moved (share)"] = own
+        moved["residual rounded twice (share of outputs moved)"] = twice
+    log(f"  {name}: K14 with a fault vs plain (rel, must exceed {tol}; shares of outputs "
+        f"moved against {TOL_K14_MOVED}): " + ", ".join(f"{k} {v:.4g}" for k, v in moved.items()))
+    return moved
+
+
+def phase_tv2_kernels(cfg, l14_cfg):
+    """K14, float and int8, at the rows of CLIP ViT-B/16 fusion at B = 8 in
+    the tower's layout (video (80, 197, 768), audio (80, 49, 768), T = 10)
+    with a live T_Adapter, and its three wiring faults at the video rows;
+    float at CLIP ViT-L/14's video rows (80, 257, 1024) h16; float with a
+    (heads, T, T) bias and no adapter at Swin-Base stage 2's (80, 196, 512)
+    h16 rows."""
+    import torch
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops.common import cast_tree
+    from stgcma_tpu_torch.ops.quant import quantize_clip_tower
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dev, bf = "cuda", torch.bfloat16
+    sfu = sfu_rate()
+    rows = []
+
+    def stream(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.1).to(bf)
+
+    def block(c, int8):
+        bb = random_clip_ave(dataclasses.replace(c, layers=1), SEED).backbone
+        return cast_tree((quantize_clip_tower(bb) if int8 else bb).resblocks[0], bf).to(dev)
+
+    T = cfg.num_frames
+    for c, tag, int8s in ((cfg, "", (False, True)), (l14_cfg, "CLIP-L/14 ", (False,))):
+        C, heads = c.embed_dim, c.heads
+        sites = [("video", c.num_patches + 1)] + ([("audio", c.num_patches_audio + 1)]
+                                                   if not tag else [])
+        for int8 in int8s:
+            blk = block(c, int8)
+            kernel, plain = ((PCB.clip_tv2_q, PCB.tv2_q_plain) if int8
+                             else (PCB.clip_tv2, PCB.tv2_plain))
+            tol = TOL_KERNEL_Q if int8 else TOL_KERNEL
+            for site, N in sites:
+                adapter = blk.T_Adapter if site == "video" else blk.T_Adapter_Audio
+                w = live_k4_weights(PCB.tadapt_weights(blk.attn, blk.ln_1, adapter), g, ["ad"])
+                D = w["ad_w1"].shape[0]
+                x = stream(B * T, N, C)
+                name = (f"K14{' int8' if int8 else ''} {tag}{site} rows {(B * T, N, C)} "
+                        f"h{heads} D {D}")
+                args = (x, w, heads, T)
+                with torch.inference_mode():
+                    row = check_kernel(name, kernel, plain, args, {},
+                                       tadapt_bound(B * N, T, C, heads, D, sfu, int8),
+                                       library_k14(x, w, heads, T, None), tol)
+                    if site == "video" and not tag:
+                        row["faults"] = check_k14_faults(name, args, kernel, plain, tol, not int8)
+                rows.append(row)
+    # a Swin-like temporal stage: a (heads, T, T) bias and no adapter
+    C, heads, N = 512, 16, 196
+    bb = random_clip_ave(dataclasses.replace(cfg, layers=1, embed_dim=C, heads=heads),
+                         SEED).backbone
+    blk = cast_tree(bb.resblocks[0], bf).to(dev)
+    w = PCB.tadapt_weights(blk.attn, blk.ln_1, None)
+    bias = torch.randn(heads, T, T, generator=g, device=dev)
+    x = stream(B * T, N, C)
+    with torch.inference_mode():
+        rows.append(check_kernel(
+            f"K14 bias {(heads, T, T)}, no adapter, rows {(B * T, N, C)} h{heads}", PCB.clip_tv2,
+            PCB.tv2_plain, (x, w, heads, T), {"bias": bias},
+            tadapt_bound(B * N, T, C, heads, 0, sfu, False), library_k14(x, w, heads, T, bias)))
+    return {"K14": rows}
+
+
+def k10_bound(Bk, Nq, Nk, D, sfu):
+    """One K10 call: q, k, v read and o written once; q.k^T and p.v on the
+    tensor cores; one exp per logit on the special function units."""
+    nbytes = 2 * Bk * (2 * Nq + 2 * Nk) * D
+    t_ops = max(2 * 2 * Bk * Nq * Nk * D / H100_BF16, Bk * Nq * Nk / sfu)
+    t_bytes = nbytes / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k10_route_plain(vh, ah, gate_v, gate_a):
+    """The K10 route of `cross_modal_fuse_flash` with the plain version in
+    place of the kernel."""
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    dt = vh.dtype
+    return (vh + gate_v.to(dt) * FA.unscaled_attention_plain(vh, ah, ah),
+            ah + gate_a.to(dt) * FA.unscaled_attention_plain(ah, vh, vh))
+
+
+def phase_k10_kernels(cfg):
+    """K10 at B = 8: the full-grid fusion through `cross_modal_fuse_flash`,
+    asserted to take the K10 route (two K10 launches), against the same
+    route with the plain version, at K6's odd shape vh (3, 300, 16), ah (3,
+    170, 16) and at the stage grids of Swin-Base cut to 168^2, (80, 1764, 16)
+    and (80, 441, 32); one K10 call (a2v) timed; and a K10 that applied the
+    dh^-1/2 scale (run on q scaled by it) must fail the check."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    dev, bf = "cuda", torch.bfloat16
+    sfu = sfu_rate()
+    gv = torch.tensor([0.8], dtype=bf, device=dev)
+    ga = torch.tensor([-0.6], dtype=bf, device=dev)
+    BT = B * cfg.num_ttokens
+    shapes = [(3, 300, 170, 16)]
+    for s in range(len(cfg.depths)):
+        H, _ = cfg.stage_resolution(s)
+        shapes.append((BT, H * H, H * H, int(cfg.stage_dim(s) * cfg.adapter_ratios[s])))
+    rows = []
+    for Bk, Nv, Na, D in shapes:
+        vh = (torch.randn(Bk, Nv, D, generator=g, device=dev) * 0.7).to(bf)
+        ah = (torch.randn(Bk, Na, D, generator=g, device=dev) * 0.7).to(bf)
+        name = f"K10 vh {(Bk, Nv, D)} ah {(Bk, Na, D)}"
+        if FA.flash_fuse_route(Nv, Na, D) != "K10":
+            fail(f"{name}: cross_modal_fuse_flash takes {FA.flash_fuse_route(Nv, Na, D)}, not K10")
+        with torch.inference_mode():
+            FA.reset_launches()
+            out = _flat(FA.cross_modal_fuse_flash(vh, ah, gv, ga))
+            torch.cuda.synchronize()
+            if FA.unscaled_attention.launches != 2 or FA.bidir_fuse.launches:
+                fail(f"{name}: the route launched K10 {FA.unscaled_attention.launches} times and "
+                     f"K6 {FA.bidir_fuse.launches} times, expected 2 and 0")
+            ref = _flat(k10_route_plain(vh, ah, gv, ga))
+            route_err = (out - ref).abs().max().item() / ref.abs().max().item()
+            if not route_err <= TOL_KERNEL:
+                fail(f"{name}: the K10 route is {route_err:.4g} of max |plain| from the plain "
+                     f"route, tol {TOL_KERNEL}")
+            del out, ref
+
+            def library(vh=vh, ah=ah):
+                return torch.nn.functional.scaled_dot_product_attention(vh, ah, ah, scale=1.0)
+            row = check_kernel(f"{name}, a2v", FA.unscaled_attention, FA.unscaled_attention_plain,
+                               (vh, ah, ah), {}, k10_bound(Bk, Nv, Na, D, sfu), library)
+            ref = FA.unscaled_attention_plain(vh, ah, ah).float()
+            scaled = FA.unscaled_attention((vh * D ** -0.5).to(bf), ah, ah).float()
+            torch.cuda.synchronize()
+            moved = (scaled - ref).abs().max().item() / ref.abs().max().item()
+        if not moved > TOL_KERNEL:
+            fail(f"{name}: a K10 that applies the dh^-1/2 scale passes the check ({moved:.4g} of "
+                 f"max |plain| from the plain version, tol {TOL_KERNEL})")
+        log(f"  {name}: the route (both directions and the gated adds) {route_err:.4g} of max "
+            f"|plain| from the plain route; K10 with the dh^-1/2 scale vs plain {moved:.4g} (rel, "
+            f"must exceed {TOL_KERNEL})")
+        row.update({"route_rel_err": route_err, "faults_rel": {"dh^-1/2 scale applied": moved}})
+        rows.append(row)
+        del vh, ah, ref, scaled
+    return {"K10": rows}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slices
 # ---------------------------------------------------------------------------
@@ -1151,8 +1422,10 @@ def phase_clip_block_kernels(cfg, tag=""):
 def clip_switches(task):
     """The switches read at call time: the two of the fused CLIP block on for
     a task whose name has `_fused_`, STGCMA_QFUSE_ADAPTERS (K11) for one with
-    `_qfuse_`, each off for any other task."""
-    want = {**{k: "_fused_" in task for k in CLIP_SWITCHES}, QFUSE: "_qfuse_" in task}
+    `_qfuse_`, STGCMA_TV2 (K14) for one with `_tv2_`, each off for any other
+    task."""
+    want = {**{k: "_fused_" in task for k in CLIP_SWITCHES}, QFUSE: "_qfuse_" in task,
+            TV2: "_tv2_" in task}
     old = {k: os.environ.get(k) for k in want}
     for k, on in want.items():
         os.environ[k] = "1" if on else "0"
@@ -1297,8 +1570,9 @@ def clip_batch(cfg, rng, b):
 
 def phase_clip_slice(cfg, smi):
     """CLIP ViT-B/16 fusion, bf16 and int8 towers, each in the default
-    configuration (K1, or K2 + K3) and in the fused-block one (K13 + K12),
-    and the int8 tower with the adapter-fused kernels (K11 alone)."""
+    configuration (K1, or K2 + K3), in the fused-block one (K13 + K12) and
+    with the transpose-free temporal stage (K14 at the temporal sites), and
+    the int8 tower with the adapter-fused kernels (K11 alone)."""
     import numpy as np
     from stgcma_tpu_torch.models.ave import random_clip_ave
     from stgcma_tpu_torch.nn.clip_vit import launches_per_forward
@@ -1311,7 +1585,8 @@ def phase_clip_slice(cfg, smi):
     model_q.backbone = quantize_clip_tower(model_q.backbone)
     models = {"ave29_bf16": model, "ave29_int8": model_q,
               "ave29_clip_fused_bf16": model, "ave29_clip_fused_int8": model_q,
-              "ave29_clip_qfuse_int8": model_q}
+              "ave29_clip_qfuse_int8": model_q,
+              "ave29_clip_tv2_bf16": model, "ave29_clip_tv2_int8": model_q}
     srv = MultiTaskServer(device="cuda")
     cpu = MultiTaskServer(device="cpu")
     for task, m in models.items():
@@ -1331,14 +1606,17 @@ def phase_clip_slice(cfg, smi):
     # 4 attention sites (temporal/spatial x video/audio) and 2 FFNs a block:
     # 48 K1, or 48 K2 + 24 K3, a forward at 12 layers; fused: the 2 temporal
     # stages in K13 and the rest of the block in K12, and no K1, K2 or K3;
-    # qfuse: the 6 sites of a block in K11 (2 qd, 2 qh, 2 ffn_qh), no K2 or K3
+    # qfuse: the 6 sites of a block in K11 (2 qd, 2 qh, 2 ffn_qh), no K2 or K3;
+    # tv2: the 2 temporal sites of a block in K14, the others as by default
     L = cfg.layers
     none = {k: 0 for k in KERNELS}
     want = {"ave29_bf16": {**none, "K1": 4 * L},
             "ave29_int8": {**none, "K2": 4 * L, "K3": 2 * L},
             "ave29_clip_fused_bf16": {**none, "K13": 2 * L, "K12": L},
             "ave29_clip_fused_int8": {**none, "K13": 2 * L, "K12": L},
-            "ave29_clip_qfuse_int8": {**none, "K11": 6 * L}}
+            "ave29_clip_qfuse_int8": {**none, "K11": 6 * L},
+            "ave29_clip_tv2_bf16": {**none, "K14": 2 * L, "K1": 2 * L},
+            "ave29_clip_tv2_int8": {**none, "K14": 2 * L, "K2": 2 * L, "K3": 2 * L}}
     for task, w in want.items():                 # the policy functions say the same
         with clip_switches(task):
             derived = launches_per_forward(cfg, quantized=task.endswith("int8"))
@@ -1347,7 +1625,9 @@ def phase_clip_slice(cfg, smi):
     totals, clips, last = drive(srv, requests, want, smi)
     for task, base in (("ave29_clip_fused_bf16", "ave29_bf16"),   # card vs card: against
                        ("ave29_clip_fused_int8", "ave29_int8"),   # the default configuration
-                       ("ave29_clip_qfuse_int8", "ave29_int8")):
+                       ("ave29_clip_qfuse_int8", "ave29_int8"),
+                       ("ave29_clip_tv2_bf16", "ave29_bf16"),
+                       ("ave29_clip_tv2_int8", "ave29_int8")):
         hold_logits(task, base, last, clips)
     one = batch(1)
     cards = check_against_cpu(srv, cpu, one)
@@ -1430,8 +1710,9 @@ def phase_clip_multimodal_slice(cfg, smi):
     return totals, clips
 
 
-def phase_swin_slice(cfg, smi, int8=False, preset="", cpu_depths=None):
-    """A Swin AVE-29 task (`preset`: "" for Swin-Base, "large_" for Swin-Large)
+def phase_swin_slice(cfg, smi, int8=False, preset="", cpu_depths=None, task=None):
+    """A Swin AVE-29 task (`preset`: "" for Swin-Base, "large_" for Swin-Large;
+    `task`: the task's name, if not the one these make)
     through MultiTaskServer, exact launches, the B = 1 logits against the
     CPU (with `cpu_depths`, of the same configuration cut to those depths,
     where the full one's plain forward costs too much), and for a fusion
@@ -1442,7 +1723,7 @@ def phase_swin_slice(cfg, smi, int8=False, preset="", cpu_depths=None):
     from stgcma_tpu_torch.serving import MultiTaskServer
 
     mode = {"multimodal": "mm", "fusion": "fusion"}[cfg.ftmode]
-    task = f"ave29_swin_{preset}{mode}_{'int8' if int8 else 'bf16'}"
+    task = task or f"ave29_swin_{preset}{mode}_{'int8' if int8 else 'bf16'}"
     t0 = time.perf_counter()
     model = random_swin_ave(cfg, SEED, int8=int8)
     if cfg.ftmode == "fusion":
@@ -1524,6 +1805,10 @@ def main():
     swin_cfg = swin_base(ftmode="multimodal", label_dim=29)
     fusion_cfg = swin_base(ftmode="fusion", label_dim=29)
     large_cfg = swin_large(ftmode="fusion", label_dim=29)
+    # Swin-Base cut to 168^2 and two stages: stage grids of 42^2 and 21^2 tokens,
+    # neither a multiple of 16, so both full-grid exchanges take the K10 route
+    k10_cfg = dataclasses.replace(fusion_cfg, img_size=168, depths=(2, 2), num_heads=(4, 8),
+                                  adapter_ratios=(0.125, 0.125))
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel, "
         f"{TOL_KERNEL_Q} for the int8 variants of K4, K12, K13, for K11 and for K4 at "
         f"Swin-Large)")
@@ -1533,13 +1818,15 @@ def main():
               lambda: phase_k11_kernels(cfg), lambda: phase_l14_kernels(l14_cfg),
               lambda: phase_clip_block_kernels(l14_cfg, tag="CLIP-L/14 "),
               lambda: phase_fusion_kernels(large_cfg, tower="Swin-Large", odd=False,
-                                           k4_tol=TOL_K4_LARGE))
+                                           k4_tol=TOL_K4_LARGE),
+              lambda: phase_tv2_kernels(cfg, l14_cfg), lambda: phase_k10_kernels(k10_cfg))
     for phase in phases:
         for k, rows in phase().items():
             results.setdefault(k, []).extend(rows)
 
     log(f"[4/4] slice: CLIP ViT-B/16 fusion AVE-29, {cfg.layers} layers, C={cfg.embed_dim}, "
-        f"T={cfg.num_frames}, bf16 and int8 towers, default and fused-block configurations")
+        f"T={cfg.num_frames}, bf16 and int8 towers, default, fused-block, adapter-fused (int8) "
+        f"and transpose-free temporal (K14) configurations")
     totals, clips = phase_clip_slice(cfg, smi)
     mm_cfg = dataclasses.replace(cfg, ftmode="multimodal", layers=2)
     log(f"[4/4] slice: CLIP ViT-B/16 multimodal AVE-29, depth cut to {mm_cfg.layers} layers, "
@@ -1553,13 +1840,16 @@ def main():
     l14_totals, l14_clips = phase_clip_l14_slice(l14_cfg, smi)
     clips.update(l14_clips)
     totals = {k: totals[k] + l14_totals[k] for k in KERNELS}
-    for scfg, int8, preset in ((swin_cfg, False, ""), (fusion_cfg, False, ""),
-                               (fusion_cfg, True, ""), (large_cfg, False, "large_")):
+    for scfg, int8, preset, task in ((swin_cfg, False, "", None), (fusion_cfg, False, "", None),
+                                     (fusion_cfg, True, "", None),
+                                     (large_cfg, False, "large_", None),
+                                     (k10_cfg, False, "", "ave29_swin_k10_bf16")):
         log(f"[4/4] slice: Swin-{'Large' if preset else 'Base'} {scfg.ftmode} AVE-29, depths "
             f"{scfg.depths}, C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, "
-            f"{'int8 tower' if int8 else 'bf16'}")
+            f"{scfg.img_size}^2, {'int8 tower' if int8 else 'bf16'}")
         swin_totals, swin_clips = phase_swin_slice(scfg, smi, int8, preset,
-                                                   cpu_depths=(2, 2, 2, 2) if preset else None)
+                                                   cpu_depths=(2, 2, 2, 2) if preset else None,
+                                                   task=task)
         clips.update(swin_clips)
         totals = {k: totals[k] + swin_totals[k] for k in KERNELS}
 

@@ -9,9 +9,17 @@
 // bm[b % nWb]), the max is subtracted, exp'd, divided exactly by the row sum,
 // the probabilities are rounded to bf16, and p.v is summed in fp32 and
 // rounded to bf16. Heads stay merged in the output, (B_, N, heads * dh).
-// Two entry points read the same core:
+// Three entry points read the same core:
 //   - stg_attn_core (K1/K2): q, k, v are column blocks of one packed
 //     (B_, N, 3 * heads * dh) qkv;
+//   - stg_attn_core_t (K14, the transpose-free temporal stage of
+//     _tblock_v2_kernel :1757): the same packed qkv of (B, T, Ns, 3C)
+//     tokens, where sequence g = (b, n) is token n of the T frames of batch
+//     element b: its row t lies at (b * T * Ns + n) + t * Ns. The TPU kernel
+//     permutes (T, Ns) -> (Ns, T) in VMEM, pads T to 16 and packs 8 tokens
+//     into one 128-wide gram; here the permute is the core's addressing
+//     (sequences interleaved n_in = Ns apart), and neither pad nor packing is
+//     needed. Output o in the same (B, T, Ns, C) layout;
 //   - stg_attn_qkv (K8): separate q, k, v of shape (R, N, dh) and a bias
 //     (P, N, N) whose row r takes bm[r % P] (one head per row, heads = 1).
 //     One kernel takes any period P, so it covers both Pallas bodies: the
@@ -98,29 +106,37 @@ struct Layout {
   static constexpr int PER_BH = NK * LDK + DH * LDV;   // bf16 per (row, head)
 };
 
-// Token j of head h of row b is at q/k/v + (b * N + j) * ld + h * DH.
+// Sequences come in runs of n_in interleaved ones: token j of sequence b is
+// row seq_row(b) + j * n_in of q/k/v (stride ld) and of o (stride C). n_in = 1
+// gives the contiguous (B_, N) layout of K1/K2/K8.
+__device__ __forceinline__ size_t seq_row(int b, int N, int n_in) {
+  return static_cast<size_t>(b / n_in) * N * n_in + b % n_in;
+}
+
+// Token j of head h of sequence b is at q/k/v + (seq_row(b) + j * n_in) * ld + h * DH.
 template <int DH, int KT>
 __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
-    const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int BH, int N, int heads,
-    float scale, int bh_per_block, int q_tiles) {
+    int n_in, const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int BH, int N,
+    int heads, float scale, int bh_per_block, int q_tiles) {
   using L = Layout<DH, KT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int C = heads * DH;
+  const int tld = ld * n_in;             // between consecutive tokens of a sequence
   const int bh0 = static_cast<int>(blockIdx.x) * bh_per_block;
 
   for (int l = 0; l < bh_per_block; ++l) {       // K and V^T of each (row, head)
     const int bh = bh0 + l;
     bf16* ks = smem + l * L::PER_BH;
     bf16* vt = ks + L::NK * L::LDK;
-    const size_t base = static_cast<size_t>(bh / heads) * N * ld + (bh % heads) * DH;
+    const size_t base = seq_row(bh / heads, N, n_in) * ld + (bh % heads) * DH;
     for (int i = threadIdx.x; i < L::NK * (DH / 2); i += blockDim.x) {
       const int j = i / (DH / 2), w = i % (DH / 2);
       uint32_t kw = 0u, vw = 0u;
       if (bh < BH && j < N) {
-        kw = reinterpret_cast<const uint32_t*>(k + base + static_cast<size_t>(j) * ld)[w];
-        vw = reinterpret_cast<const uint32_t*>(v + base + static_cast<size_t>(j) * ld)[w];
+        kw = reinterpret_cast<const uint32_t*>(k + base + static_cast<size_t>(j) * tld)[w];
+        vw = reinterpret_cast<const uint32_t*>(v + base + static_cast<size_t>(j) * tld)[w];
       }
       *reinterpret_cast<uint32_t*>(ks + j * L::LDK + 2 * w) = kw;
       const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
@@ -139,17 +155,18 @@ __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
     const int b = bh / heads, h = bh % heads;
     const bf16* ks = smem + l * L::PER_BH;
     const bf16* vt = ks + L::NK * L::LDK;
-    const bf16* base = q + static_cast<size_t>(b) * N * ld + h * DH;
+    const size_t row0 = seq_row(b, N, n_in);
+    const bf16* base = q + row0 * ld + h * DH;
     const int r0 = qt * 16 + g, r1 = r0 + 8;     // this thread's two query rows
 
     uint32_t qa[DH / 16][4];
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const int c0 = kk * 16 + 2 * t;
-      qa[kk][0] = load_q2(base, r0, c0, N, ld, scale);
-      qa[kk][1] = load_q2(base, r1, c0, N, ld, scale);
-      qa[kk][2] = load_q2(base, r0, c0 + 8, N, ld, scale);
-      qa[kk][3] = load_q2(base, r1, c0 + 8, N, ld, scale);
+      qa[kk][0] = load_q2(base, r0, c0, N, tld, scale);
+      qa[kk][1] = load_q2(base, r1, c0, N, tld, scale);
+      qa[kk][2] = load_q2(base, r0, c0 + 8, N, tld, scale);
+      qa[kk][3] = load_q2(base, r1, c0 + 8, N, tld, scale);
     }
 
     // logits: s[nt] holds keys nt*8 + 2t (+1) of rows r0 (elements 0, 1) and r1 (2, 3)
@@ -223,11 +240,11 @@ __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
     for (int nd = 0; nd < DH / 8; ++nd) {
       const int col = h * DH + nd * 8 + 2 * t;
       if (r0 < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r0) * C + col) =
-            __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r0) * n_in) * C +
+                                           col) = __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
       if (r1 < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r1) * C + col) =
-            __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r1) * n_in) * C +
+                                           col) = __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
     }
   }
 }
@@ -273,7 +290,7 @@ __device__ __forceinline__ void tile_logits(float (&s)[kStreamKeys / 8][4],
 template <int DH>
 __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
-    const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int N, int heads,
+    int n_in, const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int N, int heads,
     float scale) {
   constexpr int LDK = DH + 8;            // K row stride (bf16)
   constexpr int LDV = kStreamKeys + 8;   // V^T row stride (bf16)
@@ -286,7 +303,9 @@ __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = static_cast<int>(blockIdx.y) * kStreamRows + warp * 16 + g, r1 = r0 + 8;
-  const size_t base = static_cast<size_t>(b) * N * ld + static_cast<size_t>(h) * DH;
+  const int tld = ld * n_in;             // between consecutive tokens of a sequence
+  const size_t row0 = seq_row(b, N, n_in);
+  const size_t base = row0 * ld + static_cast<size_t>(h) * DH;
   const float* bias = bm == nullptr ? nullptr
       : bm + (static_cast<size_t>(b % nWb) * heads + h) * static_cast<size_t>(N) * N;
 
@@ -294,10 +313,10 @@ __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     const int c0 = kk * 16 + 2 * t;
-    qa[kk][0] = load_q2(q + base, r0, c0, N, ld, scale);
-    qa[kk][1] = load_q2(q + base, r1, c0, N, ld, scale);
-    qa[kk][2] = load_q2(q + base, r0, c0 + 8, N, ld, scale);
-    qa[kk][3] = load_q2(q + base, r1, c0 + 8, N, ld, scale);
+    qa[kk][0] = load_q2(q + base, r0, c0, N, tld, scale);
+    qa[kk][1] = load_q2(q + base, r1, c0, N, tld, scale);
+    qa[kk][2] = load_q2(q + base, r0, c0 + 8, N, tld, scale);
+    qa[kk][3] = load_q2(q + base, r1, c0 + 8, N, tld, scale);
   }
 
   // K (and in pass 2 V^T) of keys j0 .. j0 + 63 into shared memory, zeros past N
@@ -307,7 +326,7 @@ __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
       const int j = i / (DH / 2), w = i % (DH / 2);
       uint32_t kw = 0u, vw = 0u;
       if (j0 + j < N) {
-        const size_t off = base + static_cast<size_t>(j0 + j) * ld;
+        const size_t off = base + static_cast<size_t>(j0 + j) * tld;
         kw = reinterpret_cast<const uint32_t*>(k + off)[w];
         if (with_v) vw = reinterpret_cast<const uint32_t*>(v + off)[w];
       }
@@ -379,17 +398,18 @@ __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
   for (int nd = 0; nd < DH / 8; ++nd) {
     const int col = h * DH + nd * 8 + 2 * t;
     if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r0) * C + col) =
-          __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+      *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r0) * n_in) * C +
+                                         col) = __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
     if (r1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * N + r1) * C + col) =
-          __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+      *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r1) * n_in) * C +
+                                         col) = __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
   }
 }
 
 struct Args {
   const void *q, *k, *v;
-  int ld;               // elements between consecutive tokens of q, k and v
+  int ld;               // elements between consecutive rows of q, k and v
+  int n_in;             // sequences interleaved row by row (seq_row); 1: contiguous
   const void* bm;       // nullable
   int nWb;
   void* o;
@@ -409,7 +429,7 @@ int launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<ceil_div(BH, bh_per_block), kWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), a.ld, static_cast<const float*>(a.bm), a.nWb,
+      static_cast<const bf16*>(a.v), a.ld, a.n_in, static_cast<const float*>(a.bm), a.nWb,
       static_cast<bf16*>(a.o), BH, N, a.heads, a.scale, bh_per_block, q_tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -420,7 +440,7 @@ int launch_stream(const Args& a, cudaStream_t stream) {
   if (q_tiles > kMaxQueryTiles) return static_cast<int>(cudaErrorInvalidValue);
   attn_stream_kernel<DH><<<dim3(a.BH, q_tiles), kWarps * 32, 0, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), a.ld, static_cast<const float*>(a.bm), a.nWb,
+      static_cast<const bf16*>(a.v), a.ld, a.n_in, static_cast<const float*>(a.bm), a.nWb,
       static_cast<bf16*>(a.o), a.N, a.heads, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -451,7 +471,19 @@ STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int
                           int heads, int dh, float scale, cudaStream_t stream) {
   const int C = heads * dh;
   const bf16* base = static_cast<const bf16*>(qkv);
-  const Args a{base, base + C, base + 2 * C, 3 * C, bm, nWb, o, B * heads, N, heads, scale};
+  const Args a{base, base + C, base + 2 * C, 3 * C, 1, bm, nWb, o, B * heads, N, heads, scale};
+  return launch_any(a, dh, stream);
+}
+
+// K14: qkv (B, T, Ns, 3 * heads * dh) bf16, attention over the T frames of each
+// of the B * Ns tokens; bm: nullable (heads, T, T) fp32; o: (B, T, Ns, heads * dh)
+// bf16; dh in {32, 64}
+STG_API int stg_attn_core_t(const void* qkv, const void* bm, void* o, int B, int T, int Ns,
+                            int heads, int dh, float scale, cudaStream_t stream) {
+  const int C = heads * dh;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  const Args a{base, base + C, base + 2 * C, 3 * C, Ns, bm, 1, o, B * Ns * heads, T, heads,
+               scale};
   return launch_any(a, dh, stream);
 }
 
@@ -459,6 +491,6 @@ STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int
 // N up to 65535 * 64, dh in {32, 64}
 STG_API int stg_attn_qkv(const void* q, const void* k, const void* v, const void* bm, int P,
                          void* o, int R, int N, int dh, cudaStream_t stream) {
-  const Args a{q, k, v, dh, bm, P, o, R, N, 1, 1.0f};
+  const Args a{q, k, v, dh, 1, bm, P, o, R, N, 1, 1.0f};
   return launch_any(a, dh, stream);
 }

@@ -39,6 +39,18 @@
 // D in {16, 32, 48, 64, 96} (96: Swin-Large's adapter width at every stage, six
 // k16 steps; its static shared memory is 64 * 104 * 2 + 96 * 72 * 2 bytes,
 // ~27 KB); any Nv, Na >= 1.
+//
+// K10, unscaled attention o = softmax(q . k^T) . v (stg_unscaled_attn), is one
+// direction of the same loop without gate and residual: keys k and values v
+// are separate streams, o = bf16(acc / l) in the inputs' dtype. It replaces
+// pallas_attn.py _attn_kernel (:137), which cross_modal_fuse_flash (:1039-1044)
+// calls twice as K6's fallback (a2v = K10(vh, ah, ah), v2a = K10(ah, vh, vh))
+// where a stage grid of >= 120 tokens is not a multiple of 16. The TPU pads Nk
+// to 128 and masks the pad keys (nk_real); here keys past Nk are -inf in the
+// ragged last tile, as above. Its probabilities are rounded to bf16 before
+// the division, as above; _attn_kernel rounds them after it: one bf16 rounding
+// of each either way. Bound: the exps on the special function units, one per
+// logit (Nq * Nk a row). D = DV in {16, 32, 48, 64, 96}; any Nq, Nk >= 1.
 #include <math.h>
 
 #include "common.cuh"
@@ -80,14 +92,17 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 struct Dir {
   const bf16* q;      // (B, Nq, D): the query stream, also the residual
-  const bf16* k;      // (B, Nk, D): keys and values
-  const bf16* gate;   // (1,)
+  const bf16* k;      // (B, Nk, D): keys (and values, where GATED)
+  const bf16* v;      // (B, Nk, D): values (!GATED)
+  const bf16* gate;   // (1,); null where !GATED
   bf16* out;          // (B, Nq, D)
   int Nq, Nk;
   int mrs, mcs;       // element (i, j) of this direction's mask at i * mrs + j * mcs
 };
 
-template <int D>
+// GATED: the fusion (both directions, keys = values, gated residual); else K10
+// (blockIdx.z = 0 only, separate values, o = a2v)
+template <int D, bool GATED>
 __global__ void __launch_bounds__(kWarps * 32) fuse_kernel(Dir d0, Dir d1, const float* mask) {
   constexpr int LDK = D + 8;      // K row stride (bf16), conflict-free fragment loads
   constexpr int LDV = BK + 8;     // V^T row stride (bf16)
@@ -104,6 +119,7 @@ __global__ void __launch_bounds__(kWarps * 32) fuse_kernel(Dir d0, Dir d1, const
   const int b = blockIdx.y;
   const bf16* qb = (z ? d1.q : d0.q) + static_cast<size_t>(b) * Nq * D;
   const bf16* kb = (z ? d1.k : d0.k) + static_cast<size_t>(b) * Nk * D;
+  const bf16* vb = GATED ? kb : d0.v + static_cast<size_t>(b) * Nk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this thread's two query rows
@@ -127,11 +143,14 @@ __global__ void __launch_bounds__(kWarps * 32) fuse_kernel(Dir d0, Dir d1, const
     __syncthreads();                             // the previous tile is consumed
     for (int i = threadIdx.x; i < BK * (D / 2); i += blockDim.x) {
       const int j = i / (D / 2), w = i % (D / 2);
-      uint32_t kw = 0u;
-      if (j0 + j < Nk)
+      uint32_t kw = 0u, vw = 0u;
+      if (j0 + j < Nk) {
         kw = reinterpret_cast<const uint32_t*>(kb + static_cast<size_t>(j0 + j) * D)[w];
+        vw = GATED ? kw
+                   : reinterpret_cast<const uint32_t*>(vb + static_cast<size_t>(j0 + j) * D)[w];
+      }
       *reinterpret_cast<uint32_t*>(ks + j * LDK + 2 * w) = kw;
-      const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&kw);
+      const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
       vt[(2 * w) * LDV + j] = v2.x;
       vt[(2 * w + 1) * LDV + j] = v2.y;
     }
@@ -210,8 +229,8 @@ __global__ void __launch_bounds__(kWarps * 32) fuse_kernel(Dir d0, Dir d1, const
     }
   }
 
-  // out = q + bf16(gate * a2v), rounded to bf16
-  const float gate = __bfloat162float(*(z ? d1.gate : d0.gate));
+  // out = q + bf16(gate * a2v), rounded to bf16; K10: out = bf16(a2v)
+  const float gate = GATED ? __bfloat162float(*(z ? d1.gate : d0.gate)) : 0.f;
   bf16* ob = (z ? d1.out : d0.out) + static_cast<size_t>(b) * Nq * D;
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
@@ -222,6 +241,11 @@ __global__ void __launch_bounds__(kWarps * 32) fuse_kernel(Dir d0, Dir d1, const
       if (row >= Nq) continue;
       const float l = h == 0 ? l0 : l1;
       const size_t i = static_cast<size_t>(row) * D + col;
+      if constexpr (!GATED) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + i) =
+            __floats2bfloat162_rn(__fdiv_rn(acc[nd][2 * h], l), __fdiv_rn(acc[nd][2 * h + 1], l));
+        continue;
+      }
       const float2 q2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qb + i));
       const float u0 = __bfloat162float(__float2bfloat16_rn(
           __fmul_rn(gate, __fdiv_rn(acc[nd][2 * h], l))));
@@ -233,12 +257,23 @@ __global__ void __launch_bounds__(kWarps * 32) fuse_kernel(Dir d0, Dir d1, const
   }
 }
 
-template <int D>
+template <int D, bool GATED>
 int launch(const Dir& d0, const Dir& d1, const float* mask, int B, cudaStream_t stream) {
   const int nmax = d0.Nq > d1.Nq ? d0.Nq : d1.Nq;
-  const dim3 grid(ceil_div(nmax, BQ), B, 2);
-  fuse_kernel<D><<<grid, kWarps * 32, 0, stream>>>(d0, d1, mask);
+  const dim3 grid(ceil_div(nmax, BQ), B, GATED ? 2 : 1);
+  fuse_kernel<D, GATED><<<grid, kWarps * 32, 0, stream>>>(d0, d1, mask);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GATED>
+int launch_d(const Dir& d0, const Dir& d1, const float* mask, int B, int D,
+             cudaStream_t stream) {
+  if (D == 16) return launch<16, GATED>(d0, d1, mask, B, stream);
+  if (D == 32) return launch<32, GATED>(d0, d1, mask, B, stream);
+  if (D == 48) return launch<48, GATED>(d0, d1, mask, B, stream);
+  if (D == 64) return launch<64, GATED>(d0, d1, mask, B, stream);
+  if (D == 96) return launch<96, GATED>(d0, d1, mask, B, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -250,15 +285,19 @@ STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const
                            const void* mask, void* vo, void* ao, int B, int Nv, int Na, int D,
                            cudaStream_t stream) {
   if (B > 65535 || Nv < 1 || Na < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Dir d0{static_cast<const bf16*>(vh), static_cast<const bf16*>(ah),
-               static_cast<const bf16*>(gv), static_cast<bf16*>(vo), Nv, Na, Na, 1};
-  const Dir d1{static_cast<const bf16*>(ah), static_cast<const bf16*>(vh),
-               static_cast<const bf16*>(ga), static_cast<bf16*>(ao), Na, Nv, 1, Na};
-  const float* m = static_cast<const float*>(mask);
-  if (D == 16) return launch<16>(d0, d1, m, B, stream);
-  if (D == 32) return launch<32>(d0, d1, m, B, stream);
-  if (D == 48) return launch<48>(d0, d1, m, B, stream);
-  if (D == 64) return launch<64>(d0, d1, m, B, stream);
-  if (D == 96) return launch<96>(d0, d1, m, B, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* v = static_cast<const bf16*>(vh);
+  const bf16* a = static_cast<const bf16*>(ah);
+  const Dir d0{v, a, a, static_cast<const bf16*>(gv), static_cast<bf16*>(vo), Nv, Na, Na, 1};
+  const Dir d1{a, v, v, static_cast<const bf16*>(ga), static_cast<bf16*>(ao), Na, Nv, 1, Na};
+  return launch_d<true>(d0, d1, static_cast<const float*>(mask), B, D, stream);
+}
+
+// K10: q (B, Nq, D), k and v (B, Nk, D), o (B, Nq, D), all bf16 and contiguous:
+// o = softmax(q . k^T) . v, unscaled. D in {16, 32, 48, 64, 96}; B <= 65535.
+STG_API int stg_unscaled_attn(const void* q, const void* k, const void* v, void* o, int B,
+                              int Nq, int Nk, int D, cudaStream_t stream) {
+  if (B > 65535 || Nq < 1 || Nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Dir d{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+              static_cast<const bf16*>(v), nullptr, static_cast<bf16*>(o), Nq, Nk, 0, 0};
+  return launch_d<false>(d, d, nullptr, B, D, stream);
 }

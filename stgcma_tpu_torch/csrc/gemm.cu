@@ -20,9 +20,15 @@
 //     h * sigmoid(1.702 h) in fp32 and rounds once to a bf16 hidden
 //     (:208-211), EPI_BF16_QUICKGELU; K13's adapter output is rounded after
 //     its bias and added to the one residual, bf16(x + bf16(acc + b2))
-//     (:388-389), EPI_BF16_RES1 through stg_gemm_bf16_res2 with R2 null. Their
+//     (:388-389), EPI_BF16_RES1 through stg_gemm_bf16_res. Their
 //     adapter products run at N = 48 and K = 48 (CLIP-B/16's adapter width):
 //     K = 48 is one and a half k-tiles, the second half zero-filled;
+//   - bf16 for the transpose-free temporal stage K14 (pallas_attn.py
+//     _tblock_v2_kernel :1757): its adapter hidden takes acc + bias and
+//     erf-GELU in fp32 and rounds once (:1827-1830, EPI_BF16_GELU), and its
+//     output adds the fp32 adapter term to the fp32 residual and rounds once,
+//     bf16(x + (acc + b2)) (:1831-1835), EPI_BF16_RESF through
+//     stg_gemm_bf16_res (K13's EPI_BF16_RES1 rounds the term first);
 //   - int8: _dotq (:1356) in _win_block_q_core (:1440, :1457) and
 //     _ffn_q_kernel (:1626, :1632): int8 x int8 -> int32, then
 //     float(acc) * sx[m] * ws[n] + b[n] in fp32, then either a bf16 store or
@@ -78,7 +84,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint8_t* row
 
 enum Epi {
   EPI_BF16 = 0, EPI_Q_BF16 = 1, EPI_Q_QUICKGELU_F32 = 2, EPI_Q_GELU_F32 = 3, EPI_BF16_GELU = 4,
-  EPI_BF16_RGELU = 5, EPI_BF16_RES2 = 6, EPI_BF16_QUICKGELU = 7, EPI_BF16_RES1 = 8
+  EPI_BF16_RGELU = 5, EPI_BF16_RES2 = 6, EPI_BF16_QUICKGELU = 7, EPI_BF16_RES1 = 8,
+  EPI_BF16_RESF = 9
 };
 
 __device__ __forceinline__ float quick_gelu(float v) {
@@ -110,7 +117,7 @@ struct EpiArgs {
   const bf16* ws;    // (N,) per-column weight scales (int8 only)
   const bf16* bias;  // (N,)
   void* out;         // (M, N) bf16 or fp32
-  const bf16* r1;    // (M, N) residuals (EPI_BF16_RES2: both; EPI_BF16_RES1: r1)
+  const bf16* r1;    // (M, N) residuals (EPI_BF16_RES2: both; EPI_BF16_RES1, _RESF: r1)
   const bf16* r2;
 };
 
@@ -118,7 +125,8 @@ template <int EPI, typename Acc>
 __device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc acc) {
   float v;
   if constexpr (EPI == EPI_BF16 || EPI == EPI_BF16_GELU || EPI == EPI_BF16_RGELU ||
-                EPI == EPI_BF16_RES2 || EPI == EPI_BF16_QUICKGELU || EPI == EPI_BF16_RES1) {
+                EPI == EPI_BF16_RES2 || EPI == EPI_BF16_QUICKGELU || EPI == EPI_BF16_RES1 ||
+                EPI == EPI_BF16_RESF) {
     v = acc;
   } else {
     v = __fmul_rn(__fmul_rn(__int2float_rn(static_cast<int>(acc)), e.sa[m]),
@@ -141,6 +149,8 @@ __device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc
   } else if constexpr (EPI == EPI_BF16_RES1) {
     static_cast<bf16*>(e.out)[i] = __float2bfloat16_rn(
         __fadd_rn(__bfloat162float(e.r1[i]), __bfloat162float(__float2bfloat16_rn(v))));
+  } else if constexpr (EPI == EPI_BF16_RESF) {
+    static_cast<bf16*>(e.out)[i] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(e.r1[i]), v));
   } else if constexpr (EPI == EPI_BF16_QUICKGELU) {
     static_cast<bf16*>(e.out)[i] = __float2bfloat16_rn(quick_gelu(v));
   } else if constexpr (EPI == EPI_Q_QUICKGELU_F32) {
@@ -269,8 +279,7 @@ STG_API int stg_gemm_bf16(const void* A, const void* W, const void* bias, void* 
   }
 }
 
-// C = bf16(bf16(R1 + R2) + bf16(A . W^T + bias)), or with R2 null
-// C = bf16(R1 + bf16(A . W^T + bias)); R1, R2, C: (M, N) bf16
+// C = bf16(bf16(R1 + R2) + bf16(A . W^T + bias)); R1, R2, C: (M, N) bf16
 STG_API int stg_gemm_bf16_res2(const void* A, const void* W, const void* bias, const void* R1,
                                const void* R2, void* C, int M, int N, int K,
                                cudaStream_t stream) {
@@ -278,8 +287,22 @@ STG_API int stg_gemm_bf16_res2(const void* A, const void* W, const void* bias, c
             static_cast<const bf16*>(R1), static_cast<const bf16*>(R2)};
   const uint8_t* a = static_cast<const uint8_t*>(A);
   const uint8_t* w = static_cast<const uint8_t*>(W);
-  if (R2 == nullptr) return launch<float, EPI_BF16_RES1>(a, w, M, N, 2 * K, e, stream);
   return launch<float, EPI_BF16_RES2>(a, w, M, N, 2 * K, e, stream);
+}
+
+// C = epilogue(R, A . W^T + bias), R and C (M, N) bf16: EPI_BF16_RESF bf16(R + (acc + b))
+// (K14), or EPI_BF16_RES1 bf16(R + bf16(acc + b)) (K13)
+STG_API int stg_gemm_bf16_res(const void* A, const void* W, const void* bias, const void* R,
+                              void* C, int M, int N, int K, int epilogue, cudaStream_t stream) {
+  EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C, static_cast<const bf16*>(R),
+            nullptr};
+  const uint8_t* a = static_cast<const uint8_t*>(A);
+  const uint8_t* w = static_cast<const uint8_t*>(W);
+  switch (epilogue) {
+    case EPI_BF16_RESF: return launch<float, EPI_BF16_RESF>(a, w, M, N, 2 * K, e, stream);
+    case EPI_BF16_RES1: return launch<float, EPI_BF16_RES1>(a, w, M, N, 2 * K, e, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 STG_API int stg_gemm_s8(const void* A, const void* sa, const void* W, const void* ws,

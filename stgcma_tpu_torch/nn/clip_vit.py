@@ -8,7 +8,7 @@ order. The modules below only hold parameters, named as the JAX tree's keys;
 the functions read them. Tokens are batch-first (BT, N, C).
 
 By default the attention at both sites goes through K1 (float tower) or K2
-(int8 tower) and the int8 FFN through K3 (ops/fused_attn.py). Three switches
+(int8 tower) and the int8 FFN through K3 (ops/fused_attn.py). Four switches
 of the JAX package, read at call time and off by default, select other
 kernels:
 - `STGCMA_CLIP_TADAPT_FUSED=1` takes the temporal stage with its T_Adapter
@@ -18,11 +18,13 @@ kernels:
   adapter-fused bodies of K11 at every site: the temporal attention emits
   only the T_Adapter's hidden, the spatial attention and the FFN emit their
   output and the S_Adapter's or MLP_Adapter's hidden. At the temporal site
-  it goes before K13; in `fusion` mode K12 goes before it.
+  it goes before K13; in `fusion` mode K12 goes before it;
+- `STGCMA_TV2=1` takes the temporal stage with its T_Adapter in K14, on the
+  tokens in their own (B*T, N, C) layout, with none of the four transposes
+  the other temporal routes make; after K11, before K13.
 Unlike the JAX package on the CPU, the port takes these entry points on the
 CPU too and runs their plain versions there, as every other kernel of the
-port does. The transpose-free temporal kernel (`STGCMA_TV2=1`) is not ported
-and raises. Unlike the TPU path there is no resident pad: the video stream
+port does. Unlike the TPU path there is no resident pad: the video stream
 keeps its 197 tokens (257 at ViT-L/14).
 """
 from __future__ import annotations
@@ -38,7 +40,8 @@ from ..configs import ClipConfig
 from ..ops.attention import cross_modal_fuse
 from ..ops.common import LayerNorm, Linear, layernorm, linear, quick_gelu
 from ..ops.conv import conv2d
-from ..ops.clip_block import clip_fusion_spatial_block, clip_temporal_adapt_block
+from ..ops.clip_block import (TADAPT_MAX_FRAMES, clip_fusion_spatial_block,
+                              clip_temporal_adapt_block, temporal_adapt_v2)
 from ..ops.fused_attn import (BLOCK_KERNEL_MAX_HEADS, clip_attention_block,
                               clip_attn_megakernel_h, ffn_q_megakernel, ffn_qh_megakernel)
 from .adapters import Adapter, adapter_apply, adapter_hidden, adapter_out
@@ -62,7 +65,6 @@ class Mlp(nn.Module):
 MODES = {"videoonly": "video_adapt", "audioonly": "audio_adapt",
          "multimodal": "multimodal_adapt_no_fusion", "fusion": "fusion_adapt"}
 ADAPTER_KINDS = ("S_Adapter", "T_Adapter", "MLP_Adapter")
-TADAPT_MAX_FRAMES = 16                # K13 (and the unported K14) at T <= 16 (`clip_vit.py:139`)
 
 
 def adapter_names(mode: str):
@@ -180,6 +182,12 @@ def qfuse_adapters_enabled() -> bool:
     return os.environ.get("STGCMA_QFUSE_ADAPTERS", "0") == "1"
 
 
+def tv2_enabled() -> bool:
+    """`STGCMA_TV2=1`: the transpose-free temporal stage in K14 (off by
+    default, `clip_vit.py:139-148`). Read at call time."""
+    return os.environ.get("STGCMA_TV2", "0") == "1"
+
+
 def _qfuse_adapters(blk: ClipBlock, heads: int) -> bool:
     """K11 at this block's sites (`_qfuse_adapters` :106 and the routes'
     `heads <= 16`): an int8 tower with the switch set."""
@@ -187,33 +195,25 @@ def _qfuse_adapters(blk: ClipBlock, heads: int) -> bool:
             and heads <= BLOCK_KERNEL_MAX_HEADS)
 
 
-def _refuse_unported_opt_ins(heads: int, T: int):
-    """The JAX package's opt-in route through the kernel that is not ported
-    raises, where JAX would take it (`clip_vit.py:139-148`)."""
-    if (heads <= BLOCK_KERNEL_MAX_HEADS and T <= TADAPT_MAX_FRAMES
-            and os.environ.get("STGCMA_TV2", "0") == "1"):
-        raise NotImplementedError(
-            "STGCMA_TV2=1 takes the transpose-free temporal kernel K14, which is not ported "
-            "yet (ROADMAP.md, section 2)")
-
-
 def _t_adapt(blk: ClipBlock, x, heads: int, T: int, adapter: Adapter):
     """Temporal adaptation: attention over the frame axis + no-skip
     T_Adapter + residual. With `_qfuse_adapters` K11 emits only the
-    T_Adapter's hidden (`clip_vit.py:126-138`); else K13 when
-    `clip_tadapt_fused_enabled()` (<= 16 heads and frames), else K1/K2 and
-    the adapter in torch. x: (B*T, N, C)."""
+    T_Adapter's hidden (`clip_vit.py:126-138`); else K14 on x as it is when
+    `tv2_enabled()`, else K13 when `clip_tadapt_fused_enabled()` (K14 and
+    K13 at <= 16 heads and frames), else K1/K2 and the adapter in torch.
+    x: (B*T, N, C)."""
     BT, N, C = x.shape
     B = BT // T
+    kernel_ok = heads <= BLOCK_KERNEL_MAX_HEADS and T <= TADAPT_MAX_FRAMES
+    if tv2_enabled() and kernel_ok and not _qfuse_adapters(blk, heads):
+        return temporal_adapt_v2(blk.attn, blk.ln_1, adapter, x.contiguous(), heads, T)
     xt = x.reshape(B, T, N, C).transpose(1, 2).reshape(B * N, T, C).contiguous()
     if _qfuse_adapters(blk, heads):
         h = clip_attn_megakernel_h(blk.attn, blk.ln_1, adapter, xt, heads, emit_o=False)
         dA = h.shape[-1]
         h = h.reshape(B, N, T, dA).transpose(1, 2).reshape(BT, N, dA)
         return x + linear(adapter.D_fc2, h)
-    _refuse_unported_opt_ins(heads, T)
-    if (clip_tadapt_fused_enabled() and heads <= BLOCK_KERNEL_MAX_HEADS
-            and T <= TADAPT_MAX_FRAMES):
+    if clip_tadapt_fused_enabled() and kernel_ok:
         xt = clip_temporal_adapt_block(blk.attn, blk.ln_1, adapter, xt, heads)
     else:
         attn_out = clip_attention_block(blk.attn, blk.ln_1, xt, heads)
@@ -307,19 +307,21 @@ def launches_per_forward(cfg: ClipConfig, quantized: bool = False) -> Dict[str, 
     """{kernel id: launches} of one forward of `cfg` under the switches as
     they are now (ids with no launch left out): per block and stream one
     temporal and one spatial attention site and, for an int8 tower, one FFN
-    site. The temporal site: K11 with `_qfuse_adapters`, else K13 with its
-    switch, else K1/K2. The rest of a fusion block: K12 with its switch; else
-    the spatial and FFN sites in K11 with `_qfuse_adapters`, else K1/K2 and
-    K3 (int8 only)."""
+    site. The temporal site: K11 with `_qfuse_adapters`, else K14 with its
+    switch, else K13 with its switch, else K1/K2. The rest of a fusion
+    block: K12 with its switch; else the spatial and FFN sites in K11 with
+    `_qfuse_adapters`, else K1/K2 and K3 (int8 only)."""
     streams = 1 if cfg.ftmode in ("videoonly", "audioonly") else 2
     kernel_ok = cfg.heads <= BLOCK_KERNEL_MAX_HEADS
     qf = quantized and qfuse_adapters_enabled() and kernel_ok
-    tadapt = clip_tadapt_fused_enabled() and kernel_ok and cfg.num_frames <= TADAPT_MAX_FRAMES
+    frames_ok = kernel_ok and cfg.num_frames <= TADAPT_MAX_FRAMES
+    tv2, tadapt = tv2_enabled() and frames_ok, clip_tadapt_fused_enabled() and frames_ok
     whole = clip_whole_block_enabled() and kernel_ok and cfg.ftmode == "fusion"
     sites = streams * cfg.layers
     attn_id = "K2" if quantized else "K1"
     out = {"K12": cfg.layers if whole else 0}
-    for kid, n in (("K11" if qf else "K13" if tadapt else attn_id, sites),     # temporal
+    temporal = "K11" if qf else "K14" if tv2 else "K13" if tadapt else attn_id
+    for kid, n in ((temporal, sites),                                          # temporal
                    ("K11" if qf else attn_id, 0 if whole else sites),          # spatial
                    ("K11" if qf else "K3", sites if quantized and not whole else 0)):   # FFN
         out[kid] = out.get(kid, 0) + n

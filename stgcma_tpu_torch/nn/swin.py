@@ -373,10 +373,12 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
     `itemsize` bytes, of a float tower or (`quantized`) an int8 one, derived
     from the route functions the forward calls. K1 (K2 for int8), K7 (K3 at
     every FFN outside K4 for int8), K8 and K9 run once per stream; K4, K5
-    and K6 once per call for both streams."""
+    and K6 once per call for both streams; K10 twice per call (one for each
+    direction) at a stage whose full-grid exchange takes its route, and it
+    is listed only where it runs."""
     blk_k, ffn_k = ("K2", "K3") if quantized else ("K1", "K7")
     per_stream = {blk_k: 0, ffn_k: 0, "K8": 0, "K9": 0}
-    per_call = {"K4": 0, "K5": 0, "K6": 0}
+    per_call = {"K4": 0, "K5": 0, "K6": 0, "K10": 0}
     rows = B * cfg.num_ttokens            # frames through the tower, per stream
     H, Wd = cfg.stage_resolution(0)
     per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.embed_dim)          # patch embed
@@ -396,8 +398,10 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
             if st.mode == "fusion_adapt":
                 D = int(st.dim * st.adapter_ratio)
                 per_call["K5"] += st.use_s_adapter
-                per_call["K6"] += st.use_g_adapter and flash_fuse_route(
-                    st.H * st.W, st.H * st.W, D) == "K6"
+                if st.use_g_adapter:
+                    route = flash_fuse_route(st.H * st.W, st.H * st.W, D)
+                    per_call["K6"] += route == "K6"
+                    per_call["K10"] += 2 * (route == "K10")
         if s < cfg.num_layers - 1:
             H, Wd = cfg.stage_resolution(s)
             per_stream["K9"] += ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
@@ -405,5 +409,5 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
     per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.num_features)       # final norm
     counts = {k: 2 * int(c) for k, c in per_stream.items()}                     # two streams
     if cfg.ftmode == "fusion":
-        counts.update({k: int(c) for k, c in per_call.items()})
+        counts.update({k: int(c) for k, c in per_call.items() if c or k != "K10"})
     return counts

@@ -1,10 +1,11 @@
-"""The fused CLIP fusion block: K12 (everything after the temporal stage) and
-K13 (the temporal stage with its T_Adapter), plain versions, kernel wrappers
-and entry points.
+"""The fused CLIP fusion block: K12 (everything after the temporal stage), K13
+(the temporal stage with its T_Adapter) and K14 (the same temporal stage in
+the tower's own layout), plain versions, kernel wrappers and entry points.
 
-Port of `stgcma_tpu/ops/pallas_clip_block.py`. With both in use a CLIP
-`fusion` block is three kernels and nothing else: K13 on the video rows, K13
-on the audio rows, K12.
+Port of `stgcma_tpu/ops/pallas_clip_block.py` and of the transpose-free
+temporal kernel of `stgcma_tpu/ops/pallas_attn.py`. With K13 and K12 in use
+a CLIP `fusion` block is three kernels and nothing else: K13 on the video
+rows, K13 on the audio rows, K12.
 
 - K12 `clip_fusion_block` / `clip_fusion_block_q` replaces
   `_fusion_block_kernel` (:168; `quantized=` makes the two variants): LN1 +
@@ -15,6 +16,17 @@ on the audio rows, K12.
 - K13 `clip_tadapt` / `clip_tadapt_q` replaces `_tadapt_kernel` (:350):
   x + T_Adapter(proj(attn(LN x))) over the frame axis, T_Adapter =
   fc2(erf-GELU(fc1(.))) without skip.
+- K14 `clip_tv2` / `clip_tv2_q` replaces `pallas_attn.py::_tblock_v2_kernel`
+  (:1757): the same function on x (B*T, N, C) as the tower holds it, each
+  token attending over its T frames, with no transpose on either side; an
+  optional (heads, T, T) fp32 bias added to every token's logits; without
+  an adapter the attention output alone. Its rounding points are its own
+  (:1771-1837), not K13's: LN rounded to dt for the float qkv product, but
+  quantized unrounded (fp32) by the int8 variant; the adapter hidden
+  erf-GELU(o.W1 + b1) in fp32 on the rounded proj output o, rounded once;
+  the output bf16(x + (h.W2 + b2)) in fp32, rounded once. The TPU kernel's
+  T -> 16 pad, 8-token 128-wide packing and N -> 16-multiple pad are layout
+  devices left out (`_tv2_pallas` :1840).
 
 Rounding points, the same in the plain versions and on the card (dt is the
 streams' dtype): LN is rounded to dt (`_ln` :38), so the int8 variants
@@ -34,7 +46,11 @@ On the card each wrapper is a composition of the port's own hand-written
 launches in one stream (`csrc/rowprep.cu` LN and row quantization,
 `csrc/gemm.cu` products with their epilogues, `csrc/attn.cu` core,
 `csrc/fuse.cu` fusion): 19 launches for K12 (23 int8), 6 for K13 (8 int8);
-one call of a wrapper counts as one launch. No product goes to cuBLAS.
+6 for K14 with an adapter (4 without; one more of each for int8: LN and
+row quantization are one launch, the proj product quantizes first), its
+attention core reading each token's T frames N rows apart
+(`stg_attn_core_t`); one call of a wrapper counts as one launch. No product
+goes to cuBLAS.
 
 Left out on purpose, as TPU layout devices: K12's pad of both token streams
 to multiples of 16 with masked pad keys (:294-299, :86-88; the port's
@@ -46,9 +62,10 @@ from __future__ import annotations
 
 import torch
 
-from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_QUICKGELU, _EPI_BF16_RGELU, _EPI_Q_BF16,
-                         _QUICK_GELU, _Kernel, _attn_core, _check_cuda, _check_shapes, _erf_gelu,
-                         _fuse_cuda, _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
+from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_GELU, _EPI_BF16_QUICKGELU, _EPI_BF16_RES1,
+                         _EPI_BF16_RESF, _EPI_BF16_RGELU, _EPI_Q_BF16, _QUICK_GELU, _Kernel, _attn_core,
+                         _attn_core_t, _check_cuda, _check_shapes, _erf_gelu, _fuse_cuda,
+                         _gemm_bf16, _gemm_res, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
                          _quant_rows, _stream, check_attn_shape, check_fuse_width, dotq,
                          fuse_plain)
 from .swin_block import TOWER, _gemm_res2, _lin, adapter_weights, tower_weights
@@ -56,6 +73,7 @@ from .swin_block import TOWER, _gemm_res2, _lin, adapter_weights, tower_weights
 # the four adapters K12 reads: short name -> attribute of a fusion-mode ClipBlock
 ADAPTERS = (("sv", "S_Adapter"), ("sa", "S_Adapter_Audio"),
             ("mv", "MLP_Adapter"), ("ma", "MLP_Adapter_Audio"))
+TADAPT_MAX_FRAMES = 16                # K13 and K14 at T <= 16 (`clip_vit.py:139`, :155)
 
 
 # ---------------------------------------------------------------------------
@@ -77,10 +95,11 @@ def block_weights(blk) -> dict:
 
 
 def tadapt_weights(attn, ln, adapter) -> dict:
-    """K13's operands: LN1, the attention's two products and one T_Adapter
-    (`ad_*`)."""
+    """K13's and K14's operands: LN1, the attention's two products and one
+    T_Adapter (`ad_*`; none where `adapter` is None, K14 without an
+    adapter)."""
     w = tower_weights({"ln1_w": ln.weight, "ln1_b": ln.bias}, (attn.in_proj, attn.out_proj))
-    return adapter_weights(w, "ad", adapter)
+    return w if adapter is None else adapter_weights(w, "ad", adapter)
 
 
 # ---------------------------------------------------------------------------
@@ -163,22 +182,56 @@ def tadapt_q_plain(x, w, heads):
     return _tadapt_plain(x, w, heads, quantized=True)
 
 
+def _tv2_plain(x, w, heads, T, bias, quantized):
+    dt = x.dtype
+    BT, N, C = x.shape
+    B = BT // T
+    xn = _ln_f32(x, w["ln1_w"], w["ln1_b"])
+    qkv = _tower_plain(xn if quantized else xn.to(dt), w, 0, quantized).to(dt)
+    # each token's T frames: a permute here; on the card the core's addressing
+    qkv = qkv.view(B, T, N, 3 * C).transpose(1, 2).reshape(B * N, T, 3 * C)
+    o = _heads_attention(qkv, heads, None if bias is None else bias[None], dt)
+    o = o.view(B, N, T, C).transpose(1, 2).reshape(BT, N, C)
+    o = _tower_plain(o, w, 1, quantized).to(dt)
+    if "ad_w1" not in w:
+        return o
+    h = _erf_gelu(torch.matmul(o.float(), w["ad_w1"].float().t()) + w["ad_b1"].float()).to(dt)
+    res = torch.matmul(h.float(), w["ad_w2"].float().t()) + w["ad_b2"].float()
+    return (x.float() + res).to(dt)
+
+
+def tv2_plain(x, w, heads, T, bias=None):
+    """`_tblock_v2_kernel` (:1757) at its rounding points. x (B*T, N, C) in the
+    tower's layout; w: `tadapt_weights` (without `ad_*`: the attention output
+    alone); bias: (heads, T, T) fp32 or None."""
+    return _tv2_plain(x, w, heads, T, bias, quantized=False)
+
+
+def tv2_q_plain(x, w, heads, T, bias=None):
+    """K14's int8 variant: `_dotq` products for qkv (of the unrounded fp32 LN
+    rows) and proj (of the merged heads); the core and the adapter are the
+    float variant's."""
+    return _tv2_plain(x, w, heads, T, bias, quantized=True)
+
+
 # ---------------------------------------------------------------------------
 # the kernels: compositions of hand-written launches
 # ---------------------------------------------------------------------------
 
-def _check_operands(x, w, heads, quantized, n_tower, adapters, name):
-    """Shared validation of K12/K13 operands on the card (the first `n_tower`
-    products of TOWER, the adapters of the given keys); returns (C, Hd, D)."""
+def _check_operands(x, w, heads, quantized, n_tower, adapters, name, seqs=None):
+    """Shared validation of K12-K14 operands on the card (the first `n_tower`
+    products of TOWER, the adapters of the given keys, the attention over
+    sequences of the lengths `seqs`, by default x's middle axes); returns (C,
+    Hd, D), D = 0 without adapters."""
     C = x.shape[-1]
     bf, i8 = torch.bfloat16, torch.int8
     tower = TOWER[:n_tower]
     Hd = w["w1"].shape[0] if n_tower == 4 else 0
-    D = w[f"{adapters[0]}_w1"].shape[0]
+    D = w[f"{adapters[0]}_w1"].shape[0] if adapters else 0
     step = 16 if quantized else 8      # int8 rows of 16-byte chunks in gemm.cu
     if C % heads:
         raise ValueError(f"{name}: C={C} is not a multiple of heads={heads}")
-    for n in x.shape[1:-1]:
+    for n in (x.shape[1:-1] if seqs is None else seqs):
         check_attn_shape(n, C // heads, name)
     if C % step or Hd % step or D % 8:
         raise ValueError(f"{name} takes C and the FFN hidden in multiples of {step} and the "
@@ -285,12 +338,50 @@ def _tadapt_cuda(x, w, heads, quantized=False):
     att = _tower_cuda(o.view(M, C), w, 1, torch.empty_like(x2), s, quantized)
     h = _gemm_bf16(att, w["ad_w1"], w["ad_b1"], torch.empty((M, D), dtype=bf, device=x.device),
                    _EPI_BF16_RGELU, s)
-    out = _gemm_res2(h, w["ad_w2"], w["ad_b2"], x2, None, torch.empty_like(x2), s)
-    return out.view(R, T, C)
+    return _gemm_res(h, w["ad_w2"], w["ad_b2"], x2, torch.empty_like(x2), _EPI_BF16_RES1,
+                     s).view(R, T, C)
 
 
 def _tadapt_q_cuda(x, w, heads):
     return _tadapt_cuda(x, w, heads, quantized=True)
+
+
+def _tv2_cuda(x, w, heads, T, bias=None, quantized=False):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B*T, N, C), got {tuple(x.shape)}")
+    BT, N, _ = x.shape
+    if not 1 <= T <= TADAPT_MAX_FRAMES or BT % T:
+        raise ValueError(f"K14 takes 1 to {TADAPT_MAX_FRAMES} frames dividing B*T={BT}, got T={T}")
+    bf = torch.bfloat16
+    adapters = ["ad"] if "ad_w1" in w else []
+    C, _, D = _check_operands(x, w, heads, quantized, 2, adapters, "K14", seqs=(T,))
+    _check_cuda(x, {"x": (x, bf)})
+    if bias is not None:
+        _check_cuda(x, {"bias": (bias, torch.float32)})
+        _check_shapes({"bias": (bias, (heads, T, T))})
+    s = _stream(x)
+    M = BT * N
+    x2 = x.view(M, C)
+    qkv = torch.empty((M, 3 * C), dtype=bf, device=x.device)
+    if quantized:           # the fp32 LN rows, quantized unrounded (:1778)
+        xq, sx = _quant_rows(x2, s, w["ln1_w"], w["ln1_b"])
+        _gemm_s8(xq, sx, w["w_qkv"], w["s_qkv"], w["b_qkv"], qkv, _EPI_Q_BF16, s)
+    else:
+        _gemm_bf16(_ln_bf16(x2, w["ln1_w"], w["ln1_b"], s), w["w_qkv"], w["b_qkv"], qkv,
+                   _EPI_BF16, s)
+    o = _attn_core_t(qkv.view(BT // T, T, N, 3 * C), bias, heads, BT // T, T, s,
+                     torch.empty_like(x2))
+    att = _tower_cuda(o, w, 1, torch.empty_like(x2), s, quantized)
+    if not adapters:
+        return att.view(BT, N, C)
+    h = _gemm_bf16(att, w["ad_w1"], w["ad_b1"], torch.empty((M, D), dtype=bf, device=x.device),
+                   _EPI_BF16_GELU, s)
+    return _gemm_res(h, w["ad_w2"], w["ad_b2"], x2, torch.empty_like(x2), _EPI_BF16_RESF,
+                     s).view(BT, N, C)
+
+
+def _tv2_q_cuda(x, w, heads, T, bias=None):
+    return _tv2_cuda(x, w, heads, T, bias, quantized=True)
 
 
 clip_fusion_block = _Kernel("K12", "clip_fusion_block", fusion_block_plain, _clip_block_cuda)
@@ -298,6 +389,8 @@ clip_fusion_block_q = _Kernel("K12", "clip_fusion_block_q", fusion_block_q_plain
                               _clip_block_q_cuda)
 clip_tadapt = _Kernel("K13", "clip_tadapt", tadapt_plain, _tadapt_cuda)
 clip_tadapt_q = _Kernel("K13", "clip_tadapt_q", tadapt_q_plain, _tadapt_q_cuda)
+clip_tv2 = _Kernel("K14", "clip_tv2", tv2_plain, _tv2_cuda)
+clip_tv2_q = _Kernel("K14", "clip_tv2_q", tv2_q_plain, _tv2_q_cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -317,3 +410,13 @@ def clip_temporal_adapt_block(attn, ln, adapter, x, heads: int):
     (`clip_temporal_adapt_block` :475). x: (B*N, T, C), contiguous."""
     kernel = clip_tadapt_q if attn.in_proj.quantized else clip_tadapt
     return kernel(x, tadapt_weights(attn, ln, adapter), heads)
+
+
+def temporal_adapt_v2(attn, ln, adapter, x, heads: int, T: int, bias=None):
+    """The transpose-free temporal stage in K14, its int8 variant for an int8
+    tower (`pallas_attn.py::temporal_adapt_v2` :1948): x (B*T, N, C) in the
+    tower's layout, contiguous -> x + T_Adapter(MHA over the frames(LN x)),
+    in the same layout; `adapter` None: the attention output alone; bias:
+    (heads, T, T) fp32 or None."""
+    kernel = clip_tv2_q if attn.in_proj.quantized else clip_tv2
+    return kernel(x, tadapt_weights(attn, ln, adapter), heads, T, bias=bias)

@@ -38,21 +38,28 @@ SIGNATURES = {
         # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU,
         # 5: + bias -> bf16 -> erf-GELU, 7: + bias -> QuickGELU), stream
         "stg_gemm_bf16": [P, P, P, P, I, I, I, I, P],
-        # A, W, bias, R1, R2 (nullable), C, M, N, K, stream: C = bf16(bf16(R1 + R2) +
-        # bf16(A.W^T + b)), or bf16(R1 + bf16(A.W^T + b)) without R2
+        # A, W, bias, R1, R2, C, M, N, K, stream: C = bf16(bf16(R1 + R2) + bf16(A.W^T + b))
         "stg_gemm_bf16_res2": [P, P, P, P, P, P, I, I, I, P],
+        # A, W, bias, R, C, M, N, K, epilogue (9: C = bf16(R + (A.W^T + b)), one rounding;
+        # 8: bf16(R + bf16(A.W^T + b))), stream
+        "stg_gemm_bf16_res": [P, P, P, P, P, I, I, I, I, P],
         # A, sa, W, ws, bias, C, M, N, K, epilogue, stream
         "stg_gemm_s8": [P, P, P, P, P, P, I, I, I, I, P],
     },
     "attn.cu": {
         # qkv, bm (nullable), nWb, o, B_, N, heads, dh, scale, stream
         "stg_attn_core": [P, P, I, P, I, I, I, I, F, P],
+        # qkv (B, T, Ns, 3C), bm (nullable, (heads, T, T)), o, B, T, Ns, heads, dh, scale,
+        # stream: attention over the T frames of each token
+        "stg_attn_core_t": [P, P, P, I, I, I, I, I, F, P],
         # q (pre-scaled), k, v, bm, P, o, R, N, dh, stream
         "stg_attn_qkv": [P, P, P, P, I, P, I, I, I, P],
     },
     "fuse.cu": {
         # vh, ah, gv, ga, mask (nullable), vo, ao, B, Nv, Na, D, stream
         "stg_fuse_bidir": [P, P, P, P, P, P, P, I, I, I, I, P],
+        # q, k, v, o, B, Nq, Nk, D, stream: o = softmax(q.k^T).v, unscaled
+        "stg_unscaled_attn": [P, P, P, P, I, I, I, I, P],
     },
 }
 

@@ -1,6 +1,7 @@
-"""The port's kernels K1-K3, K5-K9 and K11: wrappers, plain versions, launch
-counts, and the entry points of the CLIP and Swin towers that route to them
-(the whole Swin fusion block K4 is in ops/swin_block.py).
+"""The port's kernels K1-K3, K5-K11: wrappers, plain versions, launch counts,
+and the entry points of the CLIP and Swin towers that route to them (the
+whole Swin fusion block K4 is in ops/swin_block.py, the CLIP blocks K12-K14
+in ops/clip_block.py).
 
 - K1 `win_block`: LN -> x.Wqkv + b -> per-head softmax(q.dh^-1/2.k^T + bm).v
   -> merge -> .Wproj + b, in x's dtype. Replaces
@@ -38,6 +39,12 @@ counts, and the entry points of the CLIP and Swin towers that route to them
   runs it over Swin windows (replaces `_win_fuse_kernel` :1222, without the
   49 -> 64 pad), K6 over the full stage grid (replaces
   `_bidir_fuse_full_kernel` :1103 and `_bidir_fuse_kernel` :1051).
+- K10 `unscaled_attention`: softmax(q.k^T).v, unscaled, one direction of
+  csrc/fuse.cu's loop with separate keys and values (`stg_unscaled_attn`).
+  Replaces `_attn_kernel` (:137), without its Nk -> 128 pad and `nk_real`
+  mask (a TPU layout device). `cross_modal_fuse_flash` calls it twice
+  where a stage grid of >= 120 tokens is not a multiple of 16 (:1039-1044),
+  and adds the gated terms in torch, as JAX does.
 
 Each wrapper runs its plain PyTorch version when its input lies on the CPU,
 and only then. For a CUDA tensor it launches the hand-written kernels of
@@ -71,6 +78,7 @@ _QUICK_GELU, _GELU = "quick_gelu", "gelu"
 _EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
 _EPI_BF16, _EPI_Q_BF16, _EPI_BF16_GELU, _EPI_BF16_RGELU = 0, 1, 4, 5
 _EPI_BF16_QUICKGELU = 7               # K12's float fc1: QuickGELU in fp32, one rounding
+_EPI_BF16_RES1, _EPI_BF16_RESF = 8, 9  # bf16(r + bf16(acc + b)) (K13), bf16(r + (acc + b)) (K14)
 _LN_EPS = 1e-5                        # the TPU kernels' LayerNorm eps
 
 # Swin routing thresholds of the JAX package
@@ -80,6 +88,8 @@ FFN_KERNEL_MIN_HIDDEN_BYTES = 96 << 20   # K7 when the hidden is >= 96 MiB (swin
 FLASH_MIN_TOKENS = 120                # K6 from 120 tokens (pallas_attn.py:1023)
 FLASH_MAX_KEY_BYTES = 16 << 20        # K6 while Na * D * 4 <= 16 MiB, else K10 (:1033-1034)
 FUSE_WIDTHS = (16, 32, 48, 64, 96)    # adapter widths D that csrc/fuse.cu instantiates
+                                      # (K4-K6, K12, and D = DV of K10)
+FUSE_MAX_BATCH = 65535                # csrc/fuse.cu: one batch row per gridDim.y
 ATTN_HEAD_WIDTHS = (32, 64)           # head widths dh that csrc/attn.cu instantiates
 ATTN_MAX_TOKENS = 65535 * 64          # csrc/attn.cu: past 256 tokens a block takes 64 query
                                       # rows, at most 65535 blocks along gridDim.y
@@ -217,6 +227,17 @@ def wmsa_plain(q, k, v, bm):
     return torch.matmul(p.float(), v.float()).to(dt)
 
 
+def unscaled_attention_plain(q, k, v):
+    """`_attn_kernel` (:137): fp32 logits of q (B, Nq, D) against k (B, Nk,
+    D), no scale, exact softmax, probabilities rounded to q's dtype, p.v
+    summed in fp32 and rounded."""
+    dt = q.dtype
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+    return torch.matmul(p.float(), v.float()).to(dt)
+
+
 def layernorm_plain(x, ln_w, ln_b):
     return _ln_f32(x, ln_w, ln_b).to(x.dtype)
 
@@ -286,6 +307,16 @@ def _gemm_bf16(a, w, b, out, epi, s):
     return out
 
 
+def _gemm_res(a, w, b, r, out, epi, s):
+    """out (M, N) = epilogue(r, a (M, K) . w (N, K)^T + b): `_EPI_BF16_RESF`
+    bf16(r + (acc + b)), rounded once, or `_EPI_BF16_RES1` bf16(r + bf16(acc
+    + b)); all bf16 and contiguous."""
+    M, K = a.shape
+    cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16_res(
+        _ptr(a), _ptr(w), _ptr(b), _ptr(r), _ptr(out), M, w.shape[0], K, epi, s))
+    return out
+
+
 def _quant_rows(x2, s, ln_w=None, ln_b=None):
     """int8 row quantization of bf16 or fp32 rows, after a LayerNorm when its
     weights are given (K2/K3 prologues). Returns (int8 codes, fp32 scales)."""
@@ -319,6 +350,19 @@ def _attn_core(qkv, bias, heads, s, out=None):
     return o
 
 
+def _attn_core_t(qkv, bias, heads, B, T, s, out):
+    """The attention core over the T frames of each token of a packed qkv
+    (B, T, Ns, 3C) into merged heads `out` (B, T, Ns, C), with no transpose:
+    the core reads each token's frames Ns rows apart. bias: (heads, T, T)
+    fp32 or None."""
+    Ns, C = qkv.shape[2], qkv.shape[3] // 3
+    dh = C // heads
+    scale = float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
+    cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_core_t(
+        _ptr(qkv), _ptr(bias), _ptr(out), B, T, Ns, heads, dh, scale, s))
+    return out
+
+
 def check_attn_shape(N, dh, name="the attention core"):
     """The token counts and head widths that csrc/attn.cu takes."""
     if dh not in ATTN_HEAD_WIDTHS or not 1 <= N <= ATTN_MAX_TOKENS:
@@ -330,6 +374,14 @@ def check_fuse_width(D, name="the fusion kernel"):
     """The adapter widths that csrc/fuse.cu takes."""
     if D not in FUSE_WIDTHS:
         raise ValueError(f"{name} takes adapter widths in {FUSE_WIDTHS}, got D={D}")
+
+
+def check_unscaled_attn(B, Nq, Nk, D, DV, name="K10"):
+    """The shapes csrc/fuse.cu's `stg_unscaled_attn` takes: D = DV in
+    FUSE_WIDTHS, any Nq, Nk >= 1, B <= FUSE_MAX_BATCH."""
+    if D != DV or D not in FUSE_WIDTHS or min(Nq, Nk) < 1 or not 1 <= B <= FUSE_MAX_BATCH:
+        raise ValueError(f"{name} takes D = DV in {FUSE_WIDTHS}, Nq, Nk >= 1 and 1 <= B <= "
+                         f"{FUSE_MAX_BATCH}, got B={B}, Nq={Nq}, Nk={Nk}, D={D}, DV={DV}")
 
 
 def _check_block(x, heads, bias, weights):
@@ -536,13 +588,29 @@ def _fuse_cuda(vh, ah, gate_v, gate_a, mask=None):
     _check_cuda(vh, named)
     _check_shapes(shapes)
     check_fuse_width(D)
-    if B > 65535:
-        raise ValueError(f"the fusion kernel takes B <= 65535, got B={B}")
+    if B > FUSE_MAX_BATCH:
+        raise ValueError(f"the fusion kernel takes B <= {FUSE_MAX_BATCH}, got B={B}")
     vo, ao = torch.empty_like(vh), torch.empty_like(ah)
     cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_fuse_bidir(
         _ptr(vh), _ptr(ah), _ptr(gate_v), _ptr(gate_a), _ptr(mask), _ptr(vo), _ptr(ao),
         B, Nv, Na, D, _stream(vh)))
     return vo, ao
+
+
+def _unscaled_attn_cuda(q, k, v):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"q, k, v must be (B, N, D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Nq, D = q.shape
+    Nk, DV = k.shape[1], v.shape[2]
+    bf = torch.bfloat16
+    _check_cuda(q, {"q": (q, bf), "k": (k, bf), "v": (v, bf)})
+    _check_shapes({"k": (k, (B, Nk, D)), "v": (v, (B, Nk, DV))})
+    check_unscaled_attn(B, Nq, Nk, D, DV)
+    o = torch.empty_like(q)
+    cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_unscaled_attn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), B, Nq, Nk, D, _stream(q)))
+    return o
 
 
 win_block = _Kernel("K1", "win_block", win_block_plain, _win_block_cuda)
@@ -553,6 +621,8 @@ bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda)
 ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda)
 wmsa = _Kernel("K8", "wmsa", wmsa_plain, _wmsa_cuda)
 layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda)
+unscaled_attention = _Kernel("K10", "unscaled_attention", unscaled_attention_plain,
+                             _unscaled_attn_cuda)
 win_block_qd = _Kernel("K11", "win_block_qd", functools.partial(win_block_qad_plain, emit_o=False),
                        functools.partial(_win_block_qad_cuda, emit_o=False))
 win_block_qh = _Kernel("K11", "win_block_qh", functools.partial(win_block_qad_plain, emit_o=True),
@@ -755,14 +825,15 @@ def flash_fuse_route(Nv: int, Na: int, D: int) -> str:
 
 def cross_modal_fuse_flash(v_hidden, a_hidden, gate_v, gate_a):
     """The joint STG-CMA exchange over the full stage grid
-    (`pallas_attn.py:1022`): K6, or the plain `cross_modal_fuse` below
-    FLASH_MIN_TOKENS. The K10 route is not ported and raises."""
+    (`pallas_attn.py:1022`): K6, the plain `cross_modal_fuse` below
+    FLASH_MIN_TOKENS, or two K10 calls with the gated adds in torch
+    (:1039-1044: gate * a2v rounded to the dtype, then added)."""
     route = flash_fuse_route(v_hidden.shape[1], a_hidden.shape[1], v_hidden.shape[2])
     if route == "plain":
         return cross_modal_fuse(v_hidden, a_hidden, gate_v, gate_a)
-    if route == "K10":
-        raise NotImplementedError(
-            f"cross_modal_fuse_flash at Nv={v_hidden.shape[1]}, Na={a_hidden.shape[1]}, "
-            f"D={v_hidden.shape[2]} takes the K10 route (unscaled_attention), which is not "
-            "ported yet (ROADMAP.md, section 2)")
-    return bidir_fuse(v_hidden, a_hidden, gate_v, gate_a)
+    if route == "K6":
+        return bidir_fuse(v_hidden, a_hidden, gate_v, gate_a)
+    dt = v_hidden.dtype
+    a2v = unscaled_attention(v_hidden, a_hidden, a_hidden)
+    v2a = unscaled_attention(a_hidden, v_hidden, v_hidden)
+    return v_hidden + gate_v.to(dt) * a2v, a_hidden + gate_a.to(dt) * v2a

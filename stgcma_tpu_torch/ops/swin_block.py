@@ -203,8 +203,7 @@ def swin_block_q_plain(v, a, w, heads, bias, fuse_mask):
 # ---------------------------------------------------------------------------
 
 def _gemm_res2(a, w, b, r1, r2, out, s):
-    """out = bf16(bf16(r1 + r2) + bf16(a . w^T + b)); with r2 None, out =
-    bf16(r1 + bf16(a . w^T + b))."""
+    """out = bf16(bf16(r1 + r2) + bf16(a . w^T + b))."""
     M, K = a.shape
     cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16_res2(
         _ptr(a), _ptr(w), _ptr(b), _ptr(r1), _ptr(r2), _ptr(out), M, w.shape[0], K, s))

@@ -1,7 +1,7 @@
 """Where the time of one serving forward goes on the card.
 
     python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--int8]
-        [--fused] [--qfuse] [--seed 0] [--out DIR]
+        [--fused] [--qfuse] [--tv2] [--seed 0] [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
 seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
@@ -12,10 +12,14 @@ bf16 tower, or with `--int8` the tower made int8 by `quantize_swin_tower`
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
 STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
 it also serves the int8 tower with the adapter-fused kernels
-(STGCMA_QFUSE_ADAPTERS=1: K11 at the six sites of a block). With either
-flag each task's library kernels (cuBLAS, cuDNN, PyTorch's attention) are
-listed by name: in the fused configuration only the embed's convolutions and
-the head's two linears remain, whatever the depth. For each task it
+(STGCMA_QFUSE_ADAPTERS=1: K11 at the six sites of a block); with `--tv2` it
+also serves both towers with the transpose-free temporal stage
+(STGCMA_TV2=1: K14 at the two temporal sites of a block) and lists each
+task's copy kernels by name, the layout copies of the temporal transposes
+among them, which K14 does without. With `--fused` or `--qfuse` each task's
+library kernels (cuBLAS, cuDNN, PyTorch's attention) are listed by name: in
+the fused configuration only the embed's convolutions and the head's two
+linears remain, whatever the depth. For each task it
 prints the median wall time of 5 untraced B = 8 requests, then traces
 one request with torch.profiler and prints the device time summed over all
 kernels, the share of the untraced wall time it covers (the rest is the
@@ -45,6 +49,9 @@ from ..serving import MultiTaskServer
 B, REQUESTS = 8, 5
 CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
 QFUSE = "STGCMA_QFUSE_ADAPTERS"
+TV2 = "STGCMA_TV2"
+# kernel-name fragments of PyTorch's copy kernels (`.contiguous()` of a transposed view, cat)
+COPY_KERNELS = ("copy", "cat")
 # kernel-name fragments of library kernels: cuBLAS/CUTLASS GEMMs, cuDNN, PyTorch's attention
 LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv", "fmha",
                    "flash", "attention", "convolve", "nchwtonhwc", "nhwctonchw", "nhwcaddpadding")
@@ -61,13 +68,15 @@ def main(argv=None) -> int:
                     help="also serve the CLIP model in the fused-block configuration")
     ap.add_argument("--qfuse", action="store_true",
                     help="also serve the CLIP int8 tower with the adapter-fused kernels (K11)")
+    ap.add_argument("--tv2", action="store_true",
+                    help="also serve the CLIP model with the transpose-free temporal stage (K14)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
     if args.int8 and args.model == "clip":
         ap.error("--int8 takes a Swin model (clip serves its bf16 and int8 towers already)")
-    if (args.fused or args.qfuse) and args.model != "clip":
-        ap.error("--fused and --qfuse take the CLIP model")
+    if (args.fused or args.qfuse or args.tv2) and args.model != "clip":
+        ap.error("--fused, --qfuse and --tv2 take the CLIP model")
     if not torch.cuda.is_available():
         print("trace_slice: no CUDA device", file=sys.stderr)
         return 1
@@ -95,6 +104,9 @@ def main(argv=None) -> int:
             srv.add_clip_ave("fused_int8", cfg, model_q)
         if args.qfuse:
             srv.add_clip_ave("qfuse_int8", cfg, model_q)
+        if args.tv2:
+            srv.add_clip_ave("tv2_bf16", cfg, model)
+            srv.add_clip_ave("tv2_int8", cfg, model_q)
         batch = {"a": rng.randn(B, cfg.num_frames, cfg.audio_tdim,
                                 cfg.audio_fdim).astype(np.float32),
                  "v": rng.randn(B, cfg.num_frames, cfg.input_resolution,
@@ -105,6 +117,7 @@ def main(argv=None) -> int:
         for k in CLIP_SWITCHES:
             os.environ[k] = "1" if task.startswith("fused_") else "0"
         os.environ[QFUSE] = "1" if task.startswith("qfuse_") else "0"
+        os.environ[TV2] = "1" if task.startswith("tv2_") else "0"
         srv.predict(task, batch)                          # warm-up
         walls = []
         for _ in range(REQUESTS):
@@ -133,6 +146,12 @@ def main(argv=None) -> int:
             print(f"[{task}] library kernels: {sum(e.count for e in library)} launches, "
                   f"{sum(e.self_device_time_total for e in library) / 1e3:.3f} ms: "
                   + "; ".join(f"x{e.count} {e.key[:60]}" for e in library))
+        if args.tv2:
+            copies = [e for e in rows if any(k in e.key.lower() for k in COPY_KERNELS)]
+            print(f"[{task}] copy kernels: {sum(e.count for e in copies)} launches, "
+                  f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms: "
+                  + "; ".join(f"x{e.count} {e.self_device_time_total / 1e3:.3f} ms {e.key[:80]}"
+                              for e in copies))
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:110]}")

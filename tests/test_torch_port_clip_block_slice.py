@@ -348,17 +348,30 @@ def test_switches_are_read_at_call_time_and_default_off(monkeypatch):
 
 @pytest.mark.parametrize("switch,int8", [("STGCMA_TV2", False), ("STGCMA_TV2", True)])
 def test_unported_opt_ins_raise(monkeypatch, switch, int8):
-    """K14 (transpose-free temporal kernel) is not ported: its switch raises
-    where JAX would take it, never a silent default."""
+    """The JAX package's opt-in that raised while its kernel was not ported
+    (hence the name): `STGCMA_TV2=1` now takes the transpose-free temporal
+    kernel K14 (`clip_tv2`, `clip_tv2_q` for an int8 tower) at every temporal
+    site, and no K1/K2 there, never a silent default."""
     clear_opt_ins(monkeypatch)
     monkeypatch.setenv(switch, "1")
     cfg = ClipConfig(ftmode="fusion", **TINY)
     model = random_clip_ave(cfg, 0)
     if int8:
         model.backbone = quantize_clip_tower(model.backbone)
+    seen = []
+    for kern in FA.KERNELS:
+        def spy(*args, _plain=kern.plain, _name=kern.name, **kw):
+            seen.append(_name)
+            return _plain(*args, **kw)
+        monkeypatch.setattr(kern, "plain", spy)
     a, v = _inputs(B=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_clip_ave(model, cfg, t(a), t(v))
+    with torch.inference_mode():
+        out = apply_clip_ave(model, cfg, t(a), t(v))
+    assert torch.isfinite(out).all()
+    L, tv2 = cfg.layers, "clip_tv2_q (K14)" if int8 else "clip_tv2 (K14)"
+    spatial = ["win_block_q (K2)"] * 2 * L + ["ffn_q (K3)"] * 2 * L if int8 else \
+        ["win_block (K1)"] * 2 * L
+    assert sorted(seen) == sorted([tv2] * 2 * L + spatial)
 
 
 def test_qfuse_switch_takes_k11_on_an_int8_tower(monkeypatch):

@@ -117,7 +117,8 @@ def test_fuse_plain_mask_is_added_in_both_directions():
 
 def test_flash_routes_follow_the_jax_policy(monkeypatch):
     """Below 120 tokens the plain `cross_modal_fuse`; K6 where JAX takes its
-    bidirectional kernel; the K10 route (JAX's fallback) raises."""
+    bidirectional kernel; on the K10 route (JAX's fallback) two K10 calls
+    and the gated adds, which match JAX's `cross_modal_fuse`."""
     clear_opt_ins(monkeypatch)
     assert FA.flash_fuse_route(119, 119, 16) == "plain"
     assert FA.flash_fuse_route(3136, 3136, 16) == "K6"
@@ -131,8 +132,12 @@ def test_flash_routes_follow_the_jax_policy(monkeypatch):
     assert _rel2(out, ref) < TOL["float32"]
     assert FA.bidir_fuse.launches == 0
     vh, ah, _ = _fuse_inputs(np.random.RandomState(7), 1, 200, 200, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FA.cross_modal_fuse_flash(t(vh), t(ah), t(gv), t(ga))
+    calls, plain = [], FA.unscaled_attention.plain
+    monkeypatch.setattr(FA.unscaled_attention, "plain", lambda *a: calls.append(1) or plain(*a))
+    out = FA.cross_modal_fuse_flash(t(vh), t(ah), t(gv), t(ga))
+    ref = jax_attention.cross_modal_fuse(*(jnp.asarray(x) for x in (vh, ah, gv, ga)))
+    assert _rel2(out, ref) < TOL["float32"]
+    assert len(calls) == 2 and FA.bidir_fuse.launches == 0     # a2v and v2a, plain on the CPU
 
 
 # ---------------------------------------------------------------------------

@@ -296,7 +296,7 @@ def _clip_sites(cfg, quantized):
     for kid in clip_vit.launches_per_forward(cfg, quantized):
         if kid == "K12":
             sites[kid] = [(n, dh, D) for n in tokens]
-        elif kid == "K13":
+        elif kid in ("K13", "K14"):             # the temporal stage over T frames
             sites[kid] = [(T, dh, None)]
         elif kid in ("K1", "K2", "K11"):         # temporal and spatial attention sites
             sites[kid] = [(n, dh, None) for n in [T] + tokens]
@@ -308,7 +308,7 @@ def _clip_sites(cfg, quantized):
 def _swin_sites(cfg, quantized):
     """The same for a Swin backbone, from the routes `launches_per_forward`
     follows (window and temporal attention in K1/K2 or K8, K4 over the stage
-    grid, K5 over the windows, K6 over the grid)."""
+    grid, K5 over the windows, K6 or K10 over the grid)."""
     counts = swin.launches_per_forward(cfg, B=8, quantized=quantized)
     sites = {kid: [] for kid, n in counts.items() if n}
     for stage in swin.backbone_statics(cfg):
@@ -323,8 +323,9 @@ def _swin_sites(cfg, quantized):
             sites[attn_id].append((st.window_size ** 2, dh, None))
             if st.mode == "fusion_adapt":
                 sites["K5"].append((st.window_size ** 2, None, D))
-                if FA.flash_fuse_route(st.H * st.W, st.H * st.W, D) == "K6":
-                    sites["K6"].append((st.H * st.W, None, D))
+                route = FA.flash_fuse_route(st.H * st.W, st.H * st.W, D)
+                if route in ("K6", "K10"):
+                    sites[route].append((st.H * st.W, None, D))
     return sites
 
 
@@ -345,9 +346,10 @@ def test_presets_lie_within_the_kernels_limits(monkeypatch, name, preset, ftmode
     cfg = preset(ftmode=ftmode)
     sites_of = _clip_sites if name.startswith("clip") else _swin_sites
     seen = set()
-    for switches in ("0", "1"):                  # default and fused-block / QFUSE routes
-        for k in SWITCHES + ("STGCMA_QFUSE_ADAPTERS",):
-            monkeypatch.setenv(k, switches)
+    # default routes; fused-block and QFUSE routes; the transpose-free temporal stage (K14)
+    for on in ((), SWITCHES + ("STGCMA_QFUSE_ADAPTERS",), ("STGCMA_TV2",)):
+        for k in SWITCHES + ("STGCMA_QFUSE_ADAPTERS", "STGCMA_TV2"):
+            monkeypatch.setenv(k, "1" if k in on else "0")
         for quantized in (False, True):
             for kid, sites in sites_of(cfg, quantized).items():
                 for n, dh, D in sites:
@@ -355,9 +357,13 @@ def test_presets_lie_within_the_kernels_limits(monkeypatch, name, preset, ftmode
                         FA.check_attn_shape(n, dh, kid)
                     if D is not None and kid in ("K4", "K5", "K6", "K12"):
                         FA.check_fuse_width(D, kid)
+                    if kid in ("K6", "K10"):   # K10, a2v and v2a over the grid, is K6's
+                        FA.check_unscaled_attn(8 * cfg.num_ttokens, n, n, D, D)   # fallback
                     if kid == "K4":
                         assert n <= WHOLE_BLOCK_MAX_GRID
                     seen.add((kid, n, D))
+    if name.startswith("clip"):
+        assert ("K14", cfg.num_frames, None) in seen
     if name == "clip_l14_fusion":
         assert ("K12", 257, 64) in seen and ("K1", 257, None) in seen
     if name == "swin_large_fusion":
