@@ -44,7 +44,16 @@ line:
      10) bias and no adapter at (80, 196, 512) h16; K10 (unscaled attention)
      through the K10 route of the full-grid fusion at K6's odd shape and at
      the stage grids of Swin-Base cut to 168^2 ((80, 1764, 16), (80, 441,
-     32)), with its fault (the dh^-1/2 scale applied);
+     32)), with its fault (the dh^-1/2 scale applied); and the two parts
+     those kernels share, alone (stgcma_tpu_torch/tools/bench_parts.py):
+     csrc/gemm.cu's bf16 product (TMA + wgmma) at the main path's qkv,
+     proj, fc1 with QuickGELU and fc2 (K = 3072) shapes, the adapter
+     products at N = 48 and K = 48 and Swin's K = 128 fc1, each with its
+     TFLOP/s and F.linear as the yardstick, and csrc/attn.cu's attention
+     core at (80, 197, 768) h12, (80, 257, 1024) h16 and K4's (160, 196,
+     512) h16 with a bias (K and V resident in shared memory) and at
+     (16, 1000, 768) h12 (past the resident limit: the streamed kernel),
+     with scaled_dot_product_attention as the yardstick;
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
      per forward, and clips/s:
@@ -359,6 +368,25 @@ def check_kernel(name, kernel, plain, args, kw, bound, library, tol=TOL_KERNEL):
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"shape": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_parts():
+    """csrc/gemm.cu's bf16 product and csrc/attn.cu's attention core alone, at
+    the shapes of `tools/bench_parts.py`, against their plain versions; listed
+    under K1, whose launches they make on the main path."""
+    import torch
+    from stgcma_tpu_torch.tools import bench_parts
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    with torch.inference_mode():
+        for case in bench_parts.gemm_cases(g) + bench_parts.core_cases(g):
+            row = check_kernel(case["row"], case["fn"], case["plain"], (), {}, case["bound"],
+                               case["library"])
+            row["tflops"] = case["flops"] / row["ms"] / 1e9
+            log(f"  {case['row']}: {row['tflops']:.1f} TFLOP/s")
+            rows.append(row)
+            del case
+    return {"K1": rows}
 
 
 def phase_kernels(cfg):
@@ -1819,7 +1847,8 @@ def main():
               lambda: phase_clip_block_kernels(l14_cfg, tag="CLIP-L/14 "),
               lambda: phase_fusion_kernels(large_cfg, tower="Swin-Large", odd=False,
                                            k4_tol=TOL_K4_LARGE),
-              lambda: phase_tv2_kernels(cfg, l14_cfg), lambda: phase_k10_kernels(k10_cfg))
+              lambda: phase_tv2_kernels(cfg, l14_cfg), lambda: phase_k10_kernels(k10_cfg),
+              phase_parts)
     for phase in phases:
         for k, rows in phase().items():
             results.setdefault(k, []).extend(rows)

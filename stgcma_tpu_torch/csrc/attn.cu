@@ -33,30 +33,48 @@
 // Bound on the H100: operations at the CLIP spatial sites (N = 197: ~9.5
 // GFLOP a B = 8 call), bytes at the temporal and window sites (N = 10 or
 // 49: the q, k, v reads dominate).
-// Design, N <= 256 (attn_mma_kernel): both products on tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate). One warp owns a 16-query
-// tile: its logits and probabilities stay in registers, and the
-// probabilities' accumulator fragments are reused as the A operand of p.v. A
-// block holds K (keys x dh) and V^T (dh x keys) of one (row, head) in shared
-// memory, loaded once for all its query tiles; for N <= 48 a block serves
-// several (row, head) pairs, so the T = 10 temporal site packs 4 to a block.
-// Keys are padded to 16 * KT (KT chosen per call from N, at most 256 keys)
-// and masked to -inf. Shared-memory row strides are padded so the fragment
-// loads are free of bank conflicts.
-// Design, N > 256 (attn_stream_kernel; CLIP ViT-L/14's 257 tokens): the
-// logits of a row no longer fit the registers of one warp, so K and V are
-// streamed through shared memory in tiles of 64 keys, and a block owns 64
-// query rows of one (row, head). It runs two passes over the key tiles:
-// pass 1 keeps a running max and sum per query row (the sum rescaled by
-// exp(m_old - m_new) when the max grows); pass 2 recomputes the logits and
-// forms p = exp(s - m) / l, rounded to bf16, for p.v accumulated in fp32.
+// Three kernels, one per range of N (ATTN_SMALL_MAX_TOKENS and
+// ATTN_RESIDENT_MAX_TOKENS in ops/fused_attn.py mirror the dispatch):
+// N <= 64 (attn_mma_kernel: the T = 10 temporal sites, the 49-token windows,
+// K8): both products on tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate). One warp owns a 16-query tile: its logits and probabilities
+// stay in registers, and the probabilities' accumulator fragments are reused
+// as the A operand of p.v. A block holds K (keys x dh) and V^T (dh x keys) of
+// one (row, head) in shared memory, loaded once for all its query tiles; for
+// N <= 48 a block serves several (row, head) pairs, so the T = 10 temporal
+// site packs 4 to a block. Keys are padded to 16 * KT and masked to -inf.
+// 64 < N <= 768 (attn_resident_kernel: CLIP's 197 and 257 tokens, K4's 196):
+// one block owns one (row, head); K and V come into shared memory once,
+// keys-major, by 16-byte cp.async (V in a second group that lands while pass
+// 1 runs), rows padded to dh + 8 elements so every ldmatrix is free of bank
+// conflicts; V's fragments for p.v come through ldmatrix.trans, so nothing is
+// transposed element by element. Each warp owns one 16-query tile at a time
+// and walks the resident keys in chunks of 64 twice: pass 1 keeps a running
+// row max m and sum l (rescaled by exp(m_old - m_new) when the max grows);
+// pass 2 recomputes the logits and forms p = exp(s - m) / l, rounded to bf16
+// after the correctly rounded division (JAX `_pnorm`; `div_rn`: a reciprocal
+// a row and an fma correction, no slow-path branch), for p.v accumulated in
+// fp32. exp is the special function unit's (__expf: ex2.approx of x log2 e,
+// relative error below 2^-19 at the |s - m| < 20 that carry weight, far below
+// the bf16 rounding of p, 2^-9, that follows). Only one chunk of logits
+// (s[8][4]) is live, so a thread fits in 128 registers and two blocks share
+// an SM; the warps of a block are chosen so the query tiles split into even
+// rounds (N = 197: 13 tiles, 7 warps x 2 rounds; N = 257: 17 tiles, 6 warps x
+// 3). Chunks wholly below N run with no branch (the 8 key tiles' products
+// interleave); in the last one, key tiles of 8 (logits) or 16 (p.v) past N
+// are skipped. A bias is read at clamped indices, branch-free, in a variant
+// of its own (K4); the CLIP sites have none. Shared memory: 2 * ceil16(N) *
+// (dh + 8) * 2 bytes, at most 221,184 at 768 tokens and dh 64 (of the
+// 232,448 a block may have).
+// N > 768 (attn_stream_kernel; no preset reaches it): K and V are streamed
+// through shared memory in tiles of 64 keys and a block owns 64 query rows
+// of one (row, head), with the same two passes. The key-tile loop puts no
+// limit on N; the grid does: blockIdx.y walks the query tiles, at most 65535
+// of them (ATTN_MAX_TOKENS in ops/fused_attn.py).
 // Two passes, not the one-pass online softmax of fuse.cu: the probabilities
-// are rounded to bf16 after the division, as here below 256 keys and as the
-// TPU kernel does (JAX `_pnorm`), so both kernels round at the same point;
-// the price is q.k^T computed twice (+50% tensor work at N = 257, where the
-// attention core is ~10% of a request). The key-tile loop puts no limit on
-// N; the grid does: blockIdx.y walks the query tiles, at most 65535 of them
-// (ATTN_MAX_TOKENS in ops/fused_attn.py).
+// are rounded to bf16 after the division, in every kernel here, as the TPU
+// kernel does, so all three round at the same point; the price is q.k^T
+// computed twice.
 #include <math.h>
 
 #include "common.cuh"
@@ -96,6 +114,44 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// x / l, correctly rounded, from r = 1/l correctly rounded (__frcp_rn): q = x * r
+// is within an ulp, and one fma correction (Markstein) rounds it correctly for
+// every quotient above ~2^-120 (x = exp(s - m) in (0, 1], l in [1, N]); below it
+// the term is < 2^-100 of the row's largest and adds nothing to p.v in fp32.
+// Three instructions and no branch where __fdiv_rn takes a slow-path check.
+__device__ __forceinline__ float div_rn(float x, float l, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, l, x), r, q);
+}
+
+// four 8x8 b16 matrices from shared memory into mma fragments; lane l gives
+// the address of row l % 8 of matrix l / 8 (.trans: each matrix transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// 16-byte global -> shared copy in flight; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 template <int DH, int KT>
@@ -250,7 +306,7 @@ __global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// N > 256: keys streamed through shared memory, two passes
+// N > 768: keys streamed through shared memory, two passes
 // ---------------------------------------------------------------------------
 
 constexpr int kStreamRows = 16 * kWarps;   // query rows of one (row, head) per block
@@ -406,6 +462,232 @@ __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// 64 < N <= 768: K and V resident in shared memory, two passes per query tile
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallMaxTokens = 64;       // attn_mma_kernel up to KT = 4
+constexpr int kResidentMaxTokens = 768;   // attn_resident_kernel; attn_stream_kernel past it
+constexpr int kResidentMaxWarps = 8;
+constexpr int kChunk = 64;                // keys per chunk of the two passes
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+template <int DH>
+struct Resident {
+  static constexpr int LD = DH + 8;       // K and V row stride (bf16): 144 or 80 bytes
+  static size_t smem_bytes(int N) { return 2u * round16(N) * LD * sizeof(bf16); }
+};
+
+// s[nt] = q . k^T of keys j0 + nt*8 + 2t (+1) for rows r0 (elements 0, 1) and
+// r1 (2, 3), + bias; keys past N are -inf. ks: the resident K, keys-major with
+// row stride LD. FULL: the chunk lies wholly below N, and the code has no
+// branch, so the 8 key tiles' products interleave; else 8-key tiles wholly past
+// N are not multiplied. The bias is read at clamped indices with no branch (rows
+// past N read row N - 1 and are never stored), so its loads go out together.
+template <int DH, bool FULL, bool BIAS>
+__device__ __forceinline__ void chunk_logits(float (&s)[kChunk / 8][4],
+                                             const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                             const float* bias, int j0, int r0, int r1, int N,
+                                             int lane) {
+  constexpr int LD = Resident<DH>::LD;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kChunk / 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if (FULL || j0 + nt * 8 < N) {
+      // matrix l / 8 of a load: dims kk*16 + 8 * (l / 8), key row l % 8: the b0, b1 of
+      // two k-steps
+      const bf16* krow = ks + (j0 + nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; kk += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, krow + kk * 16);
+        mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
+        mma_bf16(s[nt], qa[kk + 1][0], qa[kk + 1][1], qa[kk + 1][2], qa[kk + 1][3], b[2], b[3]);
+      }
+    }
+  }
+  if constexpr (BIAS) {
+    const float* b0 = bias + static_cast<size_t>(min(r0, N - 1)) * N;
+    const float* b1 = bias + static_cast<size_t>(min(r1, N - 1)) * N;
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = min(j0 + nt * 8 + 2 * t + (e & 1), N - 1);
+        s[nt][e] = __fadd_rn(s[nt][e], __ldg((e < 2 ? b0 : b1) + key));
+      }
+  }
+  if (!FULL) {
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j0 + nt * 8 + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
+  }
+}
+
+// pass 1 over one chunk: the running row max m and sum l = sum exp(s - m)
+template <int DH, bool FULL, bool BIAS>
+__device__ __forceinline__ void chunk_stats(float& m0, float& m1, float& l0, float& l1,
+                                            const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                            const float* bias, int j0, int r0, int r1, int N,
+                                            int lane) {
+  float s[kChunk / 8][4];
+  chunk_logits<DH, FULL, BIAS>(s, qa, ks, bias, j0, r0, r1, N, lane);
+  float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < kChunk / 8; ++nt) {
+    tm0 = fmaxf(tm0, fmaxf(s[nt][0], s[nt][1]));
+    tm1 = fmaxf(tm1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  const float mn0 = fmaxf(m0, quad_max(tm0)), mn1 = fmaxf(m1, quad_max(tm1));
+  float ts0 = 0.f, ts1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kChunk / 8; ++nt) {
+    ts0 += __expf(__fsub_rn(s[nt][0], mn0)) + __expf(__fsub_rn(s[nt][1], mn0));
+    ts1 += __expf(__fsub_rn(s[nt][2], mn1)) + __expf(__fsub_rn(s[nt][3], mn1));
+  }
+  // exp(-inf - m) = 0 on the first chunk, whose l is still 0
+  l0 = l0 * __expf(m0 - mn0) + quad_sum(ts0);
+  l1 = l1 * __expf(m1 - mn1) + quad_sum(ts1);
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// pass 2 over one chunk: p = exp(s - m) / l rounded to bf16, acc += p . v
+template <int DH, bool FULL, bool BIAS>
+__device__ __forceinline__ void chunk_pv(float (&acc)[DH / 8][4], float m0, float m1, float l0,
+                                         float l1, float rl0, float rl1,
+                                         const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                         const bf16* vs, const float* bias, int j0, int r0,
+                                         int r1, int N, int lane) {
+  constexpr int LD = Resident<DH>::LD;
+  float s[kChunk / 8][4];
+  chunk_logits<DH, FULL, BIAS>(s, qa, ks, bias, j0, r0, r1, N, lane);
+#pragma unroll
+  for (int kc = 0; kc < kChunk / 16; ++kc) {
+    if (!FULL && j0 + kc * 16 >= N) break;
+    const float* p0 = s[2 * kc];
+    const float* p1 = s[2 * kc + 1];
+    const uint32_t a0 = pack_bf16x2(div_rn(__expf(__fsub_rn(p0[0], m0)), l0, rl0),
+                                    div_rn(__expf(__fsub_rn(p0[1], m0)), l0, rl0));
+    const uint32_t a1 = pack_bf16x2(div_rn(__expf(__fsub_rn(p0[2], m1)), l1, rl1),
+                                    div_rn(__expf(__fsub_rn(p0[3], m1)), l1, rl1));
+    const uint32_t a2 = pack_bf16x2(div_rn(__expf(__fsub_rn(p1[0], m0)), l0, rl0),
+                                    div_rn(__expf(__fsub_rn(p1[1], m0)), l0, rl0));
+    const uint32_t a3 = pack_bf16x2(div_rn(__expf(__fsub_rn(p1[2], m1)), l1, rl1),
+                                    div_rn(__expf(__fsub_rn(p1[3], m1)), l1, rl1));
+    // matrix l / 8 of a .trans load: keys kc*16 + 8 * ((l / 8) & 1), dims of n-tile
+    // nd + l / 16: the b0, b1 of two n-tiles
+    const bf16* vrow = vs + (j0 + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                       (lane >> 4) * 8;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; nd += 2) {
+      uint32_t bv[4];
+      ldsm_x4_t(bv, vrow + nd * 8);
+      mma_bf16(acc[nd], a0, a1, a2, a3, bv[0], bv[1]);
+      mma_bf16(acc[nd + 1], a0, a1, a2, a3, bv[2], bv[3]);
+    }
+  }
+}
+
+// BIAS: bm is given (K4's shift mask and relative positions); the CLIP sites have none
+template <int DH, bool BIAS>
+__global__ void __launch_bounds__(kResidentMaxWarps * 32, 2) attn_resident_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
+    int n_in, const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int N, int heads,
+    float scale) {
+  constexpr int LD = Resident<DH>::LD;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + round16(N) * LD;
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int C = heads * DH;
+  const int tld = ld * n_in;             // between consecutive tokens of a sequence
+  const size_t row0 = seq_row(b, N, n_in);
+  const size_t base = row0 * ld + static_cast<size_t>(h) * DH;
+  const float* bias = BIAS ? bm + (static_cast<size_t>(b % nWb) * heads + h) *
+                                        static_cast<size_t>(N) * N
+                           : nullptr;
+
+  // K, then V, of this (row, head): 16 bytes a copy, rows N .. ceil16(N) zero
+  const int nk = round16(N);
+  for (int i = threadIdx.x; i < nk * (DH / 8); i += blockDim.x) {
+    const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    cp_async16(ks + j * LD + c, j < N ? k + base + static_cast<size_t>(j) * tld + c : k, j < N);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < nk * (DH / 8); i += blockDim.x) {
+    const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    cp_async16(vs + j * LD + c, j < N ? v + base + static_cast<size_t>(j) * tld + c : v, j < N);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();                    // K has landed (V may still be in flight)
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_tiles = ceil_div(N, 16);
+  const int rounds = ceil_div(q_tiles, warps);
+  for (int round = 0; round < rounds; ++round) {
+    const int qt = round * warps + warp;
+    const bool busy = qt < q_tiles;
+    const int r0 = qt * 16 + g, r1 = r0 + 8;   // this thread's two query rows
+
+    uint32_t qa[DH / 16][4];
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    const int full_end = N / kChunk * kChunk;   // chunks below it lie wholly below N
+    if (busy) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int c0 = kk * 16 + 2 * t;
+        qa[kk][0] = load_q2(q + base, r0, c0, N, tld, scale);
+        qa[kk][1] = load_q2(q + base, r1, c0, N, tld, scale);
+        qa[kk][2] = load_q2(q + base, r0, c0 + 8, N, tld, scale);
+        qa[kk][3] = load_q2(q + base, r1, c0 + 8, N, tld, scale);
+      }
+      // pass 1: the row max m and the row sum l = sum exp(s - m)
+      for (int j0 = 0; j0 < full_end; j0 += kChunk)
+        chunk_stats<DH, true, BIAS>(m0, m1, l0, l1, qa, ks, bias, j0, r0, r1, N, lane);
+      if (full_end < N)
+        chunk_stats<DH, false, BIAS>(m0, m1, l0, l1, qa, ks, bias, full_end, r0, r1, N, lane);
+    }
+    if (round == 0) {                    // every warp is busy in the first round
+      cp_async_wait<0>();                // V has landed
+      __syncthreads();
+    }
+    if (!busy) continue;
+
+    // pass 2: p = exp(s - m) / l rounded to bf16, p.v summed in fp32
+    const float rl0 = __frcp_rn(l0), rl1 = __frcp_rn(l1);
+    float acc[DH / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+    for (int j0 = 0; j0 < full_end; j0 += kChunk)
+      chunk_pv<DH, true, BIAS>(acc, m0, m1, l0, l1, rl0, rl1, qa, ks, vs, bias, j0, r0, r1, N,
+                               lane);
+    if (full_end < N)
+      chunk_pv<DH, false, BIAS>(acc, m0, m1, l0, l1, rl0, rl1, qa, ks, vs, bias, full_end, r0,
+                                r1, N, lane);
+
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = h * DH + nd * 8 + 2 * t;
+      if (r0 < N)
+        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r0) * n_in) * C +
+                                           col) = __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+      if (r1 < N)
+        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r1) * n_in) * C +
+                                           col) = __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   int ld;               // elements between consecutive rows of q, k and v
@@ -446,14 +728,31 @@ int launch_stream(const Args& a, cudaStream_t stream) {
 }
 
 template <int DH>
+int launch_resident(const Args& a, cudaStream_t stream) {
+  // warps: the query tiles in even rounds of at most kResidentMaxWarps
+  const int q_tiles = ceil_div(a.N, 16);
+  const int warps = ceil_div(q_tiles, ceil_div(q_tiles, kResidentMaxWarps));
+  const size_t smem = Resident<DH>::smem_bytes(a.N);
+  auto kernel = a.bm == nullptr ? attn_resident_kernel<DH, false> : attn_resident_kernel<DH, true>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<a.BH, warps * 32, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.ld, a.n_in, static_cast<const float*>(a.bm), a.nWb,
+      static_cast<bf16*>(a.o), a.N, a.heads, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
 int launch_dh(const Args& a, cudaStream_t stream) {
   const int kt = ceil_div(a.N, 16);
-  if (kt <= 1) return launch<DH, 1>(a, stream);
-  if (kt <= 2) return launch<DH, 2>(a, stream);
-  if (kt <= 4) return launch<DH, 4>(a, stream);
-  if (kt <= 8) return launch<DH, 8>(a, stream);
-  if (kt <= 13) return launch<DH, 13>(a, stream);
-  if (kt <= 16) return launch<DH, 16>(a, stream);
+  if (a.N <= kSmallMaxTokens) {
+    if (kt <= 1) return launch<DH, 1>(a, stream);
+    if (kt <= 2) return launch<DH, 2>(a, stream);
+    return launch<DH, 4>(a, stream);
+  }
+  if (a.N <= kResidentMaxTokens) return launch_resident<DH>(a, stream);
   return launch_stream<DH>(a, stream);
 }
 
@@ -466,7 +765,7 @@ int launch_any(const Args& a, int dh, cudaStream_t stream) {
 }  // namespace
 
 // K1/K2: qkv (B_, N, 3 * heads * dh) bf16; o: (B_, N, heads * dh) bf16; N up to
-// 65535 * 64 (keys streamed past 256), dh in {32, 64}
+// 65535 * 64 (keys resident in shared memory up to 768, streamed past it), dh in {32, 64}
 STG_API int stg_attn_core(const void* qkv, const void* bm, int nWb, void* o, int B, int N,
                           int heads, int dh, float scale, cudaStream_t stream) {
   const int C = heads * dh;

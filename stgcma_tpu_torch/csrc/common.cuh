@@ -29,4 +29,4 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }

@@ -58,8 +58,11 @@ packing of the T = 10 temporal sites (`pallas_attn.py:622-647, :879-905`), no
 2-window packing and 49 -> 64 pad of the Swin windows (:578-608) and no
 resident pad of the 197-token video stream (`clip_vit.py:366-383`) and no
 257 -> 272 pad of CLIP ViT-L/14's (`pallas_attn.py:906-924`). The attention
-core takes any token count up to ATTN_MAX_TOKENS (keys streamed through
-shared memory past 256) and each row attends over its own N tokens.
+core takes any token count up to ATTN_MAX_TOKENS (K and V resident in shared
+memory up to ATTN_RESIDENT_MAX_TOKENS, streamed past it; `attn_route`) and
+each row attends over its own N tokens. The bf16 products run on
+csrc/gemm.cu's TMA + wgmma loop, which takes K and N in multiples of 8 and
+16-byte aligned operands (`check_gemm_operands`).
 The softmax divides exactly, and the activation scale uses a correctly
 rounded reciprocal (the TPU kernels' `pl.reciprocal(approx=True)` is a
 hardware approximation).
@@ -91,8 +94,14 @@ FUSE_WIDTHS = (16, 32, 48, 64, 96)    # adapter widths D that csrc/fuse.cu insta
                                       # (K4-K6, K12, and D = DV of K10)
 FUSE_MAX_BATCH = 65535                # csrc/fuse.cu: one batch row per gridDim.y
 ATTN_HEAD_WIDTHS = (32, 64)           # head widths dh that csrc/attn.cu instantiates
-ATTN_MAX_TOKENS = 65535 * 64          # csrc/attn.cu: past 256 tokens a block takes 64 query
-                                      # rows, at most 65535 blocks along gridDim.y
+ATTN_MAX_TOKENS = 65535 * 64          # csrc/attn.cu: past ATTN_RESIDENT_MAX_TOKENS a block takes
+                                      # 64 query rows, at most 65535 blocks along gridDim.y
+ATTN_SMALL_MAX_TOKENS = 64            # csrc/attn.cu kSmallMaxTokens: attn_mma_kernel (KT <= 4)
+ATTN_RESIDENT_MAX_TOKENS = 768        # csrc/attn.cu kResidentMaxTokens: K and V of a (row, head)
+                                      # resident in shared memory (221,184 bytes at dh 64)
+SMEM_MAX_BYTES = 232448               # shared memory one block may have on the H100
+GEMM_ALIGN = 8                        # csrc/gemm.cu (TMA): K and N in multiples of 8 bf16,
+                                      # 16-byte aligned bases
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +310,7 @@ def _ln_bf16(x2, ln_w, ln_b, s, out=None):
 
 def _gemm_bf16(a, w, b, out, epi, s):
     """out (M, N) = epilogue(a (M, K) . w (N, K)^T + b), all bf16 and contiguous."""
+    check_gemm_operands(a, w, out)
     M, K = a.shape
     cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16(
         _ptr(a), _ptr(w), _ptr(b), _ptr(out), M, w.shape[0], K, epi, s))
@@ -311,6 +321,7 @@ def _gemm_res(a, w, b, r, out, epi, s):
     """out (M, N) = epilogue(r, a (M, K) . w (N, K)^T + b): `_EPI_BF16_RESF`
     bf16(r + (acc + b)), rounded once, or `_EPI_BF16_RES1` bf16(r + bf16(acc
     + b)); all bf16 and contiguous."""
+    check_gemm_operands(a, w, out, r)
     M, K = a.shape
     cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16_res(
         _ptr(a), _ptr(w), _ptr(b), _ptr(r), _ptr(out), M, w.shape[0], K, epi, s))
@@ -368,6 +379,45 @@ def check_attn_shape(N, dh, name="the attention core"):
     if dh not in ATTN_HEAD_WIDTHS or not 1 <= N <= ATTN_MAX_TOKENS:
         raise ValueError(f"{name} takes 1 to {ATTN_MAX_TOKENS} tokens and heads of width in "
                          f"{ATTN_HEAD_WIDTHS}, got N={N}, dh={dh}")
+
+
+def attn_route(N, dh):
+    """(kernel, shared-memory bytes of one block) that csrc/attn.cu's dispatch
+    (`launch_dh`) takes for N tokens at head width dh: "small" (attn_mma_kernel,
+    K and V^T of up to four (row, head) pairs), "resident" (K and V of one pair,
+    rows padded to dh + 8) or "streamed" (64-key tiles of K and V^T)."""
+    check_attn_shape(N, dh)
+    if N <= ATTN_SMALL_MAX_TOKENS:
+        kt = next(k for k in (1, 2, 4) if 16 * k >= N)
+        q_tiles = -(-N // 16)
+        pairs = 1 if q_tiles >= 4 else 4 // q_tiles
+        return "small", 2 * pairs * (16 * kt * (dh + 8) + dh * (16 * kt + 8))
+    if N <= ATTN_RESIDENT_MAX_TOKENS:
+        return "resident", 2 * 2 * (-(-N // 16) * 16) * (dh + 8)
+    return "streamed", 2 * (64 * (dh + 8) + dh * (64 + 8))
+
+
+def check_gemm_operands(a, w, out, *residuals, name="the bf16 GEMM"):
+    """What csrc/gemm.cu's TMA loads and epilogue take: a (M, K) and w (N, K),
+    out and each residual M rows of N (any leading shape), all row-major and
+    contiguous, K and N multiples of GEMM_ALIGN (16-byte rows), every base
+    16-byte aligned. Runs before every bf16 launch, so it builds no message
+    unless it raises."""
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"{name} takes a (M, K) and w (N, K), got {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}")
+    (M, K), N = a.shape, w.shape[0]
+    if K % GEMM_ALIGN or N % GEMM_ALIGN or min(M, K, N) < 1:
+        raise ValueError(f"{name} takes K and N in multiples of {GEMM_ALIGN}, got M={M}, "
+                         f"K={K}, N={N}")
+    for i, t in enumerate((a, w, out) + residuals):
+        rows, cols = (M, K) if i == 0 else (N, K) if i == 1 else (M, N)
+        if (t.dim() < 2 or t.shape[-1] != cols or t.numel() != rows * cols
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            key = ("a", "w", "out")[i] if i < 3 else f"residual {i - 3}"
+            raise ValueError(f"{name}: {key} must be {rows} contiguous rows of {cols}, 16-byte "
+                             f"aligned; got shape {tuple(t.shape)}, strides {t.stride()}, "
+                             f"address {t.data_ptr():#x}")
 
 
 def check_fuse_width(D, name="the fusion kernel"):

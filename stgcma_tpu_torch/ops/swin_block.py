@@ -37,8 +37,8 @@ from .attention import gather_bias
 from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU,
                          _Kernel, _attn_core, _check_cuda, _check_shapes, _erf_gelu,
                          _fuse_cuda, _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
-                         _ptr, _quant_rows, _stream, check_attn_shape, check_fuse_width, dotq,
-                         fuse_plain)
+                         _ptr, _quant_rows, _stream, check_attn_shape, check_fuse_width,
+                         check_gemm_operands, dotq, fuse_plain)
 from .window import relative_position_index
 
 WHOLE_BLOCK_MAX_GRID = 256            # K4 for grids of <= 256 tokens (pallas_swin_block.py:587)
@@ -204,6 +204,7 @@ def swin_block_q_plain(v, a, w, heads, bias, fuse_mask):
 
 def _gemm_res2(a, w, b, r1, r2, out, s):
     """out = bf16(bf16(r1 + r2) + bf16(a . w^T + b))."""
+    check_gemm_operands(a, w, out, r1, r2)
     M, K = a.shape
     cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_bf16_res2(
         _ptr(a), _ptr(w), _ptr(b), _ptr(r1), _ptr(r2), _ptr(out), M, w.shape[0], K, s))
