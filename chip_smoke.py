@@ -53,7 +53,14 @@ line:
      core at (80, 197, 768) h12, (80, 257, 1024) h16 and K4's (160, 196,
      512) h16 with a bias (K and V resident in shared memory) and at
      (16, 1000, 768) h12 (past the resident limit: the streamed kernel),
-     with scaled_dot_product_attention as the yardstick;
+     with scaled_dot_product_attention as the yardstick; and csrc/gemm.cu's
+     int8 product (the same TMA + wgmma loop, s8 k32) at K2's and K3's
+     CLIP-B/16 video shapes (qkv, proj, fc1 with the fp32 QuickGELU hidden
+     and its row maxima, fc2 at K = 3072) and Swin's K = 128 qkv, each with
+     its TOP/s and torch._int_mm as the yardstick (the bf16-epilogue rows
+     must equal their plain version bit for bit), and csrc/rowprep.cu's
+     one-read row quantization of the LN rows and of the fp32 hidden from
+     its given row maxima, listed under K2 and K3;
   4. slices, each driven through MultiTaskServer(device="cuda") with random
      seeded weights, a few B = 8 requests, the launch counts of every kernel
      per forward, and clips/s:
@@ -356,11 +363,12 @@ def check_kernel(name, kernel, plain, args, kw, bound, library, tol=TOL_KERNEL):
         fail(f"{name}: max |kernel - plain| = {err:.4g} > {tol} * {scale:.4g}{past}")
     ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+    library_ms = None                # no one PyTorch call computes the function
     try:
-        library_ms = cuda_ms(library, iters=20)
+        if library is not None:
+            library_ms = cuda_ms(library, iters=20)
     except RuntimeError as e:        # a yardstick only; the port never calls it
         log(f"  {name}: library yardstick unavailable: {e}")
-        library_ms = None
     bound_ms, bound_by = bound
     lib_s = "null" if library_ms is None else f"{library_ms:.4f}"
     log(f"  {name}: max_abs_err {err:.4g} (max |plain| {scale:.4g}, tol {tol} rel{past}) "
@@ -372,21 +380,44 @@ def check_kernel(name, kernel, plain, args, kw, bound, library, tol=TOL_KERNEL):
 
 def phase_parts():
     """csrc/gemm.cu's bf16 product and csrc/attn.cu's attention core alone, at
-    the shapes of `tools/bench_parts.py`, against their plain versions; listed
-    under K1, whose launches they make on the main path."""
+    the shapes of `tools/bench_parts.py`, against their plain versions, listed
+    under K1, whose launches they make on the main path; and csrc/gemm.cu's
+    int8 product and csrc/rowprep.cu's row quantization alone, listed under K2
+    (qkv, proj, Swin's K = 128 qkv, the LN rows) and K3 (fc1 with its fp32
+    QuickGELU hidden and row maxima, fc2, the hidden's quantization). An int8
+    product with the bf16 epilogue must equal its plain version bit for bit;
+    the fp32 hidden lies within 1e-6 of max |plain| (erff / expf ulps) and its
+    row maxima must be those of the stored hidden."""
     import torch
     from stgcma_tpu_torch.tools import bench_parts
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    rows = []
+    rows = {"K1": [], "K2": [], "K3": []}
     with torch.inference_mode():
         for case in bench_parts.gemm_cases(g) + bench_parts.core_cases(g):
             row = check_kernel(case["row"], case["fn"], case["plain"], (), {}, case["bound"],
                                case["library"])
             row["tflops"] = case["flops"] / row["ms"] / 1e9
             log(f"  {case['row']}: {row['tflops']:.1f} TFLOP/s")
-            rows.append(row)
+            rows["K1"].append(row)
             del case
-    return {"K1": rows}
+        for case in bench_parts.s8_cases(g):
+            tol = 0.0 if case.get("exact") else bench_parts.TOL_S8_F32
+            if "amax" not in case:
+                tol = TOL_KERNEL     # row quantization: an LN code may move by one step
+            row = check_kernel(case["row"], case["fn"], case["plain"], (), {}, case["bound"],
+                               case.get("library"), tol=tol)
+            if case.get("amax") is not None:
+                hidden = case["fn"]()
+                if not torch.equal(case["amax"], hidden.abs().amax(-1)):
+                    fail(f"{case['row']}: the epilogue's row maxima are not the hidden's")
+                log(f"  {case['row']}: row maxima equal those of the stored hidden")
+            if "flops" in case:
+                row["tops"] = case["flops"] / row["ms"] / 1e9
+                log(f"  {case['row']}: {row['tops']:.1f} TOP/s")
+            k3 = any(t in case["row"] for t in ("fc1", "fc2", "hidden"))
+            rows["K3" if k3 else "K2"].append(row)
+            del case
+    return rows
 
 
 def phase_kernels(cfg):

@@ -32,7 +32,8 @@
 //   - int8: _dotq (:1356) in _win_block_q_core (:1440, :1457) and
 //     _ffn_q_kernel (:1626, :1632): int8 x int8 -> int32, then
 //     float(acc) * sx[m] * ws[n] + b[n] in fp32, then either a bf16 store or
-//     QuickGELU / erf-GELU into an fp32 hidden.
+//     QuickGELU / erf-GELU into an fp32 hidden, with each hidden row's max |h|
+//     for the row quantization that reads it (_quant_rows :1632).
 // Bound on the H100: at the main path's shapes (M = 15760 or 3920 rows,
 // K = 768 or 3072, N = 768..3072) the bf16 products do 380-560 flops per byte
 // they must move, above the card's bf16 ridge of ~295: operations bound them.
@@ -45,73 +46,50 @@
 // at 3.35 TB/s, about twice K7's op bound of 0.067 ms): a later design keeps
 // it on chip (fc1 chunk -> GELU -> fc2 accumulate), as the TPU kernel does in
 // VMEM.
-// Design, bf16 (gemm_wgmma_kernel): Hopper's warpgroup products fed by TMA.
+// Design (gemm_wgmma_kernel, one main loop for both operand types): Hopper's
+// warpgroup products fed by TMA.
 // A block is two consumer warpgroups and one producer warp (288 threads) and
 // is persistent: the grid is at most one or two blocks an SM, and a block
 // walks the output tiles tile += gridDim.x, N fastest, so the blocks in
 // flight share A's rows and W in L2. One thread of the producer issues the
-// TMA loads of A (128 rows x 64 k) and W (TN rows x 64 k), 128-byte swizzled,
-// into a ring of 3 stages (TN = 128, two blocks an SM) or 8 (TN = 64, one
-// block an SM) with a full and an empty mbarrier each; it runs ahead into the next tile while the consumers store
-// the last one. Each consumer warpgroup owns 64 rows of the 128 x TN block
-// tile and issues wgmma.mma_async m64nTNk16 (bf16 in, fp32 accumulate) on
-// the stage, keeping one k-tile of products in flight while it releases the
-// stage before. Two blocks share an SM, so while one stores, the other can
-// multiply. The epilogue forms every value of 32 columns first (`epi_value`,
-// the roundings of `store<EPI>`, all loads of bias and residuals ahead of any
-// store; residual rows are prefetched into L2 while the tile multiplies) and
-// then stores two columns at a time. No setmaxnreg: ptxas gives every thread
-// of a kernel the same registers within the launch bounds (96 at two blocks
-// of 288 threads), whatever setmaxnreg later moves, and with a producer
-// warpgroup the bounds would allow 85, too few for the 64 accumulators of
-// m64n128 (ptxas asks for 90). TN is 128, or 64 where N <= 64 (the adapter
-// hiddens at D = 16..64).
+// TMA loads of A (128 rows) and W (TN rows), each a k-tile of 128 bytes deep
+// (64 bf16 or 128 int8: one 128-byte swizzle row), into a ring of 3 stages
+// (TN = 128, two blocks an SM) or 8 (TN = 64, one block an SM) with a full and
+// an empty mbarrier each; it runs ahead into the next tile while the consumers
+// store the last one. Each consumer warpgroup owns 64 rows of the 128 x TN block
+// tile and issues wgmma.mma_async on the stage, four 32-byte k-steps a k-tile
+// (m64nTNk16 bf16 -> fp32, or m64n128k32 s8 -> s32), keeping one k-tile of
+// products in flight while it releases the stage before. Both operands are
+// K-major, the only layout 8-bit wgmma takes, which is why the port keeps
+// linear weights in torch's (out, in) layout; the shared-memory layout and the
+// descriptors are the same bytes for both types. int32 sums are exact in any
+// order, so the int8 product's output does not depend on the loop's order.
+// Two blocks share an SM, so while one stores, the other can multiply. The
+// epilogue forms every value of 32 columns first (`epi_value`, every rounding
+// of the epilogue, all loads of bias and residuals ahead of any store; residual
+// rows are prefetched into L2 while the tile multiplies) and then stores two
+// columns at a time (4 bytes of bf16, 8 of fp32). The fp32 hiddens of the int8
+// FFNs also leave each row's max |h| over the tile's columns in an (M,) buffer
+// (atomicMax on the bits: non-negative floats order as their int bits), so the
+// hidden's row quantization reads the hidden once. No setmaxnreg: ptxas gives
+// every thread of a kernel the same registers within the launch bounds (96 at
+// two blocks of 288 threads), whatever setmaxnreg later moves, and with a
+// producer warpgroup the bounds would allow 85, too few for the 64 accumulators
+// of m64n128 (ptxas asks for 90). TN is 128, or 64 where a bf16 N <= 64 (the
+// adapter hiddens at D = 16..64).
 // TMA zero-fills K and the rows of A and W past their ends, which serves the
 // adapter products at K or N = 16..96 and K = 128 with no second path; the
-// epilogue masks rows and columns past M and N. TMA needs K a multiple of 8
-// and 16-byte aligned bases (ops/fused_attn.py check_gemm_operands raises
-// otherwise). The tensor maps are encoded on the host for every call by
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no link
-// against libcuda), and passed as __grid_constant__ parameters.
-// Design, int8 (gemm_kernel, first version): 128x128 block tiles, 64-byte
-// deep k-tiles in a 4-stage cp.async ring in shared memory (three tiles in
-// flight while one is multiplied), 8 warps of 64x32 each issuing mma.sync
-// m16n8k32 s8. Both operands are K-contiguous ("row.col"), which is why the
-// port keeps linear weights in torch's (out, in) layout. Rows are padded to
-// 80 bytes in shared memory so the fragment loads are free of bank
-// conflicts; fragments come in through ldmatrix.
+// epilogue masks rows and columns past M and N. TMA needs rows of a multiple of
+// TMA_ROW_ALIGN bytes (K a multiple of 8 bf16 or 16 int8) and 16-byte aligned
+// bases (ops/fused_attn.py check_gemm_operands and check_gemm_s8_operands raise
+// otherwise; the launchers refuse). The tensor maps are encoded on the host for
+// every call by cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
+// (no link against libcuda), and passed as __grid_constant__ parameters.
 #include <cuda.h>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int BM = 128, BN = 128;
-constexpr int BKB = 64;   // tile depth in bytes: 32 bf16 or 64 int8
-constexpr int LDS = 80;   // shared-memory row stride in bytes
-constexpr int STAGES = 4;
-constexpr int STAGE_BYTES = (BM + BN) * LDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;   // 80 KB: dynamic shared memory
-
-// 16-byte global -> shared copy in flight; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint8_t* dst, const uint8_t* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
-// four 8x8 matrices of 16-byte rows (b16 elements; the int8 tiles use the
-// same byte layout) into the mma fragment registers
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint8_t* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
 
 enum Epi {
   EPI_BF16 = 0, EPI_Q_BF16 = 1, EPI_Q_QUICKGELU_F32 = 2, EPI_Q_GELU_F32 = 3, EPI_BF16_GELU = 4,
@@ -125,14 +103,6 @@ __device__ __forceinline__ float quick_gelu(float v) {
 
 __device__ __forceinline__ float erf_gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 struct EpiArgs {
@@ -183,121 +153,26 @@ __device__ __forceinline__ auto epi_value(const EpiArgs& e, int N, int m, int n,
   }
 }
 
-template <int EPI, typename Acc>
-__device__ __forceinline__ void store(const EpiArgs& e, int N, int m, int n, Acc acc) {
-  using T = decltype(epi_value<EPI>(e, N, m, n, acc));
-  static_cast<T*>(e.out)[static_cast<size_t>(m) * N + n] = epi_value<EPI>(e, N, m, n, acc);
-}
-
-// int8: A (M, K) and W (N, K), both row-major with K contiguous; kbytes = K.
-template <typename Acc, int EPI>
-__global__ void __launch_bounds__(256) gemm_kernel(
-    const uint8_t* __restrict__ A, const uint8_t* __restrict__ W, int M, int N, int kbytes,
-    EpiArgs e) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;   // 2 x 4 warps
-  const int g = lane >> 2, t = lane & 3;
-  // ldmatrix row addresses: lane l feeds row l % 8 of 8x8 matrix l / 8
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 16;
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  // tile kt -> stage kt % STAGES: 128 rows x 64 bytes per operand = 512
-  // chunks of 16 bytes, 2 per thread; rows past M/N and bytes past K are zeros
-  auto load_tile = [&](int kt) {
-    uint8_t* sA = smem + (kt % STAGES) * STAGE_BYTES;
-    uint8_t* sB = sA + BM * LDS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * 256;
-      const int r = c >> 2, cb = (c & 3) * 16;
-      const int gk = kt * BKB + cb;
-      const bool ka = gk < kbytes;
-      const bool va = ka && m0 + r < M, vb = ka && n0 + r < N;
-      cp_async16(sA + r * LDS + cb, va ? A + static_cast<size_t>(m0 + r) * kbytes + gk : A, va);
-      cp_async16(sB + r * LDS + cb, vb ? W + static_cast<size_t>(n0 + r) * kbytes + gk : W, vb);
-    }
-  };
-
-  const int ktiles = (kbytes + BKB - 1) / BKB;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();               // ... for every thread; stage kt-1 is free
-    if (kt + STAGES - 1 < ktiles) load_tile(kt + STAGES - 1);
-    cp_async_commit();
-    const uint8_t* sA = smem + (kt % STAGES) * STAGE_BYTES;
-    const uint8_t* sB = sA + BM * LDS;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {   // two 32-byte mma k-steps per tile
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)   // 16 rows x 32 bytes: a0..a3
-        ldmatrix_x4(af[mi], sA + (wm + mi * 16 + a_row) * LDS + s * 32 + a_col);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {  // 16 columns x 32 bytes: b0, b1 of two n-tiles
-        uint32_t r[4];
-        ldmatrix_x4(r, sB + (wn + np * 16 + b_row) * LDS + s * 32 + b_col);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af[mi], bfr[ni]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + mi * 16 + g + h * 8;
-        const int n = n0 + wn + ni * 8 + t * 2;
-        if (m < M) {
-          if (n < N) store<EPI>(e, N, m, n, acc[mi][ni][2 * h]);
-          if (n + 1 < N) store<EPI>(e, N, m, n + 1, acc[mi][ni][2 * h + 1]);
-        }
-      }
-}
-
-template <typename Acc, int EPI>
-int launch(const uint8_t* A, const uint8_t* W, int M, int N, int kbytes, const EpiArgs& e,
-           cudaStream_t stream) {
-  auto kernel = gemm_kernel<Acc, EPI>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(ceil_div(N, BN), ceil_div(M, BM));
-  kernel<<<grid, 256, SMEM_BYTES, stream>>>(A, W, M, N, kbytes, e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// bf16: TMA + wgmma, warp-specialized and persistent
+// TMA + wgmma, warp-specialized and persistent, bf16 or int8 operands
 // ---------------------------------------------------------------------------
 
 constexpr int WG_BM = 128;                // block tile rows: two consumer warpgroups of 64
-constexpr int WG_BK = 64;                 // k-tile: 64 bf16 = 128 bytes, one swizzle row
+constexpr int WG_BK_BYTES = 128;          // k-tile depth: 64 bf16 or 128 int8, one swizzle row
+constexpr int WG_KSTEP_BYTES = 32;        // one wgmma: k16 bf16 or k32 int8
+constexpr int TMA_ROW_ALIGN = 16;         // bytes: K * sizeof(operand) and every base
 constexpr int WG_THREADS = 288;           // two consumer warpgroups + one producer warp
+
+// bf16 operands accumulate in fp32, int8 ones in int32
+template <typename Op> struct OpType;
+template <> struct OpType<bf16> {
+  using Acc = float;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct OpType<int8_t> {
+  using Acc = int;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
 
 template <int TN>
 struct WgTile {
@@ -306,8 +181,8 @@ struct WgTile {
   // two a block): one block an SM and 8 stages (192 KB), so more of A is in flight
   static constexpr int BLOCKS_PER_SM = TN == 128 ? 2 : 1;
   static constexpr int STAGES = TN == 128 ? 3 : 8;
-  static constexpr int A_BYTES = WG_BM * WG_BK * 2;
-  static constexpr int STAGE_BYTES = A_BYTES + TN * WG_BK * 2;
+  static constexpr int A_BYTES = WG_BM * WG_BK_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + TN * WG_BK_BYTES;
   // the ring, its 2 * STAGES mbarriers, and room to align the ring to 1024 bytes
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 };
@@ -353,7 +228,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
 
 // wgmma operand descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
 // start address / 16, leading offset 1 (unused), stride 1024 bytes between 8-row
-// groups, layout 1 (SWIZZLE_128B). A k16 step adds 32 bytes (2) to the start.
+// groups, layout 1 (SWIZZLE_128B). A 32-byte k-step (k16 bf16 or k32 int8) adds 2
+// to the start: the bytes are laid out alike for both types.
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
@@ -378,71 +254,75 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
 
-// d (m64 x n64 fp32, 32 a thread) += A (64 x 16, descriptor da) . B (n64 x 16, db)^T
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+// the accumulator operands of one wgmma: 8 at a time, with constraint c ("+f" or "+r")
+#define WG_ACC8(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), \
+    c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define WG_ACC32(c) WG_ACC8(c, 0), WG_ACC8(c, 8), WG_ACC8(c, 16), WG_ACC8(c, 24)
+#define WG_ACC64(c) WG_ACC32(c), WG_ACC8(c, 32), WG_ACC8(c, 40), WG_ACC8(c, 48), WG_ACC8(c, 56)
+#define WG_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS64 WG_REGS32 ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (m64 x n64 fp32, 32 a thread) += A (64 x k16 bf16, descriptor da) . B (n64 x k16, db)^T
+__device__ __forceinline__ void wgmma_step(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db));
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32 "}, %32, %33, p, 1, 1, "
+      "0, 0;\n}\n"
+      : WG_ACC32("+f") : "l"(da), "l"(db));
 }
 
-// d (m64 x n128 fp32, 64 a thread) += A (64 x 16, descriptor da) . B (n128 x 16, db)^T
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+// d (m64 x n128 fp32, 64 a thread) += A (64 x k16 bf16) . B (n128 x k16)^T
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS64 "}, %64, %65, p, 1, 1, "
+      "0, 0;\n}\n"
+      : WG_ACC64("+f") : "l"(da), "l"(db));
 }
 
-template <int TN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[TN / 2], uint64_t da, uint64_t db) {
-  if constexpr (TN == 128) wgmma_n128(d, da, db);
-  else wgmma_n64(d, da, db);
+// d (m64 x n128 s32, 64 a thread) += A (64 x k32 s8) . B (n128 x k32 s8)^T; 8-bit
+// wgmma takes K-major operands only and has no scale or transpose immediates
+__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WG_REGS64 "}, %64, %65, p;\n}\n"
+      : WG_ACC64("+r") : "l"(da), "l"(db));
 }
 
-// C[m, n] = epilogue(sum_k A[m, k] W[n, k]); tm_a: A (M, K), tm_w: W (N, K), bf16,
-// K contiguous, boxes of 64 k by 128 (A) or TN (W) rows. The epilogue's pointers
-// come in as __restrict__ parameters (out overlaps no operand).
-template <int TN, int EPI>
+template <int EPI>
+constexpr bool f32_out = EPI == EPI_Q_QUICKGELU_F32 || EPI == EPI_Q_GELU_F32;
+
+// C[m, n] = epilogue(sum_k A[m, k] W[n, k]); tm_a: A (M, K), tm_w: W (N, K), Op (bf16
+// or int8), K contiguous, boxes of 128 bytes of k by 128 (A) or TN (W) rows. The
+// epilogue's pointers come in as __restrict__ parameters (out overlaps no operand);
+// amax (fp32 epilogues, nullable): (M,) zeros that take each row's max |C[m, :]|.
+template <typename Op, int TN, int EPI>
 __global__ void __launch_bounds__(WG_THREADS, WgTile<TN>::BLOCKS_PER_SM) gemm_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, int M,
-    int N, int K, const bf16* __restrict__ bias, void* __restrict__ out,
-    const bf16* __restrict__ r1, const bf16* __restrict__ r2) {
+    int N, int K, const float* __restrict__ sa, const bf16* __restrict__ ws,
+    const bf16* __restrict__ bias, void* __restrict__ out, const bf16* __restrict__ r1,
+    const bf16* __restrict__ r2, float* __restrict__ amax) {
   using L = WgTile<TN>;
-  const EpiArgs e{nullptr, nullptr, bias, out, r1, r2};
+  using Acc = typename OpType<Op>::Acc;
+  constexpr int BK = WG_BK_BYTES / static_cast<int>(sizeof(Op));   // k-tile in elements
+  const EpiArgs e{sa, ws, bias, out, r1, r2};
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::STAGES * L::STAGE_BYTES);
   uint64_t* empty = full + L::STAGES;
   const int n_tiles = ceil_div(N, TN);
   const int tiles = ceil_div(M, WG_BM) * n_tiles;
-  const int ktiles = ceil_div(K, WG_BK);
+  const int ktiles = ceil_div(K, BK);
   const int wg = threadIdx.x / 128;        // 0, 1: consumers; 2: the producer warp
 
   if (threadIdx.x == 0) {
@@ -464,20 +344,20 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<TN>::BLOCKS_PER_SM) gemm_wg
           mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], L::STAGE_BYTES);   // boxes count whole, zero fill included
           uint8_t* st = smem + s * L::STAGE_BYTES;
-          tma_load(st, &tm_a, kt * WG_BK, m0, &full[s]);
-          tma_load(st + L::A_BYTES, &tm_w, kt * WG_BK, n0, &full[s]);
+          tma_load(st, &tm_a, kt * BK, m0, &full[s]);
+          tma_load(st + L::A_BYTES, &tm_w, kt * BK, n0, &full[s]);
         }
       }
     }
   } else {                                // consumers: rows 64 * c .. 64 * c + 63 of a tile
     const int c = wg;
     const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
-    float acc[TN / 2];
+    Acc acc[TN / 2];
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile / n_tiles) * WG_BM, n0 = (tile % n_tiles) * TN;
 #pragma unroll
-      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0;
       if constexpr (EPI == EPI_BF16_RES2 || EPI == EPI_BF16_RES1 || EPI == EPI_BF16_RESF) {
         // the residual rows this warp's epilogue reads, into L2 while the tile
         // multiplies: lane l fetches the 128-byte line l % 2 of row l / 2
@@ -493,11 +373,12 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<TN>::BLOCKS_PER_SM) gemm_wg
         const int s = it % L::STAGES;
         mbar_wait(&full[s], (it / L::STAGES) & 1);
         const uint8_t* st = smem + s * L::STAGE_BYTES;
-        const uint64_t da = smem_desc(st + c * 64 * WG_BK * 2);
+        const uint64_t da = smem_desc(st + c * 64 * WG_BK_BYTES);
         const uint64_t db = smem_desc(st + L::A_BYTES);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < WG_BK / 16; ++k) wgmma_tile<TN>(acc, da + 2 * k, db + 2 * k);
+        for (int k = 0; k < WG_BK_BYTES / WG_KSTEP_BYTES; ++k)   // +32 bytes: +2 in a descriptor
+          wgmma_step(acc, da + 2 * k, db + 2 * k);
         wgmma_commit();
         wgmma_wait<1>();                  // the k-tile before this one is done: release it
         if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -511,30 +392,57 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<TN>::BLOCKS_PER_SM) gemm_wg
       // inside C takes no bounds checks; an edge tile stores element by element.
       const int row = m0 + c * 64 + warp * 16 + (lane >> 2);
       const int col = n0 + 2 * (lane & 3);
+      float rmax[2] = {0.f, 0.f};         // fp32 epilogues: max |C| of rows row, row + 8
       if (m0 + WG_BM <= M && n0 + TN <= N) {
         // 32 columns at a time: every value first (the loads of bias and
-        // residuals all ahead of any store), two columns a register, then the
-        // stores, 4 bytes each
-        bf16* c_out = static_cast<bf16*>(out);
+        // residuals all ahead of any store), two columns a register (bf16) or a
+        // register pair (fp32), then the stores
 #pragma unroll
         for (int j0 = 0; j0 < TN / 8; j0 += 4) {
-          uint32_t packed[8];
+          if constexpr (f32_out<EPI>) {
+            // 16 columns at a time: an fp32 pair takes two registers
+            float* c_out = static_cast<float*>(out);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+            for (int j1 = j0; j1 < j0 + 4; j1 += 2) {
+              float2 vals[4];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int a = (j0 + j) * 4 + 2 * h, n = col + (j0 + j) * 8;
-              __nv_bfloat162 v2;
-              v2.x = epi_value<EPI>(e, N, row + 8 * h, n, acc[a]);
-              v2.y = epi_value<EPI>(e, N, row + 8 * h, n + 1, acc[a + 1]);
-              packed[j * 2 + h] = *reinterpret_cast<uint32_t*>(&v2);
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int a = (j1 + j) * 4 + 2 * h, n = col + (j1 + j) * 8;
+                  const float2 v2 = make_float2(
+                      epi_value<EPI>(e, N, row + 8 * h, n, acc[a]),
+                      epi_value<EPI>(e, N, row + 8 * h, n + 1, acc[a + 1]));
+                  rmax[h] = fmaxf(rmax[h], fmaxf(fabsf(v2.x), fabsf(v2.y)));
+                  vals[j * 2 + h] = v2;
+                }
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  *reinterpret_cast<float2*>(c_out + static_cast<size_t>(row + 8 * h) * N + col +
+                                             (j1 + j) * 8) = vals[j * 2 + h];
             }
+          } else {
+            uint32_t packed[8];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
-              *reinterpret_cast<uint32_t*>(c_out + static_cast<size_t>(row + 8 * h) * N + col +
-                                           (j0 + j) * 8) = packed[j * 2 + h];
+              for (int h = 0; h < 2; ++h) {
+                const int a = (j0 + j) * 4 + 2 * h, n = col + (j0 + j) * 8;
+                __nv_bfloat162 v2;
+                v2.x = epi_value<EPI>(e, N, row + 8 * h, n, acc[a]);
+                v2.y = epi_value<EPI>(e, N, row + 8 * h, n + 1, acc[a + 1]);
+                packed[j * 2 + h] = *reinterpret_cast<uint32_t*>(&v2);
+              }
+            bf16* c_out = static_cast<bf16*>(out);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                *reinterpret_cast<uint32_t*>(c_out + static_cast<size_t>(row + 8 * h) * N + col +
+                                             (j0 + j) * 8) = packed[j * 2 + h];
+          }
         }
       } else {
 #pragma unroll
@@ -542,12 +450,30 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<TN>::BLOCKS_PER_SM) gemm_wg
           const int n = col + j * 8;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
+            // two stores under one row test: a loop over the pair with one test each
+            // made ptxas spill 176 bytes in EPI_BF16_RES2 (+11% at K = 48)
             const int m = row + 8 * h;
+            auto put = [&](int nn, Acc x) {
+              auto v = epi_value<EPI>(e, N, m, nn, x);
+              static_cast<decltype(v)*>(out)[static_cast<size_t>(m) * N + nn] = v;
+              if constexpr (f32_out<EPI>) rmax[h] = fmaxf(rmax[h], fabsf(v));
+            };
             if (m < M) {
-              if (n < N) store<EPI>(e, N, m, n, acc[j * 4 + 2 * h]);
-              if (n + 1 < N) store<EPI>(e, N, m, n + 1, acc[j * 4 + 2 * h + 1]);
+              if (n < N) put(n, acc[j * 4 + 2 * h]);
+              if (n + 1 < N) put(n + 1, acc[j * 4 + 2 * h + 1]);
             }
           }
+        }
+      }
+      if constexpr (f32_out<EPI>) {
+        // the four lanes of a row hold its 128 columns of this tile
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float r = rmax[h];
+          r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+          r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+          if (amax != nullptr && (lane & 3) == 0 && row + 8 * h < M)
+            atomicMax(reinterpret_cast<int*>(amax) + row + 8 * h, __float_as_int(r));
         }
       }
     }
@@ -578,29 +504,30 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, K) bf16 row-major tensor in boxes of 64 k by box_rows rows, 128-byte
-// swizzled; reads past its edges are zeros
+// a (rows, K) row-major tensor of Op in boxes of 128 bytes of k by box_rows rows,
+// 128-byte swizzled; reads past its edges are zeros
+template <typename Op>
 int tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {WG_BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(Op)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(WG_BK_BYTES / sizeof(Op)),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, OpType<Op>::TMA, 2, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int TN, int EPI>
+template <typename Op, int TN, int EPI>
 int launch_wgmma(const void* A, const void* W, int M, int N, int K, const EpiArgs& e,
-                 cudaStream_t stream) {
+                 float* amax, cudaStream_t stream) {
   // once a process (the port runs on one card): the SM count and the kernel's
   // shared-memory limit
   static int sms = 0;
-  auto kernel = gemm_wgmma_kernel<TN, EPI>;
+  auto kernel = gemm_wgmma_kernel<Op, TN, EPI>;
   if (sms == 0) {
     int dev = 0, n = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -612,27 +539,30 @@ int launch_wgmma(const void* A, const void* W, int M, int N, int K, const EpiArg
     sms = n;
   }
   CUtensorMap tm_a, tm_w;
-  int terr = tensor_map(&tm_a, A, M, K, WG_BM);
-  if (terr == 0) terr = tensor_map(&tm_w, W, N, K, TN);
+  int terr = tensor_map<Op>(&tm_a, A, M, K, WG_BM);
+  if (terr == 0) terr = tensor_map<Op>(&tm_w, W, N, K, TN);
   if (terr != 0) return terr;
   const int tiles = ceil_div(M, WG_BM) * ceil_div(N, TN);
   const int slots = WgTile<TN>::BLOCKS_PER_SM * sms;
   const int grid = tiles < slots ? tiles : slots;
   kernel<<<grid, WG_THREADS, WgTile<TN>::SMEM, stream>>>(
-      tm_a, tm_w, M, N, K, e.bias, e.out, e.r1, e.r2);
+      tm_a, tm_w, M, N, K, e.sa, e.ws, e.bias, e.out, e.r1, e.r2, amax);
   return static_cast<int>(cudaGetLastError());
 }
 
-// TMA: K a multiple of 8 (16-byte row strides), A and W 16-byte aligned. Tiles of
-// 128 x 128, or 128 x 64 where N <= 64 (the adapter hiddens).
-template <int EPI>
-int launch_bf16(const void* A, const void* W, int M, int N, int K, const EpiArgs& e,
-                cudaStream_t stream) {
-  if (M < 1 || N < 1 || K < 8 || K % 8 || reinterpret_cast<uintptr_t>(A) % 16 ||
-      reinterpret_cast<uintptr_t>(W) % 16)
+// TMA: rows of a multiple of TMA_ROW_ALIGN bytes (K a multiple of 8 bf16 or 16
+// int8), A and W 16-byte aligned. Tiles of 128 x 128, or 128 x 64 where a bf16 N
+// <= 64 (the adapter hiddens).
+template <typename Op, int EPI>
+int launch(const void* A, const void* W, int M, int N, int K, const EpiArgs& e,
+           cudaStream_t stream, float* amax = nullptr) {
+  if (M < 1 || N < 1 || K < 1 || (K * sizeof(Op)) % TMA_ROW_ALIGN ||
+      reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(W) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (N <= 64) return launch_wgmma<64, EPI>(A, W, M, N, K, e, stream);
-  return launch_wgmma<128, EPI>(A, W, M, N, K, e, stream);
+  if constexpr (sizeof(Op) == 2) {
+    if (N <= 64) return launch_wgmma<Op, 64, EPI>(A, W, M, N, K, e, amax, stream);
+  }
+  return launch_wgmma<Op, 128, EPI>(A, W, M, N, K, e, amax, stream);
 }
 
 }  // namespace
@@ -641,10 +571,10 @@ STG_API int stg_gemm_bf16(const void* A, const void* W, const void* bias, void* 
                           int M, int N, int K, int epilogue, cudaStream_t stream) {
   EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C, nullptr, nullptr};
   switch (epilogue) {
-    case EPI_BF16: return launch_bf16<EPI_BF16>(A, W, M, N, K, e, stream);
-    case EPI_BF16_GELU: return launch_bf16<EPI_BF16_GELU>(A, W, M, N, K, e, stream);
-    case EPI_BF16_RGELU: return launch_bf16<EPI_BF16_RGELU>(A, W, M, N, K, e, stream);
-    case EPI_BF16_QUICKGELU: return launch_bf16<EPI_BF16_QUICKGELU>(A, W, M, N, K, e, stream);
+    case EPI_BF16: return launch<bf16, EPI_BF16>(A, W, M, N, K, e, stream);
+    case EPI_BF16_GELU: return launch<bf16, EPI_BF16_GELU>(A, W, M, N, K, e, stream);
+    case EPI_BF16_RGELU: return launch<bf16, EPI_BF16_RGELU>(A, W, M, N, K, e, stream);
+    case EPI_BF16_QUICKGELU: return launch<bf16, EPI_BF16_QUICKGELU>(A, W, M, N, K, e, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -655,7 +585,7 @@ STG_API int stg_gemm_bf16_res2(const void* A, const void* W, const void* bias, c
                                cudaStream_t stream) {
   EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C,
             static_cast<const bf16*>(R1), static_cast<const bf16*>(R2)};
-  return launch_bf16<EPI_BF16_RES2>(A, W, M, N, K, e, stream);
+  return launch<bf16, EPI_BF16_RES2>(A, W, M, N, K, e, stream);
 }
 
 // C = epilogue(R, A . W^T + bias), R and C (M, N) bf16: EPI_BF16_RESF bf16(R + (acc + b))
@@ -665,23 +595,26 @@ STG_API int stg_gemm_bf16_res(const void* A, const void* W, const void* bias, co
   EpiArgs e{nullptr, nullptr, static_cast<const bf16*>(bias), C, static_cast<const bf16*>(R),
             nullptr};
   switch (epilogue) {
-    case EPI_BF16_RESF: return launch_bf16<EPI_BF16_RESF>(A, W, M, N, K, e, stream);
-    case EPI_BF16_RES1: return launch_bf16<EPI_BF16_RES1>(A, W, M, N, K, e, stream);
+    case EPI_BF16_RESF: return launch<bf16, EPI_BF16_RESF>(A, W, M, N, K, e, stream);
+    case EPI_BF16_RES1: return launch<bf16, EPI_BF16_RES1>(A, W, M, N, K, e, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// C = epilogue(float(A . W^T) * sa[m] * ws[n] + bias[n]), A (M, K) and W (N, K) int8:
+// EPI_Q_BF16 rounds to bf16; the fp32 GELU hiddens also take each row's max |C| into
+// amax ((M,) zeros, nullable)
 STG_API int stg_gemm_s8(const void* A, const void* sa, const void* W, const void* ws,
-                        const void* bias, void* C, int M, int N, int K, int epilogue,
-                        cudaStream_t stream) {
+                        const void* bias, void* C, void* amax, int M, int N, int K,
+                        int epilogue, cudaStream_t stream) {
   EpiArgs e{static_cast<const float*>(sa), static_cast<const bf16*>(ws),
             static_cast<const bf16*>(bias), C, nullptr, nullptr};
-  const uint8_t* a = static_cast<const uint8_t*>(A);
-  const uint8_t* w = static_cast<const uint8_t*>(W);
+  float* mx = static_cast<float*>(amax);
   switch (epilogue) {
-    case EPI_Q_BF16: return launch<int, EPI_Q_BF16>(a, w, M, N, K, e, stream);
-    case EPI_Q_QUICKGELU_F32: return launch<int, EPI_Q_QUICKGELU_F32>(a, w, M, N, K, e, stream);
-    case EPI_Q_GELU_F32: return launch<int, EPI_Q_GELU_F32>(a, w, M, N, K, e, stream);
+    case EPI_Q_BF16: return launch<int8_t, EPI_Q_BF16>(A, W, M, N, K, e, stream);
+    case EPI_Q_QUICKGELU_F32:
+      return launch<int8_t, EPI_Q_QUICKGELU_F32>(A, W, M, N, K, e, stream, mx);
+    case EPI_Q_GELU_F32: return launch<int8_t, EPI_Q_GELU_F32>(A, W, M, N, K, e, stream, mx);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,13 +11,22 @@
 //     (_win_block_q_core :1434-1440, _ffn_q_kernel :1620-1626),
 //   - _quant_rows of the bf16 attention output (:1457) and of the fp32 FFN
 //     hidden (:1632).
-// Bound on the H100: bytes (a row is read a few times from L1 and written
-// once; ~1 flop per byte). Design: one warp per row, the row re-read from
-// L1/L2 for each pass instead of staged, so any row length is taken.
+// Bound on the H100: bytes (~1 flop per byte). LayerNorm (K9): one warp per
+// row, the row re-read from L1/L2 for each pass, so any row length is taken.
+// Row quantization reads each row from device memory once, with 16-byte loads
+// (8 bf16 or 4 fp32 a lane a load), and writes its int8 codes 8 or 4 at a time:
+// one warp per row, the row held in registers (up to kMaxHeldChunks 16-byte
+// chunks a lane: 2048 bf16 or 1024 fp32 values) while the LN statistics, the
+// max |x| and the codes are formed from it; wider rows are staged in shared
+// memory instead. Given each row's max |x| (the fp32 FFN hiddens, whose
+// producing product's epilogue takes it: csrc/gemm.cu), it only quantizes, in
+// one streaming pass.
 // Numerics follow the JAX kernels: fp32 mean and centred variance, the
 // products and sums rounded one by one (__fmul_rn/__fadd_rn, no contraction),
 // scale = max(|x|, 1e-30) * (1/127), q = rint(x * (1/scale)) clamped to +-127
-// with a correctly rounded reciprocal and round-half-even (rintf).
+// with a correctly rounded reciprocal and round-half-even (rintf). The LN sums
+// run over a lane's chunks in their order, then across the warp: another order
+// than K9's lane-strided one, so a statistic may differ in its last bit.
 #include "common.cuh"
 
 namespace {
@@ -68,29 +77,223 @@ __global__ void __launch_bounds__(256) ln_bf16_kernel(
   for (int k = lane; k < K; k += 32) y[off + k] = __float2bfloat16_rn(f(k));
 }
 
-template <typename T>
+// 16 bytes of a row as floats: 8 bf16 or 4 fp32
+template <typename T> struct Chunk;
+template <> struct Chunk<bf16> {
+  static constexpr int E = 8;
+  __device__ static void unpack(const uint4& u, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+template <> struct Chunk<float> {
+  static constexpr int E = 4;
+  __device__ static void unpack(const uint4& u, float (&f)[4]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+// E bf16 LN parameters from p (16- or 8-byte aligned) as floats
+template <int E>
+__device__ __forceinline__ void load_params(const bf16* p, float (&f)[E]) {
+  if constexpr (E == 8) {
+    Chunk<bf16>::unpack(__ldg(reinterpret_cast<const uint4*>(p)), f);
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    f[0] = lo.x;
+    f[1] = lo.y;
+    f[2] = hi.x;
+    f[3] = hi.y;
+  }
+}
+
+// the E codes of f at scale 1 / inv, into q (E-byte aligned)
+template <int E>
+__device__ __forceinline__ void store_codes(int8_t* q, const float (&f)[E], float inv) {
+  uint32_t w[E / 4];
+#pragma unroll
+  for (int i = 0; i < E / 4; ++i) w[i] = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    float t = rintf(__fmul_rn(f[e], inv));
+    t = fminf(fmaxf(t, -127.f), 127.f);
+    w[e / 4] |= (static_cast<uint32_t>(__float2int_rn(t)) & 0xffu) << (8 * (e % 4));
+  }
+  if constexpr (E == 8) *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
+  else *reinterpret_cast<uint32_t*>(q) = w[0];
+}
+
+constexpr int kMaxHeldChunks = 8;  // 16-byte chunks a lane holds in registers
+
+// f(c) for each chunk c = 0 .. n - 1 of a lane, unrolled where n = CH is known
+template <int CH, typename F>
+__device__ __forceinline__ void each_chunk(int n, F f) {
+  if constexpr (CH > 0) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) f(c);
+  } else {
+    for (int c = 0; c < n; ++c) f(c);
+  }
+}
+
+// One warp per row; the lane's chunk c holds elements (32 c + lane) E .. + E - 1.
+// CH > 0: a lane's chunks in registers (rows up to 512 CH bytes); CH == 0: the
+// warp's row staged in shared memory, or (amax_in given) no row kept at all.
+template <typename T, int CH>
 __global__ void __launch_bounds__(256) quant_rows_kernel(
     const T* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ b,
-    int8_t* __restrict__ q, float* __restrict__ sx, int M, int K, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+    const float* __restrict__ amax_in, int8_t* __restrict__ q, float* __restrict__ sx, int M,
+    int K, float eps) {
+  using V = Chunk<T>;
+  constexpr int E = V::E;
+  extern __shared__ uint4 staged[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= M) return;
-  const size_t off = static_cast<size_t>(row) * K;
-  RowLN<T> f = row_stats(x + off, g, b, K, eps, lane);
+  const int n16 = K / E;                         // 16-byte chunks of the row
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K);
+  int8_t* qr = q + static_cast<size_t>(row) * K;
+
+  if (amax_in != nullptr) {                      // scale given: one streaming pass
+    const float s = __fmul_rn(fmaxf(amax_in[row], 1e-30f), 1.0f / 127.0f);
+    const float inv = __frcp_rn(s);
+#pragma unroll 4
+    for (int i = lane; i < n16; i += 32) {
+      float f[E];
+      V::unpack(__ldg(xr + i), f);
+      store_codes<E>(qr + i * E, f, inv);
+    }
+    if (lane == 0) sx[row] = s;
+    return;
+  }
+
+  const int nch = ceil_div(n16, 32);             // chunks of a lane (CH == 0)
+  uint4 held[CH > 0 ? CH : 1];
+  uint4* srow = staged + static_cast<size_t>(warp) * n16;
+  each_chunk<CH>(nch, [&](int c) {               // the one read of the row
+    const int i = c * 32 + lane;
+    if constexpr (CH > 0) {
+      held[c] = i < n16 ? __ldg(xr + i) : make_uint4(0, 0, 0, 0);
+    } else if (i < n16) {
+      srow[i] = __ldg(xr + i);
+    }
+  });
+  auto raw = [&](int c, float (&f)[E]) {
+    if constexpr (CH > 0) V::unpack(held[c], f);
+    else V::unpack(srow[c * 32 + lane], f);
+  };
+
+  float mean = 0.f, rstd = 1.f;
+  if (g != nullptr) {
+    float s = 0.f;
+    each_chunk<CH>(nch, [&](int c) {
+      if (c * 32 + lane >= n16) return;
+      float f[E];
+      raw(c, f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s += f[e];
+    });
+    mean = warp_sum(s) / static_cast<float>(K);
+    float v = 0.f;
+    each_chunk<CH>(nch, [&](int c) {
+      if (c * 32 + lane >= n16) return;
+      float f[E];
+      raw(c, f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = __fsub_rn(f[e], mean);
+        v = __fadd_rn(v, __fmul_rn(d, d));
+      }
+    });
+    rstd = rsqrtf(warp_sum(v) / static_cast<float>(K) + eps);
+  }
+  // the values quantized: the row, or its LayerNorm in fp32
+  auto value = [&](int c, float (&f)[E]) {
+    raw(c, f);
+    if (g == nullptr) return;
+    float gf[E], bf[E];
+    const int k0 = (c * 32 + lane) * E;
+    load_params<E>(g + k0, gf);
+    load_params<E>(b + k0, bf);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      f[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[e], mean), rstd), gf[e]), bf[e]);
+  };
   float amax = 0.f;
-  for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(f(k)));
+  each_chunk<CH>(nch, [&](int c) {
+    if (c * 32 + lane >= n16) return;
+    float f[E];
+    value(c, f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  });
   amax = warp_max(amax);
   const float s = __fmul_rn(fmaxf(amax, 1e-30f), 1.0f / 127.0f);
   const float inv = __frcp_rn(s);
-  for (int k = lane; k < K; k += 32) {
-    float t = rintf(__fmul_rn(f(k), inv));
-    t = fminf(fmaxf(t, -127.f), 127.f);
-    q[off + k] = static_cast<int8_t>(__float2int_rn(t));
-  }
+  each_chunk<CH>(nch, [&](int c) {
+    const int i = c * 32 + lane;
+    if (i >= n16) return;
+    float f[E];
+    value(c, f);
+    store_codes<E>(qr + i * E, f, inv);
+  });
   if (lane == 0) sx[row] = s;
 }
 
 constexpr int kRowsPerBlock = 8;   // 8 warps of 32 threads, one row each
+constexpr int kMaxStagedBytes = 232448;   // shared memory of one block on the H100
+
+template <typename T, int CH>
+int launch_quant(const T* x, const bf16* g, const bf16* b, const float* amax, int8_t* q,
+                 float* sx, int M, int K, float eps, int rows, int smem, cudaStream_t stream) {
+  auto kernel = quant_rows_kernel<T, CH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<ceil_div(M, rows), 32 * rows, smem, stream>>>(x, g, b, amax, q, sx, M, K, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K a multiple of 16 (16-byte rows of int8 codes), x, q, g and b 16-byte aligned;
+// amax (nullable) only without LN
+template <typename T>
+int quant_rows(const T* x, const bf16* g, const bf16* b, const float* amax, int8_t* q,
+               float* sx, int M, int K, float eps, cudaStream_t stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (M < 1 || K < 16 || K % 16 || misaligned(x) || misaligned(q) ||
+      (g != nullptr && (misaligned(g) || b == nullptr || misaligned(b) || amax != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = ceil_div(K * static_cast<int>(sizeof(T)) / 16, 32);   // a lane's
+  const int R = kRowsPerBlock;
+  if (amax != nullptr) return launch_quant<T, 0>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+  switch (chunks) {
+    case 1: return launch_quant<T, 1>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 2: return launch_quant<T, 2>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 3: return launch_quant<T, 3>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 4: return launch_quant<T, 4>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    default:
+      if (chunks <= kMaxHeldChunks)
+        return launch_quant<T, kMaxHeldChunks>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+  }
+  // wider rows: staged in shared memory, as many rows a block as fit 64 KB (at least one)
+  const int row_bytes = K * static_cast<int>(sizeof(T));
+  if (row_bytes > kMaxStagedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int fit = (64 * 1024) / row_bytes;
+  const int rows = fit < 1 ? 1 : fit < R ? fit : R;
+  return launch_quant<T, 0>(x, g, b, amax, q, sx, M, K, eps, rows, rows * row_bytes, stream);
+}
 
 }  // namespace
 
@@ -102,20 +305,18 @@ STG_API int stg_ln_bf16(const void* x, const void* g, const void* b, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// int8 row quantization of x (M, K), bf16 or fp32, after a LayerNorm when g and b are
+// given, or from the given per-row max |x| amax ((M,) fp32, nullable; no LN): codes q
+// (M, K) int8 and scales sx (M,) fp32
 STG_API int stg_quant_rows(const void* x, int x_is_f32, const void* g, const void* b,
-                           void* q, void* sx, int M, int K, float eps,
+                           const void* amax, void* q, void* sx, int M, int K, float eps,
                            cudaStream_t stream) {
-  const dim3 grid(ceil_div(M, kRowsPerBlock)), block(32 * kRowsPerBlock);
-  if (x_is_f32) {
-    quant_rows_kernel<float><<<grid, block, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const bf16*>(g),
-        static_cast<const bf16*>(b), static_cast<int8_t*>(q),
-        static_cast<float*>(sx), M, K, eps);
-  } else {
-    quant_rows_kernel<bf16><<<grid, block, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-        static_cast<const bf16*>(b), static_cast<int8_t*>(q),
-        static_cast<float*>(sx), M, K, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bf16* gb = static_cast<const bf16*>(g);
+  const bf16* bb = static_cast<const bf16*>(b);
+  const float* mx = static_cast<const float*>(amax);
+  int8_t* qq = static_cast<int8_t*>(q);
+  float* ss = static_cast<float*>(sx);
+  if (x_is_f32)
+    return quant_rows(static_cast<const float*>(x), gb, bb, mx, qq, ss, M, K, eps, stream);
+  return quant_rows(static_cast<const bf16*>(x), gb, bb, mx, qq, ss, M, K, eps, stream);
 }

@@ -254,16 +254,17 @@ def _check_operands(x, w, heads, quantized, n_tower, adapters, name, seqs=None):
     return C, Hd, D
 
 
-def _tower_cuda(x, w, i, out, s, quantized, act=False):
+def _tower_cuda(x, w, i, out, s, quantized, act=False, x_amax=None, out_amax=None):
     """The i-th tower product of TOWER into `out`: a bf16 GEMM (act: QuickGELU
-    in fp32, rounded once), or row quantization of x (bf16 or fp32) and an
-    int8 GEMM (act: QuickGELU into an fp32 hidden)."""
+    in fp32, rounded once), or row quantization of x (bf16 or fp32; from its
+    rows' max |x| `x_amax` where given) and an int8 GEMM (act: QuickGELU into
+    an fp32 hidden, each row's max |h| into `out_amax`)."""
     wk, sk, bk = TOWER[i]
     if not quantized:
         return _gemm_bf16(x, w[wk], w[bk], out, _EPI_BF16_QUICKGELU if act else _EPI_BF16, s)
-    xq, sx = _quant_rows(x, s)
-    _gemm_s8(xq, sx, w[wk], w[sk], w[bk], out, _EPI[_QUICK_GELU] if act else _EPI_Q_BF16, s)
-    return out
+    xq, sx = _quant_rows(x, s, amax=x_amax)
+    return _gemm_s8(xq, sx, w[wk], w[sk], w[bk], out, _EPI[_QUICK_GELU] if act else _EPI_Q_BF16,
+                    s, amax=out_amax)
 
 
 def _clip_block_cuda(v, a, w, heads, quantized=False):
@@ -310,10 +311,12 @@ def _clip_block_cuda(v, a, w, heads, quantized=False):
     x1 = fuse_out(att, "sv", "sa", (v2, a2))
     xn2 = _ln_bf16(x1, w["ln2_w"], w["ln2_b"], s)
     # the (M, 4C) hidden goes through device memory between fc1 and fc2: bf16,
-    # or fp32 for the int8 variant, whose per-row scale needs the whole row
+    # or fp32 for the int8 variant, whose per-row scale needs the whole row's
+    # max |h|, which fc1's epilogue gathers into hmax
+    hmax = torch.zeros(M, dtype=torch.float32, device=v.device) if quantized else None
     hid = _tower_cuda(xn2, w, 2, empty(M, Hd, dtype=torch.float32 if quantized else bf), s,
-                      quantized, act=True)
-    n = _tower_cuda(hid, w, 3, empty(M, C), s, quantized)
+                      quantized, act=True, out_amax=hmax)
+    n = _tower_cuda(hid, w, 3, empty(M, C), s, quantized, x_amax=hmax)
     y = fuse_out(n, "mv", "ma", (x1[:Mv], x1[Mv:]))
     return y[:Mv].view(BT, Nv, C), y[Mv:].view(BT, Na, C)
 

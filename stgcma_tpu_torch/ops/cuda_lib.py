@@ -31,8 +31,9 @@ SIGNATURES = {
     "rowprep.cu": {
         # x, gamma, beta, y, M, K, eps, stream
         "stg_ln_bf16": [P, P, P, P, I, I, F, P],
-        # x, x_is_f32, gamma (nullable: no LN), beta, q, sx, M, K, eps, stream
-        "stg_quant_rows": [P, I, P, P, P, P, I, I, F, P],
+        # x, x_is_f32, gamma (nullable: no LN), beta, amax (nullable: the rows' given
+        # max |x|, no LN), q, sx, M, K, eps, stream
+        "stg_quant_rows": [P, I, P, P, P, P, P, I, I, F, P],
     },
     "gemm.cu": {
         # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU,
@@ -43,8 +44,9 @@ SIGNATURES = {
         # A, W, bias, R, C, M, N, K, epilogue (9: C = bf16(R + (A.W^T + b)), one rounding;
         # 8: bf16(R + bf16(A.W^T + b))), stream
         "stg_gemm_bf16_res": [P, P, P, P, P, I, I, I, I, P],
-        # A, sa, W, ws, bias, C, M, N, K, epilogue, stream
-        "stg_gemm_s8": [P, P, P, P, P, P, I, I, I, I, P],
+        # A, sa, W, ws, bias, C, amax (nullable; the fp32 epilogues 2, 3 take each row's
+        # max |C| into it), M, N, K, epilogue (1: bf16, 2: QuickGELU, 3: erf-GELU), stream
+        "stg_gemm_s8": [P, P, P, P, P, P, P, I, I, I, I, P],
     },
     "attn.cu": {
         # qkv, bm (nullable), nWb, o, B_, N, heads, dh, scale, stream

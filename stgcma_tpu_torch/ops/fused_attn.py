@@ -60,9 +60,13 @@ resident pad of the 197-token video stream (`clip_vit.py:366-383`) and no
 257 -> 272 pad of CLIP ViT-L/14's (`pallas_attn.py:906-924`). The attention
 core takes any token count up to ATTN_MAX_TOKENS (K and V resident in shared
 memory up to ATTN_RESIDENT_MAX_TOKENS, streamed past it; `attn_route`) and
-each row attends over its own N tokens. The bf16 products run on
-csrc/gemm.cu's TMA + wgmma loop, which takes K and N in multiples of 8 and
-16-byte aligned operands (`check_gemm_operands`).
+each row attends over its own N tokens. The bf16 and int8 products run on
+csrc/gemm.cu's one TMA + wgmma loop, which takes rows of a multiple of 16
+bytes (K a multiple of 8 bf16 or 16 int8), N in multiples of 8 and 16-byte
+aligned operands (`check_gemm_operands`, `check_gemm_s8_operands`). The
+int8 FFNs' fp32 hiddens (K3, and the int8 variants of K4 and K12) leave fc1
+with each row's max |h| (an atomicMax in the epilogue), so their row
+quantization reads them once (`_quant_rows(amax=)`).
 The softmax divides exactly, and the activation scale uses a correctly
 rounded reciprocal (the TPU kernels' `pl.reciprocal(approx=True)` is a
 hardware approximation).
@@ -82,6 +86,7 @@ _EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
 _EPI_BF16, _EPI_Q_BF16, _EPI_BF16_GELU, _EPI_BF16_RGELU = 0, 1, 4, 5
 _EPI_BF16_QUICKGELU = 7               # K12's float fc1: QuickGELU in fp32, one rounding
 _EPI_BF16_RES1, _EPI_BF16_RESF = 8, 9  # bf16(r + bf16(acc + b)) (K13), bf16(r + (acc + b)) (K14)
+_S8_OUT_DTYPE = {_EPI_Q_BF16: torch.bfloat16, **{e: torch.float32 for e in _EPI.values()}}
 _LN_EPS = 1e-5                        # the TPU kernels' LayerNorm eps
 
 # Swin routing thresholds of the JAX package
@@ -102,6 +107,8 @@ ATTN_RESIDENT_MAX_TOKENS = 768        # csrc/attn.cu kResidentMaxTokens: K and V
 SMEM_MAX_BYTES = 232448               # shared memory one block may have on the H100
 GEMM_ALIGN = 8                        # csrc/gemm.cu (TMA): K and N in multiples of 8 bf16,
                                       # 16-byte aligned bases
+GEMM_S8_ALIGN = 16                    # csrc/gemm.cu TMA_ROW_ALIGN: K in multiples of 16 int8
+GEMM_KTILE_BYTES = 128                # csrc/gemm.cu WG_BK_BYTES: a k-tile of 64 bf16 or 128 int8
 
 
 # ---------------------------------------------------------------------------
@@ -328,23 +335,37 @@ def _gemm_res(a, w, b, r, out, epi, s):
     return out
 
 
-def _quant_rows(x2, s, ln_w=None, ln_b=None):
-    """int8 row quantization of bf16 or fp32 rows, after a LayerNorm when its
-    weights are given (K2/K3 prologues). Returns (int8 codes, fp32 scales)."""
+def _quant_rows(x2, s, ln_w=None, ln_b=None, amax=None):
+    """int8 row quantization of bf16 or fp32 rows (M, K), contiguous, K a
+    multiple of 16: after a LayerNorm when its weights are given (K2/K3
+    prologues), or from the rows' given max |x| `amax` ((M,) fp32, as an
+    fp32 epilogue of `_gemm_s8` leaves it). Returns (int8 codes, fp32
+    scales)."""
     M, K = x2.shape
+    if (K % GEMM_S8_ALIGN or not x2.is_contiguous() or x2.data_ptr() % 16
+            or (amax is not None and (ln_w is not None or amax.dtype != torch.float32
+                                      or amax.shape != (M,)))):
+        raise ValueError(f"row quantization takes contiguous rows of a multiple of "
+                         f"{GEMM_S8_ALIGN}, 16-byte aligned, and a given (M,) fp32 amax only "
+                         f"without LN; got shape {tuple(x2.shape)}, address {x2.data_ptr():#x}")
     q = torch.empty((M, K), dtype=torch.int8, device=x2.device)
     sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
     cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_quant_rows(
-        _ptr(x2), int(x2.dtype == torch.float32), _ptr(ln_w), _ptr(ln_b),
+        _ptr(x2), int(x2.dtype == torch.float32), _ptr(ln_w), _ptr(ln_b), _ptr(amax),
         _ptr(q), _ptr(sx), M, K, _LN_EPS, s))
     return q, sx
 
 
-def _gemm_s8(a, sa, wq, ws, bias, out, epi, s):
+def _gemm_s8(a, sa, wq, ws, bias, out, epi, s, amax=None):
+    """out (M, N) = epilogue(float(a (M, K) . wq (N, K)^T) * sa * ws + bias),
+    int8 codes in; `amax` ((M,) fp32 zeros, the fp32 epilogues only) takes
+    each row's max |out|."""
+    check_gemm_s8_operands(a, sa, wq, ws, bias, out, epi, amax)
     M, K = a.shape
     cuda_lib.check("gemm.cu", cuda_lib.lib("gemm.cu").stg_gemm_s8(
-        _ptr(a), _ptr(sa), _ptr(wq), _ptr(ws), _ptr(bias), _ptr(out),
+        _ptr(a), _ptr(sa), _ptr(wq), _ptr(ws), _ptr(bias), _ptr(out), _ptr(amax),
         M, wq.shape[0], K, epi, s))
+    return out
 
 
 def _attn_core(qkv, bias, heads, s, out=None):
@@ -418,6 +439,40 @@ def check_gemm_operands(a, w, out, *residuals, name="the bf16 GEMM"):
             raise ValueError(f"{name}: {key} must be {rows} contiguous rows of {cols}, 16-byte "
                              f"aligned; got shape {tuple(t.shape)}, strides {t.stride()}, "
                              f"address {t.data_ptr():#x}")
+
+
+def check_gemm_s8_operands(a, sa, w, ws, bias, out, epi, amax=None, name="the int8 GEMM"):
+    """What csrc/gemm.cu's int8 product takes: codes a (M, K) and w (N, K)
+    int8, K a multiple of GEMM_S8_ALIGN (16-byte rows for TMA), N of
+    GEMM_ALIGN; out M rows of N, bf16 for `_EPI_Q_BF16`, fp32 for the GELU
+    hiddens of `_EPI`; a, w and out row-major, contiguous and 16-byte aligned;
+    scales sa (M,) fp32, ws (N,) and bias (N,) bf16, contiguous; amax, where
+    given (fp32 epilogues only), (M,) fp32. Runs before every int8 launch, on
+    the host's critical path of the short rows, so it reads each attribute
+    once and builds no message unless it raises."""
+    i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
+    out_dtype = _S8_OUT_DTYPE.get(epi)
+    ok = (a.dim() == 2 and w.dim() == 2 and a.dtype == i8 and w.dtype == i8
+          and out_dtype is not None and (amax is None or out_dtype == f32))
+    if ok:
+        (M, K), (N, Kw) = a.shape, w.shape
+        ok = (Kw == K and K % GEMM_S8_ALIGN == 0 and N % GEMM_ALIGN == 0 and min(M, K, N) >= 1
+              and out.dtype == out_dtype and out.dim() >= 2 and out.shape[-1] == N
+              and out.numel() == M * N and a.is_contiguous() and w.is_contiguous()
+              and out.is_contiguous() and (a.data_ptr() | w.data_ptr() | out.data_ptr()) % 16 == 0
+              and sa.dtype == f32 and sa.numel() == M and sa.is_contiguous()
+              and ws.dtype == bf and ws.numel() == N and ws.is_contiguous()
+              and bias.dtype == bf and bias.numel() == N and bias.is_contiguous()
+              and (amax is None or (amax.dtype == f32 and amax.numel() == M
+                                    and amax.is_contiguous())))
+    if not ok:
+        named = {"a": a, "sa": sa, "w": w, "ws": ws, "bias": bias, "out": out, "amax": amax}
+        got = "; ".join(f"{k} {t.dtype} {tuple(t.shape)} strides {t.stride()} at "
+                        f"{t.data_ptr():#x}" for k, t in named.items() if t is not None)
+        raise ValueError(f"{name} takes int8 a (M, K) and w (N, K), K a multiple of "
+                         f"{GEMM_S8_ALIGN}, N of {GEMM_ALIGN}, a contiguous 16-byte aligned "
+                         f"out (M, N) of {out_dtype} (epilogue {epi}), sa (M,) fp32, ws and "
+                         f"bias (N,) bf16, amax (M,) fp32 for an fp32 out only; got {got}")
 
 
 def check_fuse_width(D, name="the fusion kernel"):
@@ -542,10 +597,13 @@ def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
     s = _stream(x)
     xq, sx = _quant_rows(x, s, ln_w, ln_b)
     # the fp32 hidden (M, H) goes through device memory: its per-row int8
-    # scale needs the whole row's max before fc2 can start
+    # scale needs the whole row's max before fc2 can start. fc1's epilogue
+    # gathers each row's max |h| into hmax as it stores the hidden, so the
+    # hidden's quantization reads it once
     h = torch.empty((M, H), dtype=torch.float32, device=x.device)
-    _gemm_s8(xq, sx, w1_q, w1_s, b1, h, _EPI[act], s)
-    hq, sh = _quant_rows(h, s)
+    hmax = torch.zeros((M,), dtype=torch.float32, device=x.device)
+    _gemm_s8(xq, sx, w1_q, w1_s, b1, h, _EPI[act], s, amax=hmax)
+    hq, sh = _quant_rows(h, s, amax=hmax)
     out = torch.empty_like(x)
     _gemm_s8(hq, sh, w2_q, w2_s, b2, out, _EPI_Q_BF16, s)
     return out

@@ -56,7 +56,15 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
         return (out + bias.float()).to(x.dtype).reshape(*shape[:-1], N)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: no kernel for device {x.device}")
-    bf = torch.bfloat16
+    with torch.cuda.device(x.device):
+        return _int8_matmul_cuda(x, xq, sx, wq, ws, bias)
+
+
+def _int8_matmul_cuda(x, xq, sx, wq, ws, bias):
+    """`int8_matmul`'s product on the card: the codes xq (M, K) and scales sx
+    (M, 1), fp32 values from torch, into `csrc/gemm.cu`'s `stg_gemm_s8`."""
+    shape, bf = x.shape, torch.bfloat16
+    K, N = shape[-1], wq.shape[0]
     if x.dtype != bf:
         raise ValueError(f"int8_matmul on the card takes bf16 x, got {x.dtype}")
     if K % 16:
@@ -69,8 +77,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
         raise ValueError(f"int8_matmul: wq {tuple(wq.shape)}, ws {tuple(ws.shape)}, bias "
                          f"{tuple(bias.shape)} do not fit x (..., {K})")
     out = torch.empty((xq.shape[0], N), dtype=bf, device=x.device)
-    with torch.cuda.device(x.device):
-        _gemm_s8(xq, sx, wq, ws, bias, out, _EPI_Q_BF16, _stream(x))
+    _gemm_s8(xq, sx, wq, ws, bias, out, _EPI_Q_BF16, _stream(x))
     return out.reshape(*shape[:-1], N)
 
 

@@ -255,16 +255,17 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
     def empty(*shape, dtype=bf):
         return torch.empty(shape, dtype=dtype, device=v.device)
 
-    def tower(x, i, out, gelu=False):
+    def tower(x, i, out, gelu=False, x_amax=None, out_amax=None):
         """The i-th tower product of TOWER into `out`: bf16 GEMM (GELU:
         rounded before and after it), or row quantization of x (bf16 or
-        fp32) + int8 GEMM (GELU: into an fp32 hidden)."""
+        fp32; from its rows' max |x| `x_amax` where given) + int8 GEMM
+        (GELU: into an fp32 hidden, each row's max |h| into `out_amax`)."""
         wk, sk, bk = TOWER[i]
         if not quantized:
             return _gemm_bf16(x, w[wk], w[bk], out, _EPI_BF16_RGELU if gelu else _EPI_BF16, s)
-        xq, sx = _quant_rows(x, s)
-        _gemm_s8(xq, sx, w[wk], w[sk], w[bk], out, _EPI[_GELU] if gelu else _EPI_Q_BF16, s)
-        return out
+        xq, sx = _quant_rows(x, s, amax=x_amax)
+        return _gemm_s8(xq, sx, w[wk], w[sk], w[bk], out, _EPI[_GELU] if gelu else _EPI_Q_BF16,
+                        s, amax=out_amax)
 
     def fuse(xv, xa, kv, ka, mask):    # per-stream adapter hiddens, then fuse.cu
         h = empty(2, M, D)
@@ -290,8 +291,10 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
     fv, fa = fuse(vs, as_, "s2v", "s2a", fuse_mask)
     x1 = residual(fv, fa, "s2v", "s2a", (v2, vs), (a2, as_))
     xn2 = _ln_bf16(x1, w["ln2_w"], w["ln2_b"], s)
-    hid = tower(xn2, 2, empty(2 * M, Hd, dtype=f32 if quantized else bf), gelu=True)
-    n = tower(hid, 3, empty(2 * M, C))
+    hmax = empty(2 * M, dtype=f32).zero_() if quantized else None   # fc1's row max |h|
+    hid = tower(xn2, 2, empty(2 * M, Hd, dtype=f32 if quantized else bf), gelu=True,
+                out_amax=hmax)
+    n = tower(hid, 3, empty(2 * M, C), x_amax=hmax)
     fv2, fa2 = fuse(n[:M], n[M:], "sv", "sa", None)
     y = residual(fv2, fa2, "sv", "sa", (x1[:M], n[:M]), (x1[M:], n[M:]))
     return y[:M].view(BT, N, C), y[M:].view(BT, N, C)

@@ -1,5 +1,5 @@
-"""The two parts that K1-K4, K7 and K11-K14 share, alone on the card, and
-the K1 and K12 rows that carry them.
+"""The parts that K1-K4, K7 and K11-K14 share, alone on the card, and the
+K1, K2, K3 and K12 rows that carry them.
 
     python3 stgcma_tpu_torch/tools/bench_parts.py [--tree DIR] [--label NAME]
         [--out chiprun_out/bench_parts]
@@ -10,40 +10,73 @@ Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
   (19680, 768, 3072) over both streams as K12 runs them, the adapter
   products at N = 48 (erf-GELU of the rounded hidden) and K = 48 (onto two
   residuals), and Swin-Base stage 0's FFN fc1 at K = 128 (250880, 512, 128);
+- csrc/gemm.cu's int8 product (int8 codes in, exact int32 sums) at K2's and
+  K3's CLIP-B/16 video shapes: qkv (15760, 2304, 768) and proj (15760, 768,
+  768) with the bf16 epilogue, fc1 with the fp32 QuickGELU hidden and its
+  row maxima (15760, 3072, 768) and fc2 (15760, 768, 3072), and Swin-Base
+  stage 0's qkv (250880, 384, 128), one k-tile; each with TOP/s and
+  torch._int_mm on the same codes plus the fp32 dequant as the yardstick;
+  csrc/rowprep.cu's row quantization of the LN rows (15760, 768) and of the
+  fp32 hidden (15760, 3072), from its given row maxima where the tree takes
+  them and from its own (12 KB rows: staged in shared memory);
 - csrc/attn.cu's attention core over a packed qkv: (80, 197, 768) h12,
   (80, 257, 1024) h16 (CLIP ViT-L/14), (160, 196, 512) h16 with a
   (1, 16, 196, 196) bias (K4 at Swin-Base stage 2) and (16, 1000, 768) h12,
   past the resident limit (the streamed kernel);
 - K1 at the CLIP-B/16 video spatial site (80, 197, 768) and at CLIP-L/14's
   (80, 257, 1024) h16, and K12 (bf16) at v (80, 197, 768), a (80, 49, 768);
-- K8 at Swin-Base stage 3's temporal site and K9 at its 2 -> 3 merge norm,
-  each also through its bare launcher (`bare_ms`): what the wrapper's host
-  work adds to a short kernel.
+  K2 (int8) at the CLIP-B/16 video spatial (80, 197, 768) and temporal
+  (1576, 10, 768) sites and at the audio ones (80, 49, 768), (392, 10, 768),
+  K3 (int8, QuickGELU) at the video (15760, 768) and audio (3920, 768) rows,
+  K11's spatial body (video, audio) and FFN body (video), the int8 K12 and
+  K13 (video and audio rows);
+- K8 at Swin-Base stage 3's temporal site, K9 at its 2 -> 3 merge norm and
+  at its stage-3 temporal and final norms (both (3920, 1024)), each also
+  through its bare launcher (`bare_ms`): what the wrapper's host work adds
+  to a short kernel. These, K2, K3, K11 and the int8 K12, K13 rows (and
+  their audio rows at M = 3920) also give `graph_ms`: the device time of one
+  call replayed from a CUDA graph, with no host work.
 
 Each row is first held against its plain PyTorch version (max |kernel -
-plain| <= 2e-2 max |plain|; the script exits 1 if one is not), then timed
-with CUDA events (the mean of 20 calls after 3). With --tree the package is
-imported from another checkout, e.g. an earlier commit unpacked with `git
-archive` into a directory .gitignore lists, so that two versions run in one
-chip call in turns (each builds its own kernels). Prints one JSON object a
-row and writes them to OUT/LABEL.json. Needs a CUDA device.
+plain| <= 2e-2 max |plain|, 3e-2 for K11 and the int8 K12 and K13; the int8
+products with the bf16 epilogue must equal it bit for bit, the fp32 GELU
+hiddens lie within 1e-6 of it, for the ulps of erff / expf, and their row
+maxima equal those of the stored hidden; the script exits 1 if a row is not
+held), then timed with CUDA events (the
+mean of 20 calls after 3). With --tree the package is imported from another
+checkout, e.g. an earlier commit unpacked with `git archive` into a
+directory .gitignore lists, so that two versions run in one chip call in
+turns (each builds its own kernels); every int8 product row carries a
+digest of its output's bytes, and each run compares its digests with those
+of the runs already in OUT (exit 1 if an int8 product differs by a bit).
+Prints one JSON object a row and writes them to OUT/LABEL.json. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import os
 import sys
 from pathlib import Path
 
 TOL = 2e-2
-H100_BF16, H100_BYTES = 989e12, 3.35e12      # dense peak and HBM rate, 700 W
+TOL_S8_F32 = 1e-6                            # the int8 products' fp32 GELU hiddens
+TOL_Q = 3e-2                                 # K11 and the int8 K12, K13 (chip_smoke.py's bar)
+H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, HBM rate, 700 W
 # (row, M, N, K, epilogue): epilogue of csrc/gemm.cu, "res2" through stg_gemm_bf16_res2
 GEMM_SHAPES = (("qkv", 15760, 2304, 768, "bf16"), ("proj", 15760, 768, 768, "bf16"),
                ("fc1 QuickGELU", 19680, 3072, 768, "quickgelu"), ("fc2", 19680, 768, 3072, "bf16"),
                ("adapter fc1 N=48", 15760, 48, 768, "rgelu"),
                ("adapter fc2 K=48", 15760, 768, 48, "res2"),
                ("Swin st.0 fc1 K=128", 250880, 512, 128, "gelu"))
+# (row, M, N, K, epilogue) of the int8 product: "bf16" (EPI_Q_BF16) or "quickgelu"
+# (the fp32 QuickGELU hidden)
+S8_SHAPES = (("qkv", 15760, 2304, 768, "bf16"), ("proj", 15760, 768, 768, "bf16"),
+             ("fc1 QuickGELU fp32", 15760, 3072, 768, "quickgelu"),
+             ("fc2", 15760, 768, 3072, "bf16"), ("Swin st.0 qkv K=128", 250880, 384, 128, "bf16"))
 # (row, B_, N, C, heads, bias)
 CORE_SHAPES = (("CLIP-B/16 spatial", 80, 197, 768, 12, False),
                ("CLIP-L/14 spatial", 80, 257, 1024, 16, False),
@@ -65,8 +98,25 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / H100_BF16, nbytes / H100_BYTES
+def graph_ms(fn, iters=20):
+    """The device time of one call of fn without the host's: its launches
+    captured once in a CUDA graph (after a warm-up on a side stream, so that
+    every one-time set-up is done), the graph replayed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def bound_ms(flops, nbytes, peak=H100_BF16):
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -118,6 +168,173 @@ def gemm_cases(g):
                       "plain": lambda a=a, w=w, b=b, epi=epi, rs=rs: gemm_plain(a, w, b, epi, *rs),
                       "library": lambda a=a, w=w, b=b: F.linear(a, w, b),
                       "flops": 2 * M * N * K, "bound": bound_ms(2 * M * N * K, nbytes)})
+    return cases
+
+
+def s8_plain(a, sa, w, ws, b, epi):
+    """The int8 product in float64 (exact for these sums), then gemm.cu's epilogue
+    in fp32 torch ops, one rounding each: float(acc) * sa * ws + b, then bf16 or
+    QuickGELU."""
+    import torch
+    acc = torch.matmul(a.double(), w.double().t()).float()
+    v = acc * sa[:, None] * ws.float() + b.float()
+    return v * torch.sigmoid(1.702 * v) if epi == "quickgelu" else v.to(torch.bfloat16)
+
+
+def _digest(t):
+    import torch
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def s8_cases(g):
+    """[{row, fn, plain, library, flops, bound, exact}] of csrc/gemm.cu's int8
+    product at S8_SHAPES on random int8 codes, and of csrc/rowprep.cu's row
+    quantization at K3's CLIP-B/16 video rows. `fn` calls the tree's
+    `_gemm_s8` positionally, as both trees take it; the fp32 hidden gets its
+    row maxima where the tree's `_gemm_s8` takes `amax`."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    dev = "cuda"
+    takes_amax = "amax" in inspect.signature(FA._gemm_s8).parameters
+    cases = []
+    for row, M, N, K, epi in S8_SHAPES:
+        a = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+        sa = torch.rand(M, generator=g, device=dev) * 0.02 + 1e-3
+        ws = (torch.rand(N, generator=g, device=dev) * 0.002 + 1e-4).to(torch.bfloat16)
+        b = (torch.randn(N, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        f32 = epi == "quickgelu"
+        out = torch.empty(M, N, dtype=torch.float32 if f32 else torch.bfloat16, device=dev)
+        amax = torch.zeros(M, device=dev) if f32 and takes_amax else None
+        epi_id = FA._EPI[FA._QUICK_GELU] if f32 else FA._EPI_Q_BF16
+
+        def fn(a=a, sa=sa, w=w, ws=ws, b=b, out=out, epi_id=epi_id, amax=amax):
+            s = torch.cuda.current_stream().cuda_stream
+            if amax is None:
+                FA._gemm_s8(a, sa, w, ws, b, out, epi_id, s)
+            else:
+                amax.zero_()
+                FA._gemm_s8(a, sa, w, ws, b, out, epi_id, s, amax=amax)
+            return out
+
+        def library(a=a, sa=sa, w=w, ws=ws, b=b, f32=f32):
+            v = torch._int_mm(a, w.t()).float() * sa[:, None] * ws.float() + b.float()
+            return v * torch.sigmoid(1.702 * v) if f32 else v.to(torch.bfloat16)
+        nbytes = M * K + N * K + M * N * out.element_size() + 4 * M + 4 * N
+        cases.append({"row": f"gemm.cu int8 {row} {(M, N, K)}", "fn": fn, "amax": amax,
+                      "plain": lambda a=a, sa=sa, w=w, ws=ws, b=b, epi=epi: s8_plain(
+                          a, sa, w, ws, b, epi),
+                      "library": library, "flops": 2 * M * N * K, "exact": not f32,
+                      "bound": bound_ms(2 * M * N * K, nbytes, H100_INT8)})
+    M, C, H = 15760, 768, 3072
+    x = torch.randn(M, C, generator=g, device=dev).to(torch.bfloat16)
+    lw = (1 + 0.1 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+    lb = (0.02 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+    h = torch.randn(M, H, generator=g, device=dev)
+    hmax = h.abs().amax(-1)
+    takes_given = "amax" in inspect.signature(FA._quant_rows).parameters
+
+    def quant_plain(xf):
+        q, sx = FA.quant_rows(xf)
+        return q, sx.view(-1)
+
+    def quant_hidden():
+        s = torch.cuda.current_stream().cuda_stream
+        return FA._quant_rows(h, s, amax=hmax) if takes_given else FA._quant_rows(h, s)
+    cases += [
+        {"row": f"rowprep.cu LN + row quantization {(M, C)} bf16",
+         "fn": lambda: FA._quant_rows(x, torch.cuda.current_stream().cuda_stream, lw, lb),
+         "plain": lambda: quant_plain(FA._ln_f32(x, lw, lb)),
+         "bound": bound_ms(0, 2 * M * C + M * C + 4 * M)},
+        {"row": f"rowprep.cu row quantization of the fp32 hidden {(M, H)}"
+                f"{', given row maxima' if takes_given else ''}",
+         "fn": quant_hidden, "plain": lambda: quant_plain(h),
+         "bound": bound_ms(0, 4 * M * H + M * H + 8 * M)},
+        {"row": f"rowprep.cu row quantization of the fp32 hidden {(M, H)}, own row maxima",
+         "fn": lambda: FA._quant_rows(h, torch.cuda.current_stream().cuda_stream),
+         "plain": lambda: quant_plain(h), "bound": bound_ms(0, 4 * M * H + M * H + 4 * M)}]
+    return cases
+
+
+def int8_block_cases(g):
+    """K2 at the CLIP-B/16 video spatial (80, 197, 768) and temporal (1576,
+    10, 768) sites and K3 (QuickGELU) at the video rows (15760, 768), weights
+    N(0, 0.02^2) quantized per output channel, LN weights near 1; K11's
+    spatial and FFN bodies at the same rows with an adapter of width 48; the
+    int8 K12 at v (80, 197, 768), a (80, 49, 768) and K13 at the video rows
+    (1576, 10, 768) on the int8 tower of `random_clip_ave` (block 0)."""
+    import dataclasses
+    import torch
+    from stgcma_tpu_torch.configs import clip_b16
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.common import cast_tree
+    from stgcma_tpu_torch.ops.quant import quantize_clip_tower, quantize_weight
+    bf, dev, C, heads = torch.bfloat16, "cuda", 768, 12
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    def qw(n, k):
+        q, s = quantize_weight(rnd(n, k, std=0.02))
+        return q, s.to(bf)
+    ln = ((1 + rnd(C, std=0.1)).to(bf), rnd(C, std=0.02).to(bf))
+    wqkv, wproj = qw(3 * C, C), qw(C, C)
+    block = (*ln, *wqkv, rnd(3 * C, std=0.02).to(bf), *wproj, rnd(C, std=0.02).to(bf), heads)
+    cases = []
+    for site, Bq, N in (("video spatial", 80, 197), ("video temporal", 1576, 10)):
+        x = rnd(Bq, N, C).to(bf)
+        cases.append({"row": f"K2 CLIP-B/16 {site} {(Bq, N, C)} h{heads}",
+                      "fn": lambda x=x: FA.win_block_q(x, *block),
+                      "plain": lambda x=x: FA.win_block_q_plain(x, *block)})
+    w1, w2 = qw(4 * C, C), qw(C, 4 * C)
+    ffn = (*ln, *w1, rnd(4 * C, std=0.02).to(bf), *w2, rnd(C, std=0.02).to(bf), "quick_gelu")
+    x = rnd(80 * 197, C).to(bf)
+    cases.append({"row": f"K3 CLIP-B/16 video {tuple(x.shape)} QuickGELU",
+                  "fn": lambda: FA.ffn_q(x, *ffn), "plain": lambda: FA.ffn_q_plain(x, *ffn)})
+    ad = (rnd(48, C, std=C ** -0.5).to(bf), rnd(48, std=0.1).to(bf))
+    xs = rnd(80, 197, C).to(bf)
+    qh = block[:-1] + ad + (heads,)
+    cases += [{"row": f"K11 qh CLIP-B/16 video spatial {tuple(xs.shape)} D 48",
+               "fn": lambda: FA.win_block_qh(xs, *qh),
+               "plain": lambda: FA.win_block_qh.plain(xs, *qh), "tol": TOL_Q},
+              {"row": f"K11 ffn_qh CLIP-B/16 video {tuple(x.shape)} D 48",
+               "fn": lambda: FA.ffn_qh(x, *ffn[:-1], *ad, "quick_gelu"),
+               "plain": lambda: FA.ffn_qh_plain(x, *ffn[:-1], *ad, "quick_gelu"), "tol": TOL_Q}]
+    cfg = clip_b16(ftmode="fusion", label_dim=29)
+    bb = random_clip_ave(dataclasses.replace(cfg, layers=1), 0).backbone
+    blk = cast_tree(quantize_clip_tower(bb).resblocks[0], bf).to(dev)
+    w = PCB.block_weights(blk)
+    v, a = (rnd(80, n, C, std=0.1).to(bf) for n in (197, 49))
+    cases.append({"row": f"K12 int8 CLIP-B/16 v {tuple(v.shape)} a {tuple(a.shape)} h{heads}",
+                  "fn": lambda: PCB.clip_fusion_block_q(v, a, w, heads),
+                  "plain": lambda: PCB.fusion_block_q_plain(v, a, w, heads), "tol": TOL_Q})
+    wt = PCB.tadapt_weights(blk.attn, blk.ln_1, blk.T_Adapter)
+    xt = rnd(1576, 10, C, std=0.1).to(bf)
+    cases.append({"row": f"K13 int8 CLIP-B/16 video rows {tuple(xt.shape)} h{heads}",
+                  "fn": lambda xt=xt, wt=wt: PCB.clip_tadapt_q(xt, wt, heads),
+                  "plain": lambda xt=xt, wt=wt: PCB.tadapt_q_plain(xt, wt, heads), "tol": TOL_Q})
+    # the audio rows (M = 3920), where the launches' host work can exceed the kernels'
+    for site, Bq, N in (("audio spatial", 80, 49), ("audio temporal", 392, 10)):
+        xa = rnd(Bq, N, C).to(bf)
+        cases.append({"row": f"K2 CLIP-B/16 {site} {(Bq, N, C)} h{heads}",
+                      "fn": lambda xa=xa: FA.win_block_q(xa, *block),
+                      "plain": lambda xa=xa: FA.win_block_q_plain(xa, *block)})
+    xa = rnd(80, 49, C).to(bf)
+    cases += [{"row": f"K3 CLIP-B/16 audio {(3920, C)} QuickGELU",
+               "fn": lambda: FA.ffn_q(xa.view(-1, C), *ffn),
+               "plain": lambda: FA.ffn_q_plain(xa.view(-1, C), *ffn)},
+              {"row": f"K11 qh CLIP-B/16 audio spatial {tuple(xa.shape)} D 48",
+               "fn": lambda: FA.win_block_qh(xa, *qh),
+               "plain": lambda: FA.win_block_qh.plain(xa, *qh), "tol": TOL_Q}]
+    xt = rnd(392, 10, C, std=0.1).to(bf)
+    wt = PCB.tadapt_weights(blk.attn, blk.ln_1, blk.T_Adapter_Audio)
+    cases.append({"row": f"K13 int8 CLIP-B/16 audio rows {tuple(xt.shape)} h{heads}",
+                  "fn": lambda: PCB.clip_tadapt_q(xt, wt, heads),
+                  "plain": lambda: PCB.tadapt_q_plain(xt, wt, heads), "tol": TOL_Q})
+    for case in cases:
+        case["graph"] = True
     return cases
 
 
@@ -188,11 +405,12 @@ def block_cases(g):
 
 
 def host_cases(g):
-    """Two short kernels timed through their wrapper and through the bare
+    """Short kernels timed through their wrapper and through the bare
     launcher (ctypes, no checks): K8 at Swin-Base stage 3's temporal site
-    (12544, 10, 32), period 32, and K9 at the 2 -> 3 patch merge (3920, 2048).
-    Where the wrapper's time exceeds the bare launch's, the host's Python,
-    not the kernel, sets the row's time."""
+    (12544, 10, 32), period 32, and K9 at the 2 -> 3 patch merge (3920,
+    2048) and at stage 3's temporal and final norms (3920, 1024). Where the
+    wrapper's time exceeds the bare launch's, the host's Python, not the
+    kernel, sets the row's time."""
     import torch
     from stgcma_tpu_torch.ops import cuda_lib
     from stgcma_tpu_torch.ops import fused_attn as FA
@@ -201,10 +419,6 @@ def host_cases(g):
     q, k, v = (torch.randn(R, n, dh, generator=g, device=dev).to(bf) for _ in range(3))
     bm = torch.randn(P, n, n, generator=g, device=dev)
     o = torch.empty_like(q)
-    M, C = 3920, 2048
-    x = torch.randn(M, C, generator=g, device=dev).to(bf)
-    lw, lb = torch.ones(C, device=dev, dtype=bf), torch.zeros(C, device=dev, dtype=bf)
-    y = torch.empty_like(x)
 
     def bare_k8():
         cuda_lib.lib("attn.cu").stg_attn_qkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -212,16 +426,22 @@ def host_cases(g):
                                              torch.cuda.current_stream().cuda_stream)
         return o
 
-    def bare_k9():
-        cuda_lib.lib("rowprep.cu").stg_ln_bf16(x.data_ptr(), lw.data_ptr(), lb.data_ptr(),
-                                               y.data_ptr(), M, C, 1e-5,
-                                               torch.cuda.current_stream().cuda_stream)
-        return y
+    def k9(name, M, C):
+        x = torch.randn(M, C, generator=g, device=dev).to(bf)
+        lw, lb = torch.ones(C, device=dev, dtype=bf), torch.zeros(C, device=dev, dtype=bf)
+        y = torch.empty_like(x)
+
+        def bare():
+            cuda_lib.lib("rowprep.cu").stg_ln_bf16(x.data_ptr(), lw.data_ptr(), lb.data_ptr(),
+                                                   y.data_ptr(), M, C, 1e-5,
+                                                   torch.cuda.current_stream().cuda_stream)
+            return y
+        return {"row": f"K9 {name} {(M, C)}", "fn": lambda: FA.layernorm(x, lw, lb),
+                "bare": bare, "graph": True, "plain": lambda: FA.layernorm_plain(x, lw, lb)}
     return [{"row": f"K8 Swin stage 3 temporal {(R, n, dh)} period {P}",
-             "fn": lambda: FA.wmsa(q, k, v, bm), "bare": bare_k8,
+             "fn": lambda: FA.wmsa(q, k, v, bm), "bare": bare_k8, "graph": True,
              "plain": lambda: FA.wmsa_plain(q, k, v, bm)},
-            {"row": f"K9 merge norm 2->3 {(M, C)}", "fn": lambda: FA.layernorm(x, lw, lb),
-             "bare": bare_k9, "plain": lambda: FA.layernorm_plain(x, lw, lb)}]
+            k9("merge norm 2->3", 3920, 2048), k9("stage-3 temporal / final norm", 3920, 1024)]
 
 
 def _flat(out):
@@ -231,14 +451,32 @@ def _flat(out):
 
 
 def held(case):
-    """max |kernel - plain| / max |plain| of one case (its kernel on the card)."""
+    """max |kernel - plain| / max |plain| of one case (its kernel on the card);
+    inf where the kernel's output is not finite or, for an int8 product with
+    row maxima, where they are not the stored hidden's."""
     import torch
     out = _flat(case["fn"]())
     torch.cuda.synchronize()
     ref = _flat(case["plain"]())
     if not torch.isfinite(out).all():
         return float("inf")
+    if case.get("amax") is not None and not torch.equal(
+            case["amax"], case["fn"]().abs().amax(-1)):
+        return float("inf")
     return (out - ref).abs().max().item() / ref.abs().max().item()
+
+
+def same_bits(out_dir, label, rows):
+    """{other label: True if every int8 product row of this run has the digest
+    of the same row in OUT/<other label>.json}."""
+    digests = {r["row"]: r["digest"] for r in rows if "digest" in r}
+    verdict = {}
+    for f in sorted(Path(out_dir).glob("*.json")):
+        if f.stem == label:
+            continue
+        other = {r["row"]: r.get("digest") for r in json.loads(f.read_text())}
+        verdict[f.stem] = all(other.get(row) == d for row, d in digests.items())
+    return verdict
 
 
 def main(argv=None) -> int:
@@ -259,24 +497,41 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, ok = [], True
     with torch.inference_mode():
-        for case in gemm_cases(g) + core_cases(g) + block_cases(g) + host_cases(g):
+        for case in (gemm_cases(g) + s8_cases(g) + core_cases(g) + block_cases(g)
+                     + int8_block_cases(g) + host_cases(g)):
             err = held(case)
+            tol = case.get("tol", 0.0 if case.get("exact") else TOL_S8_F32 if "amax" in case
+                           else TOL)
             ms = cuda_ms(case["fn"])
-            row = {"label": args.label, "row": case["row"], "ms": ms, "rel_err": err}
+            row = {"label": args.label, "row": case["row"], "ms": ms, "rel_err": err, "tol": tol}
+            if "amax" in case:
+                row["digest"] = _digest(case["fn"]())
             if "bare" in case:
                 row["bare_ms"] = cuda_ms(case["bare"])
+            if case.get("graph"):
+                try:
+                    row["graph_ms"] = graph_ms(case["fn"])
+                except RuntimeError as e:    # a measurement only: the row stands without it
+                    row["graph_error"] = str(e)[:200]
+            if "bound" in case:
+                row["bound_ms"], row["bound_by"] = case["bound"]
             if "flops" in case:
                 row["tflops"] = case["flops"] / ms / 1e9
-                row["bound_ms"], row["bound_by"] = case["bound"]
                 row["library_ms"] = cuda_ms(case["library"])
-            ok &= err <= TOL
+            ok &= err <= tol
             rows.append(row)
             print(json.dumps(row), flush=True)
             del case
     Path(args.out).mkdir(parents=True, exist_ok=True)
     (Path(args.out) / f"{args.label}.json").write_text(json.dumps(rows, indent=1))
     if not ok:
-        print(f"bench_parts: a row is past {TOL} of max |plain|", file=sys.stderr)
+        print("bench_parts: a row is not held to its plain version", file=sys.stderr)
+    verdict = same_bits(args.out, args.label, rows)
+    print(json.dumps({"label": args.label, "int8_products_same_bits_as": verdict}), flush=True)
+    if not all(verdict.values()):
+        print("bench_parts: an int8 product differs in its bits from another run's",
+              file=sys.stderr)
+        ok = False
     return 0 if ok else 1
 
 

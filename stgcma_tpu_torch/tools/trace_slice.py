@@ -22,7 +22,7 @@ the fused configuration only the embed's convolutions and the head's two
 linears remain, whatever the depth. For each task it
 prints the median wall time of 5 untraced B = 8 requests, then traces
 one request with torch.profiler and prints the device time summed over all
-kernels, the share of the untraced wall time it covers (the rest is the
+kernels (and without the host-to-device copies of the inputs), the share of the untraced wall time it covers (the rest is the
 device idle, waiting on the host), and the kernels that took the most device
 time. The Chrome trace of each mode is written to DIR (default
 build/trace). Needs a CUDA device.
@@ -56,7 +56,7 @@ COPY_KERNELS = ("copy", "cat")
 LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv", "fmha",
                    "flash", "attention", "convolve", "nchwtonhwc", "nhwctonchw", "nhwcaddpadding")
 # kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
-PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_mma_kernel", "attn_resident_kernel",
+PORT_KERNELS = ("gemm_wgmma_kernel", "attn_mma_kernel", "attn_resident_kernel",
                 "attn_stream_kernel", "quant_rows_kernel", "ln_bf16_kernel", "fuse_kernel")
 
 
@@ -131,6 +131,7 @@ def main(argv=None) -> int:
         # device-side rows only (kernels, copies): the CPU ops' rows repeat them
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         dev_us = sum(e.self_device_time_total for e in rows)
+        h2d_us = sum(e.self_device_time_total for e in rows if "HtoD" in e.key)
         port = [e for e in rows if any(k in e.key for k in PORT_KERNELS)]
         port_us = sum(e.self_device_time_total for e in port)
         library = [e for e in rows if e not in port
@@ -139,7 +140,8 @@ def main(argv=None) -> int:
               f"(min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}) = "
               f"{B / wall:.2f} clips/s")
         print(f"[{task}] traced request: device time {dev_us / 1e3:.2f} ms = "
-              f"{100 * dev_us / 1e3 / (wall * 1e3):.1f}% of the untraced wall time; "
+              f"{100 * dev_us / 1e3 / (wall * 1e3):.1f}% of the untraced wall time, "
+              f"{(dev_us - h2d_us) / 1e3:.2f} ms without the host-to-device copies; "
               f"port kernels {port_us / 1e3:.2f} ms ({100 * port_us / max(dev_us, 1):.1f}% "
               f"of device time)")
         if args.fused or args.qfuse:
