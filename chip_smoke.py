@@ -53,7 +53,9 @@ line:
      core at (80, 197, 768) h12, (80, 257, 1024) h16 and K4's (160, 196,
      512) h16 with a bias (K and V resident in shared memory) and at
      (16, 1000, 768) h12 (past the resident limit: the streamed kernel),
-     with scaled_dot_product_attention as the yardstick; and csrc/gemm.cu's
+     with scaled_dot_product_attention as the yardstick, and K4's core over
+     (160, 196, 512) h16 with its shifted-window bias once more over each
+     window's 49 tokens (the core K4 runs); and csrc/gemm.cu's
      int8 product (the same TMA + wgmma loop, s8 k32) at K2's and K3's
      CLIP-B/16 video shapes (qkv, proj, fc1 with the fp32 QuickGELU hidden
      and its row maxima, fc2 at K = 3072) and Swin's K = 128 qkv, each with
@@ -127,7 +129,6 @@ TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 throug
                      # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
 H100_FP32 = 67e12    # fp32 outside the tensor cores (LayerNorm arithmetic)
-SFU_PER_SM_CLOCK, H100_SMS = 16, 132   # exps per clock per SM (special function units)
 TOL_FUSED = 5e-2     # max |fused - unfused| / max |unfused| over the B = 8 logits on the
                      # card: the two configurations round to bf16 at other points (the
                      # FFN hidden, the adapters, the fusion) through 12 blocks
@@ -152,7 +153,7 @@ META = {
            ["gemm.cu", "rowprep.cu"]),
     "K4": ("K4 swin_block + swin_block_q (whole Swin fusion block, bf16 and int8 variants)",
            "stgcma_tpu/ops/pallas_swin_block.py:245",
-           ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
+           ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu", "adapter.cu"]),
     "K5": ("K5 win_fuse (per-window fusion)", "stgcma_tpu/ops/pallas_attn.py:1222", ["fuse.cu"]),
     "K6": ("K6 bidir_fuse (full-grid fusion)", "stgcma_tpu/ops/pallas_attn.py:1103",
            ["fuse.cu"]),
@@ -205,11 +206,8 @@ def launches():
 
 def sfu_rate():
     """exps per second: 16 per clock per SM x 132 SMs x the card's maximum SM clock."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
-                         timeout=60)
-    mhz = float(out.stdout.strip().splitlines()[0])
-    return SFU_PER_SM_CLOCK * H100_SMS * mhz * 1e6
+    from stgcma_tpu_torch.tools import bench_parts
+    return bench_parts.sfu_rate()
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -387,11 +385,13 @@ def phase_parts():
     QuickGELU hidden and row maxima, fc2, the hidden's quantization). An int8
     product with the bf16 epilogue must equal its plain version bit for bit;
     the fp32 hidden lies within 1e-6 of max |plain| (erff / expf ulps) and its
-    row maxima must be those of the stored hidden."""
+    row maxima must be those of the stored hidden. K4's attention core alone
+    at Swin-Base stage 2 shifted, over the full grid and over each window's
+    49 tokens (`_attn_core_win`, the core K4 runs), is listed under K4."""
     import torch
     from stgcma_tpu_torch.tools import bench_parts
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    rows = {"K1": [], "K2": [], "K3": []}
+    rows = {"K1": [], "K2": [], "K3": [], "K4": []}
     with torch.inference_mode():
         for case in bench_parts.gemm_cases(g) + bench_parts.core_cases(g):
             row = check_kernel(case["row"], case["fn"], case["plain"], (), {}, case["bound"],
@@ -417,6 +417,11 @@ def phase_parts():
             k3 = any(t in case["row"] for t in ("fc1", "fc2", "hidden"))
             rows["K3" if k3 else "K2"].append(row)
             del case
+        for case in bench_parts.k4_core_cases(g, sfu_rate()):
+            row = check_kernel(case["row"], case["fn"], case["plain"], (), {}, case["bound"],
+                               case["library"])
+            row["tflops"] = case["flops"] / row["ms"] / 1e9
+            rows["K4"].append(row)
     return rows
 
 
@@ -736,19 +741,26 @@ def library_fuse(vh, ah, gv, ga):
     return run
 
 
-def block_k4_bound(BT, N, C, heads, D, sfu, int8=False):
+def block_k4_bound(BT, N, C, heads, D, sfu, int8=False, window=None):
     """K4 per call, both streams: qkv, proj, FFN (hidden 4C), attention
     grams and adapters on the tensor cores (the four tower products at the
     int8 rate in the int8 variant), plus both fusions; one exp per attention
     and fusion gram entry on the special function units. Bytes: v, a read
     and both outputs written once, the weights (int8 tower weights and their
-    bf16 scales in the int8 variant), the bias and mask."""
+    bf16 scales in the int8 variant), the bias and mask. `window` = ws^2:
+    the attention and the masked fusion count the in-window grams only
+    (N / ws^2 windows of ws^4 entries in place of N^2; the bias read at those
+    entries, no mask), as the function needs; without it, the full-grid count
+    of the kernels before the in-window design. The unmasked fusion is N^2
+    either way."""
     M = BT * N
+    grams = N * window if window else N * N       # attention / masked-fusion entries a row
     tower = 2 * (2 * M * C * 3 * C + 2 * M * C * C + 2 * 2 * M * C * 4 * C)
-    rest = 2 * (4 * BT * N * N * C + 4 * 2 * M * C * D) + 2 * 3 * 2 * BT * N * N * D
-    exps = 2 * BT * heads * N * N + 2 * BT * N * N
+    rest = (2 * (4 * BT * grams * C + 4 * 2 * M * C * D)
+            + 3 * 2 * BT * (grams + N * N) * D)
+    exps = 2 * BT * heads * grams + BT * (grams + N * N)
     tower_bytes = 12 * C * C + 9 * C * 2 if int8 else 2 * 12 * C * C
-    wbytes = tower_bytes + 2 * 8 * C * D + heads * N * N * 4 + N * N * 4
+    wbytes = tower_bytes + 2 * 8 * C * D + heads * grams * 4 + (0 if window else N * N * 4)
     t_tensor = tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16
     t_ops = max(t_tensor, exps / sfu)
     t_bytes = (4 * M * C * 2 + wbytes) / H100_BYTES
@@ -957,8 +969,11 @@ def k4_rows(cfg, g, sfu, int8, tower="Swin", tol=None):
         args = (v, a, w, st.num_heads, bias, fuse_mask)
         with torch.inference_mode():
             row = check_kernel(name, kernel, plain, args, {},
-                               block_k4_bound(BT, N, C, st.num_heads, D, sfu, int8),
+                               block_k4_bound(BT, N, C, st.num_heads, D, sfu, int8,
+                                              window=st.window_size ** 2),
                                library_k4(v, a, w, st.num_heads, bias, fuse_mask), tol)
+            row["bound_fullgrid_ms"] = block_k4_bound(BT, N, C, st.num_heads, D, sfu, int8)[0]
+            log(f"  {name}: full-grid bound {row['bound_fullgrid_ms']:.4f} ms")
             row["faults_rel"] = check_k4_faults(name, args, kernel, plain, tol)
         rows.append(row)
     return rows

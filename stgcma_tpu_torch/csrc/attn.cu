@@ -20,6 +20,17 @@
 //     into one 128-wide gram; here the permute is the core's addressing
 //     (sequences interleaved n_in = Ns apart), and neither pad nor packing is
 //     needed. Output o in the same (B, T, Ns, C) layout;
+//   - stg_attn_core_win (K4 over its windows): the packed qkv of the full
+//     Swin grid, each window's tokens read through a token table (window-major,
+//     ws^2 to a window), the full grid's (1, heads, N, N) bias read at the
+//     tokens' own entries, o written back at each token's row, on the
+//     resident kernel below (one block a (row, window, head), K and V of the
+//     window's 49 tokens by 16-byte cp.async). The full-grid core with the
+//     -1e30 cross-window mask in the bias computes the same function
+//     (exp(-1e30 - m) is exactly 0 in fp32) on four times the logits at Swin
+//     stage 2 (4 windows of 49 of 196 tokens): the TPU kernel's window-major
+//     layout (pallas_swin_block.py:255-256, :448) comes back here without a
+//     permute of the rows;
 //   - stg_attn_qkv (K8): separate q, k, v of shape (R, N, dh) and a bias
 //     (P, N, N) whose row r takes bm[r % P] (one head per row, heads = 1).
 //     One kernel takes any period P, so it covers both Pallas bodies: the
@@ -43,7 +54,8 @@
 // one (row, head) in shared memory, loaded once for all its query tiles; for
 // N <= 48 a block serves several (row, head) pairs, so the T = 10 temporal
 // site packs 4 to a block. Keys are padded to 16 * KT and masked to -inf.
-// 64 < N <= 768 (attn_resident_kernel: CLIP's 197 and 257 tokens, K4's 196):
+// 64 < N <= 768 (attn_resident_kernel: CLIP's 197 and 257 tokens; K4's windows
+// of 49 through their token table, TAB):
 // one block owns one (row, head); K and V come into shared memory once,
 // keys-major, by 16-byte cp.async (V in a second group that lands while pass
 // 1 runs), rows padded to dh + 8 elements so every ldmatrix is free of bank
@@ -71,49 +83,30 @@
 // of one (row, head), with the same two passes. The key-tile loop puts no
 // limit on N; the grid does: blockIdx.y walks the query tiles, at most 65535
 // of them (ATTN_MAX_TOKENS in ops/fused_attn.py).
+// A window of K4 (TAB) of one chunk (49 tokens) forms its logits once and keeps
+// them in registers from pass 1 to pass 2.
 // Two passes, not the one-pass online softmax of fuse.cu: the probabilities
 // are rounded to bf16 after the division, in every kernel here, as the TPU
 // kernel does, so all three round at the same point; the price is q.k^T
 // computed twice.
 #include <math.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// p[0:2] * scale, rounded to bf16 and packed
+__device__ __forceinline__ uint32_t scaled_q2(const bf16* p, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
 }
 
 // q[row, col:col+2] * scale, rounded to bf16 and packed; 0 past the last row
 __device__ __forceinline__ uint32_t load_q2(const bf16* base, int row, int col, int N, int ld,
                                             float scale) {
-  if (row >= N) return 0u;
-  const float2 f = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(base + static_cast<size_t>(row) * ld + col));
-  return pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  return row < N ? scaled_q2(base + static_cast<size_t>(row) * ld + col, scale) : 0u;
 }
 
 // x / l, correctly rounded, from r = 1/l correctly rounded (__frcp_rn): q = x * r
@@ -124,34 +117,6 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ float div_rn(float x, float l, float r) {
   const float q = __fmul_rn(x, r);
   return __fmaf_rn(__fmaf_rn(-q, l, x), r, q);
-}
-
-// four 8x8 b16 matrices from shared memory into mma fragments; lane l gives
-// the address of row l % 8 of matrix l / 8 (.trans: each matrix transposed)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16-byte global -> shared copy in flight; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 template <int DH, int KT>
@@ -479,16 +444,43 @@ struct Resident {
   static size_t smem_bytes(int N) { return 2u * round16(N) * LD * sizeof(bf16); }
 };
 
+// K4's windows: sequence b is window b % nW of batch row b / nW, and its token j
+// is row (b / nW) * ntok + tab[(b % nW) * N + j] of qkv and o; the bias is the
+// full grid's (heads, ntok, ntok), read at the tokens' own (row, key) entries
+// (the resident kernel's TAB; elsewhere tab is null).
+struct Win {
+  const int* tab;
+  int nW, ntok;
+};
+
+// the row of q/k/v (stride ld) and of o (stride C) that holds token j of sequence b,
+// whose first token is row row0 (seq_row) where !TAB
+template <bool TAB>
+__device__ __forceinline__ size_t tok_row(const Win& w, size_t row0, int b, int N, int n_in,
+                                          int j) {
+  if constexpr (TAB)
+    return static_cast<size_t>(b / w.nW) * w.ntok + __ldg(w.tab + b % w.nW * N + j);
+  return row0 + static_cast<size_t>(j) * n_in;
+}
+
+// where a (row, head)'s bias lies: entry (i, j) at p[at(i) * nb + at(j)], at the
+// identity, or (TAB) the tokens of the window's table tab, nb = the grid's tokens
+struct BiasAt {
+  const float* p;
+  const int* tab;
+  int nb;
+};
+
 // s[nt] = q . k^T of keys j0 + nt*8 + 2t (+1) for rows r0 (elements 0, 1) and
 // r1 (2, 3), + bias; keys past N are -inf. ks: the resident K, keys-major with
 // row stride LD. FULL: the chunk lies wholly below N, and the code has no
 // branch, so the 8 key tiles' products interleave; else 8-key tiles wholly past
 // N are not multiplied. The bias is read at clamped indices with no branch (rows
 // past N read row N - 1 and are never stored), so its loads go out together.
-template <int DH, bool FULL, bool BIAS>
+template <int DH, bool FULL, bool BIAS, bool TAB>
 __device__ __forceinline__ void chunk_logits(float (&s)[kChunk / 8][4],
                                              const uint32_t (&qa)[DH / 16][4], const bf16* ks,
-                                             const float* bias, int j0, int r0, int r1, int N,
+                                             const BiasAt& bias, int j0, int r0, int r1, int N,
                                              int lane) {
   constexpr int LD = Resident<DH>::LD;
   const int t = lane & 3;
@@ -509,14 +501,16 @@ __device__ __forceinline__ void chunk_logits(float (&s)[kChunk / 8][4],
     }
   }
   if constexpr (BIAS) {
-    const float* b0 = bias + static_cast<size_t>(min(r0, N - 1)) * N;
-    const float* b1 = bias + static_cast<size_t>(min(r1, N - 1)) * N;
+    const int i0 = min(r0, N - 1), i1 = min(r1, N - 1);
+    const float* b0 = bias.p + static_cast<size_t>(TAB ? __ldg(bias.tab + i0) : i0) * bias.nb;
+    const float* b1 = bias.p + static_cast<size_t>(TAB ? __ldg(bias.tab + i1) : i1) * bias.nb;
 #pragma unroll
     for (int nt = 0; nt < kChunk / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = min(j0 + nt * 8 + 2 * t + (e & 1), N - 1);
-        s[nt][e] = __fadd_rn(s[nt][e], __ldg((e < 2 ? b0 : b1) + key));
+        const int at = TAB ? __ldg(bias.tab + key) : key;
+        s[nt][e] = __fadd_rn(s[nt][e], __ldg((e < 2 ? b0 : b1) + at));
       }
   }
   if (!FULL) {
@@ -528,14 +522,9 @@ __device__ __forceinline__ void chunk_logits(float (&s)[kChunk / 8][4],
   }
 }
 
-// pass 1 over one chunk: the running row max m and sum l = sum exp(s - m)
-template <int DH, bool FULL, bool BIAS>
-__device__ __forceinline__ void chunk_stats(float& m0, float& m1, float& l0, float& l1,
-                                            const uint32_t (&qa)[DH / 16][4], const bf16* ks,
-                                            const float* bias, int j0, int r0, int r1, int N,
-                                            int lane) {
-  float s[kChunk / 8][4];
-  chunk_logits<DH, FULL, BIAS>(s, qa, ks, bias, j0, r0, r1, N, lane);
+// the running row max m and sum l = sum exp(s - m) updated with one chunk's logits s
+__device__ __forceinline__ void stats_of(const float (&s)[kChunk / 8][4], float& m0, float& m1,
+                                         float& l0, float& l1) {
   float tm0 = -INFINITY, tm1 = -INFINITY;
 #pragma unroll
   for (int nt = 0; nt < kChunk / 8; ++nt) {
@@ -556,16 +545,12 @@ __device__ __forceinline__ void chunk_stats(float& m0, float& m1, float& l0, flo
   m1 = mn1;
 }
 
-// pass 2 over one chunk: p = exp(s - m) / l rounded to bf16, acc += p . v
-template <int DH, bool FULL, bool BIAS>
-__device__ __forceinline__ void chunk_pv(float (&acc)[DH / 8][4], float m0, float m1, float l0,
-                                         float l1, float rl0, float rl1,
-                                         const uint32_t (&qa)[DH / 16][4], const bf16* ks,
-                                         const bf16* vs, const float* bias, int j0, int r0,
-                                         int r1, int N, int lane) {
+// acc += p . v of one chunk's logits s: p = exp(s - m) / l rounded to bf16
+template <int DH, bool FULL>
+__device__ __forceinline__ void pv_of(const float (&s)[kChunk / 8][4], float (&acc)[DH / 8][4],
+                                      float m0, float m1, float l0, float l1, float rl0, float rl1,
+                                      const bf16* vs, int j0, int N, int lane) {
   constexpr int LD = Resident<DH>::LD;
-  float s[kChunk / 8][4];
-  chunk_logits<DH, FULL, BIAS>(s, qa, ks, bias, j0, r0, r1, N, lane);
 #pragma unroll
   for (int kc = 0; kc < kChunk / 16; ++kc) {
     if (!FULL && j0 + kc * 16 >= N) break;
@@ -593,12 +578,36 @@ __device__ __forceinline__ void chunk_pv(float (&acc)[DH / 8][4], float m0, floa
   }
 }
 
-// BIAS: bm is given (K4's shift mask and relative positions); the CLIP sites have none
-template <int DH, bool BIAS>
+// pass 1 over one chunk: the running row max m and sum l = sum exp(s - m)
+template <int DH, bool FULL, bool BIAS, bool TAB>
+__device__ __forceinline__ void chunk_stats(float& m0, float& m1, float& l0, float& l1,
+                                            const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                            const BiasAt& bias, int j0, int r0, int r1, int N,
+                                            int lane) {
+  float s[kChunk / 8][4];
+  chunk_logits<DH, FULL, BIAS, TAB>(s, qa, ks, bias, j0, r0, r1, N, lane);
+  stats_of(s, m0, m1, l0, l1);
+}
+
+// pass 2 over one chunk: p = exp(s - m) / l rounded to bf16, acc += p . v
+template <int DH, bool FULL, bool BIAS, bool TAB>
+__device__ __forceinline__ void chunk_pv(float (&acc)[DH / 8][4], float m0, float m1, float l0,
+                                         float l1, float rl0, float rl1,
+                                         const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                         const bf16* vs, const BiasAt& bias, int j0, int r0,
+                                         int r1, int N, int lane) {
+  float s[kChunk / 8][4];
+  chunk_logits<DH, FULL, BIAS, TAB>(s, qa, ks, bias, j0, r0, r1, N, lane);
+  pv_of<DH, FULL>(s, acc, m0, m1, l0, l1, rl0, rl1, vs, j0, N, lane);
+}
+
+// BIAS: bm is given (K4's shift mask and relative positions); the CLIP sites have none.
+// TAB: K4's windows, each read through its token table (win)
+template <int DH, bool BIAS, bool TAB>
 __global__ void __launch_bounds__(kResidentMaxWarps * 32, 2) attn_resident_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
     int n_in, const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int N, int heads,
-    float scale) {
+    float scale, Win win) {
   constexpr int LD = Resident<DH>::LD;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
@@ -607,23 +616,30 @@ __global__ void __launch_bounds__(kResidentMaxWarps * 32, 2) attn_resident_kerne
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
   const int C = heads * DH;
+  const size_t hoff = static_cast<size_t>(h) * DH;
   const int tld = ld * n_in;             // between consecutive tokens of a sequence
-  const size_t row0 = seq_row(b, N, n_in);
-  const size_t base = row0 * ld + static_cast<size_t>(h) * DH;
-  const float* bias = BIAS ? bm + (static_cast<size_t>(b % nWb) * heads + h) *
-                                        static_cast<size_t>(N) * N
-                           : nullptr;
+  const size_t row0 = TAB ? 0 : seq_row(b, N, n_in);
+  const size_t base = row0 * ld + hoff;
+  const int nb = TAB ? win.ntok : N;     // the bias's row length
+  const BiasAt bias{BIAS ? bm + (static_cast<size_t>(b % nWb) * heads + h) * nb * nb : nullptr,
+                    TAB ? win.tab + (b % win.nW) * N : nullptr, nb};
 
   // K, then V, of this (row, head): 16 bytes a copy, rows N .. ceil16(N) zero
   const int nk = round16(N);
   for (int i = threadIdx.x; i < nk * (DH / 8); i += blockDim.x) {
     const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    cp_async16(ks + j * LD + c, j < N ? k + base + static_cast<size_t>(j) * tld + c : k, j < N);
+    const size_t off = j >= N ? 0
+                       : TAB ? tok_row<TAB>(win, row0, b, N, n_in, j) * ld + hoff + c
+                             : base + static_cast<size_t>(j) * tld + c;
+    cp_async16(ks + j * LD + c, k + off, j < N);
   }
   cp_async_commit();
   for (int i = threadIdx.x; i < nk * (DH / 8); i += blockDim.x) {
     const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    cp_async16(vs + j * LD + c, j < N ? v + base + static_cast<size_t>(j) * tld + c : v, j < N);
+    const size_t off = j >= N ? 0
+                       : TAB ? tok_row<TAB>(win, row0, b, N, n_in, j) * ld + hoff + c
+                             : base + static_cast<size_t>(j) * tld + c;
+    cp_async16(vs + j * LD + c, v + off, j < N);
   }
   cp_async_commit();
   cp_async_wait<1>();                    // K has landed (V may still be in flight)
@@ -642,20 +658,40 @@ __global__ void __launch_bounds__(kResidentMaxWarps * 32, 2) attn_resident_kerne
     uint32_t qa[DH / 16][4];
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     const int full_end = N / kChunk * kChunk;   // chunks below it lie wholly below N
+    // TAB, a window of one chunk (K4's 49 tokens): its logits, formed once and
+    // kept from pass 1 to pass 2 (the same values the two passes would form)
+    const bool one = TAB && N <= kChunk;
+    float s1[TAB ? kChunk / 8 : 1][4];
     if (busy) {
+      // the rows of q that hold r0, r1 (clamped; TAB: through the window's table)
+      const bf16* q0 = TAB ? q + tok_row<TAB>(win, 0, b, N, 1, min(r0, N - 1)) * ld + hoff : q;
+      const bf16* q1 = TAB ? q + tok_row<TAB>(win, 0, b, N, 1, min(r1, N - 1)) * ld + hoff : q;
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         const int c0 = kk * 16 + 2 * t;
-        qa[kk][0] = load_q2(q + base, r0, c0, N, tld, scale);
-        qa[kk][1] = load_q2(q + base, r1, c0, N, tld, scale);
-        qa[kk][2] = load_q2(q + base, r0, c0 + 8, N, tld, scale);
-        qa[kk][3] = load_q2(q + base, r1, c0 + 8, N, tld, scale);
+        if constexpr (TAB) {
+          qa[kk][0] = r0 < N ? scaled_q2(q0 + c0, scale) : 0u;
+          qa[kk][1] = r1 < N ? scaled_q2(q1 + c0, scale) : 0u;
+          qa[kk][2] = r0 < N ? scaled_q2(q0 + c0 + 8, scale) : 0u;
+          qa[kk][3] = r1 < N ? scaled_q2(q1 + c0 + 8, scale) : 0u;
+        } else {
+          qa[kk][0] = load_q2(q + base, r0, c0, N, tld, scale);
+          qa[kk][1] = load_q2(q + base, r1, c0, N, tld, scale);
+          qa[kk][2] = load_q2(q + base, r0, c0 + 8, N, tld, scale);
+          qa[kk][3] = load_q2(q + base, r1, c0 + 8, N, tld, scale);
+        }
       }
       // pass 1: the row max m and the row sum l = sum exp(s - m)
-      for (int j0 = 0; j0 < full_end; j0 += kChunk)
-        chunk_stats<DH, true, BIAS>(m0, m1, l0, l1, qa, ks, bias, j0, r0, r1, N, lane);
-      if (full_end < N)
-        chunk_stats<DH, false, BIAS>(m0, m1, l0, l1, qa, ks, bias, full_end, r0, r1, N, lane);
+      if constexpr (TAB) {
+        if (one) {
+          chunk_logits<DH, false, BIAS, TAB>(s1, qa, ks, bias, 0, r0, r1, N, lane);
+          stats_of(s1, m0, m1, l0, l1);
+        }
+      }
+      for (int j0 = 0; !one && j0 < full_end; j0 += kChunk)
+        chunk_stats<DH, true, BIAS, TAB>(m0, m1, l0, l1, qa, ks, bias, j0, r0, r1, N, lane);
+      if (!one && full_end < N)
+        chunk_stats<DH, false, BIAS, TAB>(m0, m1, l0, l1, qa, ks, bias, full_end, r0, r1, N, lane);
     }
     if (round == 0) {                    // every warp is busy in the first round
       cp_async_wait<0>();                // V has landed
@@ -668,22 +704,28 @@ __global__ void __launch_bounds__(kResidentMaxWarps * 32, 2) attn_resident_kerne
     float acc[DH / 8][4];
 #pragma unroll
     for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-    for (int j0 = 0; j0 < full_end; j0 += kChunk)
-      chunk_pv<DH, true, BIAS>(acc, m0, m1, l0, l1, rl0, rl1, qa, ks, vs, bias, j0, r0, r1, N,
-                               lane);
-    if (full_end < N)
-      chunk_pv<DH, false, BIAS>(acc, m0, m1, l0, l1, rl0, rl1, qa, ks, vs, bias, full_end, r0,
-                                r1, N, lane);
+    if constexpr (TAB) {
+      if (one) pv_of<DH, false>(s1, acc, m0, m1, l0, l1, rl0, rl1, vs, 0, N, lane);
+    }
+    for (int j0 = 0; !one && j0 < full_end; j0 += kChunk)
+      chunk_pv<DH, true, BIAS, TAB>(acc, m0, m1, l0, l1, rl0, rl1, qa, ks, vs, bias, j0, r0, r1,
+                                    N, lane);
+    if (!one && full_end < N)
+      chunk_pv<DH, false, BIAS, TAB>(acc, m0, m1, l0, l1, rl0, rl1, qa, ks, vs, bias, full_end,
+                                     r0, r1, N, lane);
 
+    // the rows of o that hold r0, r1 (clamped: rows past N are never stored)
+    const size_t o0 = tok_row<TAB>(win, row0, b, N, n_in, min(r0, N - 1));
+    const size_t o1 = tok_row<TAB>(win, row0, b, N, n_in, min(r1, N - 1));
 #pragma unroll
     for (int nd = 0; nd < DH / 8; ++nd) {
       const int col = h * DH + nd * 8 + 2 * t;
       if (r0 < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r0) * n_in) * C +
-                                           col) = __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+        *reinterpret_cast<__nv_bfloat162*>(o + o0 * C + col) =
+            __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
       if (r1 < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r1) * n_in) * C +
-                                           col) = __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+        *reinterpret_cast<__nv_bfloat162*>(o + o1 * C + col) =
+            __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
     }
   }
 }
@@ -697,6 +739,7 @@ struct Args {
   void* o;
   int BH, N, heads;
   float scale;
+  Win win;              // K4's windows (stg_attn_core_win); tab null elsewhere
 };
 
 template <int DH, int KT>
@@ -733,14 +776,16 @@ int launch_resident(const Args& a, cudaStream_t stream) {
   const int q_tiles = ceil_div(a.N, 16);
   const int warps = ceil_div(q_tiles, ceil_div(q_tiles, kResidentMaxWarps));
   const size_t smem = Resident<DH>::smem_bytes(a.N);
-  auto kernel = a.bm == nullptr ? attn_resident_kernel<DH, false> : attn_resident_kernel<DH, true>;
+  auto kernel = a.win.tab != nullptr ? attn_resident_kernel<DH, true, true>
+                : a.bm != nullptr      ? attn_resident_kernel<DH, true, false>
+                                       : attn_resident_kernel<DH, false, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<a.BH, warps * 32, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.ld, a.n_in, static_cast<const float*>(a.bm), a.nWb,
-      static_cast<bf16*>(a.o), a.N, a.heads, a.scale);
+      static_cast<bf16*>(a.o), a.N, a.heads, a.scale, a.win);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -759,6 +804,12 @@ int launch_dh(const Args& a, cudaStream_t stream) {
 int launch_any(const Args& a, int dh, cudaStream_t stream) {
   if (dh == 64) return launch_dh<64>(a, stream);
   if (dh == 32) return launch_dh<32>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_win(const Args& a, int dh, cudaStream_t stream) {
+  if (dh == 64) return launch_resident<64>(a, stream);
+  if (dh == 32) return launch_resident<32>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -792,4 +843,22 @@ STG_API int stg_attn_qkv(const void* q, const void* k, const void* v, const void
                          void* o, int R, int N, int dh, cudaStream_t stream) {
   const Args a{q, k, v, dh, 1, bm, P, o, R, N, 1, 1.0f};
   return launch_any(a, dh, stream);
+}
+
+// K4 over its windows: qkv (B, ntok, 3 * heads * dh) bf16; tab (nW * N,) int32, the
+// tokens of window w at tab[w * N .. w * N + N - 1], every token once (nW * N = ntok);
+// bm (1, heads, ntok, ntok) fp32, the full grid's bias, read at each window's own
+// (token, token) entries; o (B, ntok, heads * dh) bf16, each token at its own row.
+// N <= 768 (the resident kernel), dh in {32, 64}
+STG_API int stg_attn_core_win(const void* qkv, const void* bm, const void* tab, int nW, void* o,
+                              int B, int ntok, int N, int heads, int dh, float scale,
+                              cudaStream_t stream) {
+  if (bm == nullptr || tab == nullptr || N < 1 || N > kResidentMaxTokens || nW < 1 ||
+      nW * N != ntok)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int C = heads * dh;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  const Args a{base, base + C, base + 2 * C, 3 * C, 1, bm, 1, o, B * nW * heads, N, heads,
+               scale, Win{static_cast<const int*>(tab), nW, ntok}};
+  return launch_win(a, dh, stream);
 }

@@ -10,7 +10,11 @@
 //   - LN kept in fp32, then _quant_rows (:1335) before an int8 product
 //     (_win_block_q_core :1434-1440, _ffn_q_kernel :1620-1626),
 //   - _quant_rows of the bf16 attention output (:1457) and of the fp32 FFN
-//     hidden (:1632).
+//     hidden (:1632);
+// and, in stgcma_tpu/ops/pallas_swin_block.py _swin_block_kernel (:245), K4's
+// LN1 of both streams in one launch (the rows of v, then of a: stg_ln_bf16_pair)
+// and its int8 variant's LN1 and LN2 rounded to bf16, then quantized
+// (:279-338; stg_ln_quant_rows_bf16, the two streams' LN1 in one launch).
 // Bound on the H100: bytes (~1 flop per byte). LayerNorm (K9): one warp per
 // row, the row re-read from L1/L2 for each pass, so any row length is taken.
 // Row quantization reads each row from device memory once, with 16-byte loads
@@ -66,14 +70,23 @@ __device__ __forceinline__ RowLN<T> row_stats(const T* xr, const bf16* g, const 
   return r;
 }
 
+// Rows [0, m_lo) of the input are those of x, rows [m_lo, M) those of x_hi (K4's
+// two streams in one launch; x_hi = x and m_lo = M elsewhere)
+template <typename T>
+__device__ __forceinline__ const T* in_row(const T* x, const T* x_hi, int m_lo, int row, int K) {
+  return row < m_lo ? x + static_cast<size_t>(row) * K
+                    : x_hi + static_cast<size_t>(row - m_lo) * K;
+}
+
 __global__ void __launch_bounds__(256) ln_bf16_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ b,
-    bf16* __restrict__ y, int M, int K, float eps) {
+    const bf16* __restrict__ x, const bf16* __restrict__ x_hi, int m_lo,
+    const bf16* __restrict__ g, const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K,
+    float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const size_t off = static_cast<size_t>(row) * K;
-  RowLN<bf16> f = row_stats(x + off, g, b, K, eps, lane);
+  RowLN<bf16> f = row_stats(in_row(x, x_hi, m_lo, row, K), g, b, K, eps, lane);
   for (int k = lane; k < K; k += 32) y[off + k] = __float2bfloat16_rn(f(k));
 }
 
@@ -149,11 +162,12 @@ __device__ __forceinline__ void each_chunk(int n, F f) {
 // One warp per row; the lane's chunk c holds elements (32 c + lane) E .. + E - 1.
 // CH > 0: a lane's chunks in registers (rows up to 512 CH bytes); CH == 0: the
 // warp's row staged in shared memory, or (amax_in given) no row kept at all.
-template <typename T, int CH>
+// ROUND: the LayerNorm is rounded to bf16 before its max and its codes (K4q).
+template <typename T, int CH, bool ROUND>
 __global__ void __launch_bounds__(256) quant_rows_kernel(
-    const T* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ b,
-    const float* __restrict__ amax_in, int8_t* __restrict__ q, float* __restrict__ sx, int M,
-    int K, float eps) {
+    const T* __restrict__ x, const T* __restrict__ x_hi, int m_lo, const bf16* __restrict__ g,
+    const bf16* __restrict__ b, const float* __restrict__ amax_in, int8_t* __restrict__ q,
+    float* __restrict__ sx, int M, int K, float eps) {
   using V = Chunk<T>;
   constexpr int E = V::E;
   extern __shared__ uint4 staged[];
@@ -161,7 +175,7 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= M) return;
   const int n16 = K / E;                         // 16-byte chunks of the row
-  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K);
+  const uint4* xr = reinterpret_cast<const uint4*>(in_row(x, x_hi, m_lo, row, K));
   int8_t* qr = q + static_cast<size_t>(row) * K;
 
   if (amax_in != nullptr) {                      // scale given: one streaming pass
@@ -226,8 +240,10 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
     load_params<E>(g + k0, gf);
     load_params<E>(b + k0, bf);
 #pragma unroll
-    for (int e = 0; e < E; ++e)
+    for (int e = 0; e < E; ++e) {
       f[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[e], mean), rstd), gf[e]), bf[e]);
+      if constexpr (ROUND) f[e] = __bfloat162float(__float2bfloat16_rn(f[e]));
+    }
   };
   float amax = 0.f;
   each_chunk<CH>(nch, [&](int c) {
@@ -253,56 +269,73 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
 constexpr int kRowsPerBlock = 8;   // 8 warps of 32 threads, one row each
 constexpr int kMaxStagedBytes = 232448;   // shared memory of one block on the H100
 
-template <typename T, int CH>
-int launch_quant(const T* x, const bf16* g, const bf16* b, const float* amax, int8_t* q,
+struct Src {                // rows [0, m_lo) from x, [m_lo, M) from x_hi
+  const void* x;
+  const void* x_hi;
+  int m_lo;
+};
+
+template <typename T, int CH, bool ROUND>
+int launch_quant(const Src& src, const bf16* g, const bf16* b, const float* amax, int8_t* q,
                  float* sx, int M, int K, float eps, int rows, int smem, cudaStream_t stream) {
-  auto kernel = quant_rows_kernel<T, CH>;
+  auto kernel = quant_rows_kernel<T, CH, ROUND>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<ceil_div(M, rows), 32 * rows, smem, stream>>>(x, g, b, amax, q, sx, M, K, eps);
+  kernel<<<ceil_div(M, rows), 32 * rows, smem, stream>>>(
+      static_cast<const T*>(src.x), static_cast<const T*>(src.x_hi), src.m_lo, g, b, amax, q, sx,
+      M, K, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K a multiple of 16 (16-byte rows of int8 codes), x, q, g and b 16-byte aligned;
 // amax (nullable) only without LN
-template <typename T>
-int quant_rows(const T* x, const bf16* g, const bf16* b, const float* amax, int8_t* q,
+template <typename T, bool ROUND = false>
+int quant_rows(const Src& x, const bf16* g, const bf16* b, const float* amax, int8_t* q,
                float* sx, int M, int K, float eps, cudaStream_t stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (M < 1 || K < 16 || K % 16 || misaligned(x) || misaligned(q) ||
+  if (M < 1 || K < 16 || K % 16 || misaligned(x.x) || misaligned(x.x_hi) || misaligned(q) ||
       (g != nullptr && (misaligned(g) || b == nullptr || misaligned(b) || amax != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = ceil_div(K * static_cast<int>(sizeof(T)) / 16, 32);   // a lane's
   const int R = kRowsPerBlock;
-  if (amax != nullptr) return launch_quant<T, 0>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+  if (amax != nullptr)
+    return launch_quant<T, 0, ROUND>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
   switch (chunks) {
-    case 1: return launch_quant<T, 1>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
-    case 2: return launch_quant<T, 2>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
-    case 3: return launch_quant<T, 3>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
-    case 4: return launch_quant<T, 4>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 1: return launch_quant<T, 1, ROUND>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 2: return launch_quant<T, 2, ROUND>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 3: return launch_quant<T, 3, ROUND>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+    case 4: return launch_quant<T, 4, ROUND>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
     default:
       if (chunks <= kMaxHeldChunks)
-        return launch_quant<T, kMaxHeldChunks>(x, g, b, amax, q, sx, M, K, eps, R, 0, stream);
+        return launch_quant<T, kMaxHeldChunks, ROUND>(x, g, b, amax, q, sx, M, K, eps, R, 0,
+                                                      stream);
   }
   // wider rows: staged in shared memory, as many rows a block as fit 64 KB (at least one)
   const int row_bytes = K * static_cast<int>(sizeof(T));
   if (row_bytes > kMaxStagedBytes) return static_cast<int>(cudaErrorInvalidValue);
   const int fit = (64 * 1024) / row_bytes;
   const int rows = fit < 1 ? 1 : fit < R ? fit : R;
-  return launch_quant<T, 0>(x, g, b, amax, q, sx, M, K, eps, rows, rows * row_bytes, stream);
+  return launch_quant<T, 0, ROUND>(x, g, b, amax, q, sx, M, K, eps, rows, rows * row_bytes,
+                                   stream);
 }
 
 }  // namespace
 
+// LayerNorm of bf16 rows into y (M, K) bf16: rows [0, M0) of x0, then [M0, M) of x1
+STG_API int stg_ln_bf16_pair(const void* x0, const void* x1, int M0, const void* g, const void* b,
+                             void* y, int M, int K, float eps, cudaStream_t stream) {
+  ln_bf16_kernel<<<ceil_div(M, kRowsPerBlock), 32 * kRowsPerBlock, 0, stream>>>(
+      static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), M0,
+      static_cast<const bf16*>(g), static_cast<const bf16*>(b), static_cast<bf16*>(y), M, K, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 STG_API int stg_ln_bf16(const void* x, const void* g, const void* b, void* y,
                         int M, int K, float eps, cudaStream_t stream) {
-  ln_bf16_kernel<<<ceil_div(M, kRowsPerBlock), 32 * kRowsPerBlock, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(b), static_cast<bf16*>(y), M, K, eps);
-  return static_cast<int>(cudaGetLastError());
+  return stg_ln_bf16_pair(x, x, M, g, b, y, M, K, eps, stream);
 }
 
 // int8 row quantization of x (M, K), bf16 or fp32, after a LayerNorm when g and b are
@@ -316,7 +349,18 @@ STG_API int stg_quant_rows(const void* x, int x_is_f32, const void* g, const voi
   const float* mx = static_cast<const float*>(amax);
   int8_t* qq = static_cast<int8_t*>(q);
   float* ss = static_cast<float*>(sx);
-  if (x_is_f32)
-    return quant_rows(static_cast<const float*>(x), gb, bb, mx, qq, ss, M, K, eps, stream);
-  return quant_rows(static_cast<const bf16*>(x), gb, bb, mx, qq, ss, M, K, eps, stream);
+  const Src src{x, x, M};
+  if (x_is_f32) return quant_rows<float>(src, gb, bb, mx, qq, ss, M, K, eps, stream);
+  return quant_rows<bf16>(src, gb, bb, mx, qq, ss, M, K, eps, stream);
+}
+
+// K4q's LN1 and LN2: the LayerNorm of bf16 rows (rows [0, M0) of x0, then [M0, M) of
+// x1), rounded to bf16, int8-quantized per row: codes q (M, K) int8, scales sx (M,) fp32
+STG_API int stg_ln_quant_rows_bf16(const void* x0, const void* x1, int M0, const void* g,
+                                   const void* b, void* q, void* sx, int M, int K, float eps,
+                                   cudaStream_t stream) {
+  if (g == nullptr || b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return quant_rows<bf16, true>(Src{x0, x1, M0}, static_cast<const bf16*>(g),
+                                static_cast<const bf16*>(b), nullptr, static_cast<int8_t*>(q),
+                                static_cast<float*>(sx), M, K, eps, stream);
 }

@@ -31,9 +31,14 @@ SIGNATURES = {
     "rowprep.cu": {
         # x, gamma, beta, y, M, K, eps, stream
         "stg_ln_bf16": [P, P, P, P, I, I, F, P],
+        # x0, x1, M0 (rows [0, M0) of x0, then of x1), gamma, beta, y, M, K, eps, stream
+        "stg_ln_bf16_pair": [P, P, I, P, P, P, I, I, F, P],
         # x, x_is_f32, gamma (nullable: no LN), beta, amax (nullable: the rows' given
         # max |x|, no LN), q, sx, M, K, eps, stream
         "stg_quant_rows": [P, I, P, P, P, P, P, I, I, F, P],
+        # x0, x1, M0, gamma, beta, q, sx, M, K, eps, stream: LN of bf16 rows rounded to
+        # bf16, then quantized (K4's int8 variant)
+        "stg_ln_quant_rows_bf16": [P, P, I, P, P, P, P, I, I, F, P],
     },
     "gemm.cu": {
         # A, W, bias, C, M, N, K, epilogue (0: + bias, 4: + bias -> erf-GELU,
@@ -56,12 +61,26 @@ SIGNATURES = {
         "stg_attn_core_t": [P, P, P, I, I, I, I, I, F, P],
         # q (pre-scaled), k, v, bm, P, o, R, N, dh, stream
         "stg_attn_qkv": [P, P, P, P, I, P, I, I, I, P],
+        # qkv (B, ntok, 3C), bm (nullable, (1, heads, ntok, ntok)), table (nW * n,), nW, o,
+        # B, ntok, n, heads, dh, scale, stream: attention within each window (K4)
+        "stg_attn_core_win": [P, P, P, I, P, I, I, I, I, I, F, P],
     },
     "fuse.cu": {
         # vh, ah, gv, ga, mask (nullable), vo, ao, B, Nv, Na, D, stream
         "stg_fuse_bidir": [P, P, P, P, P, P, P, I, I, I, I, P],
+        # vh, ah, gv, ga, table (nW * n,), nW, vo, ao, B, ntok, n, D, stream: the fusion
+        # within each window (K4's S_Adapter2)
+        "stg_fuse_bidir_win": [P, P, P, P, P, I, P, P, I, I, I, I, P],
         # q, k, v, o, B, Nq, Nk, D, stream: o = softmax(q.k^T).v, unscaled
         "stg_unscaled_attn": [P, P, P, P, I, I, I, I, P],
+    },
+    "adapter.cu": {
+        # xv, wv, bv, hv, xa, wa, ba, ha, M, D, K, stream: both streams' adapter hiddens
+        # bf16(gelu(bf16(x.W^T + b))) (K4)
+        "stg_adapter_hidden_pair": [P, P, P, P, P, P, P, P, I, I, I, P],
+        # fv, wv, bv, r1v, r2v, yv, fa, wa, ba, r1a, r2a, ya, M, N, K, stream: both streams'
+        # adapter outputs bf16(bf16(r1 + r2) + bf16(f.W^T + b)) (K4)
+        "stg_adapter_out_pair": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
     },
 }
 

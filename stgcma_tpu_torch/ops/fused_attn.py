@@ -97,7 +97,13 @@ FLASH_MIN_TOKENS = 120                # K6 from 120 tokens (pallas_attn.py:1023)
 FLASH_MAX_KEY_BYTES = 16 << 20        # K6 while Na * D * 4 <= 16 MiB, else K10 (:1033-1034)
 FUSE_WIDTHS = (16, 32, 48, 64, 96)    # adapter widths D that csrc/fuse.cu instantiates
                                       # (K4-K6, K12, and D = DV of K10)
-FUSE_MAX_BATCH = 65535                # csrc/fuse.cu: one batch row per gridDim.y
+FUSE_MAX_BATCH = 65535                # csrc/fuse.cu: B <= 65535 sequences a direction
+FUSE_BLOCK_ROWS = 128                 # csrc/fuse.cu: query rows of a block (8 warps of 16) ...
+FUSE_SMALL_ROWS = 64                  # ... or 64 (4 warps) where no direction has more rows
+FUSE_KEY_TILE = 64                    # csrc/fuse.cu BK: keys of a tile, rows padded to D + 8
+FUSE_STAGES = 3                       # csrc/fuse.cu kStages: key tiles in the cp.async ring
+FUSE_SMS = 132                        # SMs of the H100 SXM (fuse.cu reads the card's own)
+FUSE_Q_SMEM_WIDTH = 64                # csrc/fuse.cu Q_SMEM: q in shared memory from this D
 ATTN_HEAD_WIDTHS = (32, 64)           # head widths dh that csrc/attn.cu instantiates
 ATTN_MAX_TOKENS = 65535 * 64          # csrc/attn.cu: past ATTN_RESIDENT_MAX_TOKENS a block takes
                                       # 64 query rows, at most 65535 blocks along gridDim.y
@@ -382,6 +388,27 @@ def _attn_core(qkv, bias, heads, s, out=None):
     return o
 
 
+def _attn_core_win(qkv, bias, table, heads, s):
+    """The attention core of each window of a packed full-grid qkv (B_, N,
+    3C) into merged heads (B_, N, C), on csrc/attn.cu's resident kernel:
+    window w of row b is the tokens table[w] (table (nW, n) int32, nW * n =
+    N, n <= ATTN_RESIDENT_MAX_TOKENS), the bias (1, heads, N, N) fp32 is read
+    at their own entries and each token's output lands at its own row (K4)."""
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh = C // heads
+    nW, n = table.shape
+    if nW * n != N or not 1 <= n <= ATTN_RESIDENT_MAX_TOKENS or bias is None:
+        raise ValueError(f"the windowed core takes a bias and windows of 1 to "
+                         f"{ATTN_RESIDENT_MAX_TOKENS} tokens that tile the grid, got {nW} of "
+                         f"{n} for N={N}")
+    o = torch.empty((B_, N, C), dtype=torch.bfloat16, device=qkv.device)
+    scale = float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
+    cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_core_win(
+        _ptr(qkv), _ptr(bias), _ptr(table), nW, _ptr(o), B_, N, n, heads, dh, scale, s))
+    return o
+
+
 def _attn_core_t(qkv, bias, heads, B, T, s, out):
     """The attention core over the T frames of each token of a packed qkv
     (B, T, Ns, 3C) into merged heads `out` (B, T, Ns, C), with no transpose:
@@ -416,6 +443,33 @@ def attn_route(N, dh):
     if N <= ATTN_RESIDENT_MAX_TOKENS:
         return "resident", 2 * 2 * (-(-N // 16) * 16) * (dh + 8)
     return "streamed", 2 * (64 * (dh + 8) + dh * (64 + 8))
+
+
+def fuse_route(nq0, nq1, D, gated=True, B=1, sms=FUSE_SMS):
+    """(query rows of a block, shared-memory bytes of one block) that
+    csrc/fuse.cu's launcher takes for B sequences of nq0 and nq1 tokens at
+    width D on a card of `sms` SMs (the fusion: each direction's queries are
+    the other's keys; K10, `gated` False: nq0 queries against nq1 keys).
+    Blocks of 8 warps, or of 4 where no direction has more than
+    FUSE_SMALL_ROWS query rows or where 8-warp blocks would not give every SM
+    two rounds of blocks (at `fuse_min_blocks(D)` blocks an SM). Shared
+    memory: the block's query rows at stride D + 8 where D >=
+    FUSE_Q_SMEM_WIDTH, then a ring of min(FUSE_STAGES, the key tiles) tiles
+    of FUSE_KEY_TILE keys at stride D + 8 (and as many value tiles for K10)."""
+    check_fuse_width(D)
+    longest = max(nq0, nq1) if gated else nq0
+    blocks = B * (-(-nq0 // FUSE_BLOCK_ROWS) + (-(-nq1 // FUSE_BLOCK_ROWS) if gated else 0))
+    wide = longest > FUSE_SMALL_ROWS and blocks >= 2 * fuse_min_blocks(D) * sms
+    rows = FUSE_BLOCK_ROWS if wide else FUSE_SMALL_ROWS
+    keys = max(nq0, nq1) if gated else nq1
+    ring = min(FUSE_STAGES, -(-keys // FUSE_KEY_TILE))
+    q_tile = rows * (D + 8) * 2 if D >= FUSE_Q_SMEM_WIDTH else 0
+    return rows, q_tile + ring * FUSE_KEY_TILE * (D + 8) * 2 * (1 if gated else 2)
+
+
+def fuse_min_blocks(D):
+    """csrc/fuse.cu's blocks an SM its registers are held to (Tile::MIN_BLOCKS)."""
+    return 4 if D == 16 else 2
 
 
 def check_gemm_operands(a, w, out, *residuals, name="the bf16 GEMM"):

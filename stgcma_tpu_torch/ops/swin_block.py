@@ -20,25 +20,43 @@ unlike K2/K3, which quantize the fp32 LN; its FFN hidden stays fp32 and
 unrounded through erf-GELU up to its quantization; its attention core,
 adapters and fusions are the float variant's.
 
-Left out on purpose: the window-major layout (`STGCMA_SWIN_WINMAJOR`, :427,
-a TPU opt-in measured net-negative there), the NP padding of the grid to a
-multiple of 16 (a TPU sublane artifact: the port works at N = H*W) and the
-`STGCMA_SWIN_*` switches (the policy is the module constant below).
+On the card the block does the in-window work only: the TPU kernel's
+window-major layout (`STGCMA_SWIN_WINMAJOR`, :427, per-window (WS, WS) grams
+:255-256, :448) comes back as a window table (`Geo.table`: the token ids
+grouped by window, ws^2 to a window), through which the attention core and
+the masked fusion (S_Adapter2) read each window's rows in place and write
+them back at the tokens' own rows; the unmasked fusion (S_Adapter) stays
+full-grid. This is the same function, not an approximation: every skipped
+logit is -1e30 plus a bias, whose exp is exactly 0 in fp32 (`pallas_swin_block.py:183-185`),
+so only the order of the non-zero fp32 terms changes. The plain versions
+keep the full grid with its (1, h, N, N) bias and (N, N) fusion mask, as the
+public signatures do; the card wrapper takes the windows from the fusion
+mask (`window_table`), and a mask whose zero entries do not tile the grid
+into windows of one size raises. Reading by index, not permuting the rows
+once at the block's entry and exit: the row-wise launches (LayerNorm, the
+tower and adapter products) do not care about the order, and a permute
+would be two more launches over both streams.
+
+Left out on purpose: the NP padding of the grid to a multiple of 16 (a TPU
+sublane artifact: the port works at N = H*W) and the `STGCMA_SWIN_*`
+switches (the policy is the module constant below).
 """
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
 
 from . import cuda_lib
 from .attention import gather_bias
-from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU,
-                         _Kernel, _attn_core, _check_cuda, _check_shapes, _erf_gelu,
-                         _fuse_cuda, _gemm_bf16, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
-                         _ptr, _quant_rows, _stream, check_attn_shape, check_fuse_width,
-                         check_gemm_operands, dotq, fuse_plain)
+from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU, _LN_EPS,
+                         _Kernel, _attn_core, _attn_core_win, _check_cuda,
+                         _check_shapes, _erf_gelu, _fuse_cuda, _gemm_bf16, _gemm_s8,
+                         _heads_attention, _ln_f32, _ptr, _quant_rows, _stream,
+                         check_attn_shape, check_fuse_width, check_gemm_operands, dotq,
+                         fuse_plain)
 from .window import relative_position_index
 
 WHOLE_BLOCK_MAX_GRID = 256            # K4 for grids of <= 256 tokens (pallas_swin_block.py:587)
@@ -55,7 +73,8 @@ class Geo:
     `bias_index` (N, N) int32 into the relative-position table,
     `attn_mask` (N, N) fp32, -1e30 across rolled windows and -100 between
     shift regions inside a window, `fuse_mask` (N, N) fp32, -1e30 across
-    rolled windows."""
+    rolled windows, `table` (nW, ws^2) int32: the tokens of each rolled
+    window, ordered by their position in it."""
 
     def __init__(self, H: int, W: int, ws: int, ss: int):
         N = H * W
@@ -83,6 +102,25 @@ class Geo:
                                   np.float32(-100.0), np.float32(0.0))
         self.attn_mask = attn_mask
         self.fuse_mask = np.where(same_win, 0.0, -1e30).astype(np.float32)
+        self.table = np.lexsort((pos, win)).astype(np.int32).reshape(-1, ws * ws)
+
+
+def window_table(fuse_mask: np.ndarray) -> np.ndarray:
+    """(nW, n) int32: the windows of a fusion mask (0 inside a window, -1e30
+    across), each window's tokens ascending, windows in the order of their
+    first token. Raises where the zero entries are not windows of one size
+    that tile the grid (a block of zeros for each window, nothing else)."""
+    same = np.asarray(fuse_mask) == 0
+    N = same.shape[0]
+    first = same.argmax(axis=1)                 # each token's first window-mate
+    firsts = np.unique(first)
+    win = np.searchsorted(firsts, first)
+    sizes = np.bincount(win)
+    if (same.shape != (N, N) or len(set(sizes.tolist())) != 1
+            or not np.array_equal(same, win[:, None] == win[None, :])):
+        raise ValueError("K4 takes a fusion mask whose zero entries tile the grid into "
+                         "windows of one size")
+    return np.argsort(win, kind="stable").astype(np.int32).reshape(len(firsts), -1)
 
 
 @functools.lru_cache(maxsize=64)
@@ -90,11 +128,42 @@ def geo(H: int, W: int, ws: int, ss: int) -> Geo:
     return Geo(H, W, ws, ss)
 
 
+# id(fusion mask) -> (a weak reference to it, its version counter, its window
+# table on its device); an entry goes with its mask
+_TABLES = {}
+
+
+def _version(t):
+    """t's in-place version counter (an inference tensor keeps none: None)."""
+    return None if t.is_inference() else t._version
+
+
+def _remember_table(fuse_mask, table):
+    key = id(fuse_mask)
+    ref = weakref.ref(fuse_mask, lambda _, key=key: _TABLES.pop(key, None))
+    _TABLES[key] = (ref, _version(fuse_mask), table)
+    return table
+
+
 @functools.lru_cache(maxsize=64)
 def _geo_tensors(H: int, W: int, ws: int, ss: int, device: torch.device):
     g = geo(H, W, ws, ss)
+    fuse_mask = torch.from_numpy(g.fuse_mask).to(device)
+    _remember_table(fuse_mask, torch.from_numpy(g.table).to(device))
     return (torch.from_numpy(g.bias_index).to(device), torch.from_numpy(g.attn_mask).to(device),
-            torch.from_numpy(g.fuse_mask).to(device))
+            fuse_mask)
+
+
+def _window_table_of(fuse_mask):
+    """The window table of a fusion mask on its device: `Geo.table` for the
+    masks of `_geo_tensors`, else read from the mask once (a copy to the
+    host) and kept while the mask lives unchanged (an inference tensor is
+    taken as unchanged: it counts no in-place versions)."""
+    hit = _TABLES.get(id(fuse_mask))
+    if hit is not None and hit[0]() is fuse_mask and hit[1] == _version(fuse_mask):
+        return hit[2]
+    table = torch.from_numpy(window_table(fuse_mask.cpu().numpy())).to(fuse_mask.device)
+    return _remember_table(fuse_mask, table)
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +280,66 @@ def _gemm_res2(a, w, b, r1, r2, out, s):
     return out
 
 
+def _ln_pair(x0, x1, ln_w, ln_b, out, s):
+    """LayerNorm of the rows of x0, then of x1 (M0 rows each of C, bf16),
+    into out (2 * M0, C) bf16, in one launch."""
+    M0, C = x0.shape
+    cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_ln_bf16_pair(
+        _ptr(x0), _ptr(x1), M0, _ptr(ln_w), _ptr(ln_b), _ptr(out), M0 + x1.shape[0], C, _LN_EPS,
+        s))
+    return out
+
+
+def _ln_quant_pair(x0, x1, ln_w, ln_b, s):
+    """The int8 variant's LN: LayerNorm of the rows of x0, then of x1 (bf16,
+    C a multiple of 16), rounded to bf16, then row-quantized, in one launch.
+    Returns (int8 codes (M, C), fp32 scales (M,))."""
+    (M0, C), M = x0.shape, x0.shape[0] + x1.shape[0]
+    q = torch.empty((M, C), dtype=torch.int8, device=x0.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x0.device)
+    cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_ln_quant_rows_bf16(
+        _ptr(x0), _ptr(x1), M0, _ptr(ln_w), _ptr(ln_b), _ptr(q), _ptr(sx), M, C, _LN_EPS, s))
+    return q, sx
+
+
+def _adapter_hidden_pair(xv, xa, wv, bv, wa, ba, out, s):
+    """out[0] = bf16(gelu(bf16(xv . wv^T + bv))), out[1] likewise of xa with
+    the audio adapter's weights: both streams' adapter hiddens in one launch."""
+    check_gemm_operands(xv, wv, out[0], name="the adapter hidden pair")
+    check_gemm_operands(xa, wa, out[1], name="the adapter hidden pair")
+    M, K = xv.shape
+    cuda_lib.check("adapter.cu", cuda_lib.lib("adapter.cu").stg_adapter_hidden_pair(
+        _ptr(xv), _ptr(wv), _ptr(bv), _ptr(out[0]), _ptr(xa), _ptr(wa), _ptr(ba), _ptr(out[1]),
+        M, wv.shape[0], K, s))
+    return out
+
+
+def _adapter_out_pair(fv, fa, wv, bv, wa, ba, rv, ra, out, s):
+    """out rows [0, M) = bf16(bf16(rv[0] + rv[1]) + bf16(fv . wv^T + bv)),
+    rows [M, 2M) likewise of fa, ra and the audio adapter: both streams'
+    adapter outputs onto their two residuals in one launch."""
+    M = fv.shape[0]
+    check_gemm_operands(fv, wv, out[:M], *rv, name="the adapter output pair")
+    check_gemm_operands(fa, wa, out[M:], *ra, name="the adapter output pair")
+    cuda_lib.check("adapter.cu", cuda_lib.lib("adapter.cu").stg_adapter_out_pair(
+        _ptr(fv), _ptr(wv), _ptr(bv), _ptr(rv[0]), _ptr(rv[1]), _ptr(out[:M]), _ptr(fa),
+        _ptr(wa), _ptr(ba), _ptr(ra[0]), _ptr(ra[1]), _ptr(out[M:]), M, wv.shape[0],
+        fv.shape[1], s))
+    return out
+
+
+def _fuse_win(vh, ah, gate_v, gate_a, table, s):
+    """The bidirectional gated fusion of each window of vh, ah (BT, N, D)
+    through `table` (nW, n), unmasked; (vo, ao) at the tokens' own rows."""
+    BT, N, D = vh.shape
+    nW, n = table.shape
+    vo, ao = torch.empty_like(vh), torch.empty_like(ah)
+    cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_fuse_bidir_win(
+        _ptr(vh), _ptr(ah), _ptr(gate_v), _ptr(gate_a), _ptr(table), nW, _ptr(vo), _ptr(ao), BT,
+        N, n, D, s))
+    return vo, ao
+
+
 def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
     if v.dim() != 3:
         raise ValueError(f"v must be (BT, N, C), got {tuple(v.shape)}")
@@ -249,54 +378,62 @@ def _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=False):
         shapes.update({f"{key}_w1": (w[f"{key}_w1"], (D, C)), f"{key}_b1": (w[f"{key}_b1"], (D,)),
                        f"{key}_w2": (w[f"{key}_w2"], (C, D)), f"{key}_b2": (w[f"{key}_b2"], (C,))})
     _check_shapes(shapes)
+    table = _window_table_of(fuse_mask)
+    nW = table.shape[0]
     s = _stream(v)
     M = BT * N
 
     def empty(*shape, dtype=bf):
         return torch.empty(shape, dtype=dtype, device=v.device)
 
-    def tower(x, i, out, gelu=False, x_amax=None, out_amax=None):
+    def tower(x, i, out, gelu=False, x_amax=None, out_amax=None, codes=None):
         """The i-th tower product of TOWER into `out`: bf16 GEMM (GELU:
         rounded before and after it), or row quantization of x (bf16 or
-        fp32; from its rows' max |x| `x_amax` where given) + int8 GEMM
-        (GELU: into an fp32 hidden, each row's max |h| into `out_amax`)."""
+        fp32; from its rows' max |x| `x_amax` where given; `codes`: x's
+        int8 codes and scales, made already) + int8 GEMM (GELU: into an fp32
+        hidden, each row's max |h| into `out_amax`)."""
         wk, sk, bk = TOWER[i]
         if not quantized:
             return _gemm_bf16(x, w[wk], w[bk], out, _EPI_BF16_RGELU if gelu else _EPI_BF16, s)
-        xq, sx = _quant_rows(x, s, amax=x_amax)
+        xq, sx = codes or _quant_rows(x, s, amax=x_amax)
         return _gemm_s8(xq, sx, w[wk], w[sk], w[bk], out, _EPI[_GELU] if gelu else _EPI_Q_BF16,
                         s, amax=out_amax)
 
-    def fuse(xv, xa, kv, ka, mask):    # per-stream adapter hiddens, then fuse.cu
-        h = empty(2, M, D)
-        _gemm_bf16(xv, w[f"{kv}_w1"], w[f"{kv}_b1"], h[0], _EPI_BF16_RGELU, s)
-        _gemm_bf16(xa, w[f"{ka}_w1"], w[f"{ka}_b1"], h[1], _EPI_BF16_RGELU, s)
-        return _fuse_cuda(h[0].view(BT, N, D), h[1].view(BT, N, D), w["gate_v"], w["gate_a"],
-                          mask)
+    def ln(x0, x1, key):               # LN of both streams: bf16 rows, or int8 codes
+        if quantized:
+            return None, _ln_quant_pair(x0, x1, w[f"{key}_w"], w[f"{key}_b"], s)
+        return _ln_pair(x0, x1, w[f"{key}_w"], w[f"{key}_b"], empty(2 * M, C), s), None
 
-    def residual(fv, fa, kv, ka, rv, ra):   # per-stream adapter outputs + two residuals
-        y = empty(2 * M, C)
-        _gemm_res2(fv.view(M, D), w[f"{kv}_w2"], w[f"{kv}_b2"], rv[0], rv[1], y[:M], s)
-        _gemm_res2(fa.view(M, D), w[f"{ka}_w2"], w[f"{ka}_b2"], ra[0], ra[1], y[M:], s)
-        return y
+    def fuse(xv, xa, kv, ka, windows):  # both adapter hiddens, then fuse.cu
+        h = _adapter_hidden_pair(xv, xa, w[f"{kv}_w1"], w[f"{kv}_b1"], w[f"{ka}_w1"],
+                                 w[f"{ka}_b1"], empty(2, M, D), s)
+        hv, ha = h[0].view(BT, N, D), h[1].view(BT, N, D)
+        if windows and nW > 1:
+            return _fuse_win(hv, ha, w["gate_v"], w["gate_a"], table, s)
+        return _fuse_cuda(hv, ha, w["gate_v"], w["gate_a"], None)
+
+    def residual(fv, fa, kv, ka, rv, ra):   # both adapter outputs onto their two residuals
+        return _adapter_out_pair(fv.view(M, D), fa.view(M, D), w[f"{kv}_w2"], w[f"{kv}_b2"],
+                                 w[f"{ka}_w2"], w[f"{ka}_b2"], rv, ra, empty(2 * M, C), s)
 
     v2, a2 = v.view(M, C), a.view(M, C)
-    xn = empty(2 * M, C)                   # LN1 of [v; a], one 2*BT slab, in bf16
-    _ln_bf16(v2, w["ln1_w"], w["ln1_b"], s, out=xn[:M])
-    _ln_bf16(a2, w["ln1_w"], w["ln1_b"], s, out=xn[M:])
-    qkv = tower(xn, 0, empty(2 * M, 3 * C))
-    o = _attn_core(qkv.view(2 * BT, N, 3 * C), bias, heads, s)
+    xn, xq = ln(v2, a2, "ln1")             # LN1 of [v; a], one 2*BT slab
+    qkv = tower(xn, 0, empty(2 * M, 3 * C), codes=xq).view(2 * BT, N, 3 * C)
+    if nW > 1:                             # each window's own tokens
+        o = _attn_core_win(qkv, bias, table, heads, s)
+    else:
+        o = _attn_core(qkv, bias, heads, s)
     att = tower(o.view(2 * M, C), 1, empty(2 * M, C))
     vs, as_ = att[:M], att[M:]
-    fv, fa = fuse(vs, as_, "s2v", "s2a", fuse_mask)
+    fv, fa = fuse(vs, as_, "s2v", "s2a", windows=True)
     x1 = residual(fv, fa, "s2v", "s2a", (v2, vs), (a2, as_))
-    xn2 = _ln_bf16(x1, w["ln2_w"], w["ln2_b"], s)
+    xn2, xq2 = ln(x1[:M], x1[M:], "ln2")
     hmax = empty(2 * M, dtype=f32).zero_() if quantized else None   # fc1's row max |h|
     hid = tower(xn2, 2, empty(2 * M, Hd, dtype=f32 if quantized else bf), gelu=True,
-                out_amax=hmax)
-    n = tower(hid, 3, empty(2 * M, C), x_amax=hmax)
-    fv2, fa2 = fuse(n[:M], n[M:], "sv", "sa", None)
-    y = residual(fv2, fa2, "sv", "sa", (x1[:M], n[:M]), (x1[M:], n[M:]))
+                out_amax=hmax, codes=xq2)
+    n_ = tower(hid, 3, empty(2 * M, C), x_amax=hmax)
+    fv2, fa2 = fuse(n_[:M], n_[M:], "sv", "sa", windows=False)
+    y = residual(fv2, fa2, "sv", "sa", (x1[:M], n_[:M]), (x1[M:], n_[M:]))
     return y[:M].view(BT, N, C), y[M:].view(BT, N, C)
 
 

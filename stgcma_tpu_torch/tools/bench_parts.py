@@ -30,6 +30,18 @@ Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
   K3 (int8, QuickGELU) at the video (15760, 768) and audio (3920, 768) rows,
   K11's spatial body (video, audio) and FFN body (video), the int8 K12 and
   K13 (video and audio rows);
+- the Swin fusion kernels (`swin_fuse_cases`): K4 float and int8 at
+  Swin-Base stage 2 unshifted and shifted (80, 196, 512) h16 D 32 and stage 3
+  (80, 49, 1024) h32 D 64, K4 float at Swin-Large stage 2 (80, 196, 768) h24
+  D 96, each with live adapters and gates; K6 at Swin-Base stages 0-1
+  (80, 3136, 16), (80, 784, 32) and Swin-Large's (80, 3136, 96), (80, 784,
+  96); K5 at Swin-Large's windows (5120, 49, 96), (1280, 49, 96); K10 at
+  (80, 1764, 16); K4's attention core alone at Swin-Base stage 2 shifted
+  (160, 196, 512) h16 with its bias (relative positions + the window and
+  shift mask), over the full grid and, where the tree has it, over each
+  window's 49 tokens (`_attn_core_win`). Each with its bound (the exps at
+  16 a clock an SM on the special function units beside the tensor and
+  byte terms), its library yardstick where one exists (SDPA) and `graph_ms`;
 - K8 at Swin-Base stage 3's temporal site, K9 at its 2 -> 3 merge norm and
   at its stage-3 temporal and final norms (both (3920, 1024)), each also
   through its bare launcher (`bare_ms`): what the wrapper's host work adds
@@ -64,7 +76,9 @@ from pathlib import Path
 
 TOL = 2e-2
 TOL_S8_F32 = 1e-6                            # the int8 products' fp32 GELU hiddens
-TOL_Q = 3e-2                                 # K11 and the int8 K12, K13 (chip_smoke.py's bar)
+TOL_Q = 3e-2                                 # K11, the int8 K4, K12, K13 and K4 at Swin-Large
+                                             # (chip_smoke.py's bars)
+SFU_PER_SM_CLOCK, H100_SMS = 16, 132         # exps a clock an SM (special function units)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, HBM rate, 700 W
 # (row, M, N, K, epilogue): epilogue of csrc/gemm.cu, "res2" through stg_gemm_bf16_res2
 GEMM_SHAPES = (("qkv", 15760, 2304, 768, "bf16"), ("proj", 15760, 768, 768, "bf16"),
@@ -115,9 +129,21 @@ def graph_ms(fn, iters=20):
     return cuda_ms(graph.replay, iters)
 
 
-def bound_ms(flops, nbytes, peak=H100_BF16):
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES
+def bound_ms(flops, nbytes, peak=H100_BF16, exps=0, sfu=1.0):
+    """(least ms, what bounds it): the tensor flops at `peak`, the exps at
+    `sfu` a second, or the bytes at the HBM rate."""
+    t_ops = max(flops / peak, exps / sfu)
+    t_bytes = nbytes / H100_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sfu_rate():
+    """exps a second: 16 a clock an SM x 132 SMs x the card's maximum SM clock."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    return SFU_PER_SM_CLOCK * H100_SMS * float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def gemm_plain(a, w, b, epi, r1=None, r2=None):
@@ -369,6 +395,154 @@ def core_cases(g):
     return cases
 
 
+def _k4_weights(g, C, D, int8):
+    """A K4 block's weights on the card: LN near 1, the tower N(0, 0.02^2)
+    (quantized per output channel for int8), live adapters drawn as
+    chip_smoke.py's `live_k4_weights` draws them, gates 0.8 and -0.6."""
+    import torch
+    from stgcma_tpu_torch.ops import swin_block as SB
+    from stgcma_tpu_torch.ops.quant import quantize_weight
+    bf, dev = torch.bfloat16, "cuda"
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(bf)
+    w = {"ln1_w": 1 + rnd(C, std=0.1), "ln1_b": rnd(C, std=0.02), "ln2_w": 1 + rnd(C, std=0.1),
+         "ln2_b": rnd(C, std=0.02), "gate_v": torch.full((1,), 0.8, dtype=bf, device=dev),
+         "gate_a": torch.full((1,), -0.6, dtype=bf, device=dev)}
+    for (wk, sk, bk), (n, k) in zip(SB.TOWER, ((3 * C, C), (C, C), (4 * C, C), (C, 4 * C))):
+        wt = torch.randn(n, k, generator=g, device=dev) * 0.02
+        w[bk] = rnd(n, std=0.02)
+        if int8:
+            q, sc = quantize_weight(wt)
+            w[wk], w[sk] = q, sc.to(bf)
+        else:
+            w[wk] = wt.to(bf)
+    std1 = 2.26 / C ** 0.5 * min(1.0, (32 / D) ** 0.25)
+    for key, _ in SB.ADAPTERS:
+        w.update({f"{key}_w1": rnd(D, C, std=std1), f"{key}_b1": rnd(D, std=0.1),
+                  f"{key}_w2": rnd(C, D, std=0.566 / D ** 0.5), f"{key}_b2": rnd(C, std=0.1)})
+    return w
+
+
+def _k4_bias(g, H, ss, heads):
+    """K4's (1, heads, H^2, H^2) bias on the card, a random relative-position
+    table (std 0.02) gathered plus the window and shift mask of an (H, H) grid
+    of 7 x 7 windows shifted by ss, and the grid's fusion mask."""
+    import torch
+    from stgcma_tpu_torch.ops import swin_block as SB
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    index, attn_mask, fuse_mask = SB._geo_tensors(H, H, 7, ss, torch.device("cuda"))
+    table = torch.randn(13 * 13, heads, generator=g, device="cuda") * 0.02
+    bias = (gather_bias(table, index, heads, H * H) + attn_mask)[None].contiguous()
+    return bias, fuse_mask
+
+
+def swin_fuse_cases(g):
+    """K4, K5, K6, K10 and K4's attention core at the Swin fusion shapes
+    (module docstring), inputs from the generator g on the card."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import swin_block as SB
+    bf, dev, BT = torch.bfloat16, "cuda", 80
+    sfu = sfu_rate()
+    cases = []
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(bf)
+
+    # K4: (tag, C, heads, D, H, shift, int8, tol)
+    for tag, C, heads, D, H, ss, int8, tol in (
+            ("Swin-Base st.2", 512, 16, 32, 14, 0, False, TOL),
+            ("Swin-Base st.2 shifted", 512, 16, 32, 14, 3, False, TOL),
+            ("Swin-Base st.3", 1024, 32, 64, 7, 0, False, TOL),
+            ("int8 Swin-Base st.2", 512, 16, 32, 14, 0, True, TOL_Q),
+            ("int8 Swin-Base st.2 shifted", 512, 16, 32, 14, 3, True, TOL_Q),
+            ("int8 Swin-Base st.3", 1024, 32, 64, 7, 0, True, TOL_Q),
+            ("Swin-Large st.2", 768, 24, 96, 14, 0, False, TOL_Q)):
+        N = H * H
+        w = _k4_weights(g, C, D, int8)
+        bias, fuse_mask = _k4_bias(g, H, ss, heads)
+        v, a = rnd(BT, N, C, std=0.1), rnd(BT, N, C, std=0.1)
+        args = (v, a, w, heads, bias, fuse_mask)
+        kernel = SB.swin_block_q if int8 else SB.swin_block
+        cases.append({"row": f"K4 {tag} {(BT, N, C)} h{heads} D {D}",
+                      "fn": lambda kernel=kernel, args=args: kernel(*args),
+                      "plain": lambda kernel=kernel, args=args: kernel.plain(*args),
+                      "tol": tol, "graph": True})
+    # K6, K5, K10: (row, kernel, (B, Nv, Na, D))
+    gv = torch.full((1,), 0.8, dtype=bf, device=dev)
+    ga = torch.full((1,), -0.6, dtype=bf, device=dev)
+    for row, kernel, (B, Nv, Na, D) in (
+            ("K6 Swin-Base st.0 full grid", FA.bidir_fuse, (BT, 3136, 3136, 16)),
+            ("K6 Swin-Base st.1 full grid", FA.bidir_fuse, (BT, 784, 784, 32)),
+            ("K6 Swin-Large st.0 full grid", FA.bidir_fuse, (BT, 3136, 3136, 96)),
+            ("K6 Swin-Large st.1 full grid", FA.bidir_fuse, (BT, 784, 784, 96)),
+            ("K5 Swin-Large st.0 windows", FA.win_fuse, (5120, 49, 49, 96)),
+            ("K5 Swin-Large st.1 windows", FA.win_fuse, (1280, 49, 49, 96)),
+            ("K10", FA.unscaled_attention, (BT, 1764, 1764, 16))):
+        vh, ah = rnd(B, Nv, D, std=0.7), rnd(B, Na, D, std=0.7)
+        if kernel is FA.unscaled_attention:
+            vv = rnd(B, Na, D, std=0.7)
+            args = (vh, ah, vv)
+            lib = (lambda vh=vh, ah=ah, vv=vv:
+                   F.scaled_dot_product_attention(vh, ah, vv, scale=1.0))
+            flops, exps, nbytes = 4 * B * Nv * Na * D, B * Nv * Na, 2 * B * D * (2 * Nv + 2 * Na)
+        else:
+            args = (vh, ah, gv, ga)
+            lib = (lambda vh=vh, ah=ah: (
+                vh + gv * F.scaled_dot_product_attention(vh, ah, ah, scale=1.0),
+                ah + ga * F.scaled_dot_product_attention(ah, vh, vh, scale=1.0)))
+            flops, exps, nbytes = 6 * B * Nv * Na * D, B * Nv * Na, 4 * B * (Nv + Na) * D
+        cases.append({"row": f"{row} {(B, Nv, D)}" + (f" ah {(B, Na, D)}" if Na != Nv else ""),
+                      "fn": lambda kernel=kernel, args=args: kernel(*args),
+                      "plain": lambda kernel=kernel, args=args: kernel.plain(*args),
+                      "library": lib, "graph": True,
+                      "bound": bound_ms(flops, nbytes, exps=exps, sfu=sfu)})
+    return cases + k4_core_cases(g, sfu)
+
+
+def k4_core_cases(g, sfu):
+    """K4's attention core alone at Swin-Base stage 2 shifted, (160, 196, 512)
+    h16 with its bias (relative positions + the window and shift mask): over
+    the full grid (`_attn_core`) and, where the tree has it, over each
+    window's 49 tokens (`_attn_core_win`); plain `_heads_attention` over the
+    full grid with the bias (the same function), library SDPA with the bias
+    as a float mask."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import swin_block as SB
+    bf, dev, BT = torch.bfloat16, "cuda", 80
+    heads, C, H = 16, 512, 14
+    N, dh, n = H * H, C // heads, 49
+    bias, fuse_mask = _k4_bias(g, H, 3, heads)
+    qkv = torch.randn(2 * BT, N, 3 * C, generator=g, device=dev).to(bf)
+
+    def library():
+        q, k, v = qkv.view(2 * BT, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(bf))
+    windows = [("full grid", N * N)]
+    if hasattr(FA, "_attn_core_win"):
+        windows.append(("in-window", N * n))
+    cases = []
+    for tag, entries in windows:
+        if tag == "in-window":
+            win_table = SB._window_table_of(fuse_mask)
+            fn = lambda: FA._attn_core_win(qkv, bias, win_table, heads,  # noqa: E731
+                                           torch.cuda.current_stream().cuda_stream)
+        else:
+            fn = lambda: FA._attn_core(qkv, bias, heads,  # noqa: E731
+                                       torch.cuda.current_stream().cuda_stream)
+        flops = 4 * 2 * BT * heads * entries * dh
+        nbytes = 2 * 2 * BT * N * 4 * C + 4 * heads * entries
+        cases.append({"row": f"K4 core Swin-Base st.2 shifted {tag} {(2 * BT, N, C)} h{heads}",
+                      "fn": fn, "plain": lambda: FA._heads_attention(qkv, heads, bias, bf),
+                      "library": library, "flops": flops, "graph": True,
+                      "bound": bound_ms(flops, nbytes, exps=2 * BT * heads * entries, sfu=sfu)})
+    return cases
+
+
 def block_cases(g):
     """K1 at the CLIP-B/16 video spatial site and at CLIP-L/14's 257 tokens,
     K12 (bf16) at CLIP-B/16's v and a rows: the towers of `random_clip_ave`
@@ -498,7 +672,7 @@ def main(argv=None) -> int:
     rows, ok = [], True
     with torch.inference_mode():
         for case in (gemm_cases(g) + s8_cases(g) + core_cases(g) + block_cases(g)
-                     + int8_block_cases(g) + host_cases(g)):
+                     + int8_block_cases(g) + host_cases(g) + swin_fuse_cases(g)):
             err = held(case)
             tol = case.get("tol", 0.0 if case.get("exact") else TOL_S8_F32 if "amax" in case
                            else TOL)
@@ -517,6 +691,7 @@ def main(argv=None) -> int:
                 row["bound_ms"], row["bound_by"] = case["bound"]
             if "flops" in case:
                 row["tflops"] = case["flops"] / ms / 1e9
+            if "library" in case:
                 row["library_ms"] = cuda_ms(case["library"])
             ok &= err <= tol
             rows.append(row)

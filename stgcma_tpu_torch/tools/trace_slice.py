@@ -1,14 +1,14 @@
 """Where the time of one serving forward goes on the card.
 
     python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--int8]
-        [--fused] [--qfuse] [--tv2] [--seed 0] [--out DIR]
+        [--preset swin_base|swin_large] [--fused] [--qfuse] [--tv2] [--seed 0] [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
 seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
 int8 towers; `swin` is Swin-Base in multimodal mode; `swin-fusion` is
-Swin-Base in fusion mode (the STG-CMA exchange); the Swin models serve a
-bf16 tower, or with `--int8` the tower made int8 by `quantize_swin_tower`
-(`--int8` takes a Swin model). With `--fused` the CLIP model also serves
+Swin-Base in fusion mode (the STG-CMA exchange), or Swin-Large with
+`--preset swin_large`; the Swin models serve a bf16 tower, or with `--int8`
+the tower made int8 by `quantize_swin_tower` (`--int8` takes a Swin model). With `--fused` the CLIP model also serves
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
 STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
 it also serves the int8 tower with the adapter-fused kernels
@@ -41,7 +41,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import clip_b16, swin_base
+from ..configs import clip_b16, swin_base, swin_large
 from ..models.ave import random_clip_ave, random_swin_ave
 from ..ops.quant import quantize_clip_tower
 from ..serving import MultiTaskServer
@@ -57,13 +57,16 @@ LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv"
                    "flash", "attention", "convolve", "nchwtonhwc", "nhwctonchw", "nhwcaddpadding")
 # kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
 PORT_KERNELS = ("gemm_wgmma_kernel", "attn_mma_kernel", "attn_resident_kernel",
-                "attn_stream_kernel", "quant_rows_kernel", "ln_bf16_kernel", "fuse_kernel")
+                "attn_stream_kernel", "quant_rows_kernel", "ln_bf16_kernel", "fuse_kernel",
+                "pair_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("clip", "swin", "swin-fusion"), default="clip")
     ap.add_argument("--int8", action="store_true", help="serve the Swin tower in int8")
+    ap.add_argument("--preset", choices=("swin_base", "swin_large"), default="swin_base",
+                    help="the Swin model's preset")
     ap.add_argument("--fused", action="store_true",
                     help="also serve the CLIP model in the fused-block configuration")
     ap.add_argument("--qfuse", action="store_true",
@@ -86,8 +89,9 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     if args.model in ("swin", "swin-fusion"):
         ftmode = "multimodal" if args.model == "swin" else "fusion"
-        cfg = swin_base(ftmode=ftmode, label_dim=29)
-        srv.add_ave(f"swin_{ftmode}_{'int8' if args.int8 else 'bf16'}", cfg,
+        cfg = {"swin_base": swin_base, "swin_large": swin_large}[args.preset](
+            ftmode=ftmode, label_dim=29)
+        srv.add_ave(f"{args.preset}_{ftmode}_{'int8' if args.int8 else 'bf16'}", cfg,
                     random_swin_ave(cfg, args.seed, int8=args.int8))
         n = cfg.img_size
         batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),

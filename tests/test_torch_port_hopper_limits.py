@@ -149,6 +149,12 @@ def _ffn_q_args(C):
             _empty(C, 4 * C, dtype=I8), _empty(C), _empty(C))
 
 
+def _fuse_mask(H, ss, ws=7):
+    """K4's fusion mask of an (H, H) grid of windows of ws^2 tokens (it
+    carries the windows that K4's core and masked fusion read)."""
+    return SB._geo_tensors(H, H, ws, ss, torch.device("cpu"))[2]
+
+
 # (kernel, preset, widths): each a call of the card composition at B = 1 (BT = T = 10)
 COMPOSITIONS = {
     "K1_clip_b16_spatial": lambda: FA._win_block_cuda(_empty(10, 197, 768), *_k1_args(768, False),
@@ -185,26 +191,26 @@ COMPOSITIONS = {
     "K4_swin_base_stage2": lambda: SB._swin_block_cuda(
         _empty(10, 196, 512), _empty(10, 196, 512), _block_w(512, 32, [k for k, _ in SB.ADAPTERS],
                                                              False), 16,
-        _empty(1, 16, 196, 196, dtype=torch.float32), _empty(196, 196, dtype=torch.float32)),
+        _empty(1, 16, 196, 196, dtype=torch.float32), _fuse_mask(14, 3)),
     "K4_int8_swin_base_stage3": lambda: SB._swin_block_cuda(
         _empty(10, 49, 1024), _empty(10, 49, 1024),
         _block_w(1024, 64, [k for k, _ in SB.ADAPTERS], True), 32,
-        _empty(1, 32, 49, 49, dtype=torch.float32), _empty(49, 49, dtype=torch.float32),
-        quantized=True),
+        _empty(1, 32, 49, 49, dtype=torch.float32), _fuse_mask(7, 0), quantized=True),
     "K4_swin_large_stage2": lambda: SB._swin_block_cuda(
         _empty(10, 196, 768), _empty(10, 196, 768), _block_w(768, 96, [k for k, _ in SB.ADAPTERS],
                                                              False), 24,
-        _empty(1, 24, 196, 196, dtype=torch.float32), _empty(196, 196, dtype=torch.float32)),
+        _empty(1, 24, 196, 196, dtype=torch.float32), _fuse_mask(14, 0)),
     "K7_swin_base_stage0": lambda: FA._ffn_cuda(_empty(31360, 128), _empty(128), _empty(128),
                                                 _empty(512, 128), _empty(512), _empty(128, 512),
                                                 _empty(128)),
 }
 # (N, dh) of each attention launcher's arguments
 CORE_ARGS = {"stg_attn_core": lambda a: (a[5], a[7]), "stg_attn_core_t": lambda a: (a[4], a[7]),
-             "stg_attn_qkv": lambda a: (a[7], a[8])}
-# (M, N, K) of each bf16 GEMM launcher's arguments
+             "stg_attn_qkv": lambda a: (a[7], a[8]), "stg_attn_core_win": lambda a: (a[7], a[9])}
+# (M, N, K) of each bf16 GEMM launcher's arguments (K4's adapter pairs: csrc/adapter.cu)
 GEMMS = {"stg_gemm_bf16": slice(4, 7), "stg_gemm_bf16_res": slice(5, 8),
-         "stg_gemm_bf16_res2": slice(6, 9)}
+         "stg_gemm_bf16_res2": slice(6, 9), "stg_adapter_hidden_pair": slice(8, 11),
+         "stg_adapter_out_pair": slice(12, 15)}
 
 
 @pytest.mark.parametrize("name", sorted(COMPOSITIONS))
@@ -304,7 +310,7 @@ def _swin_work(cfg, quantized):
                 work[attn_id][1].append((st.num_frames, dh))
             if st.mode == "fusion_adapt" and swin_whole_block_enabled(st):
                 work["K4"][0].extend(tower + [(D, C), (C, D)])
-                work["K4"][1].append((st.H * st.W, dh))
+                work["K4"][1].append((st.window_size ** 2, dh))     # its core over each window
                 continue
             work[attn_id][1].append((st.window_size ** 2, dh))
             if "K7" in work:
@@ -347,4 +353,4 @@ def test_presets_products_and_cores_lie_within_the_hopper_limits(monkeypatch, na
     if name == "clip_l14_fusion":
         assert (257, 64) in cores and (64, 64) in cores
     if name == "swin_large_fusion":
-        assert (96, 768) in products and (196, 32) in cores
+        assert (96, 768) in products and (49, 32) in cores

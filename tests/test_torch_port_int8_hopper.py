@@ -134,9 +134,11 @@ def recorder(monkeypatch):
 
 
 def _k4_q(C, heads, D, N):
+    H = round(N ** 0.5)                 # K4 reads its windows (7 x 7) from the fusion mask
+    fuse_mask = SB._geo_tensors(H, H, 7, 0, torch.device("cpu"))[2]
     return SB._swin_block_cuda(
         _empty(10, N, C), _empty(10, N, C), _block_w(C, D, [k for k, _ in SB.ADAPTERS], True),
-        heads, _empty(1, heads, N, N, dtype=F32), _empty(N, N, dtype=F32), quantized=True)
+        heads, _empty(1, heads, N, N, dtype=F32), fuse_mask, quantized=True)
 
 
 def _linear_q(M, K, N):
