@@ -30,7 +30,15 @@ line:
      body at (1576 / 392, 10, 768), the spatial body at (80, 197 / 49, 768),
      the FFN body at (15760 / 3920, 768)), each with a live adapter and once
      more with each of its two wiring faults (the S and MLP adapters swapped,
-     the hidden taken before the GELU); for the repairs of the larger
+     the hidden taken before the GELU); K13 and K11 run on csrc/tattn.cu's
+     temporal product T (qkv with each sequence's attention in its
+     epilogue) and csrc/rowadapt.cu's row-owning product R (the last tower
+     product with the adapter on the same rows), each call making exactly
+     LAUNCHES_PER_CALL launches (counted at the launchers), and K13 at the
+     video rows and K11's temporal body at the video rows once more with
+     each of T's two wiring faults (the attention over the whole 128-row
+     tile instead of each sequence; q of head h paired with k and v of head
+     h + 1), which must fail the check; for the repairs of the larger
      presets, K1 and K2 at CLIP ViT-L/14's 257 tokens (80, 257, 1024) h16,
      K12 and K13, float and int8, at the ViT-L/14 shapes (v (80, 257, 1024),
      a (80, 64, 1024), D 64), and K5, K6 and K4 at Swin-Large's adapter width
@@ -137,6 +145,12 @@ TOL_K14_MOVED = 0.2  # the share of K14's float outputs that may differ from the
                      # sum rounds an intermediate the other way); K14 with its residual
                      # rounded twice must move more of them, though each by one bf16 step
                      # (on an H100 at the CLIP-B/16 video rows: 0.092 against 0.32)
+# CUDA launches a call of the redesigned K13 / K11 wrappers makes (csrc/tattn.cu's temporal
+# product T, csrc/rowadapt.cu's row-owning product R): K13 LN, T, R (int8: LN + quantize,
+# T, quantize, R); K11 qd (temporal) LN + quantize, T, quantize, R; qh (spatial) LN +
+# quantize, qkv, core, quantize, R; ffn_qh LN + quantize, fc1, quantize, R
+LAUNCHES_PER_CALL = {"clip_tadapt": 3, "clip_tadapt_q": 4, "win_block_qd": 4, "win_block_qh": 5,
+                     "ffn_qh": 4}
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13",
            "K14")
 CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
@@ -165,13 +179,14 @@ META = {
             ["fuse.cu"]),
     "K11": ("K11 win_block_qd + win_block_qh + ffn_qh (int8 attention block or FFN with the "
             "adapter's down-projection and GELU; pallas_attn.py:1486, :1503, :1674)",
-            "stgcma_tpu/ops/pallas_attn.py:1486", ["rowprep.cu", "gemm.cu", "attn.cu"]),
+            "stgcma_tpu/ops/pallas_attn.py:1486",
+            ["rowprep.cu", "tattn.cu", "rowadapt.cu", "gemm.cu", "attn.cu"]),
     "K12": ("K12 clip_fusion_block + clip_fusion_block_q (whole CLIP fusion block after the "
             "temporal stage, bf16 and int8 variants)", "stgcma_tpu/ops/pallas_clip_block.py:168",
             ["rowprep.cu", "gemm.cu", "attn.cu", "fuse.cu"]),
     "K13": ("K13 clip_tadapt + clip_tadapt_q (temporal stage + T_Adapter, bf16 and int8 "
             "variants)", "stgcma_tpu/ops/pallas_clip_block.py:350",
-            ["rowprep.cu", "gemm.cu", "attn.cu"]),
+            ["rowprep.cu", "tattn.cu", "rowadapt.cu"]),
     "K14": ("K14 clip_tv2 + clip_tv2_q (temporal stage + T_Adapter in the tower's (B*T, N, C) "
             "layout, no transposes, bf16 and int8 variants)", "stgcma_tpu/ops/pallas_attn.py:1757",
             ["rowprep.cu", "gemm.cu", "attn.cu"]),
@@ -532,6 +547,114 @@ def check_k11_faults(name, kernel, plain, args, other, tol):
     return moved
 
 
+@contextlib.contextmanager
+def counted_launches():
+    """The names of the port's CUDA launchers called inside (each launcher
+    call is one CUDA launch)."""
+    from stgcma_tpu_torch.ops import cuda_lib
+    real, calls = cuda_lib.lib, []
+
+    class Counting:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self._lib, name)
+            if not name.startswith("stg_") or name == "stg_error_string":
+                return fn
+
+            def call(*args):
+                calls.append(name)
+                return fn(*args)
+            return call
+    cuda_lib.lib = lambda src: Counting(real(src))
+    try:
+        yield calls
+    finally:
+        cuda_lib.lib = real
+
+
+def check_launches(name, kernel, args, want_t):
+    """One call of the wrapper makes exactly LAUNCHES_PER_CALL of its kind,
+    R (csrc/rowadapt.cu) among them, and T (csrc/tattn.cu) where `want_t`."""
+    import torch
+    key = next(k for k in LAUNCHES_PER_CALL if kernel.name.startswith(k + " "))
+    with counted_launches() as calls:
+        kernel(*args)
+    torch.cuda.synchronize()
+    if len(calls) != LAUNCHES_PER_CALL[key]:
+        fail(f"{name}: {len(calls)} launches a call ({calls}), expected {LAUNCHES_PER_CALL[key]}")
+    if not any(c.startswith("stg_rowadapt") for c in calls) or (
+            want_t != any(c.startswith("stg_tattn") for c in calls)):
+        fail(f"{name}: launches {calls} miss the row-owning product or take the temporal one "
+             f"{'not ' if want_t else ''}where they must")
+    log(f"  {name}: {len(calls)} launches a call: {', '.join(calls)}")
+    return len(calls)
+
+
+@contextlib.contextmanager
+def tattn_over_whole_tile():
+    """The temporal product attending over all the whole sequences of its
+    128-row tile instead of each sequence: launched with the tile's span as
+    its frame count (patched where K13 and K11 call it)."""
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops import cuda_lib
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    real = (PCB._tattn, FA._tattn)
+
+    def faulty(a, sa, w, ws, bias, out, T, heads, s):
+        span = (FA.TATTN_TILE_ROWS // T) * T
+        M, C = a.shape
+        lib, p, scale = cuda_lib.lib("tattn.cu"), FA._ptr, FA._q_scale(C // heads)
+        if sa is None:
+            err = lib.stg_tattn_bf16(p(a), p(w), p(bias), p(out), M, C, span, heads, scale, s)
+        else:
+            err = lib.stg_tattn_s8(p(a), p(sa), p(w), p(ws), p(bias), p(out), M, C, span, heads,
+                                   scale, s)
+        cuda_lib.check("tattn.cu", err)
+        return out
+    PCB._tattn = FA._tattn = faulty
+    try:
+        yield
+    finally:
+        PCB._tattn, FA._tattn = real
+
+
+def kv_of_next_head(wqkv, C, heads):
+    """W_qkv (or its bias, its scales) with the k and v rows of head h taken
+    from head h + 1: what a temporal product pairing q of head h with k and v
+    of head h + 1 computes on the true weights."""
+    import torch
+    dh = C // heads
+    return torch.cat([wqkv[:C], wqkv[C:2 * C].roll(-dh, 0), wqkv[2 * C:].roll(-dh, 0)])
+
+
+def check_t_faults(name, run, plain_out, tol, next_head_args):
+    """The check fails where it must for the temporal product's wiring: the
+    attention over the whole tile (the wrapper run under
+    `tattn_over_whole_tile`) and q of head h with k, v of head h + 1 (`run`
+    on `next_head_args`) are held to the plain version on the true inputs
+    and must differ by more than the tolerance."""
+    import torch
+    ref = _flat(plain_out)
+    scale = ref.abs().max().item()
+    moved = {}
+    with tattn_over_whole_tile():
+        out = _flat(run())
+    torch.cuda.synchronize()
+    moved["T attends over the whole tile"] = (out - ref).abs().max().item() / scale
+    out = _flat(run(*next_head_args))
+    torch.cuda.synchronize()
+    moved["T pairs q of head h with k, v of head h + 1"] = (out - ref).abs().max().item() / scale
+    for fault, m in moved.items():
+        if not m > tol:
+            fail(f"{name}: a temporal product with '{fault}' passes the check ({m:.4g} of max "
+                 f"|plain| from the plain version, tol {tol})")
+    log(f"  {name}: T with a fault vs plain (rel, must exceed {tol}): "
+        + ", ".join(f"{k} {x:.4g}" for k, x in moved.items()))
+    return moved
+
+
 def phase_k11_kernels(cfg):
     """K11's three bodies at the sites of CLIP ViT-B/16 fusion with the int8
     tower at B = 8: the temporal hidden-only body at the video and audio
@@ -569,6 +692,11 @@ def phase_k11_kernels(cfg):
                            TOL_KERNEL_Q)
         row["faults_rel"] = check_k11_faults(name, kernel, plain, args,
                                              adapter_operands(g, C, D), TOL_KERNEL_Q)
+        row["launches_per_call"] = check_launches(name, kernel, args, kind == "qd")
+        if kind == "qd" and site.startswith("video"):
+            nxt = args[:3] + tuple(kv_of_next_head(t, C, heads) for t in args[3:6]) + args[6:]
+            row["faults_rel"].update(check_t_faults(
+                name, lambda *a: kernel(*(a or args)), plain(*args), TOL_KERNEL_Q, nxt))
         rows.append(row)
         del args
     return {"K11": rows}
@@ -1240,6 +1368,14 @@ def phase_clip_block_kernels(cfg, tag=""):
                 fail(f"{name}: the T_Adapter moves x by {moved:.4g}, not beyond {tol} * "
                      f"{scale:.4g}: the check is blind to the kernel")
             row["adapter_moves_rel"] = moved / scale
+            with torch.inference_mode():
+                row["launches_per_call"] = check_launches(name, kernel, (x, wt, heads), True)
+                if site == "video rows":
+                    nxt = {**wt, **{k: kv_of_next_head(wt[k], C, heads)
+                                    for k in ("w_qkv", "b_qkv", "s_qkv") if k in wt}}
+                    row["faults_rel"] = check_t_faults(
+                        name, lambda *a: kernel(*(a or (x, wt, heads))), plain(x, wt, heads),
+                        tol, (x, nxt, heads))
             results["K13"].append(row)
     return results
 

@@ -434,11 +434,11 @@ int launch_d(const Dir& d0, const Dir& d1, const float* mask, const Seqs& seqs, 
 
 // vh (B, Nv, D), ah (B, Na, D), vo/ao likewise, all bf16 and contiguous; gv, ga: (1,)
 // bf16; mask: nullable (Nv, Na) fp32, added to the (Nv, Na) gram in both directions.
-// D in {16, 32, 48, 64, 96}; B <= 65535.
+// D in {16, 32, 48, 64, 96}; any B whose blocks fit a 1-D grid (the launcher's guard).
 STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const void* ga,
                            const void* mask, void* vo, void* ao, int B, int Nv, int Na, int D,
                            cudaStream_t stream) {
-  if (B < 1 || B > 65535 || Nv < 1 || Na < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || Nv < 1 || Na < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* v = static_cast<const bf16*>(vh);
   const bf16* a = static_cast<const bf16*>(ah);
   const Dir d0{v, a, a, static_cast<const bf16*>(gv), static_cast<bf16*>(vo), Nv, Na, Na, 1, 0};
@@ -451,25 +451,28 @@ STG_API int stg_fuse_bidir(const void* vh, const void* ah, const void* gv, const
 // (nW * N,) int32, the tokens of window w at tab[w * N .. w * N + N - 1], every token
 // of [0, ntok) once (nW * N = ntok); each of the B * nW windows fuses its N tokens of
 // vh with its N tokens of ah, unmasked, and writes them back at their own rows.
-// D in {16, 32, 48, 64, 96}; B <= 65535.
+// D in {16, 32, 48, 64, 96}; B * nW windows, at most 2^31 - 1.
 STG_API int stg_fuse_bidir_win(const void* vh, const void* ah, const void* gv, const void* ga,
                                const void* tab, int nW, void* vo, void* ao, int B, int ntok,
                                int N, int D, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || nW < 1 || N < 1 || nW * N != ntok)
+  const long long windows = static_cast<long long>(B) * nW;
+  if (B < 1 || nW < 1 || N < 1 || static_cast<long long>(nW) * N != ntok ||
+      windows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* v = static_cast<const bf16*>(vh);
   const bf16* a = static_cast<const bf16*>(ah);
   const Dir d0{v, a, a, static_cast<const bf16*>(gv), static_cast<bf16*>(vo), N, N, 0, 0, 0};
   const Dir d1{a, v, v, static_cast<const bf16*>(ga), static_cast<bf16*>(ao), N, N, 0, 0, 0};
-  return launch_d<true>(d0, d1, nullptr, Seqs{static_cast<const int*>(tab), nW, ntok}, B * nW,
-                        D, stream);
+  return launch_d<true>(d0, d1, nullptr, Seqs{static_cast<const int*>(tab), nW, ntok},
+                        static_cast<int>(windows), D, stream);
 }
 
 // K10: q (B, Nq, D), k and v (B, Nk, D), o (B, Nq, D), all bf16 and contiguous:
-// o = softmax(q . k^T) . v, unscaled. D in {16, 32, 48, 64, 96}; B <= 65535.
+// o = softmax(q . k^T) . v, unscaled. D in {16, 32, 48, 64, 96}; any B whose blocks fit a
+// 1-D grid.
 STG_API int stg_unscaled_attn(const void* q, const void* k, const void* v, void* o, int B,
                               int Nq, int Nk, int D, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || Nq < 1 || Nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || Nq < 1 || Nk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Dir d{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
               static_cast<const bf16*>(v), nullptr, static_cast<bf16*>(o), Nq, Nk, 0, 0, 0};
   return launch_d<false>(d, d, nullptr, Seqs{nullptr, 1, 0}, B, D, stream);

@@ -85,9 +85,7 @@
 // otherwise; the launchers refuse). The tensor maps are encoded on the host for
 // every call by cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
 // (no link against libcuda), and passed as __grid_constant__ parameters.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -158,21 +156,7 @@ __device__ __forceinline__ auto epi_value(const EpiArgs& e, int N, int m, int n,
 // ---------------------------------------------------------------------------
 
 constexpr int WG_BM = 128;                // block tile rows: two consumer warpgroups of 64
-constexpr int WG_BK_BYTES = 128;          // k-tile depth: 64 bf16 or 128 int8, one swizzle row
-constexpr int WG_KSTEP_BYTES = 32;        // one wgmma: k16 bf16 or k32 int8
-constexpr int TMA_ROW_ALIGN = 16;         // bytes: K * sizeof(operand) and every base
 constexpr int WG_THREADS = 288;           // two consumer warpgroups + one producer warp
-
-// bf16 operands accumulate in fp32, int8 ones in int32
-template <typename Op> struct OpType;
-template <> struct OpType<bf16> {
-  using Acc = float;
-  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-};
-template <> struct OpType<int8_t> {
-  using Acc = int;
-  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-};
 
 template <int TN>
 struct WgTile {
@@ -186,118 +170,6 @@ struct WgTile {
   // the ring, its 2 * STAGES mbarriers, and room to align the ring to 1024 bytes
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// until the phase of the given parity has completed (a fresh barrier: parity 1 passes)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// the box at (k0, row0) of a 2-D tensor map into shared memory, reported to bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k0, int row0,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0),
-         "r"(smem_u32(bar)) : "memory");
-}
-
-// wgmma operand descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
-// start address / 16, leading offset 1 (unused), stride 1024 bytes between 8-row
-// groups, layout 1 (SWIZZLE_128B). A 32-byte k-step (k16 bf16 or k32 int8) adds 2
-// to the start: the bytes are laid out alike for both types.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
-}
-
-// keep the compiler from moving reads of an accumulator across a wgmma wait
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// the accumulator operands of one wgmma: 8 at a time, with constraint c ("+f" or "+r")
-#define WG_ACC8(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), \
-    c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
-#define WG_ACC32(c) WG_ACC8(c, 0), WG_ACC8(c, 8), WG_ACC8(c, 16), WG_ACC8(c, 24)
-#define WG_ACC64(c) WG_ACC32(c), WG_ACC8(c, 32), WG_ACC8(c, 40), WG_ACC8(c, 48), WG_ACC8(c, 56)
-#define WG_REGS32 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_REGS64 WG_REGS32 ", " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// d (m64 x n64 fp32, 32 a thread) += A (64 x k16 bf16, descriptor da) . B (n64 x k16, db)^T
-__device__ __forceinline__ void wgmma_step(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32 "}, %32, %33, p, 1, 1, "
-      "0, 0;\n}\n"
-      : WG_ACC32("+f") : "l"(da), "l"(db));
-}
-
-// d (m64 x n128 fp32, 64 a thread) += A (64 x k16 bf16) . B (n128 x k16)^T
-__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS64 "}, %64, %65, p, 1, 1, "
-      "0, 0;\n}\n"
-      : WG_ACC64("+f") : "l"(da), "l"(db));
-}
-
-// d (m64 x n128 s32, 64 a thread) += A (64 x k32 s8) . B (n128 x k32 s8)^T; 8-bit
-// wgmma takes K-major operands only and has no scale or transpose immediates
-__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WG_REGS64 "}, %64, %65, p;\n}\n"
-      : WG_ACC64("+r") : "l"(da), "l"(db));
-}
 
 template <int EPI>
 constexpr bool f32_out = EPI == EPI_Q_QUICKGELU_F32 || EPI == EPI_Q_GELU_F32;
@@ -478,47 +350,6 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<TN>::BLOCKS_PER_SM) gemm_wg
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (nullptr if it has none)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (rows, K) row-major tensor of Op in boxes of 128 bytes of k by box_rows rows,
-// 128-byte swizzled; reads past its edges are zeros
-template <typename Op>
-int tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(Op)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(WG_BK_BYTES / sizeof(Op)),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, OpType<Op>::TMA, 2, const_cast<void*>(ptr), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename Op, int TN, int EPI>

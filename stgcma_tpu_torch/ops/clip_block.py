@@ -45,8 +45,14 @@ A&S 7.1.26 erf differs from `erff` by < 2e-7.
 On the card each wrapper is a composition of the port's own hand-written
 launches in one stream (`csrc/rowprep.cu` LN and row quantization,
 `csrc/gemm.cu` products with their epilogues, `csrc/attn.cu` core,
-`csrc/fuse.cu` fusion): 19 launches for K12 (23 int8), 6 for K13 (8 int8);
-6 for K14 with an adapter (4 without; one more of each for int8: LN and
+`csrc/fuse.cu` fusion, `csrc/tattn.cu` the temporal product,
+`csrc/rowadapt.cu` the row-owning product with the adapter): 19 launches
+for K12 (23 int8); 3 for K13 (LN, the qkv product with each sequence's
+attention in its epilogue, proj with the T_Adapter and the residual on the
+same rows: qkv, att and the hidden never reach device memory; 4 int8: LN
+and quantization of the rounded LN rows in one launch, the merged heads
+quantized), 6 (8 int8) where `tattn_route` / `rowadapt_route` do not take
+its shapes; 6 for K14 with an adapter (4 without; one more of each for int8: LN and
 row quantization are one launch, the proj product quantizes first), its
 attention core reading each token's T frames N rows apart
 (`stg_attn_core_t`); one call of a wrapper counts as one launch. No product
@@ -66,9 +72,10 @@ from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_GELU, _EPI_BF16_QUICKGELU, _
                          _EPI_BF16_RESF, _EPI_BF16_RGELU, _EPI_Q_BF16, _QUICK_GELU, _Kernel, _attn_core,
                          _attn_core_t, _check_cuda, _check_shapes, _erf_gelu, _fuse_cuda,
                          _gemm_bf16, _gemm_res, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
-                         _quant_rows, _stream, check_attn_shape, check_fuse_width, dotq,
-                         fuse_plain)
-from .swin_block import TOWER, _gemm_res2, _lin, adapter_weights, tower_weights
+                         _quant_rows, _rowadapt, _stream, _tattn, check_attn_shape,
+                         check_fuse_width, dotq, fuse_plain, rowadapt_route, tattn_route)
+from .swin_block import (TOWER, _gemm_res2, _lin, _ln_quant_pair, adapter_weights,
+                         tower_weights)
 
 # the four adapters K12 reads: short name -> attribute of a fusion-mode ClipBlock
 ADAPTERS = (("sv", "S_Adapter"), ("sa", "S_Adapter_Audio"),
@@ -328,21 +335,57 @@ def _clip_block_q_cuda(v, a, w, heads):
 def _tadapt_cuda(x, w, heads, quantized=False):
     if x.dim() != 3:
         raise ValueError(f"x must be (R, T, C), got {tuple(x.shape)}")
-    R, T, _ = x.shape
+    R, T, C = x.shape
     bf = torch.bfloat16
-    C, _, D = _check_operands(x, w, heads, quantized, 2, ["ad"], "K13")
-    _check_cuda(x, {"x": (x, bf)})
-    s = _stream(x)
     M = R * T
+    if not (C % heads == 0 and tattn_route(T, C // heads)
+            and rowadapt_route(C, w["ad_w1"].shape[0])):
+        _, _, D = _check_operands(x, w, heads, quantized, 2, ["ad"], "K13")
+        _check_cuda(x, {"x": (x, bf)})
+        return _tadapt_composed(x.view(M, C), w, heads, T, quantized, D, _stream(x)).view(R, T, C)
+    # the temporal and row-owning products' checks hold every weight; x and the
+    # LN's here, read once
+    if quantized != ("s_qkv" in w):
+        raise ValueError(f"K13 {'int8' if quantized else 'float'} variant given the weights of "
+                         f"the other one")
+    _check_cuda(x, {"x": (x, bf), "ln1_w": (w["ln1_w"], bf), "ln1_b": (w["ln1_b"], bf)})
+    _check_shapes({"ln1_w": (w["ln1_w"], (C,)), "ln1_b": (w["ln1_b"], (C,))})
+    s = _stream(x)
     x2 = x.view(M, C)
+    # LN; the temporal product (qkv and each sequence's attention, the slab on
+    # chip) into the merged heads; the row-owning product: proj, the
+    # T_Adapter's hidden and its up product with the residual, att and the
+    # hidden on chip. The int8 variant quantizes the rounded LN rows (one
+    # launch) and the merged heads
+    att = torch.empty_like(x2)
+    if quantized:
+        xq, sx = _ln_quant_pair(x2, x2[:0], w["ln1_w"], w["ln1_b"], s)
+        _tattn(xq, sx, w["w_qkv"], w["s_qkv"], w["b_qkv"], att, T, heads, s)
+        a, sa = _quant_rows(att, s)
+    else:
+        _tattn(_ln_bf16(x2, w["ln1_w"], w["ln1_b"], s), None, w["w_qkv"], None, w["b_qkv"], att,
+               T, heads, s)
+        a, sa = att, None
+    y = torch.empty_like(x2)
+    _rowadapt(a, sa, w["w_proj"], w.get("s_proj"), w["b_proj"], w["ad_w1"], w["ad_b1"],
+              _EPI_BF16_RGELU, s, up=(w["ad_w2"], w["ad_b2"], x2, y))
+    return y.view(R, T, C)
+
+
+def _tadapt_composed(x2, w, heads, T, quantized, D, s):
+    """K13 where `tattn_route` or `rowadapt_route` does not take its shapes:
+    LN, the qkv product, the core, proj, the adapter's two products (6
+    launches, 8 int8), with qkv, att and the hidden through device memory."""
+    M, C = x2.shape
+    bf = torch.bfloat16
     xn = _ln_bf16(x2, w["ln1_w"], w["ln1_b"], s)
-    qkv = _tower_cuda(xn, w, 0, torch.empty((M, 3 * C), dtype=bf, device=x.device), s, quantized)
-    o = _attn_core(qkv.view(R, T, 3 * C), None, heads, s)
+    qkv = _tower_cuda(xn, w, 0, torch.empty((M, 3 * C), dtype=bf, device=x2.device), s,
+                      quantized)
+    o = _attn_core(qkv.view(M // T, T, 3 * C), None, heads, s)
     att = _tower_cuda(o.view(M, C), w, 1, torch.empty_like(x2), s, quantized)
-    h = _gemm_bf16(att, w["ad_w1"], w["ad_b1"], torch.empty((M, D), dtype=bf, device=x.device),
+    h = _gemm_bf16(att, w["ad_w1"], w["ad_b1"], torch.empty((M, D), dtype=bf, device=x2.device),
                    _EPI_BF16_RGELU, s)
-    return _gemm_res(h, w["ad_w2"], w["ad_b2"], x2, torch.empty_like(x2), _EPI_BF16_RES1,
-                     s).view(R, T, C)
+    return _gemm_res(h, w["ad_w2"], w["ad_b2"], x2, torch.empty_like(x2), _EPI_BF16_RES1, s)
 
 
 def _tadapt_q_cuda(x, w, heads):

@@ -74,6 +74,21 @@ SIGNATURES = {
         # q, k, v, o, B, Nq, Nk, D, stream: o = softmax(q.k^T).v, unscaled
         "stg_unscaled_attn": [P, P, P, P, I, I, I, I, P],
     },
+    "tattn.cu": {
+        # A, W, bias, O, M, C, T, heads, scale, stream: O (M, C) = merged heads of each
+        # sequence's attention over its T frames, qkv = A . W^T + bias never stored
+        "stg_tattn_bf16": [P, P, P, P, I, I, I, I, F, P],
+        # A, sa, W, ws, bias, O, M, C, T, heads, scale, stream: the same from int8 codes
+        "stg_tattn_s8": [P, P, P, P, P, P, I, I, I, I, F, P],
+    },
+    "rowadapt.cu": {
+        # A, W, bias, O (nullable), wd, bd, H (nullable), w2 (nullable), b2, X, Y, M, N, K,
+        # D, down epilogue (0, 4, 5 as gemm.cu's), stream: O = bf16(A . W^T + bias), H =
+        # epi(O . wd^T + bd), Y = bf16(X + bf16(H . w2^T + b2))
+        "stg_rowadapt_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        # A, sa, W, ws, bias, then as the bf16 one: the same from int8 codes
+        "stg_rowadapt_s8": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    },
     "adapter.cu": {
         # xv, wv, bv, hv, xa, wa, ba, ha, M, D, K, stream: both streams' adapter hiddens
         # bf16(gelu(bf16(x.W^T + b))) (K4)

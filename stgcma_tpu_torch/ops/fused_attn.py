@@ -27,10 +27,18 @@ in ops/clip_block.py).
   :1486, the CLIP temporal site, where the attention output feeds nothing
   but the T_Adapter); `win_block_qh` returns (o, hidden) (`_win_block_qh_kernel`
   :1503, the spatial site); `ffn_qh` returns (FFN output, MLP_Adapter hidden)
-  (`_ffn_qh_kernel` :1674). On the card each is K2's or K3's launches, o
-  rounded to bf16 by their last product's epilogue, then one `gemm.cu`
-  product with the erf-GELU epilogue (`EPI_BF16_GELU`) at N = the adapter
-  width; `win_block_qd` keeps o in a scratch buffer of its own.
+  (`_ffn_qh_kernel` :1674). On the card each ends in csrc/rowadapt.cu's
+  row-owning product (`_rowadapt`): the last int8 product, o rounded to
+  bf16 in its registers, the adapter's down product with the erf-GELU
+  epilogue on the same rows, o written only where it is returned. Before
+  it: LN + quantize, then at the temporal site (`tattn_route`) the qkv
+  product with every sequence's attention in its epilogue
+  (csrc/tattn.cu, `_tattn`: the qkv slab stays on chip), at the spatial
+  site the int8 qkv product and the resident core; the merged heads
+  quantized (4 launches `win_block_qd`, 5 `win_block_qh`); `ffn_qh` LN +
+  quantize, fc1 with its fp32 hidden and row maxima, the hidden quantized
+  (4). An adapter width or C that `rowadapt_route` does not take keeps
+  K2's or K3's launches and one `gemm.cu` product with `EPI_BF16_GELU`.
 - K5 `win_fuse` and K6 `bidir_fuse`: the bidirectional gated cross-modal
   fusion vo = vh + (gv * softmax(vh.ah^T).ah), ao = ah + (ga *
   softmax(ah.vh^T).vh), unscaled fp32 logits, probabilities rounded to the
@@ -97,7 +105,6 @@ FLASH_MIN_TOKENS = 120                # K6 from 120 tokens (pallas_attn.py:1023)
 FLASH_MAX_KEY_BYTES = 16 << 20        # K6 while Na * D * 4 <= 16 MiB, else K10 (:1033-1034)
 FUSE_WIDTHS = (16, 32, 48, 64, 96)    # adapter widths D that csrc/fuse.cu instantiates
                                       # (K4-K6, K12, and D = DV of K10)
-FUSE_MAX_BATCH = 65535                # csrc/fuse.cu: B <= 65535 sequences a direction
 FUSE_BLOCK_ROWS = 128                 # csrc/fuse.cu: query rows of a block (8 warps of 16) ...
 FUSE_SMALL_ROWS = 64                  # ... or 64 (4 warps) where no direction has more rows
 FUSE_KEY_TILE = 64                    # csrc/fuse.cu BK: keys of a tile, rows padded to D + 8
@@ -113,8 +120,16 @@ ATTN_RESIDENT_MAX_TOKENS = 768        # csrc/attn.cu kResidentMaxTokens: K and V
 SMEM_MAX_BYTES = 232448               # shared memory one block may have on the H100
 GEMM_ALIGN = 8                        # csrc/gemm.cu (TMA): K and N in multiples of 8 bf16,
                                       # 16-byte aligned bases
-GEMM_S8_ALIGN = 16                    # csrc/gemm.cu TMA_ROW_ALIGN: K in multiples of 16 int8
-GEMM_KTILE_BYTES = 128                # csrc/gemm.cu WG_BK_BYTES: a k-tile of 64 bf16 or 128 int8
+GEMM_S8_ALIGN = 16                    # csrc/wgmma.cuh TMA_ROW_ALIGN: K in multiples of 16 int8
+GEMM_KTILE_BYTES = 128                # csrc/wgmma.cuh WG_BK_BYTES: a k-tile of 64 bf16 or 128 int8
+TATTN_TILE_ROWS = 128                 # csrc/tattn.cu TATTN_BM: rows a tile of the temporal product
+TATTN_MAX_FRAMES = 16                 # csrc/tattn.cu: frames a sequence on its route (a band of 16
+                                      # query rows finds its keys in three 16-key tiles)
+TATTN_HEAD_WIDTHS = (32, 64)          # head widths dh that csrc/tattn.cu instantiates
+ROWADAPT_ROWS = 64                    # csrc/rowadapt.cu RA_BM: output rows a warpgroup owns (a
+                                      # block: 64, or 128 where M fills the card)
+ROWADAPT_ALIGN = 32                   # csrc/rowadapt.cu RA_ALIGN: N in multiples of 32
+ROWADAPT_WIDTHS = (16, 32, 48, 64, 96)   # adapter widths D that csrc/rowadapt.cu instantiates
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +437,138 @@ def _attn_core_t(qkv, bias, heads, B, T, s, out):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _q_scale(dh):
+    """dh^-1/2 rounded to bf16, as the cores scale q."""
+    return float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
+
+
+def tattn_route(T, dh):
+    """True where the temporal product (csrc/tattn.cu) takes sequences of T
+    frames at head width dh: 1 <= T <= TATTN_MAX_FRAMES and dh in
+    TATTN_HEAD_WIDTHS. Elsewhere the qkv product and the attention core run
+    as two launches, with the qkv slab through device memory."""
+    return 1 <= T <= TATTN_MAX_FRAMES and dh in TATTN_HEAD_WIDTHS
+
+
+def rowadapt_route(N, D):
+    """True where the row-owning product with the adapter (csrc/rowadapt.cu)
+    takes output width N and adapter width D: N a multiple of
+    ROWADAPT_ALIGN, D in ROWADAPT_WIDTHS."""
+    return N >= ROWADAPT_ALIGN and N % ROWADAPT_ALIGN == 0 and D in ROWADAPT_WIDTHS
+
+
+def _aligned(*ts):
+    """Every tensor given (None passes) contiguous and 16-byte aligned."""
+    return all(t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0) for t in ts)
+
+
+def _raise_operands(name, what, named):
+    got = "; ".join(f"{k} {t.dtype} {tuple(t.shape)} at {t.data_ptr():#x}"
+                    for k, t in named.items() if t is not None)
+    raise ValueError(f"{name} takes {what}; got {got}")
+
+
+def check_tattn(a, sa, w, ws, bias, out, T, heads, name="the temporal product"):
+    """What csrc/tattn.cu takes: rows a (M, C), bf16 (sa and ws None) or int8
+    codes with sa (M,) fp32 and ws (3C,) bf16; w (3C, C) of a's dtype, bias
+    (3C,) bf16, out M rows of C bf16; M a multiple of T, `tattn_route(T, C /
+    heads)`; C a multiple of 8 (bf16) or 16 (int8); all contiguous, 16-byte
+    aligned. Runs before every launch: reads each attribute once and builds
+    no message unless it raises."""
+    i8, bf = torch.int8, torch.bfloat16
+    quantized = a.dtype == i8
+    ok = a.dim() == 2 and w.dim() == 2 and heads >= 1 and (sa is not None) == quantized
+    if ok:
+        (M, C), dh = a.shape, a.shape[1] // heads
+        ok = (a.dtype in (bf, i8) and w.dtype == a.dtype and tuple(w.shape) == (3 * C, C)
+              and C == heads * dh and tattn_route(T, dh) and M % T == 0
+              and C % (GEMM_S8_ALIGN if quantized else GEMM_ALIGN) == 0
+              and bias.dtype == bf and bias.numel() == 3 * C and out.dtype == bf
+              and out.numel() == M * C and out.shape[-1] == C and _aligned(a, w, bias, out, sa, ws)
+              and (not quantized or (sa.dtype == torch.float32 and sa.numel() == M
+                                     and ws.dtype == bf and ws.numel() == 3 * C)))
+    if not ok:
+        _raise_operands(name, f"rows a (M, C) bf16 or int8 with their scales, w (3C, C), bias "
+                        f"(3C,), out (M, C) bf16, M a multiple of T, 1 <= T <= "
+                        f"{TATTN_MAX_FRAMES}, C / heads in {TATTN_HEAD_WIDTHS} (T={T}, "
+                        f"heads={heads})", {"a": a, "sa": sa, "w": w, "ws": ws, "bias": bias,
+                                            "out": out})
+
+
+def _tattn(a, sa, w, ws, bias, out, T, heads, s):
+    """out (M, C) = the merged heads of each sequence's attention over its T
+    frames, qkv = a . w^T + bias (int8: dequantized by sa, ws) in the
+    epilogue of one product; the qkv slab never reaches device memory."""
+    check_tattn(a, sa, w, ws, bias, out, T, heads)
+    M, C = a.shape
+    lib = cuda_lib.lib("tattn.cu")
+    scale = _q_scale(C // heads)
+    if sa is None:
+        err = lib.stg_tattn_bf16(_ptr(a), _ptr(w), _ptr(bias), _ptr(out), M, C, T, heads, scale, s)
+    else:
+        err = lib.stg_tattn_s8(_ptr(a), _ptr(sa), _ptr(w), _ptr(ws), _ptr(bias), _ptr(out), M, C,
+                               T, heads, scale, s)
+    cuda_lib.check("tattn.cu", err)
+    return out
+
+
+def check_rowadapt(a, sa, w, ws, bias, wd, bd, out=None, h=None, up=None,
+                   name="the row-owning product"):
+    """What csrc/rowadapt.cu takes: a (M, K) bf16, or int8 codes with sa (M,)
+    fp32 and ws (N,) bf16; w (N, K) of a's dtype, bias (N,) bf16; the
+    adapter's wd (D, N) and bd (D,) bf16, `rowadapt_route(N, D)`; out and h,
+    where given, M rows of N and of D in bf16; up, where given, (w2 (N, D),
+    b2 (N,), x, y) with x and y M rows of N in bf16; K a multiple of 8 (bf16)
+    or 16 (int8); all contiguous and 16-byte aligned. Reads each attribute
+    once and builds no message unless it raises."""
+    i8, bf = torch.int8, torch.bfloat16
+    quantized = a.dtype == i8
+    w2, b2, x, y = up if up is not None else (None,) * 4
+    ok = a.dim() == 2 and w.dim() == 2 and wd.dim() == 2 and (sa is not None) == quantized
+    if ok:
+        (M, K), N, D = a.shape, w.shape[0], wd.shape[0]
+        ok = (a.dtype in (bf, i8) and w.dtype == a.dtype and w.shape[1] == K
+              and K % (GEMM_S8_ALIGN if quantized else GEMM_ALIGN) == 0
+              and rowadapt_route(N, D) and bias.dtype == bf and bias.numel() == N
+              and wd.dtype == bf and wd.shape[1] == N and bd.dtype == bf and bd.numel() == D
+              and (out is None or (out.dtype == bf and out.numel() == M * N))
+              and (h is None or (h.dtype == bf and h.numel() == M * D))
+              and (up is None or (w2.dtype == bf and tuple(w2.shape) == (N, D) and b2.dtype == bf
+                                  and b2.numel() == N and x.dtype == bf and x.numel() == M * N
+                                  and y.dtype == bf and y.numel() == M * N))
+              and _aligned(a, w, bias, wd, bd, out, h, w2, b2, x, y, sa, ws)
+              and (not quantized or (sa.dtype == torch.float32 and sa.numel() == M
+                                     and ws.dtype == bf and ws.numel() == N)))
+    if not ok:
+        _raise_operands(name, f"a (M, K) bf16 or int8 with its scales, w (N, K), bias (N,), wd "
+                        f"(D, N), bd (D,), out (M, N), h (M, D), w2 (N, D), b2 (N,), x and y "
+                        f"(M, N), all bf16 but the codes and sa; N a multiple of "
+                        f"{ROWADAPT_ALIGN}, D in {ROWADAPT_WIDTHS}",
+                        {"a": a, "sa": sa, "w": w, "ws": ws, "bias": bias, "wd": wd, "bd": bd,
+                         "out": out, "h": h, "w2": w2, "b2": b2, "x": x, "y": y})
+
+
+def _rowadapt(a, sa, w, ws, bias, wd, bd, down_epi, s, out=None, h=None, up=None):
+    """One launch of csrc/rowadapt.cu: o = bf16(a . w^T + bias) (int8:
+    dequantized by sa, ws), into `out` where given; the adapter hidden
+    down_epi(o . wd^T + bd) (`_EPI_BF16`, `_EPI_BF16_GELU` or
+    `_EPI_BF16_RGELU`), into `h` where given; with up = (w2, b2, x, y), y =
+    bf16(x + bf16(hidden . w2^T + b2)). What is not given stays on chip."""
+    check_rowadapt(a, sa, w, ws, bias, wd, bd, out, h, up)
+    M, K = a.shape
+    N, D = w.shape[0], wd.shape[0]
+    w2, b2, x, y = up if up is not None else (None,) * 4
+    tail = (_ptr(bias), _ptr(out), _ptr(wd), _ptr(bd), _ptr(h), _ptr(w2), _ptr(b2), _ptr(x),
+            _ptr(y), M, N, K, D, down_epi, s)
+    lib = cuda_lib.lib("rowadapt.cu")
+    if sa is None:
+        err = lib.stg_rowadapt_bf16(_ptr(a), _ptr(w), *tail)
+    else:
+        err = lib.stg_rowadapt_s8(_ptr(a), _ptr(sa), _ptr(w), _ptr(ws), *tail)
+    cuda_lib.check("rowadapt.cu", err)
+
+
 def check_attn_shape(N, dh, name="the attention core"):
     """The token counts and head widths that csrc/attn.cu takes."""
     if dh not in ATTN_HEAD_WIDTHS or not 1 <= N <= ATTN_MAX_TOKENS:
@@ -537,10 +684,11 @@ def check_fuse_width(D, name="the fusion kernel"):
 
 def check_unscaled_attn(B, Nq, Nk, D, DV, name="K10"):
     """The shapes csrc/fuse.cu's `stg_unscaled_attn` takes: D = DV in
-    FUSE_WIDTHS, any Nq, Nk >= 1, B <= FUSE_MAX_BATCH."""
-    if D != DV or D not in FUSE_WIDTHS or min(Nq, Nk) < 1 or not 1 <= B <= FUSE_MAX_BATCH:
-        raise ValueError(f"{name} takes D = DV in {FUSE_WIDTHS}, Nq, Nk >= 1 and 1 <= B <= "
-                         f"{FUSE_MAX_BATCH}, got B={B}, Nq={Nq}, Nk={Nk}, D={D}, DV={DV}")
+    FUSE_WIDTHS, any Nq, Nk >= 1 and B >= 1 (its launcher refuses only a
+    grid past 2^31 - 1 blocks)."""
+    if D != DV or D not in FUSE_WIDTHS or min(Nq, Nk, B) < 1:
+        raise ValueError(f"{name} takes D = DV in {FUSE_WIDTHS} and Nq, Nk, B >= 1, got B={B}, "
+                         f"Nq={Nq}, Nk={Nk}, D={D}, DV={DV}")
 
 
 def _check_block(x, heads, bias, weights):
@@ -632,7 +780,10 @@ def _win_block_q_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s,
     return out
 
 
-def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+def _ffn_q_hidden(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act, s):
+    """K3's first launches: validation, LN + quantize, fc1 with its fp32
+    hidden and row maxima, the hidden's quantization. Returns (int8 codes,
+    fp32 scales) of the hidden."""
     if act not in _EPI:
         raise ValueError(f"act must be one of {sorted(_EPI)}, got {act!r}")
     if x.dim() != 2:
@@ -648,7 +799,6 @@ def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
                    "w2_q": (w2_q, (C, H)), "w2_s": (w2_s, (C,)), "b2": (b2, (C,))})
     if C % 16 or H % 16:
         raise ValueError(f"C={C} and hidden={H} must be multiples of 16")
-    s = _stream(x)
     xq, sx = _quant_rows(x, s, ln_w, ln_b)
     # the fp32 hidden (M, H) goes through device memory: its per-row int8
     # scale needs the whole row's max before fc2 can start. fc1's epilogue
@@ -657,7 +807,12 @@ def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
     h = torch.empty((M, H), dtype=torch.float32, device=x.device)
     hmax = torch.zeros((M,), dtype=torch.float32, device=x.device)
     _gemm_s8(xq, sx, w1_q, w1_s, b1, h, _EPI[act], s, amax=hmax)
-    hq, sh = _quant_rows(h, s, amax=hmax)
+    return _quant_rows(h, s, amax=hmax)
+
+
+def _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act):
+    s = _stream(x)
+    hq, sh = _ffn_q_hidden(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act, s)
     out = torch.empty_like(x)
     _gemm_s8(hq, sh, w2_q, w2_s, b2, out, _EPI_Q_BF16, s)
     return out
@@ -674,19 +829,44 @@ def _adapter_operands(x, wd, bd):
 def _win_block_qad_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
                         wd, bd, heads, emit_o):
     D = _adapter_operands(x, wd, bd)
-    o = _win_block_q_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
-                          heads)                 # K2's launches; o rounded to bf16
     B_, N, C = x.shape
-    h = torch.empty((B_, N, D), dtype=torch.bfloat16, device=x.device)
-    _gemm_bf16(o.view(B_ * N, C), wd, bd, h.view(B_ * N, D), _EPI_BF16_GELU, _stream(x))
+    bf = torch.bfloat16
+    h = torch.empty((B_, N, D), dtype=bf, device=x.device)
+    if not rowadapt_route(C, D):      # K2's launches, o rounded to bf16, then the adapter product
+        o = _win_block_q_cuda(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
+                              heads)
+        _gemm_bf16(o.view(B_ * N, C), wd, bd, h.view(B_ * N, D), _EPI_BF16_GELU, _stream(x))
+        return (o, h) if emit_o else h
+    # the products' checks hold every weight; x and the LN's here, read once
+    _check_block(x, heads, None, {"ln_w": (ln_w, bf), "ln_b": (ln_b, bf)})
+    _check_shapes({"ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,))})
+    s = _stream(x)
+    M = B_ * N
+    xq, sx = _quant_rows(x.view(M, C), s, ln_w, ln_b)
+    att = torch.empty((M, C), dtype=bf, device=x.device)      # the merged heads
+    if tattn_route(N, C // heads):    # the temporal site: qkv and its cores in one launch
+        _tattn(xq, sx, wqkv_q, wqkv_s, b_qkv, att, N, heads, s)
+    else:                             # the spatial site: the product, then the resident core
+        qkv = torch.empty((B_, N, 3 * C), dtype=bf, device=x.device)
+        _gemm_s8(xq, sx, wqkv_q, wqkv_s, b_qkv, qkv, _EPI_Q_BF16, s)
+        _attn_core(qkv, None, heads, s, out=att.view(B_, N, C))
+    aq, sa = _quant_rows(att, s)
+    o = torch.empty_like(x) if emit_o else None       # qd: o stays on chip
+    _rowadapt(aq, sa, wproj_q, wproj_s, b_proj, wd, bd, _EPI_BF16_GELU, s, out=o, h=h)
     return (o, h) if emit_o else h
 
 
 def _ffn_qh_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, wd, bd, act):
     D = _adapter_operands(x, wd, bd)
-    o = _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act)   # K3's launches
     h = torch.empty((x.shape[0], D), dtype=torch.bfloat16, device=x.device)
-    _gemm_bf16(o, wd, bd, h, _EPI_BF16_GELU, _stream(x))
+    if not rowadapt_route(x.shape[-1], D):            # K3's launches, then the adapter product
+        o = _ffn_q_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act)
+        _gemm_bf16(o, wd, bd, h, _EPI_BF16_GELU, _stream(x))
+        return o, h
+    s = _stream(x)
+    hq, sh = _ffn_q_hidden(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, act, s)
+    o = torch.empty_like(x)
+    _rowadapt(hq, sh, w2_q, w2_s, b2, wd, bd, _EPI_BF16_GELU, s, out=o, h=h)
     return o, h
 
 
@@ -750,8 +930,6 @@ def _fuse_cuda(vh, ah, gate_v, gate_a, mask=None):
     _check_cuda(vh, named)
     _check_shapes(shapes)
     check_fuse_width(D)
-    if B > FUSE_MAX_BATCH:
-        raise ValueError(f"the fusion kernel takes B <= {FUSE_MAX_BATCH}, got B={B}")
     vo, ao = torch.empty_like(vh), torch.empty_like(ah)
     cuda_lib.check("fuse.cu", cuda_lib.lib("fuse.cu").stg_fuse_bidir(
         _ptr(vh), _ptr(ah), _ptr(gate_v), _ptr(gate_a), _ptr(mask), _ptr(vo), _ptr(ao),

@@ -2,7 +2,7 @@
 K1, K2, K3 and K12 rows that carry them.
 
     python3 stgcma_tpu_torch/tools/bench_parts.py [--tree DIR] [--label NAME]
-        [--out chiprun_out/bench_parts]
+        [--out chiprun_out/bench_parts] [--only SUBSTR,...]
 
 Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
 - csrc/gemm.cu's bf16 product at the tower's shapes: qkv (15760, 2304, 768),
@@ -42,6 +42,13 @@ Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
   window's 49 tokens (`_attn_core_win`). Each with its bound (the exps at
   16 a clock an SM on the special function units beside the tensor and
   byte terms), its library yardstick where one exists (SDPA) and `graph_ms`;
+- K13 (float) at the CLIP-B/16 video (1576, 10, 768) and audio (392, 10,
+  768) rows and CLIP-L/14's video rows (2056, 10, 1024), K11's temporal body
+  at the CLIP-B/16 video and audio rows (`tadapt_cases`), and, where the tree
+  has them, csrc/tattn.cu's temporal product T alone (bf16 and int8, the
+  video rows: qkv and each sequence's attention) and csrc/rowadapt.cu's
+  row-owning product R alone (K13's: proj, the T_Adapter and the residual;
+  K11 qd's: the int8 proj and the adapter hidden), each with `graph_ms`;
 - K8 at Swin-Base stage 3's temporal site, K9 at its 2 -> 3 merge norm and
   at its stage-3 temporal and final norms (both (3920, 1024)), each also
   through its bare launcher (`bare_ms`): what the wrapper's host work adds
@@ -61,6 +68,7 @@ directory .gitignore lists, so that two versions run in one chip call in
 turns (each builds its own kernels); every int8 product row carries a
 digest of its output's bytes, and each run compares its digests with those
 of the runs already in OUT (exit 1 if an int8 product differs by a bit).
+With --only just the rows whose name holds one of the given substrings run.
 Prints one JSON object a row and writes them to OUT/LABEL.json. Needs a
 CUDA device.
 """
@@ -578,6 +586,153 @@ def block_cases(g):
     return cases
 
 
+def tadapt_cases(g, sfu):
+    """K13 (float) at the CLIP-B/16 video (1576, 10, 768) and audio (392, 10,
+    768) rows and at CLIP-L/14's video rows (2056, 10, 1024), and K11's
+    temporal body (int8, D 48) at the CLIP-B/16 video and audio rows, on
+    block 0 of `random_clip_ave` (the int8 K13 rows and K11's other bodies
+    are `int8_block_cases`'); where the tree has them, csrc/tattn.cu's
+    temporal product T alone (bf16 and int8 at the video rows: qkv and each
+    sequence's attention, the merged heads out) and csrc/rowadapt.cu's
+    row-owning product R alone (K13's: proj, the T_Adapter and the residual,
+    bf16; K11 qd's: the int8 proj and the adapter hidden; K11 ffn_qh's: the
+    int8 fc2 at K = 3072 with o and the hidden), each with its
+    bound and a library yardstick (`F.linear` / `torch._int_mm` and SDPA)."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.configs import clip_b16, clip_l14
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.common import cast_tree
+    from stgcma_tpu_torch.ops.quant import quantize_clip_tower
+    bf, dev, T = torch.bfloat16, "cuda", 10
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    def block(cfg, int8=False):
+        bb = random_clip_ave(dataclasses.replace(cfg, layers=1), 0).backbone
+        return cast_tree((quantize_clip_tower(bb) if int8 else bb).resblocks[0], bf).to(dev)
+    cases = []
+    b16, l14 = clip_b16(ftmode="fusion", label_dim=29), clip_l14(ftmode="fusion", label_dim=29)
+    for tag, cfg, sites in (("CLIP-B/16", b16, (("video", 1576), ("audio", 392))),
+                            ("CLIP-L/14", l14, (("video", 2056),))):
+        blk = block(cfg)
+        for site, R in sites:
+            ad = blk.T_Adapter if site == "video" else blk.T_Adapter_Audio
+            wt = PCB.tadapt_weights(blk.attn, blk.ln_1, ad)
+            x = rnd(R, T, cfg.embed_dim, std=0.1).to(bf)
+            cases.append({"row": f"K13 {tag} {site} rows {tuple(x.shape)} h{cfg.heads}",
+                          "fn": lambda x=x, wt=wt, h=cfg.heads: PCB.clip_tadapt(x, wt, h),
+                          "plain": lambda x=x, wt=wt, h=cfg.heads: PCB.tadapt_plain(x, wt, h),
+                          "graph": True})
+    C, heads, D = b16.embed_dim, b16.heads, 48
+    q = block(b16, int8=True)
+    qd = (q.ln_1.weight, q.ln_1.bias, q.attn.in_proj.weight_q, q.attn.in_proj.weight_s,
+          q.attn.in_proj.bias, q.attn.out_proj.weight_q, q.attn.out_proj.weight_s,
+          q.attn.out_proj.bias, rnd(D, C, std=C ** -0.5).to(bf), rnd(D, std=0.1).to(bf), heads)
+    for site, R in (("video", 1576), ("audio", 392)):
+        x = rnd(R, T, C).to(bf)
+        cases.append({"row": f"K11 qd CLIP-B/16 {site} temporal {tuple(x.shape)} D {D}",
+                      "fn": lambda x=x: FA.win_block_qd(x, *qd),
+                      "plain": lambda x=x: FA.win_block_qd.plain(x, *qd), "tol": TOL_Q,
+                      "graph": True})
+    if not hasattr(FA, "_tattn"):
+        return cases
+    # T and R alone at the CLIP-B/16 video rows, M = 15760
+    R, M = 1576, 1576 * T
+
+    def cur():               # the stream at call time (a CUDA graph captures on its own)
+        return torch.cuda.current_stream().cuda_stream
+    fb = block(b16)
+    w = PCB.tadapt_weights(fb.attn, fb.ln_1, fb.T_Adapter)
+    wq = PCB.tadapt_weights(q.attn, q.ln_1, q.T_Adapter)
+    a = rnd(M, C).to(bf)
+    codes = torch.randint(-127, 128, (M, C), generator=g, device=dev, dtype=torch.int8)
+    sa = rnd(M).abs() * 0.02 + 1e-3
+    att = torch.empty(M, C, dtype=bf, device=dev)
+
+    def attend(qkv):
+        return FA._heads_attention(qkv.view(R, T, 3 * C), heads, None, bf).view(M, C)
+
+    def sdpa(qkv):
+        qq, kk, vv = qkv.view(R, T, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(qq, kk, vv)
+    grams = 4 * R * T * T * C
+    t_bytes = 2 * (2 * M * C + 3 * C * C)
+    cases += [
+        {"row": f"tattn.cu T bf16 CLIP-B/16 video rows ({M}, {3 * C}, {C}) h{heads}",
+         "fn": lambda: FA._tattn(a, None, w["w_qkv"], None, w["b_qkv"], att, T, heads, cur()),
+         "plain": lambda: attend(gemm_plain(a, w["w_qkv"], w["b_qkv"], "bf16")),
+         "library": lambda: sdpa(F.linear(a, w["w_qkv"], w["b_qkv"])),
+         "flops": 2 * M * 3 * C * C + grams, "graph": True,
+         "bound": bound_ms(2 * M * 3 * C * C + grams, t_bytes, exps=R * heads * T * T,
+                           sfu=sfu)},
+        {"row": f"tattn.cu T int8 CLIP-B/16 video rows ({M}, {3 * C}, {C}) h{heads}",
+         "fn": lambda: FA._tattn(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"], att, T, heads,
+                                 cur()),
+         "plain": lambda: attend(s8_plain(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"],
+                                          "bf16")),
+         "tol": TOL_Q, "graph": True,
+         "bound": max(bound_ms(2 * M * 3 * C * C, 3 * M * C + 3 * C * C + 4 * M,
+                               peak=H100_INT8, exps=R * heads * T * T, sfu=sfu),
+                      bound_ms(grams, 0))}]
+    wd, bd, w2, b2 = w["ad_w1"], w["ad_b1"], w["ad_w2"], w["ad_b2"]
+    x, y = rnd(M, C, std=0.1).to(bf), torch.empty(M, C, dtype=bf, device=dev)
+    h = torch.empty(M, D, dtype=bf, device=dev)
+
+    def r():
+        FA._rowadapt(a, None, w["w_proj"], None, w["b_proj"], wd, bd, FA._EPI_BF16_RGELU, cur(),
+                     up=(w2, b2, x, y))
+        return y
+
+    def r_plain():
+        o = gemm_plain(a, w["w_proj"], w["b_proj"], "bf16")
+        hid = gemm_plain(o, wd, bd, "rgelu")
+        return (x.float() + gemm_plain(hid, w2, b2, "bf16").float()).to(bf)
+
+    def r_library():
+        o = F.linear(a, w["w_proj"], w["b_proj"])
+        return x + F.linear(F.gelu(F.linear(o, wd, bd)), w2, b2)
+
+    def rq():
+        FA._rowadapt(codes, sa, wq["w_proj"], wq["s_proj"], wq["b_proj"], qd[8], qd[9],
+                     FA._EPI_BF16_GELU, cur(), h=h)
+        return h
+
+    def rq_plain():
+        o = s8_plain(codes, sa, wq["w_proj"], wq["s_proj"], wq["b_proj"], "bf16")
+        return F.gelu(o.float() @ qd[8].float().t() + qd[9].float()).to(bf)
+    codes4 = torch.randint(-127, 128, (M, 4 * C), generator=g, device=dev, dtype=torch.int8)
+    w2q = q.mlp.c_proj                      # fc2: int8 (C, 4C) with its scales
+    o4 = torch.empty(M, C, dtype=bf, device=dev)
+
+    def rf():
+        FA._rowadapt(codes4, sa, w2q.weight_q, w2q.weight_s, w2q.bias, qd[8], qd[9],
+                     FA._EPI_BF16_GELU, cur(), out=o4, h=h)
+        return o4, h
+
+    def rf_plain():
+        o = s8_plain(codes4, sa, w2q.weight_q, w2q.weight_s, w2q.bias, "bf16")
+        return o, F.gelu(o.float() @ qd[8].float().t() + qd[9].float()).to(bf)
+    r_flops = 2 * M * C * C + 4 * M * C * D
+    cases += [
+        {"row": f"rowadapt.cu R bf16 K13 CLIP-B/16 video rows ({M}, {C}, {C}) D {D}",
+         "fn": r, "plain": r_plain, "library": r_library, "flops": r_flops, "graph": True,
+         "bound": bound_ms(r_flops, 2 * (3 * M * C + C * C + 2 * C * D))},
+        {"row": f"rowadapt.cu R int8 K11 qd CLIP-B/16 video rows ({M}, {C}, {C}) D {D}",
+         "fn": rq, "plain": rq_plain, "tol": TOL_Q, "graph": True,
+         "bound": max(bound_ms(2 * M * C * C, M * C + C * C + 2 * M * D + 4 * M, peak=H100_INT8),
+                      bound_ms(2 * M * C * D, 0))},
+        {"row": f"rowadapt.cu R int8 K11 ffn_qh fc2 CLIP-B/16 video ({M}, {C}, {4 * C}) D {D}",
+         "fn": rf, "plain": rf_plain, "tol": TOL_Q, "graph": True,
+         "bound": max(bound_ms(2 * M * C * 4 * C, 4 * M * C + 4 * C * C + 2 * M * (C + D) + 4 * M,
+                               peak=H100_INT8), bound_ms(2 * M * C * D, 0))}]
+    return cases
+
+
 def host_cases(g):
     """Short kernels timed through their wrapper and through the bare
     launcher (ctypes, no checks): K8 at Swin-Base stage 3's temporal site
@@ -659,6 +814,8 @@ def main(argv=None) -> int:
                     help="checkout whose stgcma_tpu_torch is timed")
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default="chiprun_out/bench_parts")
+    ap.add_argument("--only", default="",
+                    help="comma-separated substrings: only the rows whose name holds one")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -671,8 +828,12 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, ok = [], True
     with torch.inference_mode():
+        only = [o for o in args.only.split(",") if o]
         for case in (gemm_cases(g) + s8_cases(g) + core_cases(g) + block_cases(g)
-                     + int8_block_cases(g) + host_cases(g) + swin_fuse_cases(g)):
+                     + int8_block_cases(g) + tadapt_cases(g, sfu_rate()) + host_cases(g)
+                     + swin_fuse_cases(g)):
+            if only and not any(o in case["row"] for o in only):
+                continue
             err = held(case)
             tol = case.get("tol", 0.0 if case.get("exact") else TOL_S8_F32 if "amax" in case
                            else TOL)

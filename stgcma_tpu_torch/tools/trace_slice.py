@@ -58,7 +58,7 @@ LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv"
 # kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
 PORT_KERNELS = ("gemm_wgmma_kernel", "attn_mma_kernel", "attn_resident_kernel",
                 "attn_stream_kernel", "quant_rows_kernel", "ln_bf16_kernel", "fuse_kernel",
-                "pair_kernel")
+                "pair_kernel", "tattn_kernel", "rowadapt_kernel")
 
 
 def main(argv=None) -> int:

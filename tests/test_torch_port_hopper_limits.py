@@ -207,30 +207,42 @@ COMPOSITIONS = {
 # (N, dh) of each attention launcher's arguments
 CORE_ARGS = {"stg_attn_core": lambda a: (a[5], a[7]), "stg_attn_core_t": lambda a: (a[4], a[7]),
              "stg_attn_qkv": lambda a: (a[7], a[8]), "stg_attn_core_win": lambda a: (a[7], a[9])}
-# (M, N, K) of each bf16 GEMM launcher's arguments (K4's adapter pairs: csrc/adapter.cu)
-GEMMS = {"stg_gemm_bf16": slice(4, 7), "stg_gemm_bf16_res": slice(5, 8),
-         "stg_gemm_bf16_res2": slice(6, 9), "stg_adapter_hidden_pair": slice(8, 11),
-         "stg_adapter_out_pair": slice(12, 15)}
+# (M, N, K) of each launcher's arguments that runs a product on the tensor cores (K4's
+# adapter pairs: csrc/adapter.cu; the temporal product: csrc/tattn.cu, N = 3C; the
+# row-owning product: csrc/rowadapt.cu, whose adapter products are bf16 in either variant)
+GEMMS = {"stg_gemm_bf16": lambda a: a[4:7], "stg_gemm_bf16_res": lambda a: a[5:8],
+         "stg_gemm_bf16_res2": lambda a: a[6:9], "stg_adapter_hidden_pair": lambda a: a[8:11],
+         "stg_adapter_out_pair": lambda a: a[12:15],
+         "stg_tattn_bf16": lambda a: (a[4], 3 * a[5], a[5]),
+         "stg_tattn_s8": lambda a: (a[6], 3 * a[7], a[7]),
+         "stg_rowadapt_bf16": lambda a: a[11:14], "stg_rowadapt_s8": lambda a: a[13:16]}
+# (M, C, T, heads) of the temporal product's arguments: its attention over T frames
+TATTN_ARGS = {"stg_tattn_bf16": lambda a: a[4:8], "stg_tattn_s8": lambda a: a[6:10]}
 
 
 @pytest.mark.parametrize("name", sorted(COMPOSITIONS))
 def test_card_compositions_give_the_kernels_what_they_take(recorder, name):
     """Every operand the composition hands the bf16 GEMM has passed
-    `check_gemm_operands` (it would have raised), with K and N multiples of 8;
-    every attention core fits one block's shared memory."""
+    `check_gemm_operands` (it would have raised), with K and N multiples of 8,
+    and likewise every temporal and row-owning product its check; every
+    attention core fits one block's shared memory, and every temporal
+    product's sequences lie on `tattn_route`."""
     COMPOSITIONS[name]()
     gemms = [args for fn, args in recorder.calls if fn in GEMMS]
     assert gemms, "no bf16 product was launched"
     for fn, args in recorder.calls:
         if fn in GEMMS:
-            M, N, K = args[GEMMS[fn]]
+            M, N, K = GEMMS[fn](args)
             assert M >= 1 and N % FA.GEMM_ALIGN == 0 and K % FA.GEMM_ALIGN == 0, (fn, M, N, K)
         if fn in CORE_ARGS:
             N, dh = CORE_ARGS[fn](args)
             route, smem = FA.attn_route(N, dh)
             assert smem <= FA.SMEM_MAX_BYTES and route != "streamed", (N, dh, route, smem)
-    if not name.startswith(("K7", "K11")):
-        assert any(fn in CORE_ARGS for fn, _ in recorder.calls)
+        if fn in TATTN_ARGS:
+            M, C, T, heads = TATTN_ARGS[fn](args)
+            assert M % T == 0 and FA.tattn_route(T, C // heads), (M, C, T, heads)
+    if not name.startswith(("K7", "K11_ffn")):
+        assert any(fn in CORE_ARGS or fn in TATTN_ARGS for fn, _ in recorder.calls)
 
 
 # ---------------------------------------------------------------------------

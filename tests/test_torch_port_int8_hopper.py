@@ -183,6 +183,11 @@ S8_COMPOSITIONS = {
 # argument positions of the recorded launchers
 S8 = {"amax": 6, "mnk": slice(7, 10), "epi": 10}
 QR = {"x_is_f32": 1, "g": 2, "amax": 4, "mk": slice(7, 9)}
+# (M, N, K) of every launcher that runs an int8 product: gemm.cu's, the temporal
+# product's qkv (csrc/tattn.cu, N = 3C) and the row-owning product's (csrc/rowadapt.cu)
+S8_PRODUCTS = {"stg_gemm_s8": lambda a: a[S8["mnk"]],
+               "stg_tattn_s8": lambda a: (a[6], 3 * a[7], a[7]),
+               "stg_rowadapt_s8": lambda a: a[13:16]}
 
 
 @pytest.mark.parametrize("name", sorted(S8_COMPOSITIONS))
@@ -195,10 +200,9 @@ def test_int8_compositions_give_the_product_what_it_takes(recorder, name):
     compose, hiddens = S8_COMPOSITIONS[name]
     compose()
     calls = recorder.calls
-    products = [args for fn, args in calls if fn == "stg_gemm_s8"]
+    products = [S8_PRODUCTS[fn](args) for fn, args in calls if fn in S8_PRODUCTS]
     assert products, "no int8 product was launched"
-    for args in products:
-        M, N, K = args[S8["mnk"]]
+    for M, N, K in products:
         assert M >= 1 and N % FA.GEMM_ALIGN == 0 and K % FA.GEMM_S8_ALIGN == 0, (M, N, K)
     stored = 0
     for i, (fn, args) in enumerate(calls):
@@ -270,7 +274,9 @@ def _constant(text, name):
 
 
 def test_int8_tile_and_alignment_constants_mirror_gemm_cu():
-    text = (CSRC / "gemm.cu").read_text()
+    gemm = (CSRC / "gemm.cu").read_text()
+    text = gemm + (CSRC / "wgmma.cuh").read_text()     # the TMA + wgmma parts gemm.cu includes
+    assert '#include "wgmma.cuh"' in gemm
     assert _constant(text, "WG_BK_BYTES") == FA.GEMM_KTILE_BYTES == 128
     assert _constant(text, "TMA_ROW_ALIGN") == FA.GEMM_S8_ALIGN == 2 * FA.GEMM_ALIGN
     # one 128-byte k-tile is 128 int8 or 64 bf16 values, four 32-byte wgmma steps

@@ -275,7 +275,7 @@ def test_fuse_route_mirrors_fuse_cu():
     assert "cp_async16(kd" in text and "ldsm_x4_t(bv" in text
     widths = tuple(int(d) for d in re.findall(r"if \(D == (\d+)\) return launch<", text))
     assert widths == FA.FUSE_WIDTHS
-    assert f"B > {FA.FUSE_MAX_BATCH}" in text
+    assert "65535" not in text and "if (b0 + b1 > 0x7fffffffLL)" in text   # F4: the grid's bound
     assert "static constexpr int MIN_BLOCKS = D == 16 ? 4 : 2;" in text
     assert [FA.fuse_min_blocks(D) for D in FA.FUSE_WIDTHS] == [4, 2, 2, 2, 2]
     assert f"static constexpr bool Q_SMEM = D >= {FA.FUSE_Q_SMEM_WIDTH};" in text
