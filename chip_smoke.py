@@ -13,7 +13,8 @@ line:
      attention block), K2 (its int8 twin) and K3 (int8 FFN) at the CLIP
      sites; K1 at the Swin window sites (with their bias and shift mask) and
      temporal sites, K7 (bf16 FFN), K8 (window-attention core, small and
-     blocked bias) and K9 (LayerNorm) at the Swin sites; K4 (the whole Swin
+     blocked bias) and K9 (LayerNorm) at the Swin sites (K9 also at
+     Swin-Large's, with each row's device time alone); K4 (the whole Swin
      fusion block, with live adapters and gates, and once more with each of
      its wiring faults, which must fail the check) at stages 2 (shifted and
      unshifted) and 3, K5 (per-window fusion) and K6 (full-grid fusion) at
@@ -44,12 +45,14 @@ line:
      a (80, 64, 1024), D 64), and K5, K6 and K4 at Swin-Large's adapter width
      96 (K5 (5120 / 1280, 49, 96), K6 (80, 3136 / 784, 96), K4 at stage 2
      (80, 196, 768) h24 and stage 3 (80, 49, 1536) h48); K14 (the temporal
-     stage in the tower's own layout), float and int8, at the CLIP-B/16
-     video and audio rows (80, 197 / 49, 768), T = 10, with a live T_Adapter
-     and, at the video rows, its three wiring faults (the attention over the
-     tokens of a frame, the T_Adapter skipped, the residual rounded twice),
-     float at the CLIP-L/14 video rows (80, 257, 1024) and with a (16, 10,
-     10) bias and no adapter at (80, 196, 512) h16; K10 (unscaled attention)
+     stage in the tower's own layout, on T over frame-strided tiles and R
+     with its own rounding of the residual, LAUNCHES_PER_CALL a call), float
+     and int8, at the CLIP-B/16 video and audio rows (80, 197 / 49, 768), T
+     = 10, with a live T_Adapter and, at the video rows, its three wiring
+     faults (T over token-contiguous tiles, the T_Adapter skipped, R's
+     residual rounded twice), float at the CLIP-L/14 video rows (80, 257,
+     1024) and with a (16, 10, 10) bias and no adapter at (80, 196, 512) h16
+     (the earlier composition); K10 (unscaled attention)
      through the K10 route of the full-grid fusion at K6's odd shape and at
      the stage grids of Swin-Base cut to 168^2 ((80, 1764, 16), (80, 441,
      32)), with its fault (the dh^-1/2 scale applied); and the two parts
@@ -145,12 +148,12 @@ TOL_K14_MOVED = 0.2  # the share of K14's float outputs that may differ from the
                      # sum rounds an intermediate the other way); K14 with its residual
                      # rounded twice must move more of them, though each by one bf16 step
                      # (on an H100 at the CLIP-B/16 video rows: 0.092 against 0.32)
-# CUDA launches a call of the redesigned K13 / K11 wrappers makes (csrc/tattn.cu's temporal
-# product T, csrc/rowadapt.cu's row-owning product R): K13 LN, T, R (int8: LN + quantize,
-# T, quantize, R); K11 qd (temporal) LN + quantize, T, quantize, R; qh (spatial) LN +
-# quantize, qkv, core, quantize, R; ffn_qh LN + quantize, fc1, quantize, R
-LAUNCHES_PER_CALL = {"clip_tadapt": 3, "clip_tadapt_q": 4, "win_block_qd": 4, "win_block_qh": 5,
-                     "ffn_qh": 4}
+# CUDA launches a call of the redesigned K13 / K11 / K14 wrappers makes (csrc/tattn.cu's
+# temporal product T, csrc/rowadapt.cu's row-owning product R): K13 and K14 LN, T, R (int8:
+# LN + quantize, T, quantize, R); K11 qd (temporal) LN + quantize, T, quantize, R; qh
+# (spatial) LN + quantize, qkv, core, quantize, R; ffn_qh LN + quantize, fc1, quantize, R
+LAUNCHES_PER_CALL = {"clip_tadapt": 3, "clip_tadapt_q": 4, "clip_tv2": 3, "clip_tv2_q": 4,
+                     "win_block_qd": 4, "win_block_qh": 5, "ffn_qh": 4}
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13",
            "K14")
 CLIP_SWITCHES = ("STGCMA_CLIP_TADAPT_FUSED", "STGCMA_CLIP_WHOLE_BLOCK")
@@ -189,7 +192,7 @@ META = {
             ["rowprep.cu", "tattn.cu", "rowadapt.cu"]),
     "K14": ("K14 clip_tv2 + clip_tv2_q (temporal stage + T_Adapter in the tower's (B*T, N, C) "
             "layout, no transposes, bf16 and int8 variants)", "stgcma_tpu/ops/pallas_attn.py:1757",
-            ["rowprep.cu", "gemm.cu", "attn.cu"]),
+            ["rowprep.cu", "tattn.cu", "rowadapt.cu", "gemm.cu", "attn.cu"]),
 }
 
 
@@ -606,11 +609,11 @@ def tattn_over_whole_tile():
         span = (FA.TATTN_TILE_ROWS // T) * T
         M, C = a.shape
         lib, p, scale = cuda_lib.lib("tattn.cu"), FA._ptr, FA._q_scale(C // heads)
-        if sa is None:
-            err = lib.stg_tattn_bf16(p(a), p(w), p(bias), p(out), M, C, span, heads, scale, s)
+        if sa is None:          # sequences of consecutive rows (no token count)
+            err = lib.stg_tattn_bf16(p(a), p(w), p(bias), p(out), M, C, span, heads, 0, scale, s)
         else:
             err = lib.stg_tattn_s8(p(a), p(sa), p(w), p(ws), p(bias), p(out), M, C, span, heads,
-                                   scale, s)
+                                   0, scale, s)
         cuda_lib.check("tattn.cu", err)
         return out
     PCB._tattn = FA._tattn = faulty
@@ -751,8 +754,25 @@ def ln_bound(M, C):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_swin_kernels(cfg):
-    """K1, K7, K8 and K9 at the shapes of Swin-Base multimodal at B = 8."""
+def k9_sites(cfg):
+    """(site, rows, width) of the six LayerNorms of one Swin stream at B = 8:
+    the patch embed's, the three merges', stage 3's temporal and final norms."""
+    rows, T = B * cfg.num_ttokens, cfg.num_ttokens
+    H0, _ = cfg.stage_resolution(0)
+    sites = [("patch-embed norm", rows * H0 * H0, cfg.embed_dim)]
+    for s in range(cfg.num_layers - 1):
+        Hs, _ = cfg.stage_resolution(s)
+        sites.append((f"merge norm {s}->{s + 1}", rows * (Hs // 2) ** 2, 4 * cfg.stage_dim(s)))
+    H, _ = cfg.stage_resolution(cfg.num_layers - 1)
+    C = cfg.stage_dim(cfg.num_layers - 1)
+    return sites + [("stage-3 temporal norm", B * H * H * T, C), ("final norm", rows * H * H, C)]
+
+
+def phase_swin_kernels(cfg, large_cfg):
+    """K1, K7, K8 and K9 at the shapes of Swin-Base multimodal at B = 8, and
+    K9 at Swin-Large's norms; each K9 row also with its device time alone
+    (its launch replayed from a CUDA graph: no host work)."""
+    from stgcma_tpu_torch.tools import bench_parts
     import torch
     import torch.nn.functional as F
     from stgcma_tpu_torch.ops import fused_attn as FA
@@ -827,22 +847,20 @@ def phase_swin_kernels(cfg):
             f"K8 Swin stage 3 {site} {(R, n, dh)} period {P}", FA.wmsa, FA.wmsa_plain,
             (q, k, v, bm), {}, wmsa_bound(R, n, dh, P), library))
 
-    rows = B * T                                 # K9 at the six norms of a stream
-    H0, _ = cfg.stage_resolution(0)
-    k9_sites = [("patch-embed norm", rows * H0 * H0, cfg.embed_dim)]
-    for s in range(cfg.num_layers - 1):
-        Hs, _ = cfg.stage_resolution(s)
-        k9_sites.append((f"merge norm {s}->{s + 1}", rows * (Hs // 2) ** 2, 4 * cfg.stage_dim(s)))
-    k9_sites += [("stage-3 temporal norm", B * H * H * T, C), ("final norm", rows * H * H, C)]
-    for site, M, Cn in k9_sites:
-        args = (rnd(M, Cn, std=2.0).to(bf), (1 + rnd(Cn, std=0.1)).to(bf),
-                rnd(Cn, std=0.02).to(bf))
+    for tag, c in (("", cfg), ("Swin-Large ", large_cfg)):   # K9 at the six norms of a stream
+        for site, M, Cn in k9_sites(c):
+            args = (rnd(M, Cn, std=2.0).to(bf), (1 + rnd(Cn, std=0.1)).to(bf),
+                    rnd(Cn, std=0.02).to(bf))
 
-        def library(a=args, Cn=Cn):
-            return F.layer_norm(a[0], (Cn,), a[1], a[2])
-        results["K9"].append(check_kernel(
-            f"K9 {site} {(M, Cn)}", FA.layernorm, FA.layernorm_plain, args, {},
-            ln_bound(M, Cn), library))
+            def library(a=args, Cn=Cn):
+                return F.layer_norm(a[0], (Cn,), a[1], a[2])
+            name = f"K9 {tag}{site} {(M, Cn)}"
+            row = check_kernel(name, FA.layernorm, FA.layernorm_plain, args, {}, ln_bound(M, Cn),
+                               library)
+            row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.layernorm(*a))
+            log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
+            results["K9"].append(row)
+            del args
     return results
 
 
@@ -1406,27 +1424,26 @@ def library_k14(x, w, heads, T, bias):
 
 @contextlib.contextmanager
 def k14_core_over_tokens():
-    """K14's composition with its attention core over the N tokens of each
-    frame (the contiguous (B*T, N) rows of K1's core) in place of the T
-    frames of each token: the layout K14 exists to avoid."""
+    """K14's temporal product T run over token-contiguous tiles (each
+    sequence T consecutive rows: T tokens of one frame, as K13's layout
+    would have it) in place of frame-strided ones (the T frames of each
+    token, N rows apart)."""
     from stgcma_tpu_torch.ops import clip_block as PCB
-    real = PCB._attn_core_t
+    real = PCB._tattn
 
-    def faulty(qkv, bias, heads, Bn, T, s, out):
-        Ns, C3 = qkv.shape[2], qkv.shape[3]
-        PCB._attn_core(qkv.view(Bn * T, Ns, C3), None, heads, s, out=out.view(Bn * T, Ns, C3 // 3))
-        return out
-    PCB._attn_core_t = faulty
+    def faulty(a, sa, w, ws, bias, out, T, heads, s, tokens=0):
+        return real(a, sa, w, ws, bias, out, T, heads, s)
+    PCB._tattn = faulty
     try:
         yield
     finally:
-        PCB._attn_core_t = real
+        PCB._tattn = real
 
 
 @contextlib.contextmanager
 def k14_residual_rounded_twice():
-    """K14's output product with K13's epilogue, bf16(x + bf16(acc + b2)), in
-    place of its own, bf16(x + (acc + b2))."""
+    """K14's row-owning product R with K13's up epilogue, bf16(x + bf16(acc +
+    b2)), in place of its own, bf16(x + (acc + b2))."""
     from stgcma_tpu_torch.ops import clip_block as PCB
     from stgcma_tpu_torch.ops import fused_attn as FA
     real = PCB._EPI_BF16_RESF
@@ -1443,19 +1460,20 @@ def share_moved(out, ref):
 
 
 def check_k14_faults(name, args, kernel, plain, tol, bits):
-    """The K14 check fails where it must: K14 with its attention over the N
-    tokens of a frame (`k14_core_over_tokens`) and K14 without its T_Adapter
-    (the adapter's output weights zeroed: x itself comes out) differ from the
-    plain version on the true inputs by more than the tolerance; with `bits`
-    (the float variant) K14 moves at most TOL_K14_MOVED of its outputs'
-    bits from the plain version's, and K14 with its residual rounded twice
-    more."""
+    """The K14 check fails where it must: K14 with its temporal product over
+    token-contiguous tiles (`k14_core_over_tokens`: each sequence T tokens of
+    one frame) and K14 without its T_Adapter (the adapter's output weights
+    zeroed: x itself comes out) differ from the plain version on the true
+    inputs by more than the tolerance; with `bits` (the float variant) K14
+    moves at most TOL_K14_MOVED of its outputs' bits from the plain
+    version's, and K14 with its residual rounded twice (R's up epilogue
+    given K13's rounding) more."""
     import torch
     x, w, heads, T = args
     ref = plain(*args)
     scale = ref.float().abs().max().item()
     no_adapter = {**w, "ad_w2": w["ad_w2"] * 0, "ad_b2": w["ad_b2"] * 0}
-    runs = {"attention over the tokens of a frame": (k14_core_over_tokens, w),
+    runs = {"T over token-contiguous tiles": (k14_core_over_tokens, w),
             "T_Adapter skipped": (contextlib.nullcontext, no_adapter)}
     moved = {}
     for fault, (ctx, wf) in runs.items():
@@ -1527,6 +1545,7 @@ def phase_tv2_kernels(cfg, l14_cfg):
                     row = check_kernel(name, kernel, plain, args, {},
                                        tadapt_bound(B * N, T, C, heads, D, sfu, int8),
                                        library_k14(x, w, heads, T, None), tol)
+                    row["launches_per_call"] = check_launches(name, kernel, args, True)
                     if site == "video" and not tag:
                         row["faults"] = check_k14_faults(name, args, kernel, plain, tol, not int8)
                 rows.append(row)
@@ -2023,7 +2042,8 @@ def main():
         f"{TOL_KERNEL_Q} for the int8 variants of K4, K12, K13, for K11 and for K4 at "
         f"Swin-Large)")
     results = phase_kernels(cfg)
-    phases = (lambda: phase_swin_kernels(swin_cfg), lambda: phase_fusion_kernels(fusion_cfg),
+    phases = (lambda: phase_swin_kernels(swin_cfg, large_cfg),
+              lambda: phase_fusion_kernels(fusion_cfg),
               lambda: phase_int8_swin_kernels(fusion_cfg), lambda: phase_clip_block_kernels(cfg),
               lambda: phase_k11_kernels(cfg), lambda: phase_l14_kernels(l14_cfg),
               lambda: phase_clip_block_kernels(l14_cfg, tag="CLIP-L/14 "),

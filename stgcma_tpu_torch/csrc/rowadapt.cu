@@ -2,14 +2,18 @@
 // block owns whole output rows, o = bf16(A . W^T + bias) (bf16 operands, or
 // int8 row codes with their scales: bf16(float(acc) * sa[m] * ws[n] + bias[n])),
 // then on those rows the adapter's down product h = epi(o . wd^T + bd) and,
-// where the caller gives its up weights, y = bf16(x + bf16(h . w2^T + b2)).
+// where the caller gives its up weights, y = bf16(x + bf16(h . w2^T + b2)) (K13's
+// rounding) or bf16(x + (h . w2^T + b2)), rounded once (K14's).
 // o reaches device memory only where the caller wants it, h only where it
 // wants the hidden; y is written where there is an up product.
 //
 // Replaces, in stgcma_tpu/ops/pallas_clip_block.py _tadapt_kernel (:350), the
 // proj dot and the T_Adapter (fc1, erf-GELU, fc2, the residual: `_adapter_h`
 // :131 rounds acc + b1 before the GELU and after it, `_adapter_o` :136 rounds
-// acc + b2 before the add, DOWN_RGELU), and in stgcma_tpu/ops/pallas_attn.py
+// acc + b2 before the add, DOWN_RGELU, UP_RES1), in stgcma_tpu/ops/pallas_attn.py
+// _tblock_v2_kernel (:1757) the same tail at its own rounding points (:1815-1837:
+// the hidden rounded once after the GELU, DOWN_GELU, and acc + b2 added to x in
+// fp32, UP_RESF), and in stgcma_tpu/ops/pallas_attn.py
 // _win_block_qd_kernel (:1486), _win_block_qh_kernel (:1503) and
 // _ffn_qh_kernel (:1674) the last int8 product with `_adapter_down` (:1472:
 // o in bf16, acc + bd, erf-GELU, rounded once, DOWN_GELU): the products that
@@ -34,8 +38,10 @@
 // load). After the last chunk each warp applies bd and the caller's epilogue
 // to its 16 rows and stages the bf16 hidden over the free ring; the up product
 // stages w2 there too (padded rows, ldmatrix) and takes the hidden's A
-// fragments from it; it stages each 64-column block of bf16(h . w2^T + b2) so
-// that x is read and y written 16 bytes a thread along the rows, x's chunks
+// fragments from it; it stages each 64-column block of h . w2^T + b2 (in bf16 for
+// UP_RES1, which rounds it; in fp32 for UP_RESF, which adds it to x unrounded:
+// staging fp32 for both left K13's R 5% slower on an H100) so that x is read and y
+// written 16 bytes a thread along the rows, x's chunks
 // loaded before the block's products (and its rows prefetched into L2 while
 // the tower product runs): loads in the mma fragments' layout, 4 bytes on 8
 // rows, left the block waiting on each.
@@ -55,8 +61,11 @@ constexpr int RA_ALIGN = 32;       // N in multiples of 32: whole k16 steps of t
 constexpr int RA_YB = 64;          // columns of y a step of the up product stages
 
 // the adapter hidden's epilogue, by gemm.cu's numbers: bf16(acc + bd), bf16(gelu(acc +
-// bd)) (K11), bf16(gelu(bf16(acc + bd))) (K13)
+// bd)) (K11, K14), bf16(gelu(bf16(acc + bd))) (K13)
 enum DownEpi { DOWN_BF16 = 0, DOWN_GELU = 4, DOWN_RGELU = 5 };
+// the up product's epilogue, by gemm.cu's numbers: bf16(x + bf16(acc + b2)) (K13),
+// bf16(x + (acc + b2)) (K14)
+enum UpEpi { UP_RES1 = 8, UP_RESF = 9 };
 
 // WGS consumer warpgroups of RA_BM rows each share every chunk of W: a block owns BM =
 // 64 WGS rows; one warpgroup: two blocks an SM, two: one
@@ -80,7 +89,7 @@ struct RTile {
   // hidden, then w2's rows, then the up product's output block of RA_YB columns
   static constexpr int FREE_BYTES = RING_BYTES + WD_BYTES + VEC_BYTES;
   static constexpr int HID_BYTES = BM * LDH * 2;
-  static constexpr int YS_BYTES = BM * (RA_YB + 8) * 2;
+  static constexpr int YS_BYTES = BM * (RA_YB + 8) * 4;    // room for fp32
   // rows of w2 a pass of the up product stages: a multiple of RA_ALIGN
   static constexpr int W2_ROWS =
       (FREE_BYTES - HID_BYTES - YS_BYTES) / (LDH * 2) / RA_ALIGN * RA_ALIGN;
@@ -97,6 +106,7 @@ struct Args {
   const bf16* bd;     // (D,)
   bf16* h;            // (M, D) or nullptr
   int down_epi;
+  int up_epi;
   const bf16* w2;     // (N, D) the up weights, or nullptr: no up product
   const bf16* b2;     // (N,)
   const bf16* x;      // (M, N) the residual
@@ -298,18 +308,21 @@ __global__ void __launch_bounds__(RTile<D, WGS>::THREADS, RTile<D, WGS>::BLOCKS_
   if (p.w2 == nullptr) return;
   __syncwarp();
 
-  // y = bf16(x + bf16(h . w2^T + b2)): w2 staged over the ring in passes of W2_ROWS
-  // rows (16 bytes a copy, two n8 tiles a ldmatrix); in steps of RA_YB columns each warp
-  // forms bf16(h . w2^T + b2) of its 16 rows into a staged block, then every thread
-  // adds 16-byte chunks of x, loaded before the products, and stores y
+  // y = bf16(x + u), u = bf16(h . w2^T + b2) (UP_RES1) or h . w2^T + b2 (UP_RESF): w2
+  // staged over the ring in passes of W2_ROWS rows (16 bytes a copy, two n8 tiles a
+  // ldmatrix); in steps of RA_YB columns each warp forms u of its 16 rows into a staged
+  // block (bf16 for UP_RES1, fp32 for UP_RESF), then every thread adds 16-byte chunks
+  // of x, loaded before the products, and stores y
   uint32_t ha[D / 16][4];
   const bf16* hrow = hs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(ha[kk], hrow + kk * 16);
-  constexpr int LDY = RA_YB + 8;
+  constexpr int LDY = RA_YB + 8;                        // elements a staged row
   constexpr int XCH = L::BM * RA_YB / 8 / kConsumers;   // x chunks a thread a step
   bf16* w2s = hs + L::BM * LDH;
-  bf16* ys = reinterpret_cast<bf16*>(smem + L::FREE_BYTES - L::YS_BYTES);
+  float* ys = reinterpret_cast<float*>(smem + L::FREE_BYTES - L::YS_BYTES);
+  bf16* ysh = reinterpret_cast<bf16*>(ys);
+  const bool round_u = p.up_epi == UP_RES1;             // warp-uniform
   const bf16* wrow = w2s + ((lane >> 4) * 8 + (lane & 7)) * LDH + ((lane >> 3) & 1) * 8;
   for (int nb0 = 0; nb0 < N; nb0 += L::W2_ROWS) {
     const int nrows = min(L::W2_ROWS, N - nb0);
@@ -350,9 +363,13 @@ __global__ void __launch_bounds__(RTile<D, WGS>::THREADS, RTile<D, WGS>::BLOCKS_
           const float2 b =
               __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.b2 + n0 + col));
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            *reinterpret_cast<uint32_t*>(ys + (rl + 8 * hh) * LDY + col) =
-                pack_bf16x2(__fadd_rn(u[nt][2 * hh], b.x), __fadd_rn(u[nt][2 * hh + 1], b.y));
+          for (int hh = 0; hh < 2; ++hh) {
+            const float v0 = __fadd_rn(u[nt][2 * hh], b.x), v1 = __fadd_rn(u[nt][2 * hh + 1], b.y);
+            if (round_u)
+              *reinterpret_cast<uint32_t*>(ysh + (rl + 8 * hh) * LDY + col) = pack_bf16x2(v0, v1);
+            else
+              *reinterpret_cast<float2*>(ys + (rl + 8 * hh) * LDY + col) = make_float2(v0, v1);
+          }
         }
       }
       bar_sync(1, kConsumers);
@@ -361,15 +378,30 @@ __global__ void __launch_bounds__(RTile<D, WGS>::THREADS, RTile<D, WGS>::BLOCKS_
         const int i = threadIdx.x + q * kConsumers;
         const int r = i / (RA_YB / 8), c8 = (i % (RA_YB / 8)) * 8;
         if (c8 >= cols || m0 + r >= M) continue;
-        const uint4 uv = *reinterpret_cast<const uint4*>(ys + r * LDY + c8);
-        const __nv_bfloat162* u2 = reinterpret_cast<const __nv_bfloat162*>(&uv);
+        float uf[8];
+        if (round_u) {
+          const uint4 uv = *reinterpret_cast<const uint4*>(ysh + r * LDY + c8);
+          const __nv_bfloat162* u2 = reinterpret_cast<const __nv_bfloat162*>(&uv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 t = __bfloat1622float2(u2[e]);
+            uf[2 * e] = t.x;
+            uf[2 * e + 1] = t.y;
+          }
+        } else {
+          const float4 ua = *reinterpret_cast<const float4*>(ys + r * LDY + c8);
+          const float4 ub = *reinterpret_cast<const float4*>(ys + r * LDY + c8 + 4);
+          uf[0] = ua.x; uf[1] = ua.y; uf[2] = ua.z; uf[3] = ua.w;
+          uf[4] = ub.x; uf[5] = ub.y; uf[6] = ub.z; uf[7] = ub.w;
+        }
         const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xr[q]);
         uint4 yv;
         __nv_bfloat162* y2 = reinterpret_cast<__nv_bfloat162*>(&yv);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 xf = __bfloat1622float2(x2[e]), uf = __bfloat1622float2(u2[e]);
-          y2[e] = __floats2bfloat162_rn(__fadd_rn(xf.x, uf.x), __fadd_rn(xf.y, uf.y));
+          const float2 xf = __bfloat1622float2(x2[e]);
+          y2[e] = __floats2bfloat162_rn(__fadd_rn(xf.x, uf[2 * e]),
+                                        __fadd_rn(xf.y, uf[2 * e + 1]));
         }
         *reinterpret_cast<uint4*>(p.y + static_cast<size_t>(m0 + r) * N + n0 + c8) = yv;
       }
@@ -429,7 +461,8 @@ int dispatch(const void* A, const void* W, int M, int N, int K, int D, const Arg
       p.wd == nullptr || p.bd == nullptr ||
       (p.down_epi != DOWN_BF16 && p.down_epi != DOWN_GELU && p.down_epi != DOWN_RGELU) ||
       (up && (p.b2 == nullptr || p.x == nullptr || p.y == nullptr || misaligned(p.w2) ||
-              misaligned(p.x) || misaligned(p.y))))
+              misaligned(p.x) || misaligned(p.y) ||
+              (p.up_epi != UP_RES1 && p.up_epi != UP_RESF))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 16) return launch_d<Op, 16>(A, W, M, N, K, p, stream);
   if (D == 32) return launch_d<Op, 32>(A, W, M, N, K, p, stream);
@@ -440,12 +473,12 @@ int dispatch(const void* A, const void* W, int M, int N, int K, int D, const Arg
 }
 
 Args make_args(const void* sa, const void* ws, const void* bias, void* O, const void* wd,
-               const void* bd, void* H, int down_epi, const void* w2, const void* b2,
-               const void* X, void* Y) {
+               const void* bd, void* H, int down_epi, int up_epi, const void* w2,
+               const void* b2, const void* X, void* Y) {
   return Args{static_cast<const float*>(sa), static_cast<const bf16*>(ws),
               static_cast<const bf16*>(bias), static_cast<bf16*>(O),
               static_cast<const bf16*>(wd), static_cast<const bf16*>(bd), static_cast<bf16*>(H),
-              down_epi, static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
+              down_epi, up_epi, static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
               static_cast<const bf16*>(X), static_cast<bf16*>(Y)};
 }
 
@@ -454,15 +487,16 @@ Args make_args(const void* sa, const void* ws, const void* bias, void* O, const 
 // A (M, K) . W (N, K)^T + bias -> O (M, N) bf16 (nullable: not stored); H (M, D) =
 // epi(O . wd (D, N)^T + bd) (nullable: not stored), epi 0: bf16(acc + bd), 4: bf16(gelu(
 // acc + bd)), 5: bf16(gelu(bf16(acc + bd))); with w2 (N, D) (nullable: no up product) Y
-// = bf16(X + bf16(H . w2^T + b2)). All bf16, contiguous, 16-byte aligned; N a multiple
-// of 16, K of 8; D in {16, 32, 48, 64, 96}
+// = bf16(X + bf16(H . w2^T + b2)) (up_epi 8) or bf16(X + (H . w2^T + b2)) (9). All
+// bf16, contiguous, 16-byte aligned; N a multiple of 32, K of 8; D in {16, 32, 48, 64,
+// 96}
 STG_API int stg_rowadapt_bf16(const void* A, const void* W, const void* bias, void* O,
                               const void* wd, const void* bd, void* H, const void* w2,
                               const void* b2, const void* X, void* Y, int M, int N, int K, int D,
-                              int down_epi, cudaStream_t stream) {
-  return dispatch<bf16>(A, W, M, N, K, D,
-                        make_args(nullptr, nullptr, bias, O, wd, bd, H, down_epi, w2, b2, X, Y),
-                        stream);
+                              int down_epi, int up_epi, cudaStream_t stream) {
+  return dispatch<bf16>(
+      A, W, M, N, K, D,
+      make_args(nullptr, nullptr, bias, O, wd, bd, H, down_epi, up_epi, w2, b2, X, Y), stream);
 }
 
 // the same from int8 row codes A (M, K) with scales sa (M,) fp32 and int8 W (N, K) with
@@ -471,8 +505,9 @@ STG_API int stg_rowadapt_bf16(const void* A, const void* W, const void* bias, vo
 STG_API int stg_rowadapt_s8(const void* A, const void* sa, const void* W, const void* ws,
                             const void* bias, void* O, const void* wd, const void* bd, void* H,
                             const void* w2, const void* b2, const void* X, void* Y, int M, int N,
-                            int K, int D, int down_epi, cudaStream_t stream) {
+                            int K, int D, int down_epi, int up_epi, cudaStream_t stream) {
   if (sa == nullptr || ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<int8_t>(A, W, M, N, K, D,
-                          make_args(sa, ws, bias, O, wd, bd, H, down_epi, w2, b2, X, Y), stream);
+  return dispatch<int8_t>(
+      A, W, M, N, K, D, make_args(sa, ws, bias, O, wd, bd, H, down_epi, up_epi, w2, b2, X, Y),
+      stream);
 }

@@ -3,8 +3,8 @@
 //
 // Replaces, in stgcma_tpu/ops/pallas_attn.py:
 //   - K9, the row LayerNorm _ln_kernel (:755) with fp32 statistics and bf16
-//     in and out: ln_bf16_kernel computes exactly its function (at Swin's
-//     patch-embed, merge and final norms, C = 128..2048, up to 250880 rows);
+//     in and out: ln_rows_kernel computes exactly its function (at Swin's
+//     patch-embed, merge and final norms, C = 128..3072, up to 250880 rows);
 //   - LN cast to x.dtype before the bf16 qkv product (_win_block_kernel :394-400)
 //     and before fc1 (_ffn_kernel :679-684),
 //   - LN kept in fp32, then _quant_rows (:1335) before an int8 product
@@ -15,60 +15,31 @@
 // LN1 of both streams in one launch (the rows of v, then of a: stg_ln_bf16_pair)
 // and its int8 variant's LN1 and LN2 rounded to bf16, then quantized
 // (:279-338; stg_ln_quant_rows_bf16, the two streams' LN1 in one launch).
-// Bound on the H100: bytes (~1 flop per byte). LayerNorm (K9): one warp per
-// row, the row re-read from L1/L2 for each pass, so any row length is taken.
-// Row quantization reads each row from device memory once, with 16-byte loads
-// (8 bf16 or 4 fp32 a lane a load), and writes its int8 codes 8 or 4 at a time:
-// one warp per row, the row held in registers (up to kMaxHeldChunks 16-byte
-// chunks a lane: 2048 bf16 or 1024 fp32 values) while the LN statistics, the
-// max |x| and the codes are formed from it; wider rows are staged in shared
-// memory instead. Given each row's max |x| (the fp32 FFN hiddens, whose
-// producing product's epilogue takes it: csrc/gemm.cu), it only quantizes, in
-// one streaming pass.
+// Bound on the H100: bytes (~1 flop per byte). Both kernels read each row from
+// device memory once, with 16-byte loads (8 bf16 or 4 fp32 a lane a load), and
+// hold it in registers while they form its statistics from it.
+// LayerNorm (K9 and every LN prologue of bf16 rows, ln_rows_kernel): LPR lanes a
+// row, 32 / LPR rows a warp (16 lanes at C = 128, 8 at C = 192, so that no lane
+// idles where a row is shorter than a warp's 32 chunks), up to kLnMaxChunks
+// chunks a lane (rows up to 4096 values: Swin-Large's 3072-wide merge norm
+// included); the output is written 16 bytes a lane. (Two rows a lane group, all
+// their loads issued first, ran 1-3% slower on an H100 at C = 128-512.)
+// Row quantization writes its int8 codes 8 or 4 at a time: one warp per row, the
+// row held in registers (up to kMaxHeldChunks 16-byte chunks a lane: 2048 bf16
+// or 1024 fp32 values) while the LN statistics, the max |x| and the codes are
+// formed from it; wider rows are staged in shared memory instead. Given each
+// row's max |x| (the fp32 FFN hiddens, whose producing product's epilogue takes
+// it: csrc/gemm.cu), it only quantizes, in one streaming pass.
 // Numerics follow the JAX kernels: fp32 mean and centred variance, the
 // products and sums rounded one by one (__fmul_rn/__fadd_rn, no contraction),
 // scale = max(|x|, 1e-30) * (1/127), q = rint(x * (1/scale)) clamped to +-127
 // with a correctly rounded reciprocal and round-half-even (rintf). The LN sums
-// run over a lane's chunks in their order, then across the warp: another order
-// than K9's lane-strided one, so a statistic may differ in its last bit.
+// run over a lane's chunks in their order, then across the row's lanes (a
+// butterfly): another order than the JAX kernel's, so a statistic may differ in
+// its last bit.
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float load(const float* p) { return *p; }
-
-template <typename T>
-struct RowLN {
-  const T* x;
-  const bf16* g;
-  const bf16* b;
-  float mean, rstd;
-
-  __device__ __forceinline__ float operator()(int k) const {
-    float t = load(x + k);
-    if (g == nullptr) return t;
-    t = __fmul_rn(__fsub_rn(t, mean), rstd);
-    return __fadd_rn(__fmul_rn(t, __bfloat162float(g[k])), __bfloat162float(b[k]));
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ RowLN<T> row_stats(const T* xr, const bf16* g, const bf16* b,
-                                              int K, float eps, int lane) {
-  RowLN<T> r{xr, g, b, 0.f, 1.f};
-  if (g == nullptr) return r;
-  float s = 0.f;
-  for (int k = lane; k < K; k += 32) s += load(xr + k);
-  r.mean = warp_sum(s) / static_cast<float>(K);
-  float v = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    float d = __fsub_rn(load(xr + k), r.mean);
-    v = __fadd_rn(v, __fmul_rn(d, d));
-  }
-  r.rstd = rsqrtf(warp_sum(v) / static_cast<float>(K) + eps);
-  return r;
-}
 
 // Rows [0, m_lo) of the input are those of x, rows [m_lo, M) those of x_hi (K4's
 // two streams in one launch; x_hi = x and m_lo = M elsewhere)
@@ -76,18 +47,6 @@ template <typename T>
 __device__ __forceinline__ const T* in_row(const T* x, const T* x_hi, int m_lo, int row, int K) {
   return row < m_lo ? x + static_cast<size_t>(row) * K
                     : x_hi + static_cast<size_t>(row - m_lo) * K;
-}
-
-__global__ void __launch_bounds__(256) ln_bf16_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ x_hi, int m_lo,
-    const bf16* __restrict__ g, const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K,
-    float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const size_t off = static_cast<size_t>(row) * K;
-  RowLN<bf16> f = row_stats(in_row(x, x_hi, m_lo, row, K), g, b, K, eps, lane);
-  for (int k = lane; k < K; k += 32) y[off + k] = __float2bfloat16_rn(f(k));
 }
 
 // 16 bytes of a row as floats: 8 bf16 or 4 fp32
@@ -156,6 +115,82 @@ __device__ __forceinline__ void each_chunk(int n, F f) {
     for (int c = 0; c < CH; ++c) f(c);
   } else {
     for (int c = 0; c < n; ++c) f(c);
+  }
+}
+
+constexpr int kLnMaxChunks = 16;   // 16-byte chunks a lane of ln_rows_kernel holds
+
+// the sum of v over the LPR lanes of a row (aligned groups of a warp)
+template <int LPR>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm of bf16 rows into y (M, K) bf16, each row read once: LPR lanes a row, the
+// lane's chunk c holding elements (c LPR + sub) 8 .. + 7 (sub = lane % LPR; chunks
+// past the row's K / 8 are zeros and not stored); every lane of a warp runs the
+// shuffles, those of rows past M on zeros
+template <int LPR, int CH>
+__global__ void __launch_bounds__(256) ln_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ x_hi, int m_lo,
+    const bf16* __restrict__ g, const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K,
+    float eps) {
+  const int sub = threadIdx.x % LPR;
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / LPR;
+  const int n16 = K / 8;
+  const bool live = row < M;
+  const uint4* xr = reinterpret_cast<const uint4*>(in_row(x, x_hi, m_lo, live ? row : 0, K));
+  uint4 held[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {                 // the one read of the row
+    const int i = c * LPR + sub;
+    held[c] = live && i < n16 ? __ldg(xr + i) : make_uint4(0, 0, 0, 0);
+  }
+  float s = 0.f;                                 // zeros add nothing
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    float f[8];
+    Chunk<bf16>::unpack(held[c], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += f[e];
+  }
+  const float mean = group_sum<LPR>(s) / static_cast<float>(K);
+  float v = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    if (c * LPR + sub >= n16) continue;
+    float f[8];
+    Chunk<bf16>::unpack(held[c], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = __fsub_rn(f[e], mean);
+      v = __fadd_rn(v, __fmul_rn(d, d));
+    }
+  }
+  const float rstd = rsqrtf(group_sum<LPR>(v) / static_cast<float>(K) + eps);
+  if (!live) return;
+  uint4* yr = reinterpret_cast<uint4*>(y + static_cast<size_t>(row) * K);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int i = c * LPR + sub;
+    if (i >= n16) continue;
+    float f[8], gf[8], bf[8];
+    Chunk<bf16>::unpack(held[c], f);
+    load_params<8>(g + i * 8, gf);
+    load_params<8>(b + i * 8, bf);
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const float lo = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[e], mean), rstd), gf[e]), bf[e]);
+      const float hi =
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[e + 1], mean), rstd), gf[e + 1]), bf[e + 1]);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+      o[e / 2] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    yr[i] = out;
   }
 }
 
@@ -322,15 +357,55 @@ int quant_rows(const Src& x, const bf16* g, const bf16* b, const float* amax, in
                                    stream);
 }
 
+template <int LPR, int CH>
+int launch_ln(const Src& src, const bf16* g, const bf16* b, bf16* y, int M, int K, float eps,
+              cudaStream_t stream) {
+  ln_rows_kernel<LPR, CH><<<ceil_div(M, 256 / LPR), 256, 0, stream>>>(
+      static_cast<const bf16*>(src.x), static_cast<const bf16*>(src.x_hi), src.m_lo, g, b, y, M,
+      K, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a lane's chunks rounded up to the held counts instantiated
+template <int LPR>
+int launch_ln_ch(int chunks, const Src& src, const bf16* g, const bf16* b, bf16* y, int M, int K,
+                 float eps, cudaStream_t stream) {
+  if (chunks <= 1) return launch_ln<LPR, 1>(src, g, b, y, M, K, eps, stream);
+  if (chunks <= 2) return launch_ln<LPR, 2>(src, g, b, y, M, K, eps, stream);
+  if (chunks <= 3) return launch_ln<LPR, 3>(src, g, b, y, M, K, eps, stream);
+  if (chunks <= 4) return launch_ln<LPR, 4>(src, g, b, y, M, K, eps, stream);
+  if (chunks <= 6) return launch_ln<LPR, 6>(src, g, b, y, M, K, eps, stream);
+  if (chunks <= 8) return launch_ln<LPR, 8>(src, g, b, y, M, K, eps, stream);
+  if (chunks <= 12) return launch_ln<LPR, 12>(src, g, b, y, M, K, eps, stream);
+  return launch_ln<LPR, 16>(src, g, b, y, M, K, eps, stream);
+}
+
+// K a multiple of 8 up to 32 kLnMaxChunks 8 = 4096; every pointer 16-byte aligned. Lanes a
+// row: 32 or 16 where they divide the row's K / 8 chunks, else 8 (some idle where 8 does
+// not divide them either), or 32 where 8 would hold more than kLnMaxChunks
+int ln_rows(const Src& src, const bf16* g, const bf16* b, bf16* y, int M, int K, float eps,
+            cudaStream_t stream) {
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  const int n16 = K / 8;
+  if (M < 1 || K < 8 || K % 8 || n16 > 32 * kLnMaxChunks || g == nullptr || b == nullptr ||
+      misaligned(src.x) || misaligned(src.x_hi) || misaligned(g) || misaligned(b) ||
+      misaligned(y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n16 % 32 == 0) return launch_ln_ch<32>(n16 / 32, src, g, b, y, M, K, eps, stream);
+  if (n16 % 16 == 0) return launch_ln_ch<16>(n16 / 16, src, g, b, y, M, K, eps, stream);
+  if (n16 <= 8 * kLnMaxChunks)
+    return launch_ln_ch<8>(ceil_div(n16, 8), src, g, b, y, M, K, eps, stream);
+  return launch_ln_ch<32>(ceil_div(n16, 32), src, g, b, y, M, K, eps, stream);
+}
+
 }  // namespace
 
-// LayerNorm of bf16 rows into y (M, K) bf16: rows [0, M0) of x0, then [M0, M) of x1
+// LayerNorm of bf16 rows into y (M, K) bf16: rows [0, M0) of x0, then [M0, M) of x1; K
+// a multiple of 8 up to 4096, every pointer 16-byte aligned
 STG_API int stg_ln_bf16_pair(const void* x0, const void* x1, int M0, const void* g, const void* b,
                              void* y, int M, int K, float eps, cudaStream_t stream) {
-  ln_bf16_kernel<<<ceil_div(M, kRowsPerBlock), 32 * kRowsPerBlock, 0, stream>>>(
-      static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), M0,
-      static_cast<const bf16*>(g), static_cast<const bf16*>(b), static_cast<bf16*>(y), M, K, eps);
-  return static_cast<int>(cudaGetLastError());
+  return ln_rows(Src{x0, x1, M0}, static_cast<const bf16*>(g), static_cast<const bf16*>(b),
+                 static_cast<bf16*>(y), M, K, eps, stream);
 }
 
 STG_API int stg_ln_bf16(const void* x, const void* g, const void* b, void* y,

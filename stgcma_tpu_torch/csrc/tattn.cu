@@ -4,13 +4,15 @@
 // int8 row codes with their scales. The (M, 3C) qkv slab never reaches
 // device memory.
 //
-// Replaces, inside stgcma_tpu/ops/pallas_clip_block.py _tadapt_kernel (:350)
-// and stgcma_tpu/ops/pallas_attn.py _win_block_qd_kernel (:1486), the qkv
-// dot and the per-sequence core that the port ran as two launches (gemm.cu,
-// then attn.cu's small kernel over 16-row mma tiles for 10 rows), with the
-// slab written and read back between them (145 MB at CLIP-B/16's video rows,
-// M = 15760). Rounding points are K13's and K2's: qkv + bias rounded to bf16
-// (int8: float(acc) * sa[m] * ws[n] + bias first), q times bf16(dh^-1/2)
+// Replaces, inside stgcma_tpu/ops/pallas_clip_block.py _tadapt_kernel (:350),
+// stgcma_tpu/ops/pallas_attn.py _win_block_qd_kernel (:1486) and
+// _tblock_v2_kernel (:1757), the qkv dot and the per-sequence core that the
+// port ran as two launches (gemm.cu, then attn.cu's small kernel over 16-row
+// mma tiles for 10 rows, or K14's core reading each token's frames N rows
+// apart), with the slab written and read back between them (145 MB at
+// CLIP-B/16's video rows, M = 15760). Rounding points are K13's and K2's (and
+// K14's: the same): qkv + bias rounded to bf16 (int8: float(acc) * sa[m] *
+// ws[n] + bias first), q times bf16(dh^-1/2)
 // rounded again, fp32 logits, exact softmax (expf, a correctly rounded
 // division), p rounded to bf16, p . v summed in fp32 and rounded.
 // Bound on the H100: the product's operations (2 M C 3C) against x read and o
@@ -31,6 +33,18 @@
 // registers. The producer runs ahead into the next tile while the epilogue
 // runs. Longer sequences (up to the 128 rows of a tile) take all eight key
 // tiles: not on the port's route, which sends T <= TATTN_MAX_FRAMES here.
+// Frame-strided sequences (K14: rows (b T + t) N + n of the tower's (B T, N, C)
+// layout, token n of clip b at frame t): a tile is ntok tokens by the T
+// frames of one clip, loaded as one 3-D TMA box over A viewed as (B T, N, C)
+// (ntok = ceil(N / ceil(N / floor(128 / T))): tiles of a clip balanced, tokens
+// past N zero-filled). The box lands frame-major, row t ntok + j; the epilogue
+// stages accumulator row t ntok + j at row j T + t, so that the staged tile
+// holds whole sequences one after another as K13's does and the bands, masks
+// and grams are K13's; the row scales sa and the output rows are addressed
+// through the same map. The rows of the ring past a box's ntok T stay zeros
+// (set once), so that every staged row is finite. A 4-D box that lands
+// token-major needs non-monotonic strides; the 3-D box and the permutation in
+// the staging, which writes every row once anyway, need nothing new.
 #include <math.h>
 
 #include <type_traits>
@@ -72,25 +86,29 @@ __device__ __forceinline__ float qkv_value(Acc acc, float sa, const bf16* ws, co
 }
 
 // KT: key tiles of 16 rows a query band reads, 3 (T <= TATTN_MAX_FRAMES: from 16 rows
-// before the band) or 8 (the whole tile)
-template <typename Op, int DH, int KT>
+// before the band) or 8 (the whole tile). FS: frame-strided sequences, N tokens a
+// frame, ntok a tile (tm_a a 3-D map); else contiguous ones (N, ntok unused)
+template <typename Op, int DH, int KT, bool FS>
 __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
     const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, int M,
-    int C, int T, int heads, float scale, const float* __restrict__ sa,
+    int C, int T, int heads, int N, int ntok, float scale, const float* __restrict__ sa,
     const bf16* __restrict__ ws, const bf16* __restrict__ bias, bf16* __restrict__ o) {
   using L = TTile<DH>;
   using Acc = typename OpType<Op>::Acc;
   constexpr int BK = WG_BK_BYTES / static_cast<int>(sizeof(Op));
-  constexpr int N = L::N, LDQ = L::LDQ;
+  constexpr int NQ = L::N, LDQ = L::LDQ;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* staged = reinterpret_cast<bf16*>(smem + TATTN_STAGES * L::STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + TATTN_STAGES * L::STAGE_BYTES + L::STAGED);
   uint64_t* empty = full + TATTN_STAGES;
-  const int step = (TATTN_BM / T) * T;      // rows a tile advances: whole sequences
-  const int tiles = ceil_div(M, step) * heads;
+  const int step = (TATTN_BM / T) * T;      // contiguous: rows a tile advances, whole sequences
+  const int span = FS ? ntok * T : step;    // rows a tile's box loads
+  const int tpc = FS ? ceil_div(N, ntok) : 1;   // frame-strided: tiles a clip
+  const int tiles = (FS ? M / (T * N) * tpc : ceil_div(M, step)) * heads;
   const int ktiles = ceil_div(C, BK);
   const int wg = threadIdx.x / 128;
+  const int a_bytes = FS ? span * WG_BK_BYTES : L::A_BYTES;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < TATTN_STAGES; ++s) {
@@ -99,19 +117,29 @@ __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (FS) {                       // the ring's rows that no box reaches: zeros
+    const int n16 = (L::A_BYTES - a_bytes) / 16;
+    for (int i = threadIdx.x; i < TATTN_STAGES * n16; i += TATTN_THREADS)
+      reinterpret_cast<uint4*>(smem + (i / n16) * L::STAGE_BYTES + a_bytes)[i % n16] =
+          make_uint4(0, 0, 0, 0);
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (wg == 2) {                            // producer: one thread issues every load
     if (threadIdx.x == 256) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / heads) * step, h = tile % heads;
+        const int bi = tile / heads, h = tile % heads;
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % TATTN_STAGES;
           mbar_wait(&empty[s], ((it / TATTN_STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[s], L::STAGE_BYTES);
+          mbar_expect_tx(&full[s], a_bytes + 3 * L::SLAB_BYTES);   // boxes past N count whole
           uint8_t* st = smem + s * L::STAGE_BYTES;
-          tma_load(st, &tm_a, kt * BK, m0, &full[s]);
+          if constexpr (FS)                 // tokens (bi % tpc) ntok.. of clip bi / tpc, T frames
+            tma_load_3d(st, &tm_a, kt * BK, (bi % tpc) * ntok, (bi / tpc) * T, &full[s]);
+          else
+            tma_load(st, &tm_a, kt * BK, bi * step, &full[s]);
 #pragma unroll
           for (int j = 0; j < 3; ++j)       // the q, k and v slabs of head h
             tma_load(st + L::A_BYTES + j * L::SLAB_BYTES, &tm_w, kt * BK, j * C + h * DH,
@@ -126,12 +154,23 @@ __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int band = (c * 4 + warp) * 16;     // this warp's 16 query rows of the tile
-  Acc acc[N / 2];
+  Acc acc[NQ / 2];
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / heads) * step, h = tile % heads;
+    const int bi = tile / heads, h = tile % heads;
+    // the tile's rows: contiguous from m0, or tokens n0.. of clip b (rows (b T + t) N + n)
+    const int m0 = bi * step, b = FS ? bi / tpc : 0, n0 = FS ? (bi % tpc) * ntok : 0;
+    // rows of the tile's whole sequences, in the staged (sequence-major) order
+    const int valid = FS ? min(ntok, N - n0) * T : min(step, M - m0);
+    // the staged row of accumulator row r (frame-strided: t ntok + j -> j T + t) and
+    // the row of A and O of staged row r
+    const auto staged_row = [&](int r) { return FS && r < span ? (r % ntok) * T + r / ntok : r; };
+    const auto global_row = [&](int r) {
+      return FS ? static_cast<size_t>(b * T + r % T) * N + n0 + r / T
+                : static_cast<size_t>(m0 + r);
+    };
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+    for (int i = 0; i < NQ / 2; ++i) acc[i] = 0;
     int prev = -1;
     for (int kt = 0; kt < ktiles; ++kt, ++it) {
       const int s = it % TATTN_STAGES;
@@ -155,15 +194,15 @@ __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
     // qkv + bias rounded to bf16, q scaled and rounded again, into the staged tile;
     // accumulator j * 4 + 2 * hh + i: row band + g + 8 hh, column j * 8 + 2 t + i
     bar_sync(1, kConsumers);                // every warp is done with the last tile's rows
-    const int valid = min(step, M - m0);    // rows of the tile's whole sequences
+    const int rs[2] = {staged_row(band + g), staged_row(band + g + 8)};
     float sr[2] = {0.f, 0.f};
     if constexpr (sizeof(Op) == 1) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
-        if (band + g + 8 * hh < valid) sr[hh] = sa[m0 + band + g + 8 * hh];
+        if (rs[hh] < valid) sr[hh] = sa[global_row(rs[hh])];
     }
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
+    for (int j = 0; j < NQ / 8; ++j) {
       const int slab = (j * 8) / DH;        // 0: q, 1: k, 2: v
       const int n = j * 8 + 2 * t;
       const int gcol = slab * C + h * DH + (n - slab * DH);
@@ -175,7 +214,7 @@ __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
           v0 = __fmul_rn(v0, scale);
           v1 = __fmul_rn(v1, scale);
         }
-        *reinterpret_cast<uint32_t*>(staged + (band + g + 8 * hh) * LDQ + n) = pack_bf16x2(v0, v1);
+        *reinterpret_cast<uint32_t*>(staged + rs[hh] * LDQ + n) = pack_bf16x2(v0, v1);
       }
     }
     bar_sync(1, kConsumers);
@@ -275,7 +314,7 @@ __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
     for (int hh = 0; hh < 2; ++hh) {
       const int r = hh == 0 ? r0 : r1;
       if (r >= valid) continue;
-      bf16* orow = o + static_cast<size_t>(m0 + r) * C + h * DH + 2 * t;
+      bf16* orow = o + global_row(r) * C + h * DH + 2 * t;
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd)
         *reinterpret_cast<uint32_t*>(orow + nd * 8) =
@@ -284,13 +323,13 @@ __global__ void __launch_bounds__(TATTN_THREADS, 1) tattn_kernel(
   }
 }
 
-template <typename Op, int DH, int KT>
+template <typename Op, int DH, int KT, bool FS>
 int launch_kt(const CUtensorMap& tm_a, const CUtensorMap& tm_w, int M, int C, int T, int heads,
-              float scale, const float* sa, const bf16* ws, const bf16* bias, bf16* o,
-              cudaStream_t stream) {
+              int N, int ntok, float scale, const float* sa, const bf16* ws, const bf16* bias,
+              bf16* o, cudaStream_t stream) {
   // once a process (the port runs on one card): the SM count and the shared-memory limit
   static int sms = 0;
-  auto kernel = tattn_kernel<Op, DH, KT>;
+  auto kernel = tattn_kernel<Op, DH, KT, FS>;
   if (sms == 0) {
     int dev = 0, n = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -301,41 +340,56 @@ int launch_kt(const CUtensorMap& tm_a, const CUtensorMap& tm_w, int M, int C, in
     if (err != cudaSuccess) return static_cast<int>(err);
     sms = n;
   }
-  const int step = (TATTN_BM / T) * T;
-  const long long tiles = static_cast<long long>(ceil_div(M, step)) * heads;
+  const long long tiles =
+      (FS ? static_cast<long long>(M / (T * N)) * ceil_div(N, ntok)
+          : static_cast<long long>(ceil_div(M, (TATTN_BM / T) * T))) * heads;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
-  kernel<<<grid, TATTN_THREADS, TTile<DH>::SMEM, stream>>>(tm_a, tm_w, M, C, T, heads, scale, sa,
-                                                           ws, bias, o);
+  kernel<<<grid, TATTN_THREADS, TTile<DH>::SMEM, stream>>>(tm_a, tm_w, M, C, T, heads, N, ntok,
+                                                           scale, sa, ws, bias, o);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A (M, C) and W (3C, C) of Op, K-major; T frames a sequence (M a multiple of T on
-// the port's route; a ragged last sequence is cut), 1 <= T <= TATTN_BM
+// A (M, C) and W (3C, C) of Op, K-major. N == 0: T frames a contiguous sequence (M a
+// multiple of T on the port's route; a ragged last sequence is cut), 1 <= T <=
+// TATTN_BM. N > 0: A is the (M / (T N), T, N, C) layout, the sequence of token n of
+// clip b its T frames N rows apart, T <= TATTN_MAX_FRAMES
 template <typename Op, int DH>
 int launch(const void* A, const void* W, const float* sa, const bf16* ws, const bf16* bias,
-           bf16* o, int M, int C, int T, int heads, float scale, cudaStream_t stream) {
+           bf16* o, int M, int C, int T, int heads, int N, float scale, cudaStream_t stream) {
   CUtensorMap tm_a, tm_w;
-  int err = tensor_map<Op>(&tm_a, A, M, C, TATTN_BM);
-  if (err == 0) err = tensor_map<Op>(&tm_w, W, 3 * C, C, DH);
+  int err = tensor_map<Op>(&tm_w, W, 3 * C, C, DH);
+  if (err != 0) return err;
+  if (N > 0) {
+    const int tpc = ceil_div(N, TATTN_BM / T);     // tiles a clip
+    const int ntok = ceil_div(N, tpc);             // tokens a tile, balanced over the clip
+    err = tensor_map_3d<Op>(&tm_a, A, M / N, N, C, T, ntok);
+    if (err != 0) return err;
+    return launch_kt<Op, DH, 3, true>(tm_a, tm_w, M, C, T, heads, N, ntok, scale, sa, ws, bias, o,
+                                      stream);
+  }
+  err = tensor_map<Op>(&tm_a, A, M, C, TATTN_BM);
   if (err != 0) return err;
   if (T <= TATTN_MAX_FRAMES)
-    return launch_kt<Op, DH, 3>(tm_a, tm_w, M, C, T, heads, scale, sa, ws, bias, o, stream);
-  return launch_kt<Op, DH, 8>(tm_a, tm_w, M, C, T, heads, scale, sa, ws, bias, o, stream);
+    return launch_kt<Op, DH, 3, false>(tm_a, tm_w, M, C, T, heads, 0, 0, scale, sa, ws, bias, o,
+                                       stream);
+  return launch_kt<Op, DH, 8, false>(tm_a, tm_w, M, C, T, heads, 0, 0, scale, sa, ws, bias, o,
+                                     stream);
 }
 
 template <typename Op>
 int dispatch(const void* A, const void* W, const float* sa, const bf16* ws, const void* bias,
-             void* O, int M, int C, int T, int heads, float scale, cudaStream_t stream) {
+             void* O, int M, int C, int T, int heads, int N, float scale, cudaStream_t stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (M < 1 || T < 1 || T > TATTN_BM || heads < 1 || C % heads ||
+  if (M < 1 || T < 1 || T > TATTN_BM || heads < 1 || C % heads || N < 0 ||
+      (N > 0 && (T > TATTN_MAX_FRAMES || M % (T * N))) ||
       (C * static_cast<int>(sizeof(Op))) % TMA_ROW_ALIGN || misaligned(A) || misaligned(W) ||
       misaligned(O) || bias == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* b = static_cast<const bf16*>(bias);
   bf16* o = static_cast<bf16*>(O);
-  if (C / heads == 64) return launch<Op, 64>(A, W, sa, ws, b, o, M, C, T, heads, scale, stream);
-  if (C / heads == 32) return launch<Op, 32>(A, W, sa, ws, b, o, M, C, T, heads, scale, stream);
+  if (C / heads == 64) return launch<Op, 64>(A, W, sa, ws, b, o, M, C, T, heads, N, scale, stream);
+  if (C / heads == 32) return launch<Op, 32>(A, W, sa, ws, b, o, M, C, T, heads, N, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -343,19 +397,21 @@ int dispatch(const void* A, const void* W, const float* sa, const bf16* ws, cons
 
 // O (M, C) bf16 = merged heads of each sequence's attention over its T frames, from
 // qkv = A (M, C) . W (3C, C)^T + bias; all bf16, contiguous, 16-byte aligned; C a
-// multiple of 8, C / heads in {32, 64}; scale = bf16(dh^-1/2)
+// multiple of 8, C / heads in {32, 64}; scale = bf16(dh^-1/2). N = 0: a sequence is
+// T consecutive rows; N > 0: A and O are (M / (T N), T, N, C), a sequence the T
+// frames of one token, N rows apart (T <= 16, M a multiple of T N)
 STG_API int stg_tattn_bf16(const void* A, const void* W, const void* bias, void* O, int M, int C,
-                           int T, int heads, float scale, cudaStream_t stream) {
-  return dispatch<bf16>(A, W, nullptr, nullptr, bias, O, M, C, T, heads, scale, stream);
+                           int T, int heads, int N, float scale, cudaStream_t stream) {
+  return dispatch<bf16>(A, W, nullptr, nullptr, bias, O, M, C, T, heads, N, scale, stream);
 }
 
 // the same from int8 row codes A (M, C) with scales sa (M,) fp32 and int8 W (3C, C)
 // with scales ws (3C,) bf16: qkv = float(A . W^T) * sa[m] * ws[n] + bias[n]; C a
 // multiple of 16
 STG_API int stg_tattn_s8(const void* A, const void* sa, const void* W, const void* ws,
-                         const void* bias, void* O, int M, int C, int T, int heads, float scale,
-                         cudaStream_t stream) {
+                         const void* bias, void* O, int M, int C, int T, int heads, int N,
+                         float scale, cudaStream_t stream) {
   if (sa == nullptr || ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<int8_t>(A, W, static_cast<const float*>(sa), static_cast<const bf16*>(ws),
-                          bias, O, M, C, T, heads, scale, stream);
+                          bias, O, M, C, T, heads, N, scale, stream);
 }

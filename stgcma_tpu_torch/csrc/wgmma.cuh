@@ -1,8 +1,8 @@
 // Hopper's TMA + wgmma building blocks, shared by csrc/gemm.cu (the tower
 // products), csrc/tattn.cu (the temporal qkv product with its attention
 // epilogue) and csrc/rowadapt.cu (the row-owning product with the adapter):
-// the k-tile and alignment constants, mbarriers, 2-D TMA loads of 128-byte
-// swizzled boxes, wgmma descriptors and the warpgroup products at the widths
+// the k-tile and alignment constants, mbarriers, 2-D and 3-D TMA loads of
+// 128-byte swizzled boxes, wgmma descriptors and the warpgroup products at the widths
 // the kernels take (m64 x n{64, 96, 128, 192}, bf16 k16 or s8 k32), and the
 // tensor maps, encoded by cuTensorMapEncodeTiled from the driver the runtime
 // has loaded (no link against libcuda).
@@ -66,6 +66,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
          "r"(smem_u32(bar)) : "memory");
 }
 
+// the box at (k0, r1, r2) of a 3-D tensor map (K the innermost dimension), likewise
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int k0, int r1,
+                                            int r2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(r1), "r"(r2),
+         "r"(smem_u32(bar)) : "memory");
+}
+
 // wgmma operand descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
 // start address / 16, leading offset 1 (unused), stride 1024 bytes between 8-row
 // groups, layout 1 (SWIZZLE_128B). A 32-byte k-step (k16 bf16 or k32 int8) adds 2
@@ -86,6 +96,12 @@ __device__ __forceinline__ void wgmma_wait() {
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// order this thread's generic-proxy writes to shared memory before the async proxy's
+// reads of it (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // keep the compiler from moving reads of an accumulator across a wgmma wait
@@ -224,6 +240,27 @@ inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int bo
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, OpType<Op>::TMA, 2, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a (d2, d1, K) row-major tensor of Op in boxes of 128 bytes of k by b1 by b2, 128-byte
+// swizzled: a box lands as b2 * b1 rows of 128 bytes, index i2 * b1 + i1, as a 2-D box
+// of that many rows would; reads past its edges are zeros
+template <typename Op>
+inline int tensor_map_3d(CUtensorMap* map, const void* ptr, int d2, int d1, int K, int b2,
+                         int b1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * sizeof(Op),
+                                 static_cast<cuuint64_t>(K) * d1 * sizeof(Op)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(WG_BK_BYTES / sizeof(Op)),
+                             static_cast<cuuint32_t>(b1), static_cast<cuuint32_t>(b2)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, OpType<Op>::TMA, 3, const_cast<void*>(ptr), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -52,10 +52,13 @@ attention in its epilogue, proj with the T_Adapter and the residual on the
 same rows: qkv, att and the hidden never reach device memory; 4 int8: LN
 and quantization of the rounded LN rows in one launch, the merged heads
 quantized), 6 (8 int8) where `tattn_route` / `rowadapt_route` do not take
-its shapes; 6 for K14 with an adapter (4 without; one more of each for int8: LN and
-row quantization are one launch, the proj product quantizes first), its
-attention core reading each token's T frames N rows apart
-(`stg_attn_core_t`); one call of a wrapper counts as one launch. No product
+its shapes; 3 for K14 (LN, T over frame-strided tiles: each sequence one
+token's T frames, N rows apart in the tower's layout, with no transpose;
+R with K14's own rounding of the residual, `_EPI_BF16_RESF`; 4 int8: the
+fp32 LN rows quantized in one launch, T, the merged heads quantized, R);
+with a (heads, T, T) bias, without an adapter or at an adapter width R
+does not take, 6 (7 int8; 4 / 5 without an adapter), its attention core
+reading each token's T frames N rows apart (`stg_attn_core_t`); one call of a wrapper counts as one launch. No product
 goes to cuBLAS.
 
 Left out on purpose, as TPU layout devices: K12's pad of both token streams
@@ -368,7 +371,7 @@ def _tadapt_cuda(x, w, heads, quantized=False):
         a, sa = att, None
     y = torch.empty_like(x2)
     _rowadapt(a, sa, w["w_proj"], w.get("s_proj"), w["b_proj"], w["ad_w1"], w["ad_b1"],
-              _EPI_BF16_RGELU, s, up=(w["ad_w2"], w["ad_b2"], x2, y))
+              _EPI_BF16_RGELU, s, up=(w["ad_w2"], w["ad_b2"], x2, y), up_epi=_EPI_BF16_RES1)
     return y.view(R, T, C)
 
 
@@ -395,9 +398,50 @@ def _tadapt_q_cuda(x, w, heads):
 def _tv2_cuda(x, w, heads, T, bias=None, quantized=False):
     if x.dim() != 3:
         raise ValueError(f"x must be (B*T, N, C), got {tuple(x.shape)}")
-    BT, N, _ = x.shape
+    BT, N, C = x.shape
     if not 1 <= T <= TADAPT_MAX_FRAMES or BT % T:
         raise ValueError(f"K14 takes 1 to {TADAPT_MAX_FRAMES} frames dividing B*T={BT}, got T={T}")
+    if not (bias is None and "ad_w1" in w and C % heads == 0 and tattn_route(T, C // heads)
+            and rowadapt_route(C, w["ad_w1"].shape[0])):
+        return _tv2_composed(x, w, heads, T, bias, quantized)
+    # T's and R's checks hold every weight; x and the LN's here, read once
+    if quantized != ("s_qkv" in w):
+        raise ValueError(f"K14 {'int8' if quantized else 'float'} variant given the weights of "
+                         f"the other one")
+    bf = torch.bfloat16
+    _check_cuda(x, {"x": (x, bf), "ln1_w": (w["ln1_w"], bf), "ln1_b": (w["ln1_b"], bf)})
+    _check_shapes({"ln1_w": (w["ln1_w"], (C,)), "ln1_b": (w["ln1_b"], (C,))})
+    s = _stream(x)
+    x2 = x.view(BT * N, C)
+    # LN; the temporal product over frame-strided tiles (qkv and each token's
+    # attention over its T frames, N rows apart, the slab on chip) into the
+    # merged heads; the row-owning product: proj, the T_Adapter's hidden and
+    # its up product with the residual, rounded once. The int8 variant
+    # quantizes the unrounded fp32 LN rows (:1778, one launch) and the merged heads
+    att = torch.empty_like(x2)
+    if quantized:
+        xq, sx = _quant_rows(x2, s, w["ln1_w"], w["ln1_b"])
+        _tattn(xq, sx, w["w_qkv"], w["s_qkv"], w["b_qkv"], att, T, heads, s, tokens=N)
+        a, sa = _quant_rows(att, s)
+    else:
+        _tattn(_ln_bf16(x2, w["ln1_w"], w["ln1_b"], s), None, w["w_qkv"], None, w["b_qkv"], att,
+               T, heads, s, tokens=N)
+        a, sa = att, None
+    y = torch.empty_like(x2)
+    _rowadapt(a, sa, w["w_proj"], w.get("s_proj"), w["b_proj"], w["ad_w1"], w["ad_b1"],
+              _EPI_BF16_GELU, s, up=(w["ad_w2"], w["ad_b2"], x2, y), up_epi=_EPI_BF16_RESF)
+    return y.view(BT, N, C)
+
+
+def _tv2_composed(x, w, heads, T, bias, quantized):
+    """K14 with a (heads, T, T) bias, without an adapter (the attention
+    output alone), or where `rowadapt_route` does not take its adapter
+    width: LN, the qkv product, the attention core reading each token's T
+    frames N rows apart, proj, the adapter's two products (6 launches, 7
+    int8; 4 / 5 without an adapter), qkv, att and the hidden through device
+    memory. No serving path takes it: CLIP's temporal sites have adapters
+    and no bias."""
+    BT, N, _ = x.shape
     bf = torch.bfloat16
     adapters = ["ad"] if "ad_w1" in w else []
     C, _, D = _check_operands(x, w, heads, quantized, 2, adapters, "K14", seqs=(T,))

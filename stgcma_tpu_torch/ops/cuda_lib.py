@@ -29,7 +29,8 @@ F = ctypes.c_float
 # C signature of every exported launcher (all return a cudaError_t as int)
 SIGNATURES = {
     "rowprep.cu": {
-        # x, gamma, beta, y, M, K, eps, stream
+        # x, gamma, beta, y, M, K (a multiple of 8 up to 4096; every pointer 16-byte
+        # aligned), eps, stream
         "stg_ln_bf16": [P, P, P, P, I, I, F, P],
         # x0, x1, M0 (rows [0, M0) of x0, then of x1), gamma, beta, y, M, K, eps, stream
         "stg_ln_bf16_pair": [P, P, I, P, P, P, I, I, F, P],
@@ -75,19 +76,22 @@ SIGNATURES = {
         "stg_unscaled_attn": [P, P, P, P, I, I, I, I, P],
     },
     "tattn.cu": {
-        # A, W, bias, O, M, C, T, heads, scale, stream: O (M, C) = merged heads of each
-        # sequence's attention over its T frames, qkv = A . W^T + bias never stored
-        "stg_tattn_bf16": [P, P, P, P, I, I, I, I, F, P],
-        # A, sa, W, ws, bias, O, M, C, T, heads, scale, stream: the same from int8 codes
-        "stg_tattn_s8": [P, P, P, P, P, P, I, I, I, I, F, P],
+        # A, W, bias, O, M, C, T, heads, N, scale, stream: O (M, C) = merged heads of each
+        # sequence's attention over its T frames (N 0: T consecutive rows; N > 0: one
+        # token's frames of the (M / (T N), T, N, C) layout), qkv = A . W^T + bias never
+        # stored
+        "stg_tattn_bf16": [P, P, P, P, I, I, I, I, I, F, P],
+        # A, sa, W, ws, bias, O, M, C, T, heads, N, scale, stream: the same from int8 codes
+        "stg_tattn_s8": [P, P, P, P, P, P, I, I, I, I, I, F, P],
     },
     "rowadapt.cu": {
         # A, W, bias, O (nullable), wd, bd, H (nullable), w2 (nullable), b2, X, Y, M, N, K,
-        # D, down epilogue (0, 4, 5 as gemm.cu's), stream: O = bf16(A . W^T + bias), H =
-        # epi(O . wd^T + bd), Y = bf16(X + bf16(H . w2^T + b2))
-        "stg_rowadapt_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        # D, down epilogue (0, 4, 5 as gemm.cu's), up epilogue (8, 9 as gemm.cu's), stream:
+        # O = bf16(A . W^T + bias), H = epi(O . wd^T + bd), Y = bf16(X + bf16(H . w2^T +
+        # b2)) (8) or bf16(X + (H . w2^T + b2)) (9)
+        "stg_rowadapt_bf16": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         # A, sa, W, ws, bias, then as the bf16 one: the same from int8 codes
-        "stg_rowadapt_s8": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "stg_rowadapt_s8": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     },
     "adapter.cu": {
         # xv, wv, bv, hv, xa, wa, ba, ha, M, D, K, stream: both streams' adapter hiddens
@@ -156,6 +160,9 @@ def _so_name(src: str) -> str:
 
 def lib(src: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
+    so = _libs.get(src)              # every launch asks: no lock once it is loaded
+    if so is not None:
+        return so
     with _lock:
         if src not in _libs:
             out_dir = build()

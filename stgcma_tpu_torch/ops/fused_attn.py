@@ -18,7 +18,9 @@ in ops/clip_block.py).
   Replaces `_wmsa_kernel_small_bias` (:230) and `_wmsa_kernel_blocked_bias`
   (:247); one kernel takes any period P.
 - K9 `layernorm`: row LayerNorm, fp32 statistics, x's dtype in and out.
-  Replaces `_ln_kernel` (:755).
+  Replaces `_ln_kernel` (:755). On the card one launch of csrc/rowprep.cu's
+  `ln_rows_kernel` (each row read once, 16 bytes a lane; `ln_route`: widths
+  in multiples of LN_ALIGN up to LN_MAX_WIDTH), behind one pass of checks.
 - K11 `win_block_qd`, `win_block_qh`, `ffn_qh`: K2 or K3 with the
   adapter's down-projection applied to the output, gelu(bf16(o).bf16(wd) +
   bd) (`_adapter_down` :1472: o and wd are cast to bf16 first, whatever x's
@@ -130,6 +132,8 @@ ROWADAPT_ROWS = 64                    # csrc/rowadapt.cu RA_BM: output rows a wa
                                       # block: 64, or 128 where M fills the card)
 ROWADAPT_ALIGN = 32                   # csrc/rowadapt.cu RA_ALIGN: N in multiples of 32
 ROWADAPT_WIDTHS = (16, 32, 48, 64, 96)   # adapter widths D that csrc/rowadapt.cu instantiates
+LN_ALIGN = 8                          # csrc/rowprep.cu ln_rows_kernel: rows of 16-byte chunks ...
+LN_MAX_WIDTH = 32 * 16 * 8            # ... at most kLnMaxChunks = 16 a lane of 32 lanes a row
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +327,25 @@ def _ptr(t):
 
 
 def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream of x's card."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def ln_route(K):
+    """True where csrc/rowprep.cu's LayerNorm takes rows of K values: K a
+    multiple of LN_ALIGN up to LN_MAX_WIDTH (every width of the presets:
+    Swin-Base 128-2048, Swin-Large 192-3072, CLIP 768 and 1024)."""
+    return 0 < K <= LN_MAX_WIDTH and K % LN_ALIGN == 0
 
 
 def _ln_bf16(x2, ln_w, ln_b, s, out=None):
-    """K1's prologue: LayerNorm of bf16 rows, cast back to bf16 (into `out`,
-    a contiguous (M, K) bf16 tensor, when given)."""
+    """LayerNorm of bf16 rows (M, K), cast back to bf16 (into `out`, a
+    contiguous (M, K) bf16 tensor, when given): K9, and the LN prologue of
+    K1, K7 and K12-K14."""
     M, K = x2.shape
     y = torch.empty_like(x2) if out is None else out
     cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_ln_bf16(
-        _ptr(x2), _ptr(ln_w), _ptr(ln_b), _ptr(y), M, K, _LN_EPS, s))
+        x2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), y.data_ptr(), M, K, _LN_EPS, s))
     return y
 
 
@@ -458,9 +471,11 @@ def rowadapt_route(N, D):
     return N >= ROWADAPT_ALIGN and N % ROWADAPT_ALIGN == 0 and D in ROWADAPT_WIDTHS
 
 
-def _aligned(*ts):
-    """Every tensor given (None passes) contiguous and 16-byte aligned."""
-    return all(t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0) for t in ts)
+def _aligned(dev, *ts):
+    """Every tensor given (None passes) on `dev`, contiguous and 16-byte
+    aligned."""
+    return all(t is None or (t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0)
+               for t in ts)
 
 
 def _raise_operands(name, what, named):
@@ -469,59 +484,68 @@ def _raise_operands(name, what, named):
     raise ValueError(f"{name} takes {what}; got {got}")
 
 
-def check_tattn(a, sa, w, ws, bias, out, T, heads, name="the temporal product"):
+def check_tattn(a, sa, w, ws, bias, out, T, heads, tokens=0, name="the temporal product"):
     """What csrc/tattn.cu takes: rows a (M, C), bf16 (sa and ws None) or int8
     codes with sa (M,) fp32 and ws (3C,) bf16; w (3C, C) of a's dtype, bias
-    (3C,) bf16, out M rows of C bf16; M a multiple of T, `tattn_route(T, C /
-    heads)`; C a multiple of 8 (bf16) or 16 (int8); all contiguous, 16-byte
-    aligned. Runs before every launch: reads each attribute once and builds
-    no message unless it raises."""
+    (3C,) bf16, out M rows of C bf16; `tattn_route(T, C / heads)`; M a
+    multiple of T (tokens 0: a sequence is T consecutive rows), or of T *
+    tokens (the tower's (B T, tokens, C) layout: a sequence is one token's T
+    frames); C a multiple of 8 (bf16) or 16 (int8); all on a's card,
+    contiguous, 16-byte aligned. Runs before every launch: reads each
+    attribute once and builds no message unless it raises."""
     i8, bf = torch.int8, torch.bfloat16
     quantized = a.dtype == i8
-    ok = a.dim() == 2 and w.dim() == 2 and heads >= 1 and (sa is not None) == quantized
+    ok = (a.dim() == 2 and w.dim() == 2 and heads >= 1 and tokens >= 0
+          and (sa is not None) == quantized)
     if ok:
         (M, C), dh = a.shape, a.shape[1] // heads
         ok = (a.dtype in (bf, i8) and w.dtype == a.dtype and tuple(w.shape) == (3 * C, C)
-              and C == heads * dh and tattn_route(T, dh) and M % T == 0
+              and C == heads * dh and tattn_route(T, dh) and M % (T * max(tokens, 1)) == 0
               and C % (GEMM_S8_ALIGN if quantized else GEMM_ALIGN) == 0
               and bias.dtype == bf and bias.numel() == 3 * C and out.dtype == bf
-              and out.numel() == M * C and out.shape[-1] == C and _aligned(a, w, bias, out, sa, ws)
+              and out.numel() == M * C and out.shape[-1] == C
+              and _aligned(a.device, a, w, bias, out, sa, ws)
               and (not quantized or (sa.dtype == torch.float32 and sa.numel() == M
                                      and ws.dtype == bf and ws.numel() == 3 * C)))
     if not ok:
         _raise_operands(name, f"rows a (M, C) bf16 or int8 with their scales, w (3C, C), bias "
-                        f"(3C,), out (M, C) bf16, M a multiple of T, 1 <= T <= "
-                        f"{TATTN_MAX_FRAMES}, C / heads in {TATTN_HEAD_WIDTHS} (T={T}, "
-                        f"heads={heads})", {"a": a, "sa": sa, "w": w, "ws": ws, "bias": bias,
-                                            "out": out})
+                        f"(3C,), out (M, C) bf16 on one card, M a multiple of T (times the "
+                        f"tokens a frame, where given), 1 <= T <= {TATTN_MAX_FRAMES}, C / heads "
+                        f"in {TATTN_HEAD_WIDTHS} (T={T}, heads={heads}, tokens={tokens})",
+                        {"a": a, "sa": sa, "w": w, "ws": ws, "bias": bias, "out": out})
 
 
-def _tattn(a, sa, w, ws, bias, out, T, heads, s):
+def _tattn(a, sa, w, ws, bias, out, T, heads, s, tokens=0):
     """out (M, C) = the merged heads of each sequence's attention over its T
     frames, qkv = a . w^T + bias (int8: dequantized by sa, ws) in the
-    epilogue of one product; the qkv slab never reaches device memory."""
-    check_tattn(a, sa, w, ws, bias, out, T, heads)
+    epilogue of one product; the qkv slab never reaches device memory. A
+    sequence is T consecutive rows (K13, K11), or, with `tokens`, the T
+    frames of one token of the tower's (B T, tokens, C) layout, `tokens` rows
+    apart (K14)."""
+    check_tattn(a, sa, w, ws, bias, out, T, heads, tokens)
     M, C = a.shape
     lib = cuda_lib.lib("tattn.cu")
     scale = _q_scale(C // heads)
     if sa is None:
-        err = lib.stg_tattn_bf16(_ptr(a), _ptr(w), _ptr(bias), _ptr(out), M, C, T, heads, scale, s)
+        err = lib.stg_tattn_bf16(_ptr(a), _ptr(w), _ptr(bias), _ptr(out), M, C, T, heads, tokens,
+                                 scale, s)
     else:
         err = lib.stg_tattn_s8(_ptr(a), _ptr(sa), _ptr(w), _ptr(ws), _ptr(bias), _ptr(out), M, C,
-                               T, heads, scale, s)
+                               T, heads, tokens, scale, s)
     cuda_lib.check("tattn.cu", err)
     return out
 
 
 def check_rowadapt(a, sa, w, ws, bias, wd, bd, out=None, h=None, up=None,
-                   name="the row-owning product"):
+                   up_epi=_EPI_BF16_RES1, name="the row-owning product"):
     """What csrc/rowadapt.cu takes: a (M, K) bf16, or int8 codes with sa (M,)
     fp32 and ws (N,) bf16; w (N, K) of a's dtype, bias (N,) bf16; the
     adapter's wd (D, N) and bd (D,) bf16, `rowadapt_route(N, D)`; out and h,
     where given, M rows of N and of D in bf16; up, where given, (w2 (N, D),
-    b2 (N,), x, y) with x and y M rows of N in bf16; K a multiple of 8 (bf16)
-    or 16 (int8); all contiguous and 16-byte aligned. Reads each attribute
-    once and builds no message unless it raises."""
+    b2 (N,), x, y) with x and y M rows of N in bf16, up_epi `_EPI_BF16_RES1`
+    or `_EPI_BF16_RESF`; K a multiple of 8 (bf16) or 16 (int8); all on a's
+    card, contiguous and 16-byte aligned. Reads each attribute once and
+    builds no message unless it raises."""
     i8, bf = torch.int8, torch.bfloat16
     quantized = a.dtype == i8
     w2, b2, x, y = up if up is not None else (None,) * 4
@@ -537,30 +561,35 @@ def check_rowadapt(a, sa, w, ws, bias, wd, bd, out=None, h=None, up=None,
               and (up is None or (w2.dtype == bf and tuple(w2.shape) == (N, D) and b2.dtype == bf
                                   and b2.numel() == N and x.dtype == bf and x.numel() == M * N
                                   and y.dtype == bf and y.numel() == M * N))
-              and _aligned(a, w, bias, wd, bd, out, h, w2, b2, x, y, sa, ws)
+              and up_epi in (_EPI_BF16_RES1, _EPI_BF16_RESF)
+              and _aligned(a.device, a, w, bias, wd, bd, out, h, w2, b2, x, y, sa, ws)
               and (not quantized or (sa.dtype == torch.float32 and sa.numel() == M
                                      and ws.dtype == bf and ws.numel() == N)))
     if not ok:
         _raise_operands(name, f"a (M, K) bf16 or int8 with its scales, w (N, K), bias (N,), wd "
                         f"(D, N), bd (D,), out (M, N), h (M, D), w2 (N, D), b2 (N,), x and y "
-                        f"(M, N), all bf16 but the codes and sa; N a multiple of "
-                        f"{ROWADAPT_ALIGN}, D in {ROWADAPT_WIDTHS}",
+                        f"(M, N), all bf16 but the codes and sa, on one card; N a multiple of "
+                        f"{ROWADAPT_ALIGN}, D in {ROWADAPT_WIDTHS}, up epilogue "
+                        f"{_EPI_BF16_RES1} or {_EPI_BF16_RESF} (got {up_epi})",
                         {"a": a, "sa": sa, "w": w, "ws": ws, "bias": bias, "wd": wd, "bd": bd,
                          "out": out, "h": h, "w2": w2, "b2": b2, "x": x, "y": y})
 
 
-def _rowadapt(a, sa, w, ws, bias, wd, bd, down_epi, s, out=None, h=None, up=None):
+def _rowadapt(a, sa, w, ws, bias, wd, bd, down_epi, s, out=None, h=None, up=None,
+              up_epi=_EPI_BF16_RES1):
     """One launch of csrc/rowadapt.cu: o = bf16(a . w^T + bias) (int8:
     dequantized by sa, ws), into `out` where given; the adapter hidden
     down_epi(o . wd^T + bd) (`_EPI_BF16`, `_EPI_BF16_GELU` or
     `_EPI_BF16_RGELU`), into `h` where given; with up = (w2, b2, x, y), y =
-    bf16(x + bf16(hidden . w2^T + b2)). What is not given stays on chip."""
-    check_rowadapt(a, sa, w, ws, bias, wd, bd, out, h, up)
+    bf16(x + bf16(hidden . w2^T + b2)) (up_epi `_EPI_BF16_RES1`, K13) or
+    bf16(x + (hidden . w2^T + b2)) (`_EPI_BF16_RESF`, K14). What is not
+    given stays on chip."""
+    check_rowadapt(a, sa, w, ws, bias, wd, bd, out, h, up, up_epi)
     M, K = a.shape
     N, D = w.shape[0], wd.shape[0]
     w2, b2, x, y = up if up is not None else (None,) * 4
     tail = (_ptr(bias), _ptr(out), _ptr(wd), _ptr(bd), _ptr(h), _ptr(w2), _ptr(b2), _ptr(x),
-            _ptr(y), M, N, K, D, down_epi, s)
+            _ptr(y), M, N, K, D, down_epi, up_epi, s)
     lib = cuda_lib.lib("rowadapt.cu")
     if sa is None:
         err = lib.stg_rowadapt_bf16(_ptr(a), _ptr(w), *tail)
@@ -729,10 +758,14 @@ class _Kernel:
             raise ValueError(f"{self.name}: x must be contiguous")   # CPU tests see it
         if x.device.type == "cpu":
             return self.plain(x, *args, **kw)
-        if x.device.type != "cuda":
-            raise ValueError(f"{self.name}: no kernel for device {x.device}")
-        with torch.cuda.device(x.device):
+        dev = x.device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for device {dev}")
+        if dev.index == torch.cuda.current_device():   # no device switch to make
             out = self._launch(x, *args, **kw)
+        else:
+            with torch.cuda.device(dev):
+                out = self._launch(x, *args, **kw)
         self.launches += 1
         return out
 
@@ -908,11 +941,20 @@ def _wmsa_cuda(q, k, v, bm):
 
 
 def _layernorm_cuda(x, ln_w, ln_b):
-    if x.dim() != 2:
-        raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
-    bf = torch.bfloat16
-    _check_cuda(x, {"x": (x, bf), "ln_w": (ln_w, bf), "ln_b": (ln_b, bf)})
-    _check_shapes({"ln_w": (ln_w, (x.shape[1],)), "ln_b": (ln_b, (x.shape[1],))})
+    # one pass over the three tensors (the call is short: its host time counts);
+    # where it fails, the checks every wrapper runs name what is wrong
+    bf, dev = torch.bfloat16, x.device
+    if not (x.dim() == 2 and x.dtype == bf and ln_w.dtype == bf and ln_b.dtype == bf
+            and ln_w.device == dev and ln_b.device == dev and ln_w.dim() == ln_b.dim() == 1
+            and ln_w.numel() == ln_b.numel() == x.shape[1] and ln_route(x.shape[1])
+            and ln_w.is_contiguous() and ln_b.is_contiguous()
+            and (x.data_ptr() | ln_w.data_ptr() | ln_b.data_ptr()) % 16 == 0):
+        if x.dim() != 2:
+            raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
+        _check_cuda(x, {"x": (x, bf), "ln_w": (ln_w, bf), "ln_b": (ln_b, bf)})
+        _check_shapes({"ln_w": (ln_w, (x.shape[1],)), "ln_b": (ln_b, (x.shape[1],))})
+        raise ValueError(f"K9 takes rows of a multiple of {LN_ALIGN} up to {LN_MAX_WIDTH} "
+                         f"values, got C={x.shape[1]}")
     return _ln_bf16(x, ln_w, ln_b, _stream(x))
 
 

@@ -43,16 +43,20 @@ Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
   16 a clock an SM on the special function units beside the tensor and
   byte terms), its library yardstick where one exists (SDPA) and `graph_ms`;
 - K13 (float) at the CLIP-B/16 video (1576, 10, 768) and audio (392, 10,
-  768) rows and CLIP-L/14's video rows (2056, 10, 1024), K11's temporal body
+  768) rows and CLIP-L/14's video rows (2056, 10, 1024), K14 (float and
+  int8) at the CLIP-B/16 video (80, 197, 768) and audio (80, 49, 768) rows
+  in the tower's layout, K11's temporal body
   at the CLIP-B/16 video and audio rows (`tadapt_cases`), and, where the tree
   has them, csrc/tattn.cu's temporal product T alone (bf16 and int8, the
-  video rows: qkv and each sequence's attention) and csrc/rowadapt.cu's
+  video rows: qkv and each sequence's attention; and at K14's frame-strided
+  layout, (80, 197, 768) as the tower holds it) and csrc/rowadapt.cu's
   row-owning product R alone (K13's: proj, the T_Adapter and the residual;
-  K11 qd's: the int8 proj and the adapter hidden), each with `graph_ms`;
-- K8 at Swin-Base stage 3's temporal site, K9 at its 2 -> 3 merge norm and
-  at its stage-3 temporal and final norms (both (3920, 1024)), each also
-  through its bare launcher (`bare_ms`): what the wrapper's host work adds
-  to a short kernel. These, K2, K3, K11 and the int8 K12, K13 rows (and
+  K14's, with the residual rounded once; K11 qd's: the int8 proj and the
+  adapter hidden), each with `graph_ms`;
+- K8 at Swin-Base stage 3's temporal site, K9 at Swin-Base's six norm
+  sites (five shapes) and Swin-Large's patch-embed and widest merge norm
+  (3920, 3072), each also through its bare launcher (`bare_ms`): what the
+  wrapper's host work adds to a short kernel. These, K2, K3, K11 and the int8 K12, K13 rows (and
   their audio rows at M = 3920) also give `graph_ms`: the device time of one
   call replayed from a CUDA graph, with no host work.
 
@@ -588,16 +592,18 @@ def block_cases(g):
 
 def tadapt_cases(g, sfu):
     """K13 (float) at the CLIP-B/16 video (1576, 10, 768) and audio (392, 10,
-    768) rows and at CLIP-L/14's video rows (2056, 10, 1024), and K11's
-    temporal body (int8, D 48) at the CLIP-B/16 video and audio rows, on
-    block 0 of `random_clip_ave` (the int8 K13 rows and K11's other bodies
-    are `int8_block_cases`'); where the tree has them, csrc/tattn.cu's
+    768) rows and at CLIP-L/14's video rows (2056, 10, 1024), K14 (float and
+    int8) at the CLIP-B/16 video and audio rows of the tower's layout, and
+    K11's temporal body (int8, D 48) at the CLIP-B/16 video and audio rows,
+    on block 0 of `random_clip_ave` (the int8 K13 rows and K11's other
+    bodies are `int8_block_cases`'); where the tree has them, csrc/tattn.cu's
     temporal product T alone (bf16 and int8 at the video rows: qkv and each
-    sequence's attention, the merged heads out) and csrc/rowadapt.cu's
-    row-owning product R alone (K13's: proj, the T_Adapter and the residual,
-    bf16; K11 qd's: the int8 proj and the adapter hidden; K11 ffn_qh's: the
-    int8 fc2 at K = 3072 with o and the hidden), each with its
-    bound and a library yardstick (`F.linear` / `torch._int_mm` and SDPA)."""
+    sequence's attention, the merged heads out; and at K14's frame-strided
+    layout) and csrc/rowadapt.cu's row-owning product R alone (K13's: proj,
+    the T_Adapter and the residual, bf16; K14's, its residual rounded once;
+    K11 qd's: the int8 proj and the adapter hidden; K11 ffn_qh's: the int8
+    fc2 at K = 3072 with o and the hidden), each with its bound and a
+    library yardstick (`F.linear` / `torch._int_mm` and SDPA)."""
     import dataclasses
     import torch
     import torch.nn.functional as F
@@ -630,6 +636,17 @@ def tadapt_cases(g, sfu):
                           "graph": True})
     C, heads, D = b16.embed_dim, b16.heads, 48
     q = block(b16, int8=True)
+    for int8, blk in ((False, block(b16)), (True, q)):    # K14 in the tower's (B T, N, C) layout
+        kernel = PCB.clip_tv2_q if int8 else PCB.clip_tv2
+        for site, N in (("video", b16.num_patches + 1), ("audio", b16.num_patches_audio + 1)):
+            ad = blk.T_Adapter if site == "video" else blk.T_Adapter_Audio
+            wt = PCB.tadapt_weights(blk.attn, blk.ln_1, ad)
+            x = rnd(8 * T, N, C, std=0.1).to(bf)
+            cases.append({"row": f"K14{' int8' if int8 else ''} CLIP-B/16 {site} rows "
+                                 f"{tuple(x.shape)} h{heads}",
+                          "fn": lambda x=x, wt=wt, k=kernel: k(x, wt, heads, T),
+                          "plain": lambda x=x, wt=wt, k=kernel: k.plain(x, wt, heads, T),
+                          "tol": TOL_Q if int8 else TOL, "graph": True})
     qd = (q.ln_1.weight, q.ln_1.bias, q.attn.in_proj.weight_q, q.attn.in_proj.weight_s,
           q.attn.in_proj.bias, q.attn.out_proj.weight_q, q.attn.out_proj.weight_s,
           q.attn.out_proj.bias, rnd(D, C, std=C ** -0.5).to(bf), rnd(D, std=0.1).to(bf), heads)
@@ -730,16 +747,64 @@ def tadapt_cases(g, sfu):
          "fn": rf, "plain": rf_plain, "tol": TOL_Q, "graph": True,
          "bound": max(bound_ms(2 * M * C * 4 * C, 4 * M * C + 4 * C * C + 2 * M * (C + D) + 4 * M,
                                peak=H100_INT8), bound_ms(2 * M * C * D, 0))}]
+    if "tokens" not in inspect.signature(FA._tattn).parameters:
+        return cases
+    # K14's: T over frame-strided tiles of the tower's (B T, N, C) layout at the
+    # CLIP-B/16 video rows (B = 8, N = 197: M = 15760), and R with K14's rounding
+    B, N = 8, 197
+
+    def attend_v2(qkv):
+        qkv = qkv.view(B, T, N, 3 * C).transpose(1, 2).reshape(B * N, T, 3 * C)
+        o = FA._heads_attention(qkv, heads, None, bf)
+        return o.view(B, N, T, C).transpose(1, 2).reshape(M, C)
+
+    def sdpa_v2(qkv):
+        qq, kk, vv = qkv.view(B, T, N, 3, heads, C // heads).permute(3, 0, 2, 4, 1, 5)
+        return F.scaled_dot_product_attention(*(t.reshape(B * N, heads, T, -1)
+                                                for t in (qq, kk, vv)))
+
+    def rv2():
+        FA._rowadapt(a, None, w["w_proj"], None, w["b_proj"], wd, bd, FA._EPI_BF16_GELU, cur(),
+                     up=(w2, b2, x, y), up_epi=FA._EPI_BF16_RESF)
+        return y
+
+    def rv2_plain():
+        hid = gemm_plain(gemm_plain(a, w["w_proj"], w["b_proj"], "bf16"), wd, bd, "gelu")
+        return (x.float() + (hid.float() @ w2.float().t() + b2.float())).to(bf)
+    cases += [
+        {"row": f"tattn.cu T bf16 K14 CLIP-B/16 video rows ({M}, {3 * C}, {C}) h{heads} N {N}",
+         "fn": lambda: FA._tattn(a, None, w["w_qkv"], None, w["b_qkv"], att, T, heads, cur(),
+                                 tokens=N),
+         "plain": lambda: attend_v2(gemm_plain(a, w["w_qkv"], w["b_qkv"], "bf16")),
+         "library": lambda: sdpa_v2(F.linear(a, w["w_qkv"], w["b_qkv"])),
+         "flops": 2 * M * 3 * C * C + grams, "graph": True,
+         "bound": bound_ms(2 * M * 3 * C * C + grams, t_bytes, exps=R * heads * T * T,
+                           sfu=sfu)},
+        {"row": f"tattn.cu T int8 K14 CLIP-B/16 video rows ({M}, {3 * C}, {C}) h{heads} N {N}",
+         "fn": lambda: FA._tattn(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"], att, T, heads,
+                                 cur(), tokens=N),
+         "plain": lambda: attend_v2(s8_plain(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"],
+                                             "bf16")),
+         "tol": TOL_Q, "graph": True,
+         "bound": max(bound_ms(2 * M * 3 * C * C, 3 * M * C + 3 * C * C + 4 * M,
+                               peak=H100_INT8, exps=R * heads * T * T, sfu=sfu),
+                      bound_ms(grams, 0))},
+        {"row": f"rowadapt.cu R bf16 K14 (RESF) CLIP-B/16 video rows ({M}, {C}, {C}) D {D}",
+         "fn": rv2, "plain": rv2_plain, "library": r_library, "flops": r_flops, "graph": True,
+         "bound": bound_ms(r_flops, 2 * (3 * M * C + C * C + 2 * C * D))}]
     return cases
 
 
 def host_cases(g):
     """Short kernels timed through their wrapper and through the bare
     launcher (ctypes, no checks): K8 at Swin-Base stage 3's temporal site
-    (12544, 10, 32), period 32, and K9 at the 2 -> 3 patch merge (3920,
-    2048) and at stage 3's temporal and final norms (3920, 1024). Where the
-    wrapper's time exceeds the bare launch's, the host's Python, not the
-    kernel, sets the row's time."""
+    (12544, 10, 32), period 32, and K9 at Swin-Base's norms at B = 8: the
+    patch embed (250880, 128), the merges 0 -> 1 (62720, 512), 1 -> 2
+    (15680, 1024), 2 -> 3 (3920, 2048), stage 3's temporal and final norms
+    (3920, 1024), and Swin-Large's patch embed (250880, 192) and 2 -> 3
+    merge (3920, 3072). Where the wrapper's time exceeds the bare launch's,
+    the host's Python, not the kernel, sets the row's time; `graph_ms` is
+    the device's alone."""
     import torch
     from stgcma_tpu_torch.ops import cuda_lib
     from stgcma_tpu_torch.ops import fused_attn as FA
@@ -770,7 +835,11 @@ def host_cases(g):
     return [{"row": f"K8 Swin stage 3 temporal {(R, n, dh)} period {P}",
              "fn": lambda: FA.wmsa(q, k, v, bm), "bare": bare_k8, "graph": True,
              "plain": lambda: FA.wmsa_plain(q, k, v, bm)},
-            k9("merge norm 2->3", 3920, 2048), k9("stage-3 temporal / final norm", 3920, 1024)]
+            k9("patch-embed norm", 250880, 128), k9("merge norm 0->1", 62720, 512),
+            k9("merge norm 1->2", 15680, 1024), k9("merge norm 2->3", 3920, 2048),
+            k9("stage-3 temporal / final norm", 3920, 1024),
+            k9("Swin-Large patch-embed norm", 250880, 192),
+            k9("Swin-Large merge norm 2->3", 3920, 3072)]
 
 
 def _flat(out):

@@ -57,7 +57,7 @@ LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv"
                    "flash", "attention", "convolve", "nchwtonhwc", "nhwctonchw", "nhwcaddpadding")
 # kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
 PORT_KERNELS = ("gemm_wgmma_kernel", "attn_mma_kernel", "attn_resident_kernel",
-                "attn_stream_kernel", "quant_rows_kernel", "ln_bf16_kernel", "fuse_kernel",
+                "attn_stream_kernel", "quant_rows_kernel", "ln_rows_kernel", "fuse_kernel",
                 "pair_kernel", "tattn_kernel", "rowadapt_kernel")
 
 

@@ -198,7 +198,7 @@ def test_rowadapt_shared_memory_fits_its_blocks(D, wgs):
     (4 stages to D = 48 and 3 past it, or 6) of the block's rows of A and a
     128-column chunk of W, the chunk's wd rows at stride 136 and its bias and
     scales, the mbarriers and the slack; and the hidden, w2's rows and the up
-    product's output block fit the region they reuse."""
+    product's output block (fp32) fit the region they reuse."""
     text = (CSRC / "rowadapt.cu").read_text()
     assert "static constexpr int STAGES = WGS == 2 ? 6 : D <= 48 ? 4 : 3;" in text
     assert "return ceil_div(M, 2 * RA_BM) >= sms * 3 / 4 ? 2 * RA_BM : RA_BM;" in text
@@ -207,7 +207,8 @@ def test_rowadapt_shared_memory_fits_its_blocks(D, wgs):
     free = stages * (rows + chunk) * bk + D * (chunk + 8) * 2 + 2 * chunk * 2
     smem = free + 2 * stages * 8 + 1024
     assert smem <= (233472 // 2 - 1024 if wgs == 1 else FA.SMEM_MAX_BYTES), smem
-    w2_rows = (free - rows * (D + 8) * 2 - rows * 72 * 2) // ((D + 8) * 2)
+    assert "static constexpr int YS_BYTES = BM * (RA_YB + 8) * 4;    // room for fp32" in text
+    w2_rows = (free - rows * (D + 8) * 2 - rows * 72 * 4) // ((D + 8) * 2)
     assert w2_rows // FA.ROWADAPT_ALIGN * FA.ROWADAPT_ALIGN >= FA.ROWADAPT_ALIGN
 
 
