@@ -12,8 +12,15 @@ line:
      bound and a yardstick composed of PyTorch's own calls: K1 (bf16
      attention block), K2 (its int8 twin) and K3 (int8 FFN) at the CLIP
      sites; K1 at the Swin window sites (with their bias and shift mask) and
-     temporal sites, K7 (bf16 FFN), K8 (window-attention core, small and
-     blocked bias) and K9 (LayerNorm) at the Swin sites (K9 also at
+     temporal sites, K7 (bf16 FFN: csrc/ffn.cu, one launch a call, counted)
+     at Swin-Base's and Swin-Large's stage 0-1 FFNs and Swin-Base 168^2's stage 0
+     (a tail row block), with two faults at stage 0 (its last hidden chunk
+     skipped, b1 dropped), and at Swin-Large's stage 2 FFN at B = 9 (C = 768,
+     where the route first sends it to K7: K9 + gemm.cu's fc1 and fc2, three
+     launches a call, counted), K8 (window-attention core, small and blocked bias,
+     and as the Swin sites run it, `wmsa_qkv` from the packed qkv, one launch
+     of the small core a call, with its fault: every head's bias read at head
+     0) and K9 (LayerNorm) at the Swin sites (K9 also at
      Swin-Large's, with each row's device time alone); K4 (the whole Swin
      fusion block, with live adapters and gates, and once more with each of
      its wiring faults, which must fail the check) at stages 2 (shifted and
@@ -59,7 +66,7 @@ line:
      those kernels share, alone (stgcma_tpu_torch/tools/bench_parts.py):
      csrc/gemm.cu's bf16 product (TMA + wgmma) at the main path's qkv,
      proj, fc1 with QuickGELU and fc2 (K = 3072) shapes, the adapter
-     products at N = 48 and K = 48 and Swin's K = 128 fc1, each with its
+     products at N = 48 and K = 48, each with its
      TFLOP/s and F.linear as the yardstick, and csrc/attn.cu's attention
      core at (80, 197, 768) h12, (80, 257, 1024) h16 and K4's (160, 196,
      512) h16 with a bias (K and V resident in shared memory) and at
@@ -174,7 +181,8 @@ META = {
     "K5": ("K5 win_fuse (per-window fusion)", "stgcma_tpu/ops/pallas_attn.py:1222", ["fuse.cu"]),
     "K6": ("K6 bidir_fuse (full-grid fusion)", "stgcma_tpu/ops/pallas_attn.py:1103",
            ["fuse.cu"]),
-    "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676", ["gemm.cu", "rowprep.cu"]),
+    "K7": ("K7 ffn (bf16 FFN)", "stgcma_tpu/ops/pallas_attn.py:676",
+           ["ffn.cu", "rowprep.cu", "gemm.cu"]),
     "K8": ("K8 wmsa (window-attention core)", "stgcma_tpu/ops/pallas_attn.py:230", ["attn.cu"]),
     "K9": ("K9 layernorm", "stgcma_tpu/ops/pallas_attn.py:755", ["rowprep.cu"]),
     "K10": ("K10 unscaled_attention (softmax(q.k^T).v, unscaled: the full-grid fusion's route "
@@ -736,10 +744,70 @@ def swin_bias(g, heads, N, index, mask=None):
 
 
 def ffn_bf16_bound(M, C, H):
-    ops = 2 * 2 * M * C * H
-    nbytes = 2 * M * C * 2 + 2 * C * H * 2 + (H + 3 * C) * 2
-    t_ops, t_bytes = ops / H100_BF16, nbytes / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    """K7's least time: the larger of the two products' bf16 tensor flops, the
+    erf-GELU's fp32 instructions (`bench_parts.GELU_INSTRUCTIONS` for each of
+    the M H hidden values, counted in the SASS by tools/gelu_sass.py) and x,
+    out and the weights through HBM once."""
+    from stgcma_tpu_torch.tools import bench_parts
+    return bench_parts.ffn_bound(M, C, H)
+
+
+def library_wmsa_qkv(qkv, bm, heads):
+    """K8's site from PyTorch's own calls (timed only): the permuted view of
+    the packed qkv into scaled_dot_product_attention with the bias as a float
+    mask (P / heads rows of it broadcast over the rows), heads merged."""
+    import torch.nn.functional as F
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh, G = C // heads, bm.shape[0] // heads
+
+    def run():
+        q, k, v = qkv.view(B_ // G, G, N, 3, heads, dh).permute(3, 0, 1, 4, 2, 5)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bm.view(G, heads, N, N).to(
+            qkv.dtype))
+        return o.transpose(-3, -2).reshape(B_, N, C)
+    return run
+
+
+def check_one_launch(name, kernel, args, launcher):
+    """One call of the wrapper makes exactly one CUDA launch, of `launcher`."""
+    return check_launch_sequence(name, kernel, args, [launcher])
+
+
+def check_launch_sequence(name, kernel, args, launchers):
+    """One call of the wrapper makes exactly the CUDA launches `launchers`,
+    in that order."""
+    import torch
+    with counted_launches() as calls:
+        kernel(*args)
+    torch.cuda.synchronize()
+    if calls != launchers:
+        fail(f"{name}: launches {calls} a call, expected {launchers}")
+    log(f"  {name}: {len(calls)} launch{'es' if len(calls) > 1 else ''} a call: "
+        f"{', '.join(calls)}")
+    return len(calls)
+
+
+def check_faults(name, kernel, plain, args, faults, tol=TOL_KERNEL):
+    """The kernel check fails where it must: the kernel run on the arguments
+    of each fault (the inputs that make it compute what a kernel with that
+    fault would: a hidden chunk's weights zeroed, a bias dropped, every head's
+    bias at head 0) differs from the plain version on the true arguments by
+    more than the tolerance."""
+    import torch
+    ref = _flat(plain(*args))
+    scale = ref.abs().max().item()
+    moved = {}
+    for fault, fargs in faults.items():
+        out = _flat(kernel(*fargs))
+        torch.cuda.synchronize()
+        moved[fault] = (out - ref).abs().max().item() / scale
+        if not moved[fault] > tol:
+            fail(f"{name}: a kernel with '{fault}' passes the check ({moved[fault]:.4g} of max "
+                 f"|plain|, tol {tol})")
+    log(f"  {name}: faults vs plain (rel, must exceed {tol}): "
+        + ", ".join(f"{k} {v:.4g}" for k, v in moved.items()))
+    return moved
 
 
 def wmsa_bound(R, N, dh, P):
@@ -769,9 +837,13 @@ def k9_sites(cfg):
 
 
 def phase_swin_kernels(cfg, large_cfg):
-    """K1, K7, K8 and K9 at the shapes of Swin-Base multimodal at B = 8, and
-    K9 at Swin-Large's norms; each K9 row also with its device time alone
-    (its launch replayed from a CUDA graph: no host work)."""
+    """K1, K7, K8 and K9 at the shapes of Swin-Base multimodal at B = 8, K7
+    also at Swin-Large's two FFN sites, Swin-Base 168^2's stage 0 and
+    Swin-Large's stage 2 at B = 9 (its three-launch composition), K8 also
+    as its sites run it (`wmsa_qkv`, from the packed qkv), and K9 at
+    Swin-Large's norms; each K7, K8 site and K9 row also with its device time
+    alone (its launch replayed from a CUDA graph: no host work); K7 and the K8
+    site in one launch a call, each with its faults."""
     from stgcma_tpu_torch.tools import bench_parts
     import torch
     import torch.nn.functional as F
@@ -811,20 +883,42 @@ def phase_swin_kernels(cfg, large_cfg):
             FA.win_block_plain, args + (heads,), {"bias": bm},
             block_bound(Bq, T, C, heads, False, 1), library_block(args, heads, False, bm)))
 
-    for s in (0, 1):                             # K7 at the FFNs of stages 0-1
-        H, _ = cfg.stage_resolution(s)
-        M, C = B * T * H * H, cfg.stage_dim(s)
+    # K7 at the FFNs of stages 0-1 of Swin-Base and Swin-Large, at stage 0 of
+    # Swin-Base at 168^2 (141,120 rows: a tail row block), and at Swin-Large's stage 2
+    # at B = 9 (17,640 rows of C = 768: the smallest batch at which the route sends a
+    # width that csrc/ffn.cu does not instantiate to K7); b1 ~ N(0, 1), so that a K7
+    # without it fails the check
+    k7_sites = [("", s, B * T * cfg.stage_resolution(s)[0] ** 2, cfg.stage_dim(s)) for s in (0, 1)]
+    k7_sites += [("Swin-Large ", s, B * T * large_cfg.stage_resolution(s)[0] ** 2,
+                  large_cfg.stage_dim(s)) for s in (0, 1)]
+    k7_sites.append(("Swin-Base 168^2 ", 0, B * T * (168 // 4) ** 2, cfg.stage_dim(0)))
+    k7_sites.append(("Swin-Large B = 9 ", 2, 9 * T * large_cfg.stage_resolution(2)[0] ** 2,
+                     large_cfg.stage_dim(2)))
+    for tag, s, M, C in k7_sites:
         Hd = 4 * C
         args = (rnd(M, C).to(bf), (1 + rnd(C, std=0.1)).to(bf), rnd(C, std=0.02).to(bf),
-                rnd(Hd, C, std=0.05).to(bf), rnd(Hd, std=0.02).to(bf),
+                rnd(Hd, C, std=0.05).to(bf), rnd(Hd).to(bf),
                 rnd(C, Hd, std=0.02).to(bf), rnd(C, std=0.02).to(bf))
 
         def library(a=args, C=C):
             return F.linear(F.gelu(F.linear(F.layer_norm(a[0], (C,), a[1], a[2]), a[3], a[4])),
                             a[5], a[6])
-        results["K7"].append(check_kernel(
-            f"K7 Swin stage {s} FFN {(M, C)} hidden {Hd}", FA.ffn, FA.ffn_plain, args, {},
-            ffn_bf16_bound(M, C, Hd), library))
+        name = f"K7 {tag}stage {s} FFN {(M, C)} hidden {Hd}"
+        row = check_kernel(name, FA.ffn, FA.ffn_plain, args, {}, ffn_bf16_bound(M, C, Hd),
+                           library)
+        row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.ffn(*a))
+        row["launches_per_call"] = check_launch_sequence(
+            name, FA.ffn, args, ["stg_ffn_bf16"] if FA.ffn_route(C, Hd)
+            else ["stg_ln_bf16", "stg_gemm_bf16", "stg_gemm_bf16"])
+        if not tag and s == 0:
+            w2 = args[5].clone()
+            w2[:, -FA.FFN_HIDDEN_CHUNK:] = 0
+            row["faults"] = check_faults(name, FA.ffn, FA.ffn_plain, args, {
+                "last hidden chunk skipped": args[:5] + (w2, args[6]),
+                "b1 dropped": args[:4] + (torch.zeros_like(args[4]),) + args[5:]})
+        log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
+        results["K7"].append(row)
+        del args
 
     s3 = cfg.num_layers - 1                      # K8 at stage 3 (32 heads)
     H, _ = cfg.stage_resolution(s3)
@@ -846,6 +940,21 @@ def phase_swin_kernels(cfg, large_cfg):
         results["K8"].append(check_kernel(
             f"K8 Swin stage 3 {site} {(R, n, dh)} period {P}", FA.wmsa, FA.wmsa_plain,
             (q, k, v, bm), {}, wmsa_bound(R, n, dh, P), library))
+    # K8 as the Swin sites run it: the packed qkv in, merged heads out, one launch; and
+    # once more with every head's bias read at head 0, which must fail the check
+    for site, R, n, bm in k8_sites[:2]:
+        qkv = rnd(R // heads, n, 3 * C).to(bf)
+        args = (qkv, bm, heads)
+        name = f"K8 wmsa_qkv Swin stage 3 {site} {tuple(qkv.shape)} h{heads} period {bm.shape[0]}"
+        row = check_kernel(name, FA.wmsa_qkv, FA.wmsa_qkv_plain, args, {},
+                           wmsa_bound(R, n, dh, bm.shape[0]), library_wmsa_qkv(*args))
+        row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.wmsa_qkv(*a))
+        row["launches_per_call"] = check_one_launch(name, FA.wmsa_qkv, args, "stg_attn_core")
+        head0 = bm.view(-1, heads, n, n)[:, :1].expand(-1, heads, n, n).reshape(bm.shape)
+        row["faults"] = check_faults(name, FA.wmsa_qkv, FA.wmsa_qkv_plain, args, {
+            "every head's bias at head 0": (qkv, head0.contiguous(), heads)})
+        log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
+        results["K8"].append(row)
 
     for tag, c in (("", cfg), ("Swin-Large ", large_cfg)):   # K9 at the six norms of a stream
         for site, M, Cn in k9_sites(c):

@@ -10,8 +10,11 @@
 // the probabilities are rounded to bf16, and p.v is summed in fp32 and
 // rounded to bf16. Heads stay merged in the output, (B_, N, heads * dh).
 // Three entry points read the same core:
-//   - stg_attn_core (K1/K2): q, k, v are column blocks of one packed
-//     (B_, N, 3 * heads * dh) qkv;
+//   - stg_attn_core (K1/K2, and K8 at its Swin sites, `wmsa_qkv`): q, k, v
+//     are column blocks of one packed (B_, N, 3 * heads * dh) qkv; K8's
+//     (P, N, N) bias, row b head h taking bias[(b heads + h) % P], is this
+//     entry's (nWb = P / heads, heads, N, N) bias, so the site reads the
+//     qkv product's output as it lies and writes merged heads;
 //   - stg_attn_core_t (K14, the transpose-free temporal stage of
 //     _tblock_v2_kernel :1757): the same packed qkv of (B, T, Ns, 3C)
 //     tokens, where sequence g = (b, n) is token n of the T frames of batch
@@ -31,7 +34,8 @@
 //     stage 2 (4 windows of 49 of 196 tokens): the TPU kernel's window-major
 //     layout (pallas_swin_block.py:255-256, :448) comes back here without a
 //     permute of the rows;
-//   - stg_attn_qkv (K8): separate q, k, v of shape (R, N, dh) and a bias
+//   - stg_attn_qkv (K8's counterpart of the Pallas kernel, `wmsa`, on no
+//     path): separate q, k, v of shape (R, N, dh) and a bias
 //     (P, N, N) whose row r takes bm[r % P] (one head per row, heads = 1).
 //     One kernel takes any period P, so it covers both Pallas bodies: the
 //     small bias (P <= 128, held whole) and the blocked bias (P a multiple
@@ -46,14 +50,18 @@
 // 49: the q, k, v reads dominate).
 // Three kernels, one per range of N (ATTN_SMALL_MAX_TOKENS and
 // ATTN_RESIDENT_MAX_TOKENS in ops/fused_attn.py mirror the dispatch):
-// N <= 64 (attn_mma_kernel: the T = 10 temporal sites, the 49-token windows,
+// N <= 64 (attn_small_kernel: the T = 10 temporal sites, the 49-token windows,
 // K8): both products on tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate). One warp owns a 16-query tile: its logits and probabilities
-// stay in registers, and the probabilities' accumulator fragments are reused
-// as the A operand of p.v. A block holds K (keys x dh) and V^T (dh x keys) of
-// one (row, head) in shared memory, loaded once for all its query tiles; for
-// N <= 48 a block serves several (row, head) pairs, so the T = 10 temporal
-// site packs 4 to a block. Keys are padded to 16 * KT and masked to -inf.
+// accumulate). A block of four warps walks groups of (row, head) pairs (four
+// pairs at N <= 16, two at N <= 32, one at N <= 64: a 16-query tile a warp),
+// as many blocks as the card holds at once, with two stages in shared memory:
+// the next group's Q, K and V land keys-major by 16-byte cp.async, rows
+// padded to dh + 8 (zeros past N), while this group computes. q's fragments
+// come by ldmatrix and are scaled in registers; all N <= 64 logits of a
+// 16-query tile are one chunk, kept in registers from the max through the sum
+// to p, so q.k^T is formed once; V's fragments come by ldmatrix.trans; each
+// warp stages its output tile over its own rows of Q and stores it 16 bytes a
+// lane.
 // 64 < N <= 768 (attn_resident_kernel: CLIP's 197 and 257 tokens; K4's windows
 // of 49 through their token table, TAB):
 // one block owns one (row, head); K and V come into shared memory once,
@@ -119,14 +127,6 @@ __device__ __forceinline__ float div_rn(float x, float l, float r) {
   return __fmaf_rn(__fmaf_rn(-q, l, x), r, q);
 }
 
-template <int DH, int KT>
-struct Layout {
-  static constexpr int NK = 16 * KT;     // padded key count
-  static constexpr int LDK = DH + 8;     // K row stride (bf16)
-  static constexpr int LDV = NK + 8;     // V^T row stride (bf16)
-  static constexpr int PER_BH = NK * LDK + DH * LDV;   // bf16 per (row, head)
-};
-
 // Sequences come in runs of n_in interleaved ones: token j of sequence b is
 // row seq_row(b) + j * n_in of q/k/v (stride ld) and of o (stride C). n_in = 1
 // gives the contiguous (B_, N) layout of K1/K2/K8.
@@ -134,139 +134,205 @@ __device__ __forceinline__ size_t seq_row(int b, int N, int n_in) {
   return static_cast<size_t>(b / n_in) * N * n_in + b % n_in;
 }
 
-// Token j of head h of sequence b is at q/k/v + (seq_row(b) + j * n_in) * ld + h * DH.
+// ---------------------------------------------------------------------------
+// N <= 64: every key of a (row, head) in one chunk, its logits in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallMaxTokens = 64;       // attn_small_kernel up to KT = 4
+constexpr int kSmallStages = 2;           // groups of pairs in shared memory: one computes, one loads
+
+// A group is the (row, head) pairs a block computes at once: 4 / KT of them, so that the
+// four warps have a 16-query tile each (N <= 16: four pairs of one tile; N <= 32: two of
+// two; N <= 64: one of up to four). A stage holds Q, K and V of the group's pairs,
+// keys-major, NK rows of stride LD each: 192 LD bf16 whatever KT is.
 template <int DH, int KT>
-__global__ void __launch_bounds__(kWarps * 32) attn_mma_kernel(
+struct Small {
+  static constexpr int PAIRS = kWarps / KT;
+  static constexpr int NK = 16 * KT;      // rows a matrix holds, past N zero-filled
+  static constexpr int LD = DH + 8;       // row stride (bf16): 80 or 144 bytes, ldmatrix
+                                          // free of bank conflicts
+  static constexpr int MAT = NK * LD;
+  static constexpr int STAGE = PAIRS * 3 * MAT;
+  static constexpr int SMEM = kSmallStages * STAGE * static_cast<int>(sizeof(bf16));
+};
+
+// Token j of head h of sequence b is at q/k/v + (seq_row(b) + j * n_in) * ld + h * DH. The
+// block walks the groups grp = blockIdx.x, + gridDim.x, ... (the grid is what the card
+// holds at once), loading the next group's Q, K and V by 16-byte cp.async while it
+// computes this one's. A warp owns one 16-query tile of one pair: q's fragments by
+// ldmatrix, scaled and rounded to bf16 in registers; the 16 x NK logits (+ the bias,
+// read at clamped indices with no branch) stay in registers from the max through the
+// sum to p; V's fragments by ldmatrix.trans; the output tile is staged over the warp's
+// own rows of Q and stored 16 bytes a lane.
+template <int DH, int KT>
+__global__ void __launch_bounds__(kWarps * 32, 4) attn_small_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, int ld,
     int n_in, const float* __restrict__ bm, int nWb, bf16* __restrict__ o, int BH, int N,
-    int heads, float scale, int bh_per_block, int q_tiles) {
-  using L = Layout<DH, KT>;
+    int heads, float scale) {
+  using L = Small<DH, KT>;
+  constexpr int CPR = DH / 8;             // 16-byte chunks a row
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int C = heads * DH;
-  const int tld = ld * n_in;             // between consecutive tokens of a sequence
-  const int bh0 = static_cast<int>(blockIdx.x) * bh_per_block;
-
-  for (int l = 0; l < bh_per_block; ++l) {       // K and V^T of each (row, head)
-    const int bh = bh0 + l;
-    bf16* ks = smem + l * L::PER_BH;
-    bf16* vt = ks + L::NK * L::LDK;
-    const size_t base = seq_row(bh / heads, N, n_in) * ld + (bh % heads) * DH;
-    for (int i = threadIdx.x; i < L::NK * (DH / 2); i += blockDim.x) {
-      const int j = i / (DH / 2), w = i % (DH / 2);
-      uint32_t kw = 0u, vw = 0u;
-      if (bh < BH && j < N) {
-        kw = reinterpret_cast<const uint32_t*>(k + base + static_cast<size_t>(j) * tld)[w];
-        vw = reinterpret_cast<const uint32_t*>(v + base + static_cast<size_t>(j) * tld)[w];
-      }
-      *reinterpret_cast<uint32_t*>(ks + j * L::LDK + 2 * w) = kw;
-      const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
-      vt[(2 * w) * L::LDV + j] = v2.x;
-      vt[(2 * w + 1) * L::LDV + j] = v2.y;
-    }
-  }
-  __syncthreads();
-
+  const int groups = ceil_div(BH, L::PAIRS);
+  const int q_tiles = ceil_div(N, 16);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  for (int task = warp; task < bh_per_block * q_tiles; task += kWarps) {
-    const int l = task / q_tiles, qt = task % q_tiles;
-    const int bh = bh0 + l;
-    if (bh >= BH) break;                          // later tasks are past BH too
-    const int b = bh / heads, h = bh % heads;
-    const bf16* ks = smem + l * L::PER_BH;
-    const bf16* vt = ks + L::NK * L::LDK;
-    const size_t row0 = seq_row(b, N, n_in);
-    const bf16* base = q + row0 * ld + h * DH;
-    const int r0 = qt * 16 + g, r1 = r0 + 8;     // this thread's two query rows
 
-    uint32_t qa[DH / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t;
-      qa[kk][0] = load_q2(base, r0, c0, N, tld, scale);
-      qa[kk][1] = load_q2(base, r1, c0, N, tld, scale);
-      qa[kk][2] = load_q2(base, r0, c0 + 8, N, tld, scale);
-      qa[kk][3] = load_q2(base, r1, c0 + 8, N, tld, scale);
+  // Q, K and V of group grp into stage st, chunk by chunk (a row's chunks on neighbouring
+  // threads); rows past N and pairs past BH are zeros (a V row of garbage times p = 0 can
+  // be NaN)
+  auto load = [&](int grp, int st) {
+    bf16* dst = smem + st * L::STAGE;
+    for (int i = threadIdx.x; i < L::PAIRS * 3 * L::NK * CPR; i += kWarps * 32) {
+      const int c = i % CPR, j = i / CPR % L::NK, m = i / (CPR * L::NK) % 3;
+      const int l = i / (CPR * L::NK * 3);
+      const int bh = grp * L::PAIRS + l;
+      const bool ok = bh < BH && j < N;
+      const bf16* src = m == 0 ? q : m == 1 ? k : v;
+      const size_t off = ok ? (seq_row(bh / heads, N, n_in) + static_cast<size_t>(j) * n_in) * ld +
+                                  (bh % heads) * DH + c * 8
+                            : 0;
+      cp_async16(dst + (l * 3 + m) * L::MAT + j * L::LD + c * 8, src + off, ok);
     }
+    cp_async_commit();
+  };
 
-    // logits: s[nt] holds keys nt*8 + 2t (+1) of rows r0 (elements 0, 1) and r1 (2, 3)
-    float s[2 * KT][4];
-#pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* krow = ks + (nt * 8 + g) * L::LDK + 2 * t;
+  int st = 0;
+  if (static_cast<int>(blockIdx.x) < groups) load(blockIdx.x, 0);
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, st ^= 1) {
+    if (grp + static_cast<int>(gridDim.x) < groups) load(grp + gridDim.x, st ^ 1);
+    else cp_async_commit();               // an empty group: the wait below counts the same
+    cp_async_wait<1>();                   // this group's copies have landed
+    __syncthreads();
+
+    for (int task = warp; task < L::PAIRS * q_tiles; task += kWarps) {
+      const int l = task / q_tiles, qt = task % q_tiles;
+      const int bh = grp * L::PAIRS + l;
+      if (bh >= BH) break;                // later tasks are past BH too
+      const int b = bh / heads, h = bh % heads;
+      bf16* qs = smem + st * L::STAGE + l * 3 * L::MAT;
+      const bf16* ks = qs + L::MAT;
+      const bf16* vs = ks + L::MAT;
+
+      // q of rows qt*16 .. +15: matrix l / 8 of a load is rows 8 ((l / 8) & 1), dims
+      // 8 (l / 16) of a k-step, the a0..a3 of mma's A; scaled and rounded to bf16
+      uint32_t qa[DH / 16][4];
+      const bf16* qrow = qs + (qt * 16 + (lane & 15)) * L::LD + (lane >> 4) * 8;
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
-                 *reinterpret_cast<const uint32_t*>(krow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
-      }
-    }
-
-    const float* bias = bm == nullptr ? nullptr
-        : bm + (static_cast<size_t>(b % nWb) * heads + h) * N * N;
-    float m0 = -INFINITY, m1 = -INFINITY;
+        ldsm_x4(qa[kk], qrow + kk * 16);
 #pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        if (key >= N) {
-          s[nt][e] = -INFINITY;
-        } else if (bias != nullptr && row < N) {
-          s[nt][e] = __fadd_rn(s[nt][e], bias[static_cast<size_t>(row) * N + key]);
+        for (int r = 0; r < 4; ++r) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][r]));
+          qa[kk][r] = pack_bf16x2(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
         }
       }
-      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-      s[nt][0] = expf(__fsub_rn(s[nt][0], m0));
-      s[nt][1] = expf(__fsub_rn(s[nt][1], m0));
-      s[nt][2] = expf(__fsub_rn(s[nt][2], m1));
-      s[nt][3] = expf(__fsub_rn(s[nt][3], m1));
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
-    }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
 
-    // p = e / l rounded to bf16: two logit tiles make one A fragment of p.v
-    float acc[DH / 8][4];
+      // logits: s[nt] holds keys nt*8 + 2t (+1) of rows r0 (elements 0, 1) and r1 (2, 3);
+      // key tiles wholly past N are not multiplied
+      const int r0 = qt * 16 + g, r1 = r0 + 8;
+      float s[2 * KT][4];
+      const bf16* krow = ks + (lane & 7) * L::LD + (lane >> 3) * 8;
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        if (nt * 8 < N) {
 #pragma unroll
-    for (int kc = 0; kc < KT; ++kc) {
-      const uint32_t a0 = pack_bf16x2(__fdiv_rn(s[2 * kc][0], l0), __fdiv_rn(s[2 * kc][1], l0));
-      const uint32_t a1 = pack_bf16x2(__fdiv_rn(s[2 * kc][2], l1), __fdiv_rn(s[2 * kc][3], l1));
-      const uint32_t a2 =
-          pack_bf16x2(__fdiv_rn(s[2 * kc + 1][0], l0), __fdiv_rn(s[2 * kc + 1][1], l0));
-      const uint32_t a3 =
-          pack_bf16x2(__fdiv_rn(s[2 * kc + 1][2], l1), __fdiv_rn(s[2 * kc + 1][3], l1));
+          for (int kk = 0; kk < DH / 16; kk += 2) {
+            uint32_t kb[4];
+            ldsm_x4(kb, krow + nt * 8 * L::LD + kk * 16);
+            mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], kb[0], kb[1]);
+            mma_bf16(s[nt], qa[kk + 1][0], qa[kk + 1][1], qa[kk + 1][2], qa[kk + 1][3], kb[2],
+                     kb[3]);
+          }
+        }
+      }
+      if (bm != nullptr) {               // rows and keys past N read entry N - 1, never used
+        const float* bias = bm + (static_cast<size_t>(b % nWb) * heads + h) * N * N;
+        const float* b0 = bias + static_cast<size_t>(min(r0, N - 1)) * N;
+        const float* b1 = bias + static_cast<size_t>(min(r1, N - 1)) * N;
+#pragma unroll
+        for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = min(nt * 8 + 2 * t + (e & 1), N - 1);
+            s[nt][e] = __fadd_rn(s[nt][e], __ldg((e < 2 ? b0 : b1) + key));
+          }
+      }
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (nt * 8 + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
+        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      m0 = quad_max(m0);
+      m1 = quad_max(m1);
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        s[nt][0] = __expf(__fsub_rn(s[nt][0], m0));
+        s[nt][1] = __expf(__fsub_rn(s[nt][1], m0));
+        s[nt][2] = __expf(__fsub_rn(s[nt][2], m1));
+        s[nt][3] = __expf(__fsub_rn(s[nt][3], m1));
+        l0 += s[nt][0] + s[nt][1];
+        l1 += s[nt][2] + s[nt][3];
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      const float rl0 = __frcp_rn(l0), rl1 = __frcp_rn(l1);
+
+      // p = e / l rounded to bf16, two logit tiles one A fragment of p.v; V's b0, b1 of
+      // two n-tiles a .trans load (matrix l / 8: keys kc*16 + 8 ((l / 8) & 1), dims of
+      // n-tile nd + l / 16)
+      float acc[DH / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+      const bf16* vrow = vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * L::LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int kc = 0; kc < KT; ++kc) {
+        if (kc * 16 >= N) break;
+        const uint32_t a0 = pack_bf16x2(div_rn(s[2 * kc][0], l0, rl0), div_rn(s[2 * kc][1], l0, rl0));
+        const uint32_t a1 = pack_bf16x2(div_rn(s[2 * kc][2], l1, rl1), div_rn(s[2 * kc][3], l1, rl1));
+        const uint32_t a2 =
+            pack_bf16x2(div_rn(s[2 * kc + 1][0], l0, rl0), div_rn(s[2 * kc + 1][1], l0, rl0));
+        const uint32_t a3 =
+            pack_bf16x2(div_rn(s[2 * kc + 1][2], l1, rl1), div_rn(s[2 * kc + 1][3], l1, rl1));
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; nd += 2) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vrow + kc * 16 * L::LD + nd * 8);
+          mma_bf16(acc[nd], a0, a1, a2, a3, bv[0], bv[1]);
+          mma_bf16(acc[nd + 1], a0, a1, a2, a3, bv[2], bv[3]);
+        }
+      }
+
+      // the tile's output over its own rows of Q (read by this warp alone), then 16 bytes
+      // a lane along the rows of o
+      bf16* os = qs + qt * 16 * L::LD;
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd) {
-        const bf16* vrow = vt + (nd * 8 + g) * L::LDV + kc * 16 + 2 * t;
-        mma_bf16(acc[nd], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(vrow),
-                 *reinterpret_cast<const uint32_t*>(vrow + 8));
+        const int col = nd * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(os + g * L::LD + col) =
+            __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+        *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * L::LD + col) =
+            __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+      }
+      __syncwarp();
+      const size_t row0 = seq_row(b, N, n_in);
+#pragma unroll
+      for (int i = lane; i < 16 * CPR; i += 32) {
+        const int r = i / CPR, c = i % CPR;
+        if (qt * 16 + r < N)
+          *reinterpret_cast<uint4*>(o + (row0 + static_cast<size_t>(qt * 16 + r) * n_in) * C +
+                                    h * DH + c * 8) =
+              *reinterpret_cast<const uint4*>(os + r * L::LD + c * 8);
       }
     }
-
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      const int col = h * DH + nd * 8 + 2 * t;
-      if (r0 < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r0) * n_in) * C +
-                                           col) = __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
-      if (r1 < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + (row0 + static_cast<size_t>(r1) * n_in) * C +
-                                           col) = __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
-    }
+    __syncthreads();                      // stage st is read: the next-but-one group loads into it
   }
 }
 
@@ -431,7 +497,6 @@ __global__ void __launch_bounds__(kWarps * 32) attn_stream_kernel(
 // 64 < N <= 768: K and V resident in shared memory, two passes per query tile
 // ---------------------------------------------------------------------------
 
-constexpr int kSmallMaxTokens = 64;       // attn_mma_kernel up to KT = 4
 constexpr int kResidentMaxTokens = 768;   // attn_resident_kernel; attn_stream_kernel past it
 constexpr int kResidentMaxWarps = 8;
 constexpr int kChunk = 64;                // keys per chunk of the two passes
@@ -742,20 +807,29 @@ struct Args {
   Win win;              // K4's windows (stg_attn_core_win); tab null elsewhere
 };
 
+// the grid: every group of pairs, or as many blocks as the card holds at once (read
+// once a process and kernel), each then walking several groups
 template <int DH, int KT>
-int launch(const Args& a, cudaStream_t stream) {
-  const int N = a.N, BH = a.BH;
-  const int q_tiles = ceil_div(N, 16);
-  const int bh_per_block = q_tiles >= kWarps ? 1 : kWarps / q_tiles;
-  const size_t smem = static_cast<size_t>(bh_per_block) * Layout<DH, KT>::PER_BH * sizeof(bf16);
-  auto kernel = attn_mma_kernel<DH, KT>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<ceil_div(BH, bh_per_block), kWarps * 32, smem, stream>>>(
+int launch_small(const Args& a, cudaStream_t stream) {
+  using L = Small<DH, KT>;
+  static int resident = 0;
+  auto kernel = attn_small_kernel<DH, KT>;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, L::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int groups = ceil_div(a.BH, L::PAIRS);
+  kernel<<<groups < resident ? groups : resident, kWarps * 32, L::SMEM, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.ld, a.n_in, static_cast<const float*>(a.bm), a.nWb,
-      static_cast<bf16*>(a.o), BH, N, a.heads, a.scale, bh_per_block, q_tiles);
+      static_cast<bf16*>(a.o), a.BH, a.N, a.heads, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -793,9 +867,9 @@ template <int DH>
 int launch_dh(const Args& a, cudaStream_t stream) {
   const int kt = ceil_div(a.N, 16);
   if (a.N <= kSmallMaxTokens) {
-    if (kt <= 1) return launch<DH, 1>(a, stream);
-    if (kt <= 2) return launch<DH, 2>(a, stream);
-    return launch<DH, 4>(a, stream);
+    if (kt <= 1) return launch_small<DH, 1>(a, stream);
+    if (kt <= 2) return launch_small<DH, 2>(a, stream);
+    return launch_small<DH, 4>(a, stream);
   }
   if (a.N <= kResidentMaxTokens) return launch_resident<DH>(a, stream);
   return launch_stream<DH>(a, stream);

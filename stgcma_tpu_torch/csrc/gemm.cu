@@ -1,13 +1,15 @@
-// Tensor-core GEMM shared by K1-K4, K7 and K11-K14: C[m, n] = sum_k A[m, k] * W[n, k] + epilogue.
+// Tensor-core GEMM shared by K1-K4, K7 (C >= 512) and K11-K14: C[m, n] = sum_k A[m, k] * W[n, k] + epilogue.
 //
 // Replaces the MXU products inside stgcma_tpu/ops/pallas_attn.py:
 //   - bf16: the qkv and proj dots of _win_block_kernel (:401, :421) and the
-//     fc2 dot of _ffn_kernel (:694), fp32 accumulation, + bias in fp32, cast
-//     to bf16;
-//   - bf16 with erf-GELU: the fc1 dot of _ffn_kernel (:685-693), acc + bias
-//     in fp32, then 0.5 h (1 + erf(h / sqrt 2)) in fp32 (erff; the TPU
-//     kernel's A&S 7.1.26 polynomial differs from it by < 2e-7), rounded to
-//     a bf16 hidden;
+//     fc2 dot of _ffn_kernel (:694) at C = 512 and up, fp32 accumulation, +
+//     bias in fp32, cast to bf16;
+//   - bf16 with erf-GELU: an adapter's down product (K11's composition
+//     where rowadapt.cu does not take its width, `_adapter_down` :1472), and
+//     K7's fc1 (_ffn_kernel :685-693, with its fc2 above) at the FFN widths
+//     csrc/ffn.cu does not instantiate (C = 512 and up), acc + bias in fp32,
+//     then 0.5 h (1 + erf(h / sqrt 2)) in fp32 (erff; the TPU kernel's A&S
+//     7.1.26 polynomial differs from it by < 2e-7), rounded to a bf16 hidden;
 //   - bf16 for the whole Swin block K4 (stgcma_tpu/ops/pallas_swin_block.py
 //     _swin_block_kernel :245): its adapter hidden and FFN fc1 round acc +
 //     bias to bf16 BEFORE the erf-GELU and again after it (_ad_h :346, :410),
@@ -39,13 +41,7 @@
 // they must move, above the card's bf16 ridge of ~295: operations bound them.
 // The adapter products (N = 48 or K = 48 at CLIP-B/16) move ~20 flops a byte:
 // bytes bound them. The int8 fc1 product writes an fp32 hidden and does ~360
-// ops per byte, below the int8 ridge of ~590: bytes bound it. At the Swin FFN
-// shapes of K7 (M = 250880 or 62720 rows, C = 128 or 256, hidden 4C) each
-// product alone does ~200-400 flops per byte, and the bf16 hidden goes
-// through device memory between fc1 and fc2 (2 x 257 MB at stage 0, ~0.15 ms
-// at 3.35 TB/s, about twice K7's op bound of 0.067 ms): a later design keeps
-// it on chip (fc1 chunk -> GELU -> fc2 accumulate), as the TPU kernel does in
-// VMEM.
+// ops per byte, below the int8 ridge of ~590: bytes bound it.
 // Design (gemm_wgmma_kernel, one main loop for both operand types): Hopper's
 // warpgroup products fed by TMA.
 // A block is two consumer warpgroups and one producer warp (288 threads) and

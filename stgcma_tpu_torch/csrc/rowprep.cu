@@ -1,4 +1,4 @@
-// Row prologues of K1-K3 and K7, and the LayerNorm K9: LayerNorm and per-row
+// Row prologues of K1-K3 and K7 (C >= 512), and the LayerNorm K9: LayerNorm and per-row
 // int8 activation quantization.
 //
 // Replaces, in stgcma_tpu/ops/pallas_attn.py:
@@ -6,7 +6,9 @@
 //     in and out: ln_rows_kernel computes exactly its function (at Swin's
 //     patch-embed, merge and final norms, C = 128..3072, up to 250880 rows);
 //   - LN cast to x.dtype before the bf16 qkv product (_win_block_kernel :394-400)
-//     and before fc1 (_ffn_kernel :679-684),
+//     and before fc1 (_ffn_kernel :679-684) at the FFN widths csrc/ffn.cu
+//     does not instantiate (ffn.cu repeats ln_rows_kernel's lane order in
+//     its own prologue),
 //   - LN kept in fp32, then _quant_rows (:1335) before an int8 product
 //     (_win_block_q_core :1434-1440, _ffn_q_kernel :1620-1626),
 //   - _quant_rows of the bf16 attention output (:1457) and of the fp32 FFN

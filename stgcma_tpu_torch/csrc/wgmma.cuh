@@ -1,9 +1,9 @@
 // Hopper's TMA + wgmma building blocks, shared by csrc/gemm.cu (the tower
-// products), csrc/tattn.cu (the temporal qkv product with its attention
+// products), csrc/ffn.cu (K7's FFN), csrc/tattn.cu (the temporal qkv product with its attention
 // epilogue) and csrc/rowadapt.cu (the row-owning product with the adapter):
 // the k-tile and alignment constants, mbarriers, 2-D and 3-D TMA loads of
 // 128-byte swizzled boxes, wgmma descriptors and the warpgroup products at the widths
-// the kernels take (m64 x n{64, 96, 128, 192}, bf16 k16 or s8 k32), and the
+// the kernels take (m64 x n{32, 64, 96, 128, 192, 256}, bf16 k16 or s8 k32), and the
 // tensor maps, encoded by cuTensorMapEncodeTiled from the driver the runtime
 // has loaded (no link against libcuda).
 #pragma once
@@ -202,6 +202,35 @@ __device__ __forceinline__ void wgmma_step(int (&d)[96], uint64_t da, uint64_t d
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {" WG_REGS96 "}, %96, %97, p;\n}\n"
       : WG_ACC96("+r") : "l"(da), "l"(db));
+}
+
+// csrc/ffn.cu's widths: fc1 of half a 64-column step (n32) and fc2 over C = 256 (n256)
+#define WG_ACC16(c) WG_ACC8(c, 0), WG_ACC8(c, 8)
+#define WG_ACC128(c) WG_ACC64(c), WG_ACC8(c, 64), WG_ACC8(c, 72), WG_ACC8(c, 80), \
+    WG_ACC8(c, 88), WG_ACC8(c, 96), WG_ACC8(c, 104), WG_ACC8(c, 112), WG_ACC8(c, 120)
+#define WG_REGS16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_REGS128 WG_REGS64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// d (m64 x n32 fp32, 16 a thread) += A (64 x k16 bf16) . B (n32 x k16)^T
+__device__ __forceinline__ void wgmma_step(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" WG_REGS16 "}, %16, %17, p, 1, 1, "
+      "0, 0;\n}\n"
+      : WG_ACC16("+f") : "l"(da), "l"(db));
+}
+
+// d (m64 x n256 fp32, 128 a thread) += A (64 x k16 bf16) . B (n256 x k16)^T
+__device__ __forceinline__ void wgmma_step(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_REGS128 "}, %128, %129, p, 1, "
+      "1, 0, 0;\n}\n"
+      : WG_ACC128("+f") : "l"(da), "l"(db));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -54,6 +54,12 @@ SIGNATURES = {
         # max |C| into it), M, N, K, epilogue (1: bf16, 2: QuickGELU, 3: erf-GELU), stream
         "stg_gemm_s8": [P, P, P, P, P, P, P, I, I, I, I, P],
     },
+    "ffn.cu": {
+        # x, gamma, beta, w1, b1, w2, b2, out, M, C (128, 192, 256 or 384; hidden 4C), eps,
+        # stream: out = bf16(bf16(gelu(bf16(LN(x)) . w1^T + b1)) . w2^T + b2), the hidden
+        # on chip (K7)
+        "stg_ffn_bf16": [P, P, P, P, P, P, P, P, I, I, F, P],
+    },
     "attn.cu": {
         # qkv, bm (nullable), nWb, o, B_, N, heads, dh, scale, stream
         "stg_attn_core": [P, P, I, P, I, I, I, I, F, P],

@@ -12,11 +12,23 @@ in ops/clip_block.py).
 - K3 `ffn_q`: fp32 LN -> int8 fc1 + b1 -> QuickGELU or erf-GELU -> int8 fc2
   + b2. Replaces `_ffn_q_kernel` (:1616).
 - K7 `ffn`: LN (cast to x's dtype) -> fc1 + b1 -> erf-GELU in fp32 -> hidden
-  rounded to x's dtype -> fc2 + b2. Replaces `_ffn_kernel` (:676).
+  rounded to x's dtype -> fc2 + b2 (no residual: the caller adds it).
+  Replaces `_ffn_kernel` (:676). On the card one launch of csrc/ffn.cu (LN,
+  both products and the GELU, the (M, 4C) hidden never in device memory; its
+  erf is the TPU kernel's A&S 7.1.26 polynomial, within 2e-7 of torch.erf),
+  at the widths `ffn_route` takes (`check_ffn`); at the wider widths that
+  the route reaches at larger batches (`ffn_composed_route`: Swin-Base's 512
+  and 1024, Swin-Large's 768 and 1536) three launches, K9's LayerNorm and
+  csrc/gemm.cu's fc1 with the erf-GELU epilogue and fc2, the bf16 hidden
+  through device memory.
 - K8 `wmsa`: the attention core alone, softmax(q.k^T + bm).v over (R, N, dh)
   rows with q scaled beforehand and a bias (P, N, N), row r taking bm[r % P].
   Replaces `_wmsa_kernel_small_bias` (:230) and `_wmsa_kernel_blocked_bias`
-  (:247); one kernel takes any period P.
+  (:247); one kernel takes any period P. `wmsa_qkv`, K8 at its Swin sites,
+  takes the packed qkv (B_, N, 3C) as the qkv product leaves it and returns
+  merged heads (B_, N, C): on the card one launch of csrc/attn.cu's core
+  over the packed rows (row b, head h taking bm[(b heads + h) % P]), with
+  none of the permutes, the q scaling and the merge around `wmsa`.
 - K9 `layernorm`: row LayerNorm, fp32 statistics, x's dtype in and out.
   Replaces `_ln_kernel` (:755). On the card one launch of csrc/rowprep.cu's
   `ln_rows_kernel` (each row read once, 16 bytes a lane; `ln_route`: widths
@@ -116,7 +128,8 @@ FUSE_Q_SMEM_WIDTH = 64                # csrc/fuse.cu Q_SMEM: q in shared memory 
 ATTN_HEAD_WIDTHS = (32, 64)           # head widths dh that csrc/attn.cu instantiates
 ATTN_MAX_TOKENS = 65535 * 64          # csrc/attn.cu: past ATTN_RESIDENT_MAX_TOKENS a block takes
                                       # 64 query rows, at most 65535 blocks along gridDim.y
-ATTN_SMALL_MAX_TOKENS = 64            # csrc/attn.cu kSmallMaxTokens: attn_mma_kernel (KT <= 4)
+ATTN_SMALL_MAX_TOKENS = 64            # csrc/attn.cu kSmallMaxTokens: attn_small_kernel (KT <= 4)
+ATTN_SMALL_STAGES = 2                 # csrc/attn.cu kSmallStages: groups of pairs a block holds
 ATTN_RESIDENT_MAX_TOKENS = 768        # csrc/attn.cu kResidentMaxTokens: K and V of a (row, head)
                                       # resident in shared memory (221,184 bytes at dh 64)
 SMEM_MAX_BYTES = 232448               # shared memory one block may have on the H100
@@ -134,6 +147,8 @@ ROWADAPT_ALIGN = 32                   # csrc/rowadapt.cu RA_ALIGN: N in multiple
 ROWADAPT_WIDTHS = (16, 32, 48, 64, 96)   # adapter widths D that csrc/rowadapt.cu instantiates
 LN_ALIGN = 8                          # csrc/rowprep.cu ln_rows_kernel: rows of 16-byte chunks ...
 LN_MAX_WIDTH = 32 * 16 * 8            # ... at most kLnMaxChunks = 16 a lane of 32 lanes a row
+FFN_WIDTHS = (128, 192, 256, 384)     # csrc/ffn.cu: the FFN widths C it instantiates, hidden 4C
+FFN_HIDDEN_CHUNK = 64                 # csrc/ffn.cu HC: hidden columns a step forms and consumes
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +283,21 @@ def wmsa_plain(q, k, v, bm):
     return torch.matmul(p.float(), v.float()).to(dt)
 
 
+def wmsa_qkv_plain(qkv, bm, heads):
+    """K8 at its Swin sites: the packed qkv (B_, N, 3C) taken apart into
+    (B_ * heads, N, dh) rows (head fastest), q scaled by dh^-1/2 rounded to
+    qkv's dtype, `wmsa_plain` with the bias (P, N, N), heads merged back into
+    (B_, N, C)."""
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh = C // heads
+    q, k, v = qkv.reshape(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q = q * torch.tensor(dh ** -0.5, dtype=qkv.dtype)
+    q, k, v = (t.reshape(B_ * heads, N, dh) for t in (q, k, v))
+    out = wmsa_plain(q, k, v, bm)
+    return out.reshape(B_, heads, N, dh).transpose(1, 2).reshape(B_, N, C)
+
+
 def unscaled_attention_plain(q, k, v):
     """`_attn_kernel` (:137): fp32 logits of q (B, Nq, D) against k (B, Nk,
     D), no scale, exact softmax, probabilities rounded to q's dtype, p.v
@@ -341,7 +371,7 @@ def ln_route(K):
 def _ln_bf16(x2, ln_w, ln_b, s, out=None):
     """LayerNorm of bf16 rows (M, K), cast back to bf16 (into `out`, a
     contiguous (M, K) bf16 tensor, when given): K9, and the LN prologue of
-    K1, K7 and K12-K14."""
+    K1 and K12-K14."""
     M, K = x2.shape
     y = torch.empty_like(x2) if out is None else out
     cuda_lib.check("rowprep.cu", cuda_lib.lib("rowprep.cu").stg_ln_bf16(
@@ -469,6 +499,44 @@ def rowadapt_route(N, D):
     takes output width N and adapter width D: N a multiple of
     ROWADAPT_ALIGN, D in ROWADAPT_WIDTHS."""
     return N >= ROWADAPT_ALIGN and N % ROWADAPT_ALIGN == 0 and D in ROWADAPT_WIDTHS
+
+
+def ffn_route(C, H):
+    """True where csrc/ffn.cu takes an FFN of width C and hidden H: C in
+    FFN_WIDTHS (the K7 sites of the presets' stages 0-1: Swin-Base's 128 and
+    256, Swin-Large's 192 and 384, every K7 site up to B = 8) and H = 4C."""
+    return C in FFN_WIDTHS and H == 4 * C
+
+
+def ffn_composed_route(C, H):
+    """True where K7 runs as K9's LayerNorm and gemm.cu's fc1 (erf-GELU
+    epilogue) and fc2: the widths csrc/ffn.cu does not instantiate, C a
+    multiple of GEMM_ALIGN up to LN_MAX_WIDTH and H = 4C. `ffn_kernel_route`
+    reaches them at the presets' stages 2-3 (Swin-Large's 768 from B = 9,
+    Swin-Base's 512 from B = 16)."""
+    return (not ffn_route(C, H) and H == 4 * C and ln_route(C)
+            and C % GEMM_ALIGN == 0)
+
+
+def check_ffn(x, ln_w, ln_b, w1, b1, w2, b2, name="K7"):
+    """What csrc/ffn.cu takes: x (M, C) bf16, M >= 1; ln_w, ln_b and b2 (C,),
+    w1 (H, C), b1 (H,), w2 (C, H), all bf16, on x's card, contiguous and
+    16-byte aligned; `ffn_route(C, H)`. Runs before every launch: reads each
+    attribute once and builds no message unless it raises."""
+    bf = torch.bfloat16
+    ok = x.dim() == 2 and w1.dim() == 2 and x.shape[0] >= 1
+    if ok:
+        (M, C), H = x.shape, w1.shape[0]
+        ok = (ffn_route(C, H) and all(t.dtype == bf for t in (x, ln_w, ln_b, w1, b1, w2, b2))
+              and tuple(w1.shape) == (H, C) and tuple(w2.shape) == (C, H)
+              and ln_w.numel() == ln_b.numel() == b2.numel() == C and b1.numel() == H
+              and _aligned(x.device, x, ln_w, ln_b, w1, b1, w2, b2))
+    if not ok:
+        _raise_operands(name, f"x (M, C) bf16, ln_w, ln_b, b2 (C,), w1 (H, C), b1 (H,), w2 (C, "
+                        f"H), all bf16 on one card, contiguous and 16-byte aligned, C in "
+                        f"{FFN_WIDTHS} and H = 4C",
+                        {"x": x, "ln_w": ln_w, "ln_b": ln_b, "w1": w1, "b1": b1, "w2": w2,
+                         "b2": b2})
 
 
 def _aligned(dev, *ts):
@@ -607,15 +675,16 @@ def check_attn_shape(N, dh, name="the attention core"):
 
 def attn_route(N, dh):
     """(kernel, shared-memory bytes of one block) that csrc/attn.cu's dispatch
-    (`launch_dh`) takes for N tokens at head width dh: "small" (attn_mma_kernel,
-    K and V^T of up to four (row, head) pairs), "resident" (K and V of one pair,
-    rows padded to dh + 8) or "streamed" (64-key tiles of K and V^T)."""
+    (`launch_dh`) takes for N tokens at head width dh: "small"
+    (attn_small_kernel: ATTN_SMALL_STAGES stages of Q, K and V of 4 / KT
+    (row, head) pairs, 16 KT rows each, KT = 1, 2 or 4 key tiles of 16),
+    "resident" (K and V of one pair) or "streamed" (64-key tiles of K and
+    V^T); rows padded to dh + 8."""
     check_attn_shape(N, dh)
     if N <= ATTN_SMALL_MAX_TOKENS:
         kt = next(k for k in (1, 2, 4) if 16 * k >= N)
-        q_tiles = -(-N // 16)
-        pairs = 1 if q_tiles >= 4 else 4 // q_tiles
-        return "small", 2 * pairs * (16 * kt * (dh + 8) + dh * (16 * kt + 8))
+        pairs = 4 // kt
+        return "small", ATTN_SMALL_STAGES * pairs * 3 * 16 * kt * (dh + 8) * 2
     if N <= ATTN_RESIDENT_MAX_TOKENS:
         return "resident", 2 * 2 * (-(-N // 16) * 16) * (dh + 8)
     return "streamed", 2 * (64 * (dh + 8) + dh * (64 + 8))
@@ -903,9 +972,9 @@ def _ffn_qh_cuda(x, ln_w, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, wd, bd, act):
     return o, h
 
 
-def _ffn_cuda(x, ln_w, ln_b, w1, b1, w2, b2):
-    if x.dim() != 2:
-        raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
+def _ffn_composed(x, ln_w, ln_b, w1, b1, w2, b2):
+    # K7 at the widths csrc/ffn.cu does not instantiate: LN, then fc1 with its
+    # erf-GELU into a bf16 (M, H) hidden in device memory, then fc2
     M, C = x.shape
     H = w1.shape[0]
     bf = torch.bfloat16
@@ -913,14 +982,25 @@ def _ffn_cuda(x, ln_w, ln_b, w1, b1, w2, b2):
                     "b1": (b1, bf), "w2": (w2, bf), "b2": (b2, bf)})
     _check_shapes({"ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,)), "w1": (w1, (H, C)),
                    "b1": (b1, (H,)), "w2": (w2, (C, H)), "b2": (b2, (C,))})
-    if C % 8 or H % 8:
-        raise ValueError(f"C={C} and hidden={H} must be multiples of 8")
     s = _stream(x)
     xn = _ln_bf16(x, ln_w, ln_b, s)
-    # the bf16 hidden (M, H) goes through device memory between the products
     h = _gemm_bf16(xn, w1, b1, torch.empty((M, H), dtype=bf, device=x.device),
                    _EPI_BF16_GELU, s)
     return _gemm_bf16(h, w2, b2, torch.empty_like(x), _EPI_BF16, s)
+
+
+def _ffn_cuda(x, ln_w, ln_b, w1, b1, w2, b2):
+    if x.dim() == 2 and w1.dim() == 2 and ffn_composed_route(x.shape[1], w1.shape[0]):
+        return _ffn_composed(x, ln_w, ln_b, w1, b1, w2, b2)
+    # one launch: LN, fc1 chunk by chunk with its erf-GELU, fc2 accumulated; the
+    # (M, 4C) hidden stays on chip
+    check_ffn(x, ln_w, ln_b, w1, b1, w2, b2)
+    M, C = x.shape
+    out = torch.empty_like(x)
+    cuda_lib.check("ffn.cu", cuda_lib.lib("ffn.cu").stg_ffn_bf16(
+        _ptr(x), _ptr(ln_w), _ptr(ln_b), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(out), M,
+        C, _LN_EPS, _stream(x)))
+    return out
 
 
 def _wmsa_cuda(q, k, v, bm):
@@ -938,6 +1018,24 @@ def _wmsa_cuda(q, k, v, bm):
     cuda_lib.check("attn.cu", cuda_lib.lib("attn.cu").stg_attn_qkv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bm), P, _ptr(o), R, N, dh, _stream(q)))
     return o
+
+
+def _wmsa_qkv_cuda(qkv, bm, heads):
+    # K8's bias (P, N, N) is the core's (P / heads, heads, N, N): row b, head h
+    # takes bm[(b heads + h) % P], the row `wmsa` gives r = b heads + h
+    if qkv.dim() != 3 or bm.dim() != 3 or heads < 1:
+        raise ValueError(f"K8 takes qkv (B_, N, 3C) and a bias (P, N, N), got "
+                         f"{tuple(qkv.shape)}, {tuple(bm.shape)}")
+    B_, N, C3 = qkv.shape
+    P = bm.shape[0]
+    if C3 % (3 * heads) or P % heads or (B_ * heads) % P:
+        raise ValueError(f"K8 takes 3C a multiple of 3 heads and a bias period P that is a "
+                         f"multiple of heads={heads} and divides B_ * heads; got qkv "
+                         f"{tuple(qkv.shape)}, bias {tuple(bm.shape)}")
+    _check_cuda(qkv, {"qkv": (qkv, torch.bfloat16), "bm": (bm, torch.float32)})
+    _check_shapes({"bm": (bm, (P, N, N))})
+    check_attn_shape(N, C3 // 3 // heads, name="K8")
+    return _attn_core(qkv, bm.view(P // heads, heads, N, N), heads, _stream(qkv))
 
 
 def _layernorm_cuda(x, ln_w, ln_b):
@@ -1002,6 +1100,7 @@ win_fuse = _Kernel("K5", "win_fuse", fuse_plain, _fuse_cuda)
 bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda)
 ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda)
 wmsa = _Kernel("K8", "wmsa", wmsa_plain, _wmsa_cuda)
+wmsa_qkv = _Kernel("K8", "wmsa_qkv", wmsa_qkv_plain, _wmsa_qkv_cuda)
 layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda)
 unscaled_attention = _Kernel("K10", "unscaled_attention", unscaled_attention_plain,
                              _unscaled_attn_cuda)
@@ -1138,18 +1237,12 @@ def temporal_block_megakernel(attn, ln, x, num_heads: int, t_index, signal: str 
 
 
 def _qkv_core(attn, x, num_heads: int, bm):
-    """qkv product -> q scaled by a dh^-1/2 rounded to x's dtype -> K8 over
-    (B_*h, N, dh) rows (head fastest) -> merged heads -> proj product. The
-    products go through `linear`: `int8_matmul` for an int8 tower, as JAX's
-    `temporal_attention_fused` (:650) reaches `quant.py::int8_matmul`."""
-    B_, N, C = x.shape
-    dh = C // num_heads
-    qkv = linear(attn.qkv, x).reshape(B_, N, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-    q = qkv[0] * torch.tensor(dh ** -0.5, dtype=x.dtype)
-    q, k, v = (t.reshape(B_ * num_heads, N, dh).contiguous() for t in (q, qkv[1], qkv[2]))
-    out = wmsa(q, k, v, bm)
-    out = out.reshape(B_, num_heads, N, dh).transpose(1, 2).reshape(B_, N, C)
-    return linear(attn.proj, out)
+    """qkv product -> K8 over the packed qkv (`wmsa_qkv`: q scaled by a
+    dh^-1/2 rounded to x's dtype, each (row, head)'s attention with its bias,
+    heads merged) -> proj product. The products go through `linear`:
+    `int8_matmul` for an int8 tower, as JAX's `temporal_attention_fused`
+    (:650) reaches `quant.py::int8_matmul`."""
+    return linear(attn.proj, wmsa_qkv(linear(attn.qkv, x), bm, num_heads))
 
 
 def window_attention_fused(attn, x, num_heads: int, rel_index, mask=None):

@@ -1,5 +1,5 @@
-"""The parts that K1-K4, K7 and K11-K14 share, alone on the card, and the
-K1, K2, K3 and K12 rows that carry them.
+"""The parts that K1-K4 and K11-K14 share, alone on the card, the K1, K2,
+K3 and K12 rows that carry them, and K7 and the small attention core.
 
     python3 stgcma_tpu_torch/tools/bench_parts.py [--tree DIR] [--label NAME]
         [--out chiprun_out/bench_parts] [--only SUBSTR,...]
@@ -9,7 +9,7 @@ Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
   proj (15760, 768, 768), fc1 with QuickGELU (19680, 3072, 768) and fc2
   (19680, 768, 3072) over both streams as K12 runs them, the adapter
   products at N = 48 (erf-GELU of the rounded hidden) and K = 48 (onto two
-  residuals), and Swin-Base stage 0's FFN fc1 at K = 128 (250880, 512, 128);
+  residuals);
 - csrc/gemm.cu's int8 product (int8 codes in, exact int32 sums) at K2's and
   K3's CLIP-B/16 video shapes: qkv (15760, 2304, 768) and proj (15760, 768,
   768) with the bf16 epilogue, fc1 with the fp32 QuickGELU hidden and its
@@ -58,7 +58,13 @@ Rows, at B = 8 of the main path (AVE-29 CLIP ViT-B/16 fusion) unless named:
   (3920, 3072), each also through its bare launcher (`bare_ms`): what the
   wrapper's host work adds to a short kernel. These, K2, K3, K11 and the int8 K12, K13 rows (and
   their audio rows at M = 3920) also give `graph_ms`: the device time of one
-  call replayed from a CUDA graph, with no host work.
+  call replayed from a CUDA graph, with no host work;
+- K7 (csrc/ffn.cu) at every FFN site of the presets (`FFN_SHAPES`: Swin-Base
+  stages 0-1, Swin-Large stages 0-1, Swin-Base 168^2 stage 0) and
+  csrc/attn.cu's small core (N <= 64) alone at K8's two Swin stage-3 sites,
+  K1's CLIP-B/16 temporal and audio spatial pairs and Swin stage 0 windows,
+  with K8's whole site from the packed qkv to merged heads (`wmsa_qkv`, or
+  the copies around `wmsa` in a tree without it), each with `graph_ms`.
 
 Each row is first held against its plain PyTorch version (max |kernel -
 plain| <= 2e-2 max |plain|, 3e-2 for K11 and the int8 K12 and K13; the int8
@@ -96,8 +102,7 @@ H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, HBM
 GEMM_SHAPES = (("qkv", 15760, 2304, 768, "bf16"), ("proj", 15760, 768, 768, "bf16"),
                ("fc1 QuickGELU", 19680, 3072, 768, "quickgelu"), ("fc2", 19680, 768, 3072, "bf16"),
                ("adapter fc1 N=48", 15760, 48, 768, "rgelu"),
-               ("adapter fc2 K=48", 15760, 768, 48, "res2"),
-               ("Swin st.0 fc1 K=128", 250880, 512, 128, "gelu"))
+               ("adapter fc2 K=48", 15760, 768, 48, "res2"))
 # (row, M, N, K, epilogue) of the int8 product: "bf16" (EPI_Q_BF16) or "quickgelu"
 # (the fp32 QuickGELU hidden)
 S8_SHAPES = (("qkv", 15760, 2304, 768, "bf16"), ("proj", 15760, 768, 768, "bf16"),
@@ -108,6 +113,37 @@ CORE_SHAPES = (("CLIP-B/16 spatial", 80, 197, 768, 12, False),
                ("CLIP-L/14 spatial", 80, 257, 1024, 16, False),
                ("Swin-Base st.2 K4 grid, bias", 160, 196, 512, 16, True),
                ("streamed", 16, 1000, 768, 12, False))
+
+
+# K7 at every site of the presets: (row, M, C), hidden 4C
+FFN_SHAPES = (("Swin-Base st.0", 250880, 128), ("Swin-Base st.1", 62720, 256),
+              ("Swin-Large st.0", 250880, 192), ("Swin-Large st.1", 62720, 384),
+              ("Swin-Base 168^2 st.0", 141120, 128))
+# csrc/attn.cu's small core (N <= 64) over a packed qkv: (row, B_, N, C, heads, bias period
+# of the windows or None)
+SMALL_CORE_SHAPES = (("K8 Swin st.3 windows", 80, 49, 1024, 32, 1),
+                     ("K8 Swin st.3 temporal", 392, 10, 1024, 32, 1),
+                     ("K1 CLIP-B/16 temporal pairs", 1576, 10, 768, 12, None),
+                     ("K1 CLIP-B/16 audio spatial pairs", 80, 49, 768, 12, None),
+                     ("K1 Swin st.0 windows", 5120, 49, 128, 4, 64))
+# instructions of one erf-GELU of csrc/ffn.cu (`erf_gelu`, A&S 7.1.26: 2 of them on the
+# special function unit) on sm_90a: those of a kernel y[i] = gelu(x[i]) less those of y[i]
+# = x[i], in the SASS that `python3 stgcma_tpu_torch/tools/gelu_sass.py` counts (26; with
+# erff, 32)
+GELU_INSTRUCTIONS = 26
+H100_FP32_INSTR = 33.5e12                    # fp32 instructions a second: 67 TFLOP/s counts an
+                                             # fma as two
+
+
+def ffn_bound(M, C, H):
+    """(least ms, what bounds it) of K7: the two products' tensor flops, the
+    erf-GELU's fp32 instructions (GELU_INSTRUCTIONS each of M H), or x and
+    out through HBM with the weights read once."""
+    t_tensor = 2 * 2 * M * C * H / H100_BF16
+    t_gelu = M * H * GELU_INSTRUCTIONS / H100_FP32_INSTR
+    t_bytes = (2 * M * C * 2 + 2 * C * H * 2 + (H + 3 * C) * 2) / H100_BYTES
+    t_ops = max(t_tensor, t_gelu)
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -795,6 +831,109 @@ def tadapt_cases(g, sfu):
     return cases
 
 
+def ffn_cases(g):
+    """K7 at FFN_SHAPES: x N(0, 1), LN weights near 1, W1 N(0, 0.05^2), W2
+    N(0, 0.02^2); plain `ffn_plain`, library F.layer_norm, F.linear, F.gelu,
+    F.linear; each with `graph_ms`."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf, dev = torch.bfloat16, "cuda"
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+    cases = []
+    for row, M, C in FFN_SHAPES:
+        H = 4 * C
+        args = (rnd(M, C).to(bf), (1 + rnd(C, std=0.1)).to(bf), rnd(C, std=0.02).to(bf),
+                rnd(H, C, std=0.05).to(bf), rnd(H, std=0.02).to(bf), rnd(C, H, std=0.02).to(bf),
+                rnd(C, std=0.02).to(bf))
+
+        def library(a=args, C=C):
+            return F.linear(F.gelu(F.linear(F.layer_norm(a[0], (C,), a[1], a[2]), a[3], a[4])),
+                            a[5], a[6])
+        cases.append({"row": f"K7 {row} FFN {(M, C)} hidden {H}",
+                      "fn": lambda a=args: FA.ffn(*a), "plain": lambda a=args: FA.ffn_plain(*a),
+                      "library": library, "graph": True, "flops": 4 * M * C * H,
+                      "bound": ffn_bound(M, C, H)})
+    return cases
+
+
+def _wmsa_site(FA, qkv, bm, heads):
+    """K8's site from the packed qkv to merged heads: `wmsa_qkv` where the tree
+    has it, else the copies around `wmsa` that `_qkv_core` made (q scaled, q,
+    k, v made contiguous, heads merged back)."""
+    import torch
+    if hasattr(FA, "wmsa_qkv"):
+        return FA.wmsa_qkv(qkv, bm, heads)
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh = C // heads
+    t = qkv.reshape(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q = t[0] * torch.tensor(dh ** -0.5, dtype=qkv.dtype)
+    q, k, v = (x.reshape(B_ * heads, N, dh).contiguous() for x in (q, t[1], t[2]))
+    out = FA.wmsa(q, k, v, bm)
+    return out.reshape(B_, heads, N, dh).transpose(1, 2).reshape(B_, N, C)
+
+
+def small_core_cases(g):
+    """csrc/attn.cu's small core (N <= 64) alone at SMALL_CORE_SHAPES
+    (`_attn_core` over a packed qkv, the bias (period, heads, N, N) N(0, 1)
+    where the site has one), and K8's whole site at Swin-Base stage 3 from the
+    packed qkv to merged heads (`_wmsa_site`), each against `_heads_attention`
+    / `wmsa_qkv_plain`'s arithmetic, with SDPA as the yardstick and
+    `graph_ms`."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf, dev = torch.bfloat16, "cuda"
+    cases = []
+    for row, B_, N, C, heads, period in SMALL_CORE_SHAPES:
+        dh = C // heads
+        qkv = torch.randn(B_, N, 3 * C, generator=g, device=dev).to(bf)
+        bias = (None if period is None
+                else torch.randn(period, heads, N, N, generator=g, device=dev))
+
+        def library(qkv=qkv, bias=bias, B_=B_, N=N, heads=heads, dh=dh, P=period):
+            if bias is None:
+                q, k, v = qkv.view(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+                return F.scaled_dot_product_attention(q, k, v)
+            q, k, v = qkv.view(B_ // P, P, N, 3, heads, dh).permute(3, 0, 1, 4, 2, 5)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(bf))
+        flops = 4 * B_ * heads * N * N * dh
+        nbytes = 2 * B_ * N * 4 * C + (0 if bias is None else 4 * bias.numel())
+        cases.append({
+            "row": f"attn.cu small core {row} {(B_, N, C)} h{heads}",
+            "fn": lambda qkv=qkv, bias=bias, heads=heads: FA._attn_core(
+                qkv, bias, heads, torch.cuda.current_stream().cuda_stream),
+            "plain": lambda qkv=qkv, bias=bias, heads=heads: FA._heads_attention(
+                qkv, heads, bias, bf),
+            "library": library, "flops": flops, "graph": True, "bound": bound_ms(flops, nbytes)})
+        if row.startswith("K8"):
+            bm = bias.view(-1, N, N)
+            cases.append({
+                "row": f"K8 site {row[3:]} packed qkv -> merged heads {(B_, N, C)} h{heads}",
+                "fn": lambda qkv=qkv, bm=bm, heads=heads: _wmsa_site(FA, qkv, bm, heads),
+                "plain": lambda qkv=qkv, bm=bm, heads=heads: _wmsa_site_plain(FA, qkv, bm, heads),
+                "library": library, "flops": flops, "graph": True,
+                "bound": bound_ms(flops, nbytes)})
+    return cases
+
+
+def _wmsa_site_plain(FA, qkv, bm, heads):
+    """`_wmsa_site` through the plain `wmsa` (`wmsa_qkv_plain`'s arithmetic, in
+    either tree)."""
+    import torch
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    dh = C // heads
+    t = qkv.reshape(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q = t[0] * torch.tensor(dh ** -0.5, dtype=qkv.dtype)
+    q, k, v = (x.reshape(B_ * heads, N, dh) for x in (q, t[1], t[2]))
+    out = FA.wmsa_plain(q, k, v, bm)
+    return out.reshape(B_, heads, N, dh).transpose(1, 2).reshape(B_, N, C)
+
+
 def host_cases(g):
     """Short kernels timed through their wrapper and through the bare
     launcher (ctypes, no checks): K8 at Swin-Base stage 3's temporal site
@@ -900,7 +1039,7 @@ def main(argv=None) -> int:
         only = [o for o in args.only.split(",") if o]
         for case in (gemm_cases(g) + s8_cases(g) + core_cases(g) + block_cases(g)
                      + int8_block_cases(g) + tadapt_cases(g, sfu_rate()) + host_cases(g)
-                     + swin_fuse_cases(g)):
+                     + swin_fuse_cases(g) + ffn_cases(g) + small_core_cases(g)):
             if only and not any(o in case["row"] for o in only):
                 continue
             err = held(case)

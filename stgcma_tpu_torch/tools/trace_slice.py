@@ -56,9 +56,9 @@ COPY_KERNELS = ("copy", "cat")
 LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv", "fmha",
                    "flash", "attention", "convolve", "nchwtonhwc", "nhwctonchw", "nhwcaddpadding")
 # kernel-name fragments of the port's own kernels (stgcma_tpu_torch/csrc/)
-PORT_KERNELS = ("gemm_wgmma_kernel", "attn_mma_kernel", "attn_resident_kernel",
+PORT_KERNELS = ("gemm_wgmma_kernel", "attn_small_kernel", "attn_resident_kernel",
                 "attn_stream_kernel", "quant_rows_kernel", "ln_rows_kernel", "fuse_kernel",
-                "pair_kernel", "tattn_kernel", "rowadapt_kernel")
+                "pair_kernel", "tattn_kernel", "rowadapt_kernel", "ffn_kernel")
 
 
 def main(argv=None) -> int:

@@ -128,7 +128,7 @@ def test_swin_ave_from_jax_round_trip_fusion_tree():
 
 
 KERNEL_WRAPPERS = {"K1": FA.win_block, "K4": SB.swin_block, "K5": FA.win_fuse,
-                   "K6": FA.bidir_fuse, "K7": FA.ffn, "K8": FA.wmsa, "K9": FA.layernorm}
+                   "K6": FA.bidir_fuse, "K7": FA.ffn, "K8": FA.wmsa_qkv, "K9": FA.layernorm}
 
 
 def test_launch_counts_match_the_forward(monkeypatch):

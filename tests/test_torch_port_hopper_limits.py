@@ -215,7 +215,8 @@ GEMMS = {"stg_gemm_bf16": lambda a: a[4:7], "stg_gemm_bf16_res": lambda a: a[5:8
          "stg_adapter_out_pair": lambda a: a[12:15],
          "stg_tattn_bf16": lambda a: (a[4], 3 * a[5], a[5]),
          "stg_tattn_s8": lambda a: (a[6], 3 * a[7], a[7]),
-         "stg_rowadapt_bf16": lambda a: a[11:14], "stg_rowadapt_s8": lambda a: a[13:16]}
+         "stg_rowadapt_bf16": lambda a: a[11:14], "stg_rowadapt_s8": lambda a: a[13:16],
+         "stg_ffn_bf16": lambda a: (a[8], 4 * a[9], a[9])}
 # (M, C, T, heads) of the temporal product's arguments: its attention over T frames
 TATTN_ARGS = {"stg_tattn_bf16": lambda a: a[4:8], "stg_tattn_s8": lambda a: a[6:10]}
 
@@ -255,8 +256,8 @@ def _cu_constant(text, name):
 
 def test_attn_route_mirrors_attn_cu():
     """The limits `attn_route` mirrors are csrc/attn.cu's own, and its
-    shared-memory sums are the kernels' layouts: the small kernel's K and V^T
-    of up to four pairs, the resident K and V of one pair at row stride
+    shared-memory sums are the kernels' layouts: the small kernel's two
+    stages of Q, K and V of up to four pairs, the resident K and V of one pair at row stride
     dh + 8, the streamed kernel's 64-key tiles."""
     text = ATTN_CU.read_text()
     assert _cu_constant(text, "kSmallMaxTokens") == FA.ATTN_SMALL_MAX_TOKENS
@@ -264,8 +265,8 @@ def test_attn_route_mirrors_attn_cu():
     assert _cu_constant(text, "kWarps") == 4 and _cu_constant(text, "kStreamKeys") == 64
     assert "static constexpr int LD = DH + 8;" in text
     assert "if (a.N <= kSmallMaxTokens)" in text and "if (a.N <= kResidentMaxTokens)" in text
-    assert FA.attn_route(10, 64) == ("small", 4 * 2 * (16 * 72 + 64 * 24))
-    assert FA.attn_route(64, 32) == ("small", 2 * (64 * 40 + 32 * 72))
+    assert FA.attn_route(10, 64) == ("small", 2 * 4 * 3 * 16 * 72 * 2)
+    assert FA.attn_route(64, 32) == ("small", 2 * 1 * 3 * 64 * 40 * 2)
     assert FA.attn_route(197, 64) == ("resident", 2 * 2 * 208 * 72)
     assert FA.attn_route(257, 64) == ("resident", 2 * 2 * 272 * 72)
     assert FA.attn_route(196, 32) == ("resident", 2 * 2 * 208 * 40)

@@ -205,7 +205,7 @@ def test_random_int8_swin_ave_is_the_quantized_float_model():
 
 KERNEL_WRAPPERS = {"K2": [FA.win_block_q], "K3": [FA.ffn_q],
                    "K4": [SB.swin_block_q, SB.swin_block], "K5": [FA.win_fuse],
-                   "K6": [FA.bidir_fuse], "K8": [FA.wmsa], "K9": [FA.layernorm],
+                   "K6": [FA.bidir_fuse], "K8": [FA.wmsa_qkv, FA.wmsa], "K9": [FA.layernorm],
                    "K1": [FA.win_block], "K7": [FA.ffn]}
 
 

@@ -167,7 +167,7 @@ def test_launch_counts_match_the_forward(monkeypatch, routes):
     if routes == "all_kernel_routes":
         _all_kernel_routes(monkeypatch)
     calls = {"K1": 0, "K7": 0, "K8": 0, "K9": 0}
-    for name, kern in (("K1", FA.win_block), ("K7", FA.ffn), ("K8", FA.wmsa),
+    for name, kern in (("K1", FA.win_block), ("K7", FA.ffn), ("K8", FA.wmsa_qkv),
                        ("K9", FA.layernorm)):
         def counted(*args, _plain=kern.plain, _name=name, **kw):
             calls[_name] += 1
