@@ -62,7 +62,12 @@ line:
      (the earlier composition); K10 (unscaled attention)
      through the K10 route of the full-grid fusion at K6's odd shape and at
      the stage grids of Swin-Base cut to 168^2 ((80, 1764, 16), (80, 441,
-     32)), with its fault (the dh^-1/2 scale applied); and the two parts
+     32)), with its fault (the dh^-1/2 scale applied); at the shapes the
+     AVS path adds (Swin-Large fusion, T = 5 frames, 40 a stream): K1 at the
+     stage 0-1 temporal sites (25088, 5, 192) h6 and (6272, 5, 384) h12,
+     the K8 site at the stage 2-3 temporal sites (1568, 5, 3 x 768) h24 and
+     (392, 5, 3 x 1536) h48, K6 at (40, 3136, 96) and K4 at stage 2
+     (shifted) over 40 frames with its wiring faults; and the two parts
      those kernels share, alone (stgcma_tpu_torch/tools/bench_parts.py):
      csrc/gemm.cu's bf16 product (TMA + wgmma) at the main path's qkv,
      proj, fc1 with QuickGELU and fc2 (K = 3072) shapes, the adapter
@@ -115,7 +120,16 @@ line:
        stage grids of 42^2 and 21^2 tokens take the full-grid fusion's K10
        route, B = 1 against the CPU. The fusion models run with live fusion
        adapters and gates, and zeroing the gates must move the card's B = 1
-       logits beyond the tolerance.
+       logits beyond the tolerance; Swin-Base `videoonly` and `audioonly`
+       (one stream, LayerNorm then the plain MLP at every FFN: K1, K8 and
+       K9 only) at full width and depth, B = 1 against the CPU;
+     - AVSBench segmentation (`add_avs`) on Swin-Large fusion at full width
+       and depth, T = 5 frames, B = 8 clips: the tower with its multi-scale
+       taps, TPAVI at the four stages and the FPN decoder, mask logits
+       (40, 224, 224, 1), exact launches of the tower, clips/s and masks/s;
+       B = 1 against the CPU at depths 2/2/2/2; zeroing the fusion gates, and
+       separately every TPAVI BatchNorm scale, must move the card's masks
+       beyond the tolerance.
 The script logs its total wall time. The line before the last is one JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 1 at once.
@@ -823,17 +837,130 @@ def ln_bound(M, C):
 
 
 def k9_sites(cfg):
-    """(site, rows, width) of the six LayerNorms of one Swin stream at B = 8:
-    the patch embed's, the three merges', stage 3's temporal and final norms."""
+    """(site, rows, width) of the LayerNorms of one Swin stream at B clips of
+    cfg.num_ttokens frames: the patch embed's, the three merges', the
+    temporal norm of each stage with more heads than K1 takes (LN + the K8
+    core: stage 3 of Swin-Base, stages 2-3 of Swin-Large) and the final
+    norm."""
+    from stgcma_tpu_torch.ops.fused_attn import block_kernel_route
     rows, T = B * cfg.num_ttokens, cfg.num_ttokens
     H0, _ = cfg.stage_resolution(0)
     sites = [("patch-embed norm", rows * H0 * H0, cfg.embed_dim)]
     for s in range(cfg.num_layers - 1):
         Hs, _ = cfg.stage_resolution(s)
         sites.append((f"merge norm {s}->{s + 1}", rows * (Hs // 2) ** 2, 4 * cfg.stage_dim(s)))
+    for s in range(cfg.num_layers):
+        if not block_kernel_route(cfg.num_heads[s]):
+            Hs, _ = cfg.stage_resolution(s)
+            sites.append((f"stage-{s} temporal norm", B * Hs * Hs * T, cfg.stage_dim(s)))
     H, _ = cfg.stage_resolution(cfg.num_layers - 1)
-    C = cfg.stage_dim(cfg.num_layers - 1)
-    return sites + [("stage-3 temporal norm", B * H * H * T, C), ("final norm", rows * H * H, C)]
+    return sites + [("final norm", rows * H * H, cfg.num_features)]
+
+
+def k1_swin_rows(cfg, g, tower, windows, temporal):
+    """K1 at the shifted-window sites of the stages `windows` and the
+    temporal sites of the stages `temporal` of `cfg` at B clips of
+    cfg.num_ttokens frames, each against its plain version."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    dev = "cuda"
+    T, ws = cfg.num_ttokens, cfg.window_size
+    N = ws * ws
+    rel = torch.from_numpy(window.relative_position_index(ws)).to(dev)
+    t_idx = torch.from_numpy(window.temporal_relative_index(T)).to(dev)
+    rows = []
+    for s in windows:
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        mask = torch.from_numpy(window.shift_attn_mask(H, H, ws, ws // 2)).to(dev)
+        bm = swin_bias(g, heads, N, rel, mask)
+        Bq = B * T * bm.shape[0]
+        args, _ = make_block_inputs(g, Bq, N, C, heads, False)
+        rows.append(check_kernel(
+            f"K1 {tower} stage {s} shifted windows {(Bq, N, C)} h{heads} period {bm.shape[0]}",
+            FA.win_block, FA.win_block_plain, args + (heads,), {"bias": bm},
+            block_bound(Bq, N, C, heads, False, bm.shape[0]),
+            library_block(args, heads, False, bm)))
+        del args
+    for s in temporal:
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        bm = swin_bias(g, heads, T, t_idx)
+        Bq = B * H * H
+        args, _ = make_block_inputs(g, Bq, T, C, heads, False)
+        rows.append(check_kernel(
+            f"K1 {tower} stage {s} temporal T={T} {(Bq, T, C)} h{heads}", FA.win_block,
+            FA.win_block_plain, args + (heads,), {"bias": bm},
+            block_bound(Bq, T, C, heads, False, 1), library_block(args, heads, False, bm)))
+        del args
+    return rows
+
+
+def k7_row(g, name, M, C, faults=False):
+    """K7 at (M, C) (hidden 4C) against its plain version, with its device
+    time alone and its launches a call (one of csrc/ffn.cu, or the
+    three-launch composition at the widths ffn.cu does not instantiate);
+    b1 ~ N(0, 1), so that a K7 without it fails the check; with `faults`,
+    the two wiring faults that must fail it."""
+    from stgcma_tpu_torch.tools import bench_parts
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+    Hd = 4 * C
+    args = (rnd(M, C).to(bf), (1 + rnd(C, std=0.1)).to(bf), rnd(C, std=0.02).to(bf),
+            rnd(Hd, C, std=0.05).to(bf), rnd(Hd).to(bf),
+            rnd(C, Hd, std=0.02).to(bf), rnd(C, std=0.02).to(bf))
+
+    def library(a=args):
+        return F.linear(F.gelu(F.linear(F.layer_norm(a[0], (C,), a[1], a[2]), a[3], a[4])),
+                        a[5], a[6])
+    name = f"{name} {(M, C)} hidden {Hd}"
+    row = check_kernel(name, FA.ffn, FA.ffn_plain, args, {}, ffn_bf16_bound(M, C, Hd), library)
+    row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.ffn(*a))
+    row["launches_per_call"] = check_launch_sequence(
+        name, FA.ffn, args, ["stg_ffn_bf16"] if FA.ffn_route(C, Hd)
+        else ["stg_ln_bf16", "stg_gemm_bf16", "stg_gemm_bf16"])
+    if faults:
+        w2 = args[5].clone()
+        w2[:, -FA.FFN_HIDDEN_CHUNK:] = 0
+        row["faults"] = check_faults(name, FA.ffn, FA.ffn_plain, args, {
+            "last hidden chunk skipped": args[:5] + (w2, args[6]),
+            "b1 dropped": args[:4] + (torch.zeros_like(args[4]),) + args[5:]})
+    log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
+    return row
+
+
+def k9_rows(cfg, g, tower):
+    """K9 at every norm site of one stream of `cfg` (`k9_sites`) against its
+    plain version, each with its device time alone."""
+    from stgcma_tpu_torch.tools import bench_parts
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+    rows = []
+    for site, M, Cn in k9_sites(cfg):
+        args = (rnd(M, Cn, std=2.0).to(bf), (1 + rnd(Cn, std=0.1)).to(bf),
+                rnd(Cn, std=0.02).to(bf))
+
+        def library(a=args, Cn=Cn):
+            return F.layer_norm(a[0], (Cn,), a[1], a[2])
+        name = f"K9 {tower}{site} {(M, Cn)}"
+        row = check_kernel(name, FA.layernorm, FA.layernorm_plain, args, {}, ln_bound(M, Cn),
+                           library)
+        row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.layernorm(*a))
+        log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
+        rows.append(row)
+        del args
+    return rows
 
 
 def phase_swin_kernels(cfg, large_cfg):
@@ -859,35 +986,13 @@ def phase_swin_kernels(cfg, large_cfg):
     def rnd(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device=dev) * std
 
-    results = {"K1": [], "K7": [], "K8": [], "K9": []}
-    for s in range(cfg.num_layers - 1):          # stages 0-2: K1
-        H, _ = cfg.stage_resolution(s)
-        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
-        mask = torch.from_numpy(window.shift_attn_mask(H, H, ws, ws // 2)).to(dev)
-        bm = swin_bias(g, heads, N, rel, mask)
-        Bq = B * T * bm.shape[0]
-        args, _ = make_block_inputs(g, Bq, N, C, heads, False)
-        results["K1"].append(check_kernel(
-            f"K1 Swin stage {s} shifted windows {(Bq, N, C)} h{heads} period {bm.shape[0]}",
-            FA.win_block, FA.win_block_plain, args + (heads,), {"bias": bm},
-            block_bound(Bq, N, C, heads, False, bm.shape[0]),
-            library_block(args, heads, False, bm)))
-    for s in range(cfg.num_layers - 1):
-        H, _ = cfg.stage_resolution(s)
-        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
-        bm = swin_bias(g, heads, T, t_idx)
-        Bq = B * H * H
-        args, _ = make_block_inputs(g, Bq, T, C, heads, False)
-        results["K1"].append(check_kernel(
-            f"K1 Swin stage {s} temporal {(Bq, T, C)} h{heads}", FA.win_block,
-            FA.win_block_plain, args + (heads,), {"bias": bm},
-            block_bound(Bq, T, C, heads, False, 1), library_block(args, heads, False, bm)))
+    stages = range(cfg.num_layers - 1)           # stages 0-2: K1
+    results = {"K1": k1_swin_rows(cfg, g, "Swin", stages, stages), "K7": [], "K8": [], "K9": []}
 
     # K7 at the FFNs of stages 0-1 of Swin-Base and Swin-Large, at stage 0 of
     # Swin-Base at 168^2 (141,120 rows: a tail row block), and at Swin-Large's stage 2
     # at B = 9 (17,640 rows of C = 768: the smallest batch at which the route sends a
-    # width that csrc/ffn.cu does not instantiate to K7); b1 ~ N(0, 1), so that a K7
-    # without it fails the check
+    # width that csrc/ffn.cu does not instantiate to K7)
     k7_sites = [("", s, B * T * cfg.stage_resolution(s)[0] ** 2, cfg.stage_dim(s)) for s in (0, 1)]
     k7_sites += [("Swin-Large ", s, B * T * large_cfg.stage_resolution(s)[0] ** 2,
                   large_cfg.stage_dim(s)) for s in (0, 1)]
@@ -895,30 +1000,8 @@ def phase_swin_kernels(cfg, large_cfg):
     k7_sites.append(("Swin-Large B = 9 ", 2, 9 * T * large_cfg.stage_resolution(2)[0] ** 2,
                      large_cfg.stage_dim(2)))
     for tag, s, M, C in k7_sites:
-        Hd = 4 * C
-        args = (rnd(M, C).to(bf), (1 + rnd(C, std=0.1)).to(bf), rnd(C, std=0.02).to(bf),
-                rnd(Hd, C, std=0.05).to(bf), rnd(Hd).to(bf),
-                rnd(C, Hd, std=0.02).to(bf), rnd(C, std=0.02).to(bf))
-
-        def library(a=args, C=C):
-            return F.linear(F.gelu(F.linear(F.layer_norm(a[0], (C,), a[1], a[2]), a[3], a[4])),
-                            a[5], a[6])
-        name = f"K7 {tag}stage {s} FFN {(M, C)} hidden {Hd}"
-        row = check_kernel(name, FA.ffn, FA.ffn_plain, args, {}, ffn_bf16_bound(M, C, Hd),
-                           library)
-        row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.ffn(*a))
-        row["launches_per_call"] = check_launch_sequence(
-            name, FA.ffn, args, ["stg_ffn_bf16"] if FA.ffn_route(C, Hd)
-            else ["stg_ln_bf16", "stg_gemm_bf16", "stg_gemm_bf16"])
-        if not tag and s == 0:
-            w2 = args[5].clone()
-            w2[:, -FA.FFN_HIDDEN_CHUNK:] = 0
-            row["faults"] = check_faults(name, FA.ffn, FA.ffn_plain, args, {
-                "last hidden chunk skipped": args[:5] + (w2, args[6]),
-                "b1 dropped": args[:4] + (torch.zeros_like(args[4]),) + args[5:]})
-        log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
-        results["K7"].append(row)
-        del args
+        results["K7"].append(k7_row(g, f"K7 {tag}stage {s} FFN", M, C,
+                                    faults=not tag and s == 0))
 
     s3 = cfg.num_layers - 1                      # K8 at stage 3 (32 heads)
     H, _ = cfg.stage_resolution(s3)
@@ -956,20 +1039,8 @@ def phase_swin_kernels(cfg, large_cfg):
         log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
         results["K8"].append(row)
 
-    for tag, c in (("", cfg), ("Swin-Large ", large_cfg)):   # K9 at the six norms of a stream
-        for site, M, Cn in k9_sites(c):
-            args = (rnd(M, Cn, std=2.0).to(bf), (1 + rnd(Cn, std=0.1)).to(bf),
-                    rnd(Cn, std=0.02).to(bf))
-
-            def library(a=args, Cn=Cn):
-                return F.layer_norm(a[0], (Cn,), a[1], a[2])
-            name = f"K9 {tag}{site} {(M, Cn)}"
-            row = check_kernel(name, FA.layernorm, FA.layernorm_plain, args, {}, ln_bound(M, Cn),
-                               library)
-            row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.layernorm(*a))
-            log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
-            results["K9"].append(row)
-            del args
+    for tag, c in (("", cfg), ("Swin-Large ", large_cfg)):   # K9 at the norms of a stream
+        results["K9"] += k9_rows(c, g, tag)
     return results
 
 
@@ -1756,6 +1827,46 @@ def phase_k10_kernels(cfg):
 # phase 4: the slices
 # ---------------------------------------------------------------------------
 
+def phase_avs_kernels(cfg):
+    """Every kernel of the AVS path (Swin-Large fusion, T = 5 frames, B = 8:
+    40 frames a stream) at the shapes it gives them: K1 at the stage 0-1
+    shifted windows and temporal sites (5 tokens: one 16-key tile, 11 keys
+    masked), K5 and K6 at stages 0-1 and K4 at stage 2 (unshifted and
+    shifted) and stage 3 with its wiring faults (`phase_fusion_kernels`),
+    K7 at the stage-0 FFN, the K8 site (`wmsa_qkv`, one launch) at the
+    stage 2-3 temporal sites, and K9 at every norm of a stream."""
+    import torch
+    from stgcma_tpu_torch.tools import bench_parts
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    tower = "Swin-Large AVS"
+    results = phase_fusion_kernels(cfg, tower=tower, odd=False, k4_tol=TOL_K4_LARGE)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    dev, bf = "cuda", torch.bfloat16
+    T = cfg.num_ttokens
+    results["K1"] = k1_swin_rows(cfg, g, tower, (0, 1), (0, 1))
+    t_idx = torch.from_numpy(window.temporal_relative_index(T)).to(dev)
+    results["K8"] = []
+    for s in (2, 3):
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        bm = swin_bias(g, heads, T, t_idx)[0]
+        qkv = (torch.randn(B * H * H, T, 3 * C, generator=g, device=dev)).to(bf)
+        args = (qkv, bm, heads)
+        name = f"K8 wmsa_qkv {tower} stage {s} temporal T={T} {tuple(qkv.shape)} h{heads}"
+        row = check_kernel(name, FA.wmsa_qkv, FA.wmsa_qkv_plain, args, {},
+                           wmsa_bound(B * H * H * heads, T, C // heads, heads),
+                           library_wmsa_qkv(*args))
+        row["graph_ms"] = bench_parts.graph_ms(lambda a=args: FA.wmsa_qkv(*a))
+        row["launches_per_call"] = check_one_launch(name, FA.wmsa_qkv, args, "stg_attn_core")
+        log(f"  {name}: device alone (CUDA graph) {row['graph_ms']:.4f} ms")
+        results["K8"].append(row)
+    H0, _ = cfg.stage_resolution(0)          # the one FFN whose hidden reaches the K7 route
+    results["K7"] = [k7_row(g, f"K7 {tower} stage 0 FFN", B * T * H0 * H0, cfg.stage_dim(0))]
+    results["K9"] = k9_rows(cfg, g, f"{tower} ")
+    return results
+
+
 @contextlib.contextmanager
 def clip_switches(task):
     """The switches read at call time: the two of the fused CLIP block on for
@@ -1875,27 +1986,35 @@ def live_clip_adapters_(model, seed):
     return model
 
 
-def check_fusion_is_live(srv, cfg, model, task, one, card, add=None):
+def zero_gates_(m):
+    if hasattr(m, "gate_v"):
+        m.gate_v.zero_()
+        m.gate_a.zero_()
+
+
+def check_fusion_is_live(srv, cfg, model, task, one, card, add=None, zero_=zero_gates_,
+                         what="the gates"):
     """The B = 1 check sees the exchange: the same model with every gate
-    zeroed must move the card's logits beyond the card-vs-CPU tolerance.
-    `add`: the server's method that takes the model (`srv.add_ave` if none)."""
+    zeroed (or with `zero_` applied to each of its modules: `what`) must move
+    the card's logits beyond the card-vs-CPU tolerance. `add`: the server's
+    method that takes the model (`srv.add_ave` if none)."""
     import copy
     import numpy as np
     import torch
     zero = copy.deepcopy(model)
     with torch.no_grad():
         for m in zero.modules():
-            if hasattr(m, "gate_v"):
-                m.gate_v.zero_()
-                m.gate_a.zero_()
-    (add or srv.add_ave)(task + "_gates0", cfg, zero)
-    moved = float(np.abs(predict(srv, task + "_gates0", one) - card).max())
-    scale = float(np.abs(card).max())
+            zero_(m)
+    name = f"{task}_{zero_.__name__}"
+    (add or srv.add_ave)(name, cfg, zero)
+    move = np.abs(predict(srv, name, one) - card)
+    moved, scale = float(move.max()), float(np.abs(card).max())
     if not moved > TOL_SLICE * scale:
-        fail(f"{task} B=1: zeroing the gates moves the card's logits by {moved:.4g}, not "
-             f"beyond {TOL_SLICE} * {scale:.4g}: the check is blind to the exchange")
-    log(f"  {task} B=1 with the gates zeroed: logits move {moved:.4g} on the card "
-        f"({moved / scale:.4g} of max |logit|, must exceed {TOL_SLICE})")
+        fail(f"{task} B=1: zeroing {what} moves the card's logits by {moved:.4g}, not "
+             f"beyond {TOL_SLICE} * {scale:.4g}: the check is blind to them")
+    log(f"  {task} B=1 with {what} zeroed: logits move {moved:.6g} at most, "
+        f"{float(move.mean()):.6g} on average, on the card ({moved / scale:.4g} of max "
+        f"|logit|, must exceed {TOL_SLICE})")
 
 
 def clip_batch(cfg, rng, b):
@@ -2060,7 +2179,8 @@ def phase_swin_slice(cfg, smi, int8=False, preset="", cpu_depths=None, task=None
     from stgcma_tpu_torch.nn.swin import launches_per_forward
     from stgcma_tpu_torch.serving import MultiTaskServer
 
-    mode = {"multimodal": "mm", "fusion": "fusion"}[cfg.ftmode]
+    mode = {"multimodal": "mm", "fusion": "fusion", "videoonly": "video",
+            "audioonly": "audio"}[cfg.ftmode]
     task = task or f"ave29_swin_{preset}{mode}_{'int8' if int8 else 'bf16'}"
     t0 = time.perf_counter()
     model = random_swin_ave(cfg, SEED, int8=int8)
@@ -2103,6 +2223,64 @@ def phase_swin_slice(cfg, smi, int8=False, preset="", cpu_depths=None, task=None
     return totals, clips
 
 
+def zero_bn_scales_(m):
+    from stgcma_tpu_torch.ops.conv import BatchNorm
+    if isinstance(m, BatchNorm):
+        m.weight.zero_()
+
+
+def phase_avs_slice(cfg, hcfg, smi, cpu_depths=(2, 2, 2, 2)):
+    """AVSBench segmentation on Swin-Large fusion with its multi-scale taps,
+    TPAVI and the FPN decoder (`add_avs`): B = 8 clips of T = 5 frames, the
+    exact launches of the tower (the decoder makes none of the port's), mask
+    logits (B*T, 224, 224, 1) finite; B = 1 held against the same
+    configuration on the CPU cut to `cpu_depths`; zeroing the fusion gates,
+    and separately the TPAVI BatchNorm scales, must move the card's masks."""
+    import numpy as np
+    from stgcma_tpu_torch.models.avs import random_avs
+    from stgcma_tpu_torch.nn.swin import launches_per_forward
+    from stgcma_tpu_torch.serving import MultiTaskServer
+
+    task = "avs_swin_large_fusion_bf16"
+    t0 = time.perf_counter()
+    model = live_fusion_adapters_(random_avs(cfg, hcfg, SEED), SEED)
+    srv = MultiTaskServer(device="cuda")
+    srv.add_avs(task, cfg, hcfg, model)
+    log(f"  set-up: random weights with live fusion adapters, gates and TPAVI BatchNorms, "
+        f"server on the card: {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(SEED)
+    n, T = cfg.img_size, cfg.num_frames
+
+    def batch(b):
+        return {"a": rng.randn(b, T, n, n).astype(np.float32),
+                "v": rng.randn(b, T, n, n, 3).astype(np.float32)}
+
+    shape = (B * cfg.num_ttokens, n, n, 1)
+    requests = {task: ([batch(B) for _ in range(4)], shape)}
+    want = {task: {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B)}}
+    totals, clips, _ = drive(srv, requests, want, smi)
+    log(f"  {task}: {clips[task]:.2f} clips/s = {clips[task] * cfg.num_ttokens:.2f} masks/s "
+        f"(frames segmented a second) on {smi}")
+    one = batch(1)
+    cut_cfg = dataclasses.replace(cfg, depths=cpu_depths)
+    cut = live_fusion_adapters_(random_avs(cut_cfg, hcfg, SEED), SEED)
+    cut_task = f"{task}_depths{''.join(map(str, cpu_depths))}"
+    cpu = MultiTaskServer(device="cpu")
+    for server in (srv, cpu):
+        server.add_avs(cut_task, cut_cfg, hcfg, cut)
+    check_against_cpu(srv, cpu, one)
+    card = predict(srv, task, one)
+    if card.shape != (cfg.num_ttokens, n, n, 1) or not np.isfinite(card).all():
+        fail(f"{task} B=1: masks of shape {card.shape}, finite={np.isfinite(card).all()}")
+    def add(name, c, m):
+        srv.add_avs(name, c, hcfg, m)
+    check_fusion_is_live(srv, cfg, model, task, one, card, add=add)
+    # each TPAVI then passes LN(x + its BatchNorm's bias)
+    check_fusion_is_live(srv, cfg, model, task, one, card, add=add, zero_=zero_bn_scales_,
+                         what="the TPAVI BatchNorm scales")
+    return totals, clips
+
+
 def main():
     try:
         import torch
@@ -2112,7 +2290,8 @@ def main():
         fail("no CUDA device: this script drives the port on the GPU only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from stgcma_tpu_torch.configs import clip_b16, clip_l14, swin_base, swin_large
+        from stgcma_tpu_torch.configs import (AVSHeadConfig, clip_b16, clip_l14, swin_base,
+                                              swin_large)
         from stgcma_tpu_torch.ops import cuda_lib
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -2147,6 +2326,10 @@ def main():
     # neither a multiple of 16, so both full-grid exchanges take the K10 route
     k10_cfg = dataclasses.replace(fusion_cfg, img_size=168, depths=(2, 2), num_heads=(4, 8),
                                   adapter_ratios=(0.125, 0.125))
+    # AVS (cli/run_adapt_avs.py's default): Swin-Large fusion, T = 5, and its decoder
+    avs_cfg = swin_large(ftmode="fusion", num_frames=5)
+    avs_hcfg = AVSHeadConfig(stage_dims=tuple(avs_cfg.stage_dim(i) for i in range(4)),
+                             audio_dim=avs_cfg.num_features, num_frames=5)
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel, "
         f"{TOL_KERNEL_Q} for the int8 variants of K4, K12, K13, for K11 and for K4 at "
         f"Swin-Large)")
@@ -2159,7 +2342,7 @@ def main():
               lambda: phase_fusion_kernels(large_cfg, tower="Swin-Large", odd=False,
                                            k4_tol=TOL_K4_LARGE),
               lambda: phase_tv2_kernels(cfg, l14_cfg), lambda: phase_k10_kernels(k10_cfg),
-              phase_parts)
+              lambda: phase_avs_kernels(avs_cfg), phase_parts)
     for phase in phases:
         for k, rows in phase().items():
             results.setdefault(k, []).extend(rows)
@@ -2180,10 +2363,12 @@ def main():
     l14_totals, l14_clips = phase_clip_l14_slice(l14_cfg, smi)
     clips.update(l14_clips)
     totals = {k: totals[k] + l14_totals[k] for k in KERNELS}
+    single = [swin_base(ftmode=m, label_dim=29) for m in ("videoonly", "audioonly")]
     for scfg, int8, preset, task in ((swin_cfg, False, "", None), (fusion_cfg, False, "", None),
                                      (fusion_cfg, True, "", None),
                                      (large_cfg, False, "large_", None),
-                                     (k10_cfg, False, "", "ave29_swin_k10_bf16")):
+                                     (k10_cfg, False, "", "ave29_swin_k10_bf16"),
+                                     (single[0], False, "", None), (single[1], False, "", None)):
         log(f"[4/4] slice: Swin-{'Large' if preset else 'Base'} {scfg.ftmode} AVE-29, depths "
             f"{scfg.depths}, C={scfg.embed_dim}..{scfg.num_features}, T={scfg.num_frames}, "
             f"{scfg.img_size}^2, {'int8 tower' if int8 else 'bf16'}")
@@ -2192,6 +2377,13 @@ def main():
                                                    task=task)
         clips.update(swin_clips)
         totals = {k: totals[k] + swin_totals[k] for k in KERNELS}
+    log(f"[4/4] slice: AVSBench segmentation, Swin-Large {avs_cfg.ftmode} with its multi-scale "
+        f"taps, TPAVI at stages {avs_hcfg.tpavi_stages} and the FPN decoder, depths "
+        f"{avs_cfg.depths}, C={avs_cfg.embed_dim}..{avs_cfg.num_features}, T={avs_cfg.num_frames}, "
+        f"{avs_cfg.img_size}^2, bf16")
+    avs_totals, avs_clips = phase_avs_slice(avs_cfg, avs_hcfg, smi)
+    clips.update(avs_clips)
+    totals = {k: totals[k] + avs_totals[k] for k in KERNELS}
 
     kernels = []
     for k in KERNELS:

@@ -10,7 +10,9 @@ returns the port's state dict. Layouts the port keeps:
   `weight_s` (out,);
 - conv `kernel` HWIO -> `weight` OIHW, and DHWIO -> OIDHW (the Swin
   patch embed's (pt, ph, pw, I, O));
-- LayerNorm `scale` -> `weight`;
+- LayerNorm and BatchNorm `scale` -> `weight`; the BatchNorm running
+  statistics `mean` -> buffer `running_mean`, `var` -> `running_var`
+  (`bias` keeps its name);
 - every other leaf (embeddings, gates) keeps its name and shape.
 """
 from __future__ import annotations
@@ -20,8 +22,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..configs import ClipConfig, SwinConfig
+from ..configs import AVSHeadConfig, ClipConfig, SwinConfig
 from ..models.ave import ClipAVE, SwinAVE
+from ..models.avs import AVSModel
 from ..ops.common import resolve_device
 from ..ops.quant import quantize_clip_tower, quantize_swin_tower
 
@@ -39,6 +42,8 @@ def _leaf(key: str, a: np.ndarray):
         return "weight_s", a.reshape(-1)
     if key == "scale":
         return "weight", a
+    if key in ("mean", "var"):
+        return f"running_{key}", a
     return key, a
 
 
@@ -69,15 +74,29 @@ def clip_ave_from_jax(cfg: ClipConfig, tree: Any, device="cuda") -> ClipAVE:
     return model.to(device)
 
 
-def swin_ave_from_jax(cfg: SwinConfig, tree: Any, device="cuda") -> SwinAVE:
-    """A SwinAVE holding the JAX tree's weights (float, or an int8 tower made
-    by the JAX `quantize_swin_tower`). Loads strictly: every leaf of the tree
-    is a parameter or buffer of the port and the other way round (the
-    bias-free patch-merging `reduction` included)."""
+def _load_swin(model, tree: Any, device):
+    """`model` (with a Swin `backbone`) holding the tree's weights, loaded
+    strictly, its tower quantized first where the tree's is int8."""
     device = resolve_device(device)
     state = params_from_jax(tree)
-    model = SwinAVE(cfg)
     if any(k.endswith("weight_q") for k in state):
         model.backbone = quantize_swin_tower(model.backbone)
     model.load_state_dict(state, strict=True)
     return model.to(device)
+
+
+def swin_ave_from_jax(cfg: SwinConfig, tree: Any, device="cuda") -> SwinAVE:
+    """A SwinAVE of cfg.ftmode holding the JAX tree's weights (float, or an
+    int8 tower made by the JAX `quantize_swin_tower`). Loads strictly: every
+    leaf of the tree is a parameter or buffer of the port and the other way
+    round (the bias-free patch-merging `reduction` included; a single-stream
+    tree has that stream's adapters only and the `ln`/`fc` head)."""
+    return _load_swin(SwinAVE(cfg), tree, device)
+
+
+def avs_from_jax(cfg: SwinConfig, hcfg: AVSHeadConfig, tree: Any, device="cuda") -> AVSModel:
+    """An AVSModel holding the JAX `init_avs` tree's weights, loaded
+    strictly: the Swin backbone as in `swin_ave_from_jax`, the decoder's
+    convs HWIO -> OIHW, the TPAVI BatchNorms' `scale` / `bias` / `mean` /
+    `var` -> `weight` / `bias` / `running_mean` / `running_var`."""
+    return _load_swin(AVSModel(cfg, hcfg), tree, device)

@@ -1,9 +1,9 @@
 """CLIP and Swin tower configurations and their presets.
 
 The port's own copy of `stgcma_tpu/configs/model_configs.py` (ClipConfig,
-SwinConfig and the clip_b16 / clip_l14 / clip_tiny_test, swin_base /
-swin_large / swin_tiny_test presets), so that the port imports nothing of the
-JAX package.
+SwinConfig, AVSHeadConfig and the clip_b16 / clip_l14 / clip_tiny_test,
+swin_base / swin_large / swin_tiny_test presets), so that the port imports
+nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -126,6 +126,23 @@ class SwinConfig:
     def stage_resolution(self, i: int) -> Tuple[int, int]:
         pr = self.patches_resolution
         return (pr[0] // (2 ** i), pr[1] // (2 ** i))
+
+
+@dataclasses.dataclass(frozen=True)
+class AVSHeadConfig:
+    """AVS segmentation decoder (reference: AVS/model/Swin_AVSModel.py:1473-1894)."""
+
+    channel: int = 256
+    vis_dim: Tuple[int, ...] = (64, 128, 320, 512)
+    # per-stage visual feature dims coming out of the backbone (Large: 192/384/768/1536)
+    stage_dims: Tuple[int, ...] = (192, 384, 768, 1536)
+    stage_resolutions: Tuple[int, ...] = (56, 28, 14, 7)
+    tpavi_stages: Tuple[int, ...] = (0, 1, 2, 3)
+    tpavi_va_flag: bool = True
+    tpavi_vv_flag: bool = False
+    audio_dim: int = 1536
+    tpavi_audio_dim: int = 128
+    num_frames: int = 5
 
 
 def swin_base(**kw) -> SwinConfig:

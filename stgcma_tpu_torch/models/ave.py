@@ -1,12 +1,12 @@
 """AVE-29 audio-visual event localization, CLIP and Swin flavors.
 
-Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) in its
-four ftmodes and the Swin half (:44-62) in `multimodal` and `fusion` modes,
-float or int8 towers. The two-stream modes carry the dual MLP head
-Linear(2C, 512) -> Linear(512, label_dim), without dropout (serving); CLIP's
-`videoonly` and `audioonly` the single-stream head LayerNorm(C) -> Linear(C,
-label_dim). I/O: CLIP a (B, T, 102, 128), Swin a (B, T, 224, 224); v (B, T,
-224, 224, 3) -> logits (B*T, label_dim).
+Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) and the
+Swin half (:44-62), each in its four ftmodes, float or int8 towers. The
+two-stream modes carry the dual MLP head Linear(2C, 512) -> Linear(512,
+label_dim), without dropout (serving); `videoonly` and `audioonly` the
+single-stream head LayerNorm(C) -> Linear(C, label_dim). I/O: CLIP a (B, T,
+102, 128), Swin a (B, T, 224, 224); v (B, T, 224, 224, 3) -> logits (B*T,
+label_dim).
 """
 from __future__ import annotations
 
@@ -114,7 +114,8 @@ class SwinAVE(nn.Module):
     def __init__(self, cfg: SwinConfig):
         super().__init__()
         self.backbone = swin.SwinBackbone(cfg)
-        self.mlp_head = MlpHead(cfg.num_features, cfg.label_dim)
+        dual = cfg.ftmode in ("multimodal", "fusion")
+        self.mlp_head = (MlpHead if dual else SingleHead)(cfg.num_features, cfg.label_dim)
 
 
 def _uniform_patch_convs_(bb: swin.SwinBackbone, g: torch.Generator):
@@ -125,57 +126,85 @@ def _uniform_patch_convs_(bb: swin.SwinBackbone, g: torch.Generator):
         conv.bias.uniform_(-bound, bound, generator=g)
 
 
+def _backbone(module: nn.Module) -> swin.SwinBackbone:
+    """`module`'s backbone: module.backbone, or `module` itself."""
+    return getattr(module, "backbone", module)
+
+
+def init_swin_(module: nn.Module, g: torch.Generator):
+    """In place, the JAX package's Swin initialization (`swin.backbone_init`,
+    `linear_init`): the backbone's patch convs and their biases
+    uniform(+-1/sqrt(fan_in)), then every bias table and 2-D weight of
+    `module` (a SwinAVE or a backbone) trunc_normal(0.02), and every adapter
+    D_fc2 zero; biases, gates and LayerNorms keep their construction values
+    (zero, zero, unit)."""
+    with torch.no_grad():
+        _uniform_patch_convs_(_backbone(module), g)
+        for name, p in module.named_parameters():
+            if name.endswith("bias_table") or (p.dim() == 2 and name.endswith(".weight")):
+                nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=g)
+        for name, p in module.named_parameters():
+            if ".D_fc2." in name:
+                p.zero_()
+
+
 def init_swin_ave(cfg: SwinConfig, generator: torch.Generator = None,
                   device="cuda") -> SwinAVE:
-    """A SwinAVE with the JAX package's initialization (`swin.backbone_init`,
-    `_mlp_head_init`), drawn on the CPU from `generator` (seed 0 if none),
-    then moved to `device`: trunc_normal(0.02) linears and bias tables, zero
-    biases, zero adapter D_fc2 and gates, uniform(+-1/sqrt(fan_in)) patch
-    convs and their biases, unit LayerNorms."""
+    """A SwinAVE of cfg.ftmode with the JAX package's initialization
+    (`swin.backbone_init`, `_mlp_head_init`), drawn on the CPU from
+    `generator` (seed 0 if none), then moved to `device`: trunc_normal(0.02)
+    linears and bias tables, zero biases, zero adapter D_fc2 and gates,
+    uniform(+-1/sqrt(fan_in)) patch convs and their biases, unit LayerNorms
+    (the single-stream head's `ln` among them)."""
     device = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     model = SwinAVE(cfg)
-    with torch.no_grad():
-        _uniform_patch_convs_(model.backbone, g)
-        for name, p in model.named_parameters():
-            if name.endswith("bias_table") or (p.dim() == 2 and name.endswith(".weight")):
-                nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=g)
-        for name, p in model.named_parameters():
-            if ".D_fc2." in name:
-                p.zero_()
+    init_swin_(model, g)
     return model.to(device)
 
 
-def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a, v):
-    """Forward in cfg.ftmode (`multimodal` or `fusion`): the tokens of each
-    stream are averaged, concatenated as (a, v) (Swin_AVE.py:1596) and fed
-    to the head. Returns logits (B*T, label_dim)."""
+def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a=None, v=None):
+    """Forward in cfg.ftmode: the tokens of each stream are averaged; in the
+    two-stream modes the two are concatenated as (a, v) (Swin_AVE.py:1596).
+    `videoonly` needs no a, `audioonly` no v. Returns logits (B*T,
+    label_dim)."""
     feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
-    pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
+    if cfg.ftmode == "videoonly":
+        pooled = feats["v"].mean(dim=1)
+    elif cfg.ftmode == "audioonly":
+        pooled = feats["a"].mean(dim=1)
+    else:
+        pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
     return mlp_head_apply(model.mlp_head, pooled)
 
 
-def random_swin_ave(cfg: SwinConfig, seed: int, int8: bool = False) -> SwinAVE:
-    """A SwinAVE on the CPU with every leaf drawn from one seeded generator,
-    for smoke runs and measurements: linears N(0, 0.02), LayerNorm weights
-    1 + N(0, 0.1), relative and temporal bias tables N(0, 0.5), fusion gates
-    N(0, 0.5), patch convs uniform(+-1/sqrt(fan_in)). Unlike the training
-    init, the adapters' D_fc2, the gates and the bias tables are far from
-    zero, so adapters, fusion and biases are live. `normal_` takes the same
-    draws whatever its std, so the gates' std moves no other weight. With
-    `int8`, the same model with its tower quantized (`quantize_swin_tower`)."""
-    g = torch.Generator().manual_seed(seed)
-    model = SwinAVE(cfg)
-    norms = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
+def random_swin_(module: nn.Module, g: torch.Generator):
+    """In place, `random_swin_ave`'s draws over every parameter of `module`
+    (a SwinAVE or a backbone), in the order of `named_parameters`, then the
+    backbone's patch convs."""
+    norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in module.named_parameters():
             if id(p) in norms:
                 p.normal_(1.0, 0.1, generator=g)
             elif name.endswith("bias_table") or name.rsplit(".", 1)[-1] in ("gate_v", "gate_a"):
                 p.normal_(0.0, 0.5, generator=g)
             else:
                 p.normal_(0.0, 0.02, generator=g)
-        _uniform_patch_convs_(model.backbone, g)
+        _uniform_patch_convs_(_backbone(module), g)
+
+
+def random_swin_ave(cfg: SwinConfig, seed: int, int8: bool = False) -> SwinAVE:
+    """A SwinAVE of cfg.ftmode on the CPU with every leaf drawn from one
+    seeded generator, for smoke runs and measurements: linears N(0, 0.02),
+    LayerNorm weights 1 + N(0, 0.1), relative and temporal bias tables N(0,
+    0.5), fusion gates N(0, 0.5), patch convs uniform(+-1/sqrt(fan_in)). Unlike the training
+    init, the adapters' D_fc2, the gates and the bias tables are far from
+    zero, so adapters, fusion and biases are live. `normal_` takes the same
+    draws whatever its std, so the gates' std moves no other weight. With
+    `int8`, the same model with its tower quantized (`quantize_swin_tower`)."""
+    model = SwinAVE(cfg)
+    random_swin_(model, torch.Generator().manual_seed(seed))
     if int8:
         model.backbone = quantize_swin_tower(model.backbone)
     return model

@@ -1,28 +1,33 @@
-"""Swin-2D adapter backbone, two streams: `multimodal` and `fusion` ftmodes.
+"""Swin-2D adapter backbone in its four ftmodes.
 
-Port of `stgcma_tpu/nn/swin.py` in the reference's
-`multimodal_adapt_no_fusion` (Swin_AVE.py:490-591) and `fusion_adapt`
-(Swin_AVE.py:693-813, the STG-CMA exchange) modes: `BlockStatic` and
-`make_block_static` (:42-78), `_temporal_branch` (:163), `_ffn` (:190),
-`_spatial_windows` (:214), `_merge_windows` (:248), `_dual_no_fusion`
-(:271), `_dual_fusion` (:290, without the AVQA `nega` stream), `block_apply`
+Port of `stgcma_tpu/nn/swin.py` in the reference's `video_adapt` /
+`audio_adapt` (the single-stream `videoonly` / `audioonly` ftmodes,
+Swin_AVE.py:394-488), `multimodal_adapt_no_fusion` (Swin_AVE.py:490-591) and
+`fusion_adapt` (Swin_AVE.py:693-813, the STG-CMA exchange) modes:
+`BlockStatic` and `make_block_static` (:42-78), the mode table (:82),
+`_temporal_branch` (:163), `_ffn` (:190), `_spatial_windows` (:214),
+`_merge_windows` (:248), `_single_stream` (:255), `_dual_no_fusion` (:271),
+`_dual_fusion` (:290, without the AVQA `nega` stream), `block_apply`
 (:361), the patch embed and merging (:382-407), `backbone_statics` (:410),
-and the unrolled `_run_layers` (:435) and `backbone_apply` (:483). The
-single-stream modes, the `multi_scale` taps and the `nega` stream are not
-ported yet (ROADMAP.md, queue 1).
+and the unrolled `_run_layers` (:435, with the AVS `multi_scale` taps) and
+`backbone_apply` (:483). The `nega` stream is not ported yet (ROADMAP.md,
+queue 1, the AVQA item).
 
 The modules only hold parameters, named as the JAX tree's keys; the
 functions read them. Tokens are batch-first (B*T, H*W, C). The kernel routes
 follow the JAX package's TPU policy (ops/fused_attn.py, ops/swin_block.py):
 K1 for the temporal and window attention of stages with <= 16 heads,
-LayerNorm then the K8 core for more heads, K7 for an FFN whose hidden takes
->= 96 MiB, K9 for the large norms; in `fusion` mode K4 for the whole block
-after the temporal branch on grids of <= 256 tokens, and elsewhere K5 for
-the per-window exchange and K6 for the full-grid one. A tower made int8 by
-`ops/quant.py::quantize_swin_tower` routes on `quantized` as JAX routes on
-"kernel_q": K2 in place of K1, K3 at every FFN outside K4 (never K7, nor
-the plain FFN), K4's int8 variant, and `int8_matmul` for the qkv and proj
-products around the K8 core; patch embed, merging and norms stay float.
+LayerNorm then the K8 core for more heads, K7 for a two-stream FFN whose
+hidden takes >= 96 MiB (the single-stream FFN is LayerNorm then the plain
+MLP: its adapter reads the normalized rows), K9 for the large norms; in
+`fusion` mode K4 for the whole block after the temporal branch on grids of
+<= 256 tokens, and elsewhere K5 for the per-window exchange and K6 for the
+full-grid one. A tower made int8 by `ops/quant.py::quantize_swin_tower`
+routes on `quantized` as JAX routes on "kernel_q": K2 in place of K1, K3 at
+every two-stream FFN outside K4 (never K7, nor the plain FFN; the
+single-stream FFN takes `int8_matmul`), K4's int8 variant, and
+`int8_matmul` for the qkv and proj products around the K8 core; patch
+embed, merging and norms stay float.
 The bias and shift mask of each attention site are gathered from the
 block's table on every call, as the JAX package does inside its jit; the
 index and mask constants are built once per geometry and device.
@@ -48,8 +53,11 @@ from ..ops.fused_attn import (block_kernel_route, cross_modal_fuse_flash,
 from ..ops.swin_block import swin_fusion_whole_block, swin_whole_block_enabled
 from .adapters import Adapter, adapter_apply, adapter_hidden, adapter_out
 
-# ported ftmode -> block mode
-PORTED_FTMODES = {"multimodal": "multimodal_adapt_no_fusion", "fusion": "fusion_adapt"}
+# ftmode -> block mode (swin.py:82)
+FTMODES = {"videoonly": "video_adapt", "audioonly": "audio_adapt",
+                  "multimodal": "multimodal_adapt_no_fusion", "fusion": "fusion_adapt"}
+# block mode -> the adapter-key suffixes of its streams ("" video, "_Audio" audio)
+MODE_STREAMS = {"video_adapt": ("",), "audio_adapt": ("_Audio",)}
 
 
 # ---------------------------------------------------------------------------
@@ -91,11 +99,9 @@ def make_block_static(cfg: SwinConfig, stage: int, block_idx: int, mode: str) ->
 
 
 def _mode_for_ftmode(ftmode: str) -> str:
-    if ftmode not in PORTED_FTMODES:
-        raise NotImplementedError(
-            f"Swin ftmode {ftmode!r} is not ported yet: the port runs {tuple(PORTED_FTMODES)} "
-            "(the single-stream modes are queued in ROADMAP.md, section 1)")
-    return PORTED_FTMODES[ftmode]
+    if ftmode not in FTMODES:
+        raise ValueError(f"unknown Swin ftmode {ftmode!r}: one of {tuple(FTMODES)}")
+    return FTMODES[ftmode]
 
 
 def backbone_statics(cfg: SwinConfig) -> List[List[BlockStatic]]:
@@ -147,9 +153,9 @@ class SwinMlp(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """One two-stream block: the frozen Swin block (with both temporal
-    tables), the fusion gates (read in `fusion` mode only) and each stream's
-    adapters; the same keys in both modes."""
+    """One block: the frozen Swin block (with both temporal tables), the
+    fusion gates (read in `fusion` mode only; the JAX tree has them in every
+    mode) and the adapters of the mode's streams (swin.py:143-160)."""
 
     def __init__(self, st: BlockStatic):
         super().__init__()
@@ -160,7 +166,7 @@ class SwinBlock(nn.Module):
         self.mlp = SwinMlp(d, int(d * 4.0))
         self.gate_v = nn.Parameter(torch.zeros(1))
         self.gate_a = nn.Parameter(torch.zeros(1))
-        for sfx in ("", "_Audio"):
+        for sfx in MODE_STREAMS.get(st.mode, ("", "_Audio")):
             if st.t_attn and st.use_t_adapter:
                 setattr(self, "T_Adapter" + sfx, Adapter(d, r))
             if st.use_g_adapter:
@@ -271,6 +277,25 @@ def _merge_windows(attn_w, st: BlockStatic, BT: int):
     return x.reshape(BT, st.H * st.W, -1)
 
 
+def _single_stream(blk: SwinBlock, x, st: BlockStatic, signal: str):
+    """video_adapt / audio_adapt (Swin_AVE.py:394-488): the FFN is LayerNorm
+    then the plain MLP (`linear_q` on an int8 tower), never K7 or K3, since
+    its adapter reads the normalized rows, which K7 keeps on chip; the
+    adapter's output enters at half weight."""
+    sfx = "" if signal == "video" else "_Audio"
+    if st.t_attn:
+        x = _temporal_branch(blk, x, st, signal, "T_Adapter" + sfx)
+    attn_w = _spatial_windows(blk, x, st)
+    if st.use_s_adapter:
+        attn_w = adapter_apply(getattr(blk, "S_Adapter2" + sfx), attn_w, skip=True)
+    x = x + _merge_windows(attn_w, st, x.shape[0])
+    xn = layernorm(blk.norm2, x)
+    out = x + mlp_apply(blk.mlp, xn)
+    if st.use_g_adapter:
+        out = out + 0.5 * adapter_apply(getattr(blk, "S_Adapter" + sfx), xn, skip=False)
+    return out
+
+
 def _dual_no_fusion(blk: SwinBlock, v, a, st: BlockStatic):
     """multimodal_adapt_no_fusion (Swin_AVE.py:490-591). The FFN adapter
     reads the MLP *output*, without the 0.5 factor of the single-stream
@@ -323,12 +348,16 @@ def _dual_fusion(blk: SwinBlock, v, a, st: BlockStatic):
 
 
 def block_apply(blk: SwinBlock, x, st: BlockStatic):
-    """x is the pair (v, a)."""
+    """x is a tensor (single-stream) or the pair (v, a)."""
+    if st.mode == "video_adapt":
+        return _single_stream(blk, x, st, "video")
+    if st.mode == "audio_adapt":
+        return _single_stream(blk, x, st, "audio")
     if st.mode == "multimodal_adapt_no_fusion":
         return _dual_no_fusion(blk, x[0], x[1], st)
     if st.mode == "fusion_adapt":
         return _dual_fusion(blk, x[0], x[1], st)
-    raise NotImplementedError(f"Swin block mode {st.mode!r} is not ported yet")
+    raise ValueError(f"unknown Swin block mode {st.mode!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -347,37 +376,73 @@ def patch_merging_apply(pm: PatchMerging, x, H: int, Wd: int):
     return linear(pm.reduction, layernorm_fused(pm.norm, W.patch_merge(x, H, Wd)))
 
 
-def _run_layers(bb: SwinBackbone, cfg: SwinConfig, statics, x):
+def _run_layers(bb: SwinBackbone, cfg: SwinConfig, statics, x, collect_multiscale=False):
+    """Every stage over x, a tensor or the pair (v, a). Returns (x, taps):
+    with `collect_multiscale`, the visual stream before each downsample (the
+    AVS taps, Swin_AVSModel.py:1811-1821), the last one through the final
+    norm; else an empty list."""
+    multi_scale = []
     for s, layer in enumerate(bb.layers):
         for blk, st in zip(layer.blocks, statics[s]):
             x = block_apply(blk, x, st)
+        if collect_multiscale:
+            v_tap = x[0] if isinstance(x, tuple) else x
+            if s == cfg.num_layers - 1:
+                v_tap = layernorm_fused(bb.norm, v_tap)
+            multi_scale.append(v_tap)
         if layer.downsample is not None:
             H, Wd = cfg.stage_resolution(s)
-            x = tuple(patch_merging_apply(layer.downsample, xi, H, Wd) for xi in x)
-    return x
+            if isinstance(x, tuple):
+                x = tuple(patch_merging_apply(layer.downsample, xi, H, Wd) for xi in x)
+            else:
+                x = patch_merging_apply(layer.downsample, x, H, Wd)
+    return x, multi_scale
 
 
-def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a, v) -> Dict[str, torch.Tensor]:
-    """Normed tokens per stream, (B*T', 49, C_last) at 224^2.
-    v: (B, T, H, W, 3) frames; a: (B, T, F, Tt) fbank images."""
+def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a=None, v=None,
+                   collect_multiscale: bool = False) -> Dict[str, torch.Tensor]:
+    """Normed tokens per stream, (B*T', 49, C_last) at 224^2: {"v"} in
+    `videoonly` mode (no a needed), {"a"} in `audioonly` mode (no v), both
+    in the two-stream modes. v: (B, T, H, W, 3) frames; a: (B, T, F, Tt)
+    fbank images. In the two-stream modes `collect_multiscale` adds
+    "multi_scale" (the taps of `_run_layers`), "B" and "T" (= T'). The last
+    tap is the final norm of the visual stream, so "v" is that same tensor:
+    one norm, not two."""
     statics = backbone_statics(cfg)
+    if cfg.ftmode == "videoonly":
+        x, _ = _run_layers(bb, cfg, statics, patch_embed_apply(bb.patch_embed, v, cfg))
+        return {"v": layernorm_fused(bb.norm, x)}
+    if cfg.ftmode == "audioonly":
+        x, _ = _run_layers(bb, cfg, statics,
+                           patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg))
+        return {"a": layernorm_fused(bb.norm, x)}
     vt = patch_embed_apply(bb.patch_embed, v, cfg)
     at = patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg)
-    vt, at = _run_layers(bb, cfg, statics, (vt, at))
-    return {"v": layernorm_fused(bb.norm, vt), "a": layernorm_fused(bb.norm, at)}
+    (vt, at), taps = _run_layers(bb, cfg, statics, (vt, at), collect_multiscale)
+    out = {"a": layernorm_fused(bb.norm, at)}
+    if collect_multiscale:
+        out.update(v=taps[-1], multi_scale=taps, B=v.shape[0],
+                   T=v.shape[1] // cfg.patch_size[0])
+    else:
+        out["v"] = layernorm_fused(bb.norm, vt)
+    return out
 
 
 def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
                          quantized: bool = False) -> Dict[str, int]:
     """Kernel launches of one backbone forward at batch B, in a dtype of
     `itemsize` bytes, of a float tower or (`quantized`) an int8 one, derived
-    from the route functions the forward calls. K1 (K2 for int8), K7 (K3 at
-    every FFN outside K4 for int8), K8 and K9 run once per stream; K4, K5
-    and K6 once per call for both streams; K10 twice per call (one for each
-    direction) at a stage whose full-grid exchange takes its route, and it
-    is listed only where it runs."""
+    from the route functions the forward calls, for cfg.num_ttokens frames a
+    clip. K1 (K2 for int8), K8 and K9 run once per stream (one stream in
+    the single-stream modes, two otherwise), and in the two-stream modes K7
+    (K3 at every FFN outside K4 for int8); K4, K5 and K6 once per call for
+    both streams; K10 twice per call (one for each direction) at a stage
+    whose full-grid exchange takes its route, and it is listed only where
+    it runs. The AVS taps add no launch: the last one is the final norm."""
     blk_k, ffn_k = ("K2", "K3") if quantized else ("K1", "K7")
-    per_stream = {blk_k: 0, ffn_k: 0, "K8": 0, "K9": 0}
+    single = cfg.ftmode in ("videoonly", "audioonly")
+    per_stream = {blk_k: 0, "K8": 0, "K9": 0} if single else {blk_k: 0, ffn_k: 0, "K8": 0,
+                                                               "K9": 0}
     per_call = {"K4": 0, "K5": 0, "K6": 0, "K10": 0}
     rows = B * cfg.num_ttokens            # frames through the tower, per stream
     H, Wd = cfg.stage_resolution(0)
@@ -393,8 +458,9 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
                 per_call["K4"] += 1
                 continue
             per_stream[blk_k if kernel else "K8"] += 1
-            per_stream[ffn_k] += quantized or ffn_kernel_route(tokens, int(st.dim * 4.0),
-                                                               itemsize)
+            if not single:
+                per_stream[ffn_k] += quantized or ffn_kernel_route(
+                    tokens, int(st.dim * 4.0), itemsize)
             if st.mode == "fusion_adapt":
                 D = int(st.dim * st.adapter_ratio)
                 per_call["K5"] += st.use_s_adapter
@@ -407,7 +473,7 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
             per_stream["K9"] += ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
     H, Wd = cfg.stage_resolution(cfg.num_layers - 1)
     per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.num_features)       # final norm
-    counts = {k: 2 * int(c) for k, c in per_stream.items()}                     # two streams
+    counts = {k: (1 if single else 2) * int(c) for k, c in per_stream.items()}
     if cfg.ftmode == "fusion":
         counts.update({k: int(c) for k, c in per_call.items() if c or k != "K10"})
     return counts

@@ -1,11 +1,13 @@
 """Batched AV serving on one device.
 
 Port of `stgcma_tpu/serving.py::MultiTaskServer` (:49-121) with the AVE
-tasks, Swin (`add_ave`) and CLIP (`add_clip_ave`, any ftmode): float parameters and float
-inputs are cast to the serving dtype (bf16 by default, the int8 tower's
-scales and the Swin bias tables included, as the JAX `cast_tree` does) and
-the logits come back as float32 numpy. The mesh and shard options and
-`serve_stream` are not ported yet (ROADMAP.md).
+tasks, Swin (`add_ave`) and CLIP (`add_clip_ave`), any ftmode, and AVSBench
+segmentation (`add_avs`): float parameters, buffers and inputs are cast to
+the serving dtype (bf16 by default, the int8 tower's scales, the Swin bias
+tables and the BatchNorms' running statistics included, as the JAX
+`cast_tree` does) and the logits or mask logits come back as float32 numpy.
+The mesh and shard options and `serve_stream` are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from .configs import ClipConfig, SwinConfig
+from .configs import AVSHeadConfig, ClipConfig, SwinConfig
 from .models.ave import ClipAVE, SwinAVE, apply_clip_ave, apply_swin_ave
+from .models.avs import AVSModel, apply_avs
 from .ops.common import cast_tree, resolve_device
 
 
@@ -26,18 +29,26 @@ class MultiTaskServer:
         self.dtype = dtype
         self.device = resolve_device(device)
         self._fns: Dict[str, Callable] = {}
+        self.models: Dict[str, torch.nn.Module] = {}    # the cast copy each task serves
 
     def add_ave(self, name: str, cfg: SwinConfig, model: SwinAVE):
-        """Serve a Swin AVE `model`, float or with an int8 tower (left as it
-        is: the server keeps a cast copy)."""
-        m = cast_tree(model, self.dtype).to(self.device).eval()
-        self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch["a"], batch["v"])
+        """Serve a Swin AVE `model` of any ftmode, float or with an int8 tower
+        (left as it is: the server keeps a cast copy). A `videoonly` task's
+        batches need no "a", an `audioonly` task's no "v"."""
+        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
+        self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch.get("a"), batch.get("v"))
+
+    def add_avs(self, name: str, cfg: SwinConfig, hcfg: AVSHeadConfig, model: AVSModel):
+        """Serve an AVS `model` (left as it is: the server keeps a cast copy):
+        a request {"a", "v"} -> the mask logits `pred` (B*T, H, W, 1)."""
+        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
+        self._fns[name] = lambda batch: apply_avs(m, cfg, hcfg, batch["a"], batch["v"])[0]
 
     def add_clip_ave(self, name: str, cfg: ClipConfig, model: ClipAVE):
         """Serve a CLIP AVE `model` of any ftmode, float or with an int8 tower
         (left as it is: the server keeps a cast copy). A `videoonly` task's
         batches need no "a", an `audioonly` task's no "v"."""
-        m = cast_tree(model, self.dtype).to(self.device).eval()
+        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
         self._fns[name] = lambda batch: apply_clip_ave(m, cfg, batch.get("a"), batch.get("v"))
 
     def tasks(self):

@@ -1,6 +1,6 @@
 """Where the time of one serving forward goes on the card.
 
-    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion] [--int8]
+    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion|avs] [--int8]
         [--preset swin_base|swin_large] [--fused] [--qfuse] [--tv2] [--seed 0] [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
@@ -8,7 +8,14 @@ seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
 int8 towers; `swin` is Swin-Base in multimodal mode; `swin-fusion` is
 Swin-Base in fusion mode (the STG-CMA exchange), or Swin-Large with
 `--preset swin_large`; the Swin models serve a bf16 tower, or with `--int8`
-the tower made int8 by `quantize_swin_tower` (`--int8` takes a Swin model). With `--fused` the CLIP model also serves
+the tower made int8 by `quantize_swin_tower` (`--int8` takes a Swin AVE
+model). `avs` serves AVSBench segmentation (`add_avs`): Swin-Large fusion
+(or Swin-Base with `--preset swin_base`) at T = 5 frames with its
+multi-scale taps, TPAVI and the FPN decoder, bf16; beside the request's
+trace it traces the tower and the decoder once each on the inputs already
+on the card and prints the device time of each, so that the request's
+device time splits into the host-to-device copy, the tower and the head.
+With `--fused` the CLIP model also serves
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
 STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
 it also serves the int8 tower with the adapter-fused kernels
@@ -41,8 +48,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import clip_b16, swin_base, swin_large
+from ..configs import AVSHeadConfig, clip_b16, swin_base, swin_large
 from ..models.ave import random_clip_ave, random_swin_ave
+from ..models.avs import avs_head_apply, random_avs
+from ..nn import swin
 from ..ops.quant import quantize_clip_tower
 from ..serving import MultiTaskServer
 
@@ -63,10 +72,10 @@ PORT_KERNELS = ("gemm_wgmma_kernel", "attn_small_kernel", "attn_resident_kernel"
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("clip", "swin", "swin-fusion"), default="clip")
+    ap.add_argument("--model", choices=("clip", "swin", "swin-fusion", "avs"), default="clip")
     ap.add_argument("--int8", action="store_true", help="serve the Swin tower in int8")
-    ap.add_argument("--preset", choices=("swin_base", "swin_large"), default="swin_base",
-                    help="the Swin model's preset")
+    ap.add_argument("--preset", choices=("swin_base", "swin_large"), default=None,
+                    help="the Swin model's preset (swin_base; avs: swin_large)")
     ap.add_argument("--fused", action="store_true",
                     help="also serve the CLIP model in the fused-block configuration")
     ap.add_argument("--qfuse", action="store_true",
@@ -76,8 +85,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
-    if args.int8 and args.model == "clip":
-        ap.error("--int8 takes a Swin model (clip serves its bf16 and int8 towers already)")
+    if args.int8 and args.model in ("clip", "avs"):
+        ap.error("--int8 takes a Swin AVE model (clip serves its bf16 and int8 towers already)")
+    preset = args.preset or ("swin_large" if args.model == "avs" else "swin_base")
     if (args.fused or args.qfuse or args.tv2) and args.model != "clip":
         ap.error("--fused, --qfuse and --tv2 take the CLIP model")
     if not torch.cuda.is_available():
@@ -87,11 +97,22 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     srv = MultiTaskServer(device="cuda")
     rng = np.random.RandomState(args.seed)
-    if args.model in ("swin", "swin-fusion"):
+    make_swin = {"swin_base": swin_base, "swin_large": swin_large}[preset]
+    avs = None
+    if args.model == "avs":
+        cfg = make_swin(ftmode="fusion", num_frames=5)
+        hcfg = AVSHeadConfig(stage_dims=tuple(cfg.stage_dim(i) for i in range(cfg.num_layers)),
+                             audio_dim=cfg.num_features, num_frames=cfg.num_frames)
+        model = random_avs(cfg, hcfg, args.seed)
+        srv.add_avs(f"avs_{preset}_fusion_bf16", cfg, hcfg, model)
+        avs = (cfg, hcfg)
+        n = cfg.img_size
+        batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
+                 "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}
+    elif args.model in ("swin", "swin-fusion"):
         ftmode = "multimodal" if args.model == "swin" else "fusion"
-        cfg = {"swin_base": swin_base, "swin_large": swin_large}[args.preset](
-            ftmode=ftmode, label_dim=29)
-        srv.add_ave(f"{args.preset}_{ftmode}_{'int8' if args.int8 else 'bf16'}", cfg,
+        cfg = make_swin(ftmode=ftmode, label_dim=29)
+        srv.add_ave(f"{preset}_{ftmode}_{'int8' if args.int8 else 'bf16'}", cfg,
                     random_swin_ave(cfg, args.seed, int8=args.int8))
         n = cfg.img_size
         batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
@@ -161,7 +182,44 @@ def main(argv=None) -> int:
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:20]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:110]}")
+        if avs is not None:
+            trace_avs_parts(task, *avs, srv.models[task], batch, h2d_us, wall, args.out)
     return 0
+
+
+def _device_rows(fn, path):
+    """The device-side rows (kernels, copies) of one traced call of fn, and
+    the call's result."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], out
+
+
+def trace_avs_parts(task, cfg, hcfg, model, batch, h2d_us, wall, out_dir):
+    """The AVS request split on the served `model` (the server's own cast
+    copy): the tower (`backbone_apply` with the taps) and the decoder
+    (`avs_head_apply`), each traced once on inputs already on the card,
+    beside the request's host-to-device copy and untraced wall time."""
+    a, v = (torch.as_tensor(batch[k]).to("cuda", torch.bfloat16) for k in ("a", "v"))
+    with torch.inference_mode():
+        def tower():
+            return swin.backbone_apply(model.backbone, cfg, a=a, v=v, collect_multiscale=True)
+        feats = tower()                                   # warm-up
+        avs_head_apply(model.avstask, hcfg, feats)
+        tower_rows, feats = _device_rows(tower, os.path.join(out_dir, f"{task}_tower.json"))
+        head_rows, _ = _device_rows(lambda: avs_head_apply(model.avstask, hcfg, feats),
+                                    os.path.join(out_dir, f"{task}_head.json"))
+    tower_us, head_us = (sum(e.self_device_time_total for e in rows)
+                         for rows in (tower_rows, head_rows))
+    print(f"[{task}] the head's kernels, by device time:")
+    for e in sorted(head_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    frames = B * cfg.num_ttokens
+    print(f"[{task}] split: host-to-device copy {h2d_us / 1e3:.3f} ms, tower {tower_us / 1e3:.2f} "
+          f"ms, head {head_us / 1e3:.2f} ms of device time; untraced wall {wall * 1e3:.2f} ms = "
+          f"{frames / wall:.2f} masks/s ({B} clips of {cfg.num_ttokens} frames)")
 
 
 if __name__ == "__main__":

@@ -334,8 +334,11 @@ def _swin_work(cfg, quantized):
 PRESETS = [(f"{name}_{mode}", preset, mode) for name, preset, modes in (
     ("clip_b16", clip_b16, ("fusion", "multimodal", "videoonly", "audioonly")),
     ("clip_l14", clip_l14, ("fusion", "multimodal", "videoonly", "audioonly")),
-    ("swin_base", swin_base, ("fusion", "multimodal")),
-    ("swin_large", swin_large, ("fusion", "multimodal"))) for mode in modes]
+    ("swin_base", swin_base, ("fusion", "multimodal", "videoonly", "audioonly")),
+    ("swin_large", swin_large, ("fusion", "multimodal")),
+    # AVS: Swin-Large fusion at T = 5 (every temporal core over 5 tokens)
+    ("swin_large_avs", lambda **kw: swin_large(num_frames=5, **kw), ("fusion",)))
+    for mode in modes]
 
 
 @pytest.mark.parametrize("name,preset,ftmode", PRESETS, ids=[p[0] for p in PRESETS])
@@ -367,3 +370,5 @@ def test_presets_products_and_cores_lie_within_the_hopper_limits(monkeypatch, na
         assert (257, 64) in cores and (64, 64) in cores
     if name == "swin_large_fusion":
         assert (96, 768) in products and (49, 32) in cores
+    if name == "swin_large_avs_fusion":
+        assert (5, 32) in cores and (10, 32) not in cores

@@ -183,13 +183,16 @@ def test_launch_counts_match_the_forward(monkeypatch, routes):
 
 @pytest.mark.parametrize("ftmode", ["audioonly", "videoonly"])
 def test_unported_ftmodes_raise(ftmode):
-    """What still raises: the Swin single-stream modes. The CLIP tower takes
-    the modes of the same names."""
-    cfg = swin_tiny_test(**{**TINY, "ftmode": ftmode})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        random_swin_ave(cfg, 0)
+    """What raises: an ftmode the JAX package has not. The Swin
+    single-stream modes are ported: like the CLIP tower's modes of the same
+    names they build the single head (their forward is held to JAX in
+    tests/test_torch_port_single_stream.py)."""
+    with pytest.raises(ValueError, match="unknown Swin ftmode"):
+        random_swin_ave(swin_tiny_test(**{**TINY, "ftmode": ftmode + "_nega"}), 0)
     from stgcma_tpu_torch.configs import clip_tiny_test
     from stgcma_tpu_torch.models.ave import SingleHead, random_clip_ave
+    cfg = swin_tiny_test(**{**TINY, "ftmode": ftmode})
+    assert isinstance(random_swin_ave(cfg, 0).mlp_head, SingleHead)
     assert isinstance(random_clip_ave(clip_tiny_test(ftmode=ftmode), 0).mlp_head, SingleHead)
 
 
