@@ -13,7 +13,11 @@ returns the port's state dict. Layouts the port keeps:
 - LayerNorm and BatchNorm `scale` -> `weight`; the BatchNorm running
   statistics `mean` -> buffer `running_mean`, `var` -> `running_var`
   (`bias` keeps its name);
-- every other leaf (embeddings, gates) keeps its name and shape.
+- the LSTM's `w_ih` (in, 4H) and `w_hh` (H, 4H) -> torch's (4H, in) and
+  (4H, H) (an attention's packed `in_proj` kernel (C, 3C) is a linear
+  kernel: (3C, C));
+- every other leaf (embeddings such as AVQA's `word2vec`, gates) keeps its
+  name and shape.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..configs import AVSHeadConfig, ClipConfig, SwinConfig
+from ..configs import AVQAHeadConfig, AVSHeadConfig, ClipConfig, SwinConfig
 from ..models.ave import ClipAVE, SwinAVE
+from ..models.avqa import AVQAModel
 from ..models.avs import AVSModel
 from ..ops.common import resolve_device
 from ..ops.quant import quantize_clip_tower, quantize_swin_tower
@@ -44,6 +49,8 @@ def _leaf(key: str, a: np.ndarray):
         return "weight", a
     if key in ("mean", "var"):
         return f"running_{key}", a
+    if key in ("w_ih", "w_hh"):
+        return key, a.T
     return key, a
 
 
@@ -100,3 +107,11 @@ def avs_from_jax(cfg: SwinConfig, hcfg: AVSHeadConfig, tree: Any, device="cuda")
     convs HWIO -> OIHW, the TPAVI BatchNorms' `scale` / `bias` / `mean` /
     `var` -> `weight` / `bias` / `running_mean` / `running_var`."""
     return _load_swin(AVSModel(cfg, hcfg), tree, device)
+
+
+def avqa_from_jax(cfg: SwinConfig, hcfg: AVQAHeadConfig, tree: Any, device="cuda") -> AVQAModel:
+    """An AVQAModel holding the JAX `init_avqa` tree's weights, loaded
+    strictly: the Swin backbone as in `swin_ave_from_jax` (float, or an int8
+    tower), the attentions' packed `in_proj` (C, 3C) -> (3C, C), the LSTM's
+    `w_ih` / `w_hh` transposed to torch's layout, `word2vec` as it is."""
+    return _load_swin(AVQAModel(cfg, hcfg), tree, device)

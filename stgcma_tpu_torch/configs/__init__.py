@@ -1,5 +1,5 @@
-from .model_configs import (AVSHeadConfig, ClipConfig, SwinConfig, clip_b16, clip_l14,
-                            clip_tiny_test, swin_base, swin_large, swin_tiny_test)
+from .model_configs import (AVQAHeadConfig, AVSHeadConfig, ClipConfig, SwinConfig, clip_b16,
+                            clip_l14, clip_tiny_test, swin_base, swin_large, swin_tiny_test)
 
-__all__ = ["AVSHeadConfig", "ClipConfig", "SwinConfig", "clip_b16", "clip_l14",
+__all__ = ["AVQAHeadConfig", "AVSHeadConfig", "ClipConfig", "SwinConfig", "clip_b16", "clip_l14",
            "clip_tiny_test", "swin_base", "swin_large", "swin_tiny_test"]

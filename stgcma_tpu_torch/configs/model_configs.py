@@ -1,7 +1,7 @@
 """CLIP and Swin tower configurations and their presets.
 
 The port's own copy of `stgcma_tpu/configs/model_configs.py` (ClipConfig,
-SwinConfig, AVSHeadConfig and the clip_b16 / clip_l14 / clip_tiny_test,
+SwinConfig, AVSHeadConfig, AVQAHeadConfig and the clip_b16 / clip_l14 / clip_tiny_test,
 swin_base / swin_large / swin_tiny_test presets), so that the port imports
 nothing of the JAX package.
 """
@@ -143,6 +143,24 @@ class AVSHeadConfig:
     audio_dim: int = 1536
     tpavi_audio_dim: int = 128
     num_frames: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class AVQAHeadConfig:
+    """AVQA heads (reference: AVQA/model/Swin_AVQAModel_V1.py:1420-1473)."""
+
+    feat_dim: int = 1536
+    vocab_size: int = 93
+    answer_dim: int = 42
+    qst_word_embed: int = 1536
+    qst_hidden: int = 1536
+    qst_layers: int = 1
+    attn_heads: int = 4
+    # train-time dropout on the QA-head attention weights (reference
+    # MultiheadAttention(1536, 4, dropout=0.1), Swin_AVQAModel_V1.py:1449-1450)
+    attn_dropout: float = 0.1
+    grid: int = 7
+    num_frames: int = 10
 
 
 def swin_base(**kw) -> SwinConfig:

@@ -7,11 +7,10 @@ Swin_AVE.py:394-488), `multimodal_adapt_no_fusion` (Swin_AVE.py:490-591) and
 `BlockStatic` and `make_block_static` (:42-78), the mode table (:82),
 `_temporal_branch` (:163), `_ffn` (:190), `_spatial_windows` (:214),
 `_merge_windows` (:248), `_single_stream` (:255), `_dual_no_fusion` (:271),
-`_dual_fusion` (:290, without the AVQA `nega` stream), `block_apply`
+`_dual_fusion` (:290, with the AVQA `nega` stream), `block_apply`
 (:361), the patch embed and merging (:382-407), `backbone_statics` (:410),
 and the unrolled `_run_layers` (:435, with the AVS `multi_scale` taps) and
-`backbone_apply` (:483). The `nega` stream is not ported yet (ROADMAP.md,
-queue 1, the AVQA item).
+`backbone_apply` (:483, with `v_nega`).
 
 The modules only hold parameters, named as the JAX tree's keys; the
 functions read them. Tokens are batch-first (B*T, H*W, C). The kernel routes
@@ -316,18 +315,30 @@ def _dual_no_fusion(blk: SwinBlock, v, a, st: BlockStatic):
     return out[0], out[1]
 
 
-def _dual_fusion(blk: SwinBlock, v, a, st: BlockStatic):
+def _nega_block(blk: SwinBlock, x, st: BlockStatic):
+    """The AVQA `nega` stream through one block (`swin.py:314-317`,
+    `:352-357`): the frozen tower alone, no temporal branch and no adapter:
+    W-MSA (K1 / K2 to 16 heads, else LN + the K8 core), the window merge, the
+    FFN (`_ffn`: K3 on an int8 tower, K7 where the hidden is large)."""
+    x = x + _merge_windows(_spatial_windows(blk, x, st), st, x.shape[0])
+    return x + _ffn(blk, x)
+
+
+def _dual_fusion(blk: SwinBlock, v, a, st: BlockStatic, nega=None):
     """fusion_adapt, the STG-CMA core (Swin_AVE.py:693-813): the temporal
     branch per stream, then K4 for the rest of the block on small grids;
     elsewhere W-MSA per stream, the gated bidirectional exchange of the
     spatial adapters' hiddens per window (K5), the window merge, the FFN per
     stream and the same exchange of the FFN adapters' hiddens over the full
-    stage grid (K6)."""
+    stage grid (K6). With `nega` (AVQA's negative visual stream,
+    Swin_AVQAModel_V1.py) the block returns a third stream, `_nega_block`'s,
+    which reads none of v and a."""
     if st.t_attn:
         v = _temporal_branch(blk, v, st, "video", "T_Adapter")
         a = _temporal_branch(blk, a, st, "audio", "T_Adapter_Audio")
     if swin_whole_block_enabled(st):
-        return swin_fusion_whole_block(blk, v, a, st)
+        v, a = swin_fusion_whole_block(blk, v, a, st)
+        return (v, a) if nega is None else (v, a, _nega_block(blk, nega, st))
     attn_v, attn_a = _spatial_windows(blk, v, st), _spatial_windows(blk, a, st)
     if st.use_s_adapter:
         vs_h, as_h = cross_modal_fuse_windows(adapter_hidden(blk.S_Adapter2, attn_v),
@@ -338,17 +349,20 @@ def _dual_fusion(blk: SwinBlock, v, a, st: BlockStatic):
     v = v + _merge_windows(attn_v, st, v.shape[0])
     a = a + _merge_windows(attn_a, st, a.shape[0])
     vn, an = _ffn(blk, v), _ffn(blk, a)
-    if not st.use_g_adapter:
-        return v + vn, a + an
-    vn_h, an_h = cross_modal_fuse_flash(adapter_hidden(blk.S_Adapter, vn),
-                                        adapter_hidden(blk.S_Adapter_Audio, an),
-                                        blk.gate_v, blk.gate_a)
-    return (v + vn + adapter_out(blk.S_Adapter, vn_h),
-            a + an + adapter_out(blk.S_Adapter_Audio, an_h))
+    if st.use_g_adapter:
+        vn_h, an_h = cross_modal_fuse_flash(adapter_hidden(blk.S_Adapter, vn),
+                                            adapter_hidden(blk.S_Adapter_Audio, an),
+                                            blk.gate_v, blk.gate_a)
+        v = v + vn + adapter_out(blk.S_Adapter, vn_h)
+        a = a + an + adapter_out(blk.S_Adapter_Audio, an_h)
+    else:
+        v, a = v + vn, a + an
+    return (v, a) if nega is None else (v, a, _nega_block(blk, nega, st))
 
 
 def block_apply(blk: SwinBlock, x, st: BlockStatic):
-    """x is a tensor (single-stream) or the pair (v, a)."""
+    """x is a tensor (single-stream), the pair (v, a) or, in `fusion` mode,
+    the triple (v, a, v_nega)."""
     if st.mode == "video_adapt":
         return _single_stream(blk, x, st, "video")
     if st.mode == "audio_adapt":
@@ -356,7 +370,7 @@ def block_apply(blk: SwinBlock, x, st: BlockStatic):
     if st.mode == "multimodal_adapt_no_fusion":
         return _dual_no_fusion(blk, x[0], x[1], st)
     if st.mode == "fusion_adapt":
-        return _dual_fusion(blk, x[0], x[1], st)
+        return _dual_fusion(blk, x[0], x[1], st, *x[2:])
     raise ValueError(f"unknown Swin block mode {st.mode!r}")
 
 
@@ -399,7 +413,7 @@ def _run_layers(bb: SwinBackbone, cfg: SwinConfig, statics, x, collect_multiscal
     return x, multi_scale
 
 
-def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a=None, v=None,
+def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a=None, v=None, v_nega=None,
                    collect_multiscale: bool = False) -> Dict[str, torch.Tensor]:
     """Normed tokens per stream, (B*T', 49, C_last) at 224^2: {"v"} in
     `videoonly` mode (no a needed), {"a"} in `audioonly` mode (no v), both
@@ -407,7 +421,9 @@ def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a=None, v=None,
     fbank images. In the two-stream modes `collect_multiscale` adds
     "multi_scale" (the taps of `_run_layers`), "B" and "T" (= T'). The last
     tap is the final norm of the visual stream, so "v" is that same tensor:
-    one norm, not two."""
+    one norm, not two. In `fusion` mode `v_nega` (frames as v: AVQA's
+    negative visual stream) adds "v_nega", through the visual patch embed,
+    every block's `_nega_block` and the final norm, and "B" and "T"."""
     statics = backbone_statics(cfg)
     if cfg.ftmode == "videoonly":
         x, _ = _run_layers(bb, cfg, statics, patch_embed_apply(bb.patch_embed, v, cfg))
@@ -416,10 +432,18 @@ def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a=None, v=None,
         x, _ = _run_layers(bb, cfg, statics,
                            patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg))
         return {"a": layernorm_fused(bb.norm, x)}
-    vt = patch_embed_apply(bb.patch_embed, v, cfg)
-    at = patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg)
-    (vt, at), taps = _run_layers(bb, cfg, statics, (vt, at), collect_multiscale)
+    x = (patch_embed_apply(bb.patch_embed, v, cfg),
+         patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg))
+    if v_nega is not None:
+        if cfg.ftmode != "fusion":
+            raise ValueError(f"the nega stream takes a fusion tower, not ftmode {cfg.ftmode!r}")
+        x += (patch_embed_apply(bb.patch_embed, v_nega, cfg),)
+    x, taps = _run_layers(bb, cfg, statics, x, collect_multiscale)
+    vt, at = x[:2]
     out = {"a": layernorm_fused(bb.norm, at)}
+    if v_nega is not None:
+        out.update(v_nega=layernorm_fused(bb.norm, x[2]), B=v.shape[0],
+                   T=v.shape[1] // cfg.patch_size[0])
     if collect_multiscale:
         out.update(v=taps[-1], multi_scale=taps, B=v.shape[0],
                    T=v.shape[1] // cfg.patch_size[0])
@@ -429,7 +453,7 @@ def backbone_apply(bb: SwinBackbone, cfg: SwinConfig, a=None, v=None,
 
 
 def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
-                         quantized: bool = False) -> Dict[str, int]:
+                         quantized: bool = False, nega: bool = False) -> Dict[str, int]:
     """Kernel launches of one backbone forward at batch B, in a dtype of
     `itemsize` bytes, of a float tower or (`quantized`) an int8 one, derived
     from the route functions the forward calls, for cfg.num_ttokens frames a
@@ -438,29 +462,44 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
     (K3 at every FFN outside K4 for int8); K4, K5 and K6 once per call for
     both streams; K10 twice per call (one for each direction) at a stage
     whose full-grid exchange takes its route, and it is listed only where
-    it runs. The AVS taps add no launch: the last one is the final norm."""
+    it runs. The AVS taps add no launch: the last one is the final norm.
+    With `nega` (a `fusion` tower with AVQA's third stream), the nega
+    stream's own: at every block its window site (K1 / K2, or the K8 core
+    past 16 heads) and its FFN (K3 on an int8 tower, K7 where
+    `ffn_kernel_route` takes it), the K4 stages included; no temporal site;
+    K9 at its patch embed, merges and final norm."""
     blk_k, ffn_k = ("K2", "K3") if quantized else ("K1", "K7")
     single = cfg.ftmode in ("videoonly", "audioonly")
+    if nega and cfg.ftmode != "fusion":
+        raise ValueError(f"the nega stream takes a fusion tower, not ftmode {cfg.ftmode!r}")
     per_stream = {blk_k: 0, "K8": 0, "K9": 0} if single else {blk_k: 0, ffn_k: 0, "K8": 0,
                                                                "K9": 0}
+    nega_stream = dict.fromkeys(per_stream, 0)
     per_call = {"K4": 0, "K5": 0, "K6": 0, "K10": 0}
     rows = B * cfg.num_ttokens            # frames through the tower, per stream
     H, Wd = cfg.stage_resolution(0)
-    per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.embed_dim)          # patch embed
+    embed = ln_kernel_route(rows * H * Wd * cfg.embed_dim)                      # patch embed
+    per_stream["K9"] += embed
+    nega_stream["K9"] += embed
     for s, stage in enumerate(backbone_statics(cfg)):
         for st in stage:
             tokens = rows * st.H * st.W
             kernel = block_kernel_route(st.num_heads)
+            site = blk_k if kernel else "K8"
+            ffn = not single and (quantized or ffn_kernel_route(tokens, int(st.dim * 4.0),
+                                                                itemsize))
             if st.t_attn:
-                per_stream[blk_k if kernel else "K8"] += 1
+                per_stream[site] += 1
                 per_stream["K9"] += (not kernel) and ln_kernel_route(tokens * st.dim)
+            if nega:
+                nega_stream[site] += 1
+                nega_stream[ffn_k] += ffn
             if st.mode == "fusion_adapt" and swin_whole_block_enabled(st):
                 per_call["K4"] += 1
                 continue
-            per_stream[blk_k if kernel else "K8"] += 1
+            per_stream[site] += 1
             if not single:
-                per_stream[ffn_k] += quantized or ffn_kernel_route(
-                    tokens, int(st.dim * 4.0), itemsize)
+                per_stream[ffn_k] += ffn
             if st.mode == "fusion_adapt":
                 D = int(st.dim * st.adapter_ratio)
                 per_call["K5"] += st.use_s_adapter
@@ -470,10 +509,15 @@ def launches_per_forward(cfg: SwinConfig, B: int, itemsize: int = 2,
                     per_call["K10"] += 2 * (route == "K10")
         if s < cfg.num_layers - 1:
             H, Wd = cfg.stage_resolution(s)
-            per_stream["K9"] += ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
+            merge = ln_kernel_route(rows * (H // 2) * (Wd // 2) * 4 * cfg.stage_dim(s))
+            per_stream["K9"] += merge
+            nega_stream["K9"] += merge
     H, Wd = cfg.stage_resolution(cfg.num_layers - 1)
-    per_stream["K9"] += ln_kernel_route(rows * H * Wd * cfg.num_features)       # final norm
-    counts = {k: (1 if single else 2) * int(c) for k, c in per_stream.items()}
+    final = ln_kernel_route(rows * H * Wd * cfg.num_features)                   # final norm
+    per_stream["K9"] += final
+    nega_stream["K9"] += final
+    counts = {k: (1 if single else 2) * int(c) + (int(nega_stream[k]) if nega else 0)
+              for k, c in per_stream.items()}
     if cfg.ftmode == "fusion":
         counts.update({k: int(c) for k, c in per_call.items() if c or k != "K10"})
     return counts

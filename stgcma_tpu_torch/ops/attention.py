@@ -2,16 +2,18 @@
 STG-CMA bidirectional gated cross-modal fusion.
 
 Port of `stgcma_tpu/ops/attention.py`: `qkv_attention` (:33-60),
-`gather_bias` (:63), `window_attention` (:70), `temporal_attention` (:77)
-and `cross_modal_fuse` (:87-118, without the resident-pad key masks: the port
-never pads a token stream). Plain torch, as the JAX package leaves these to
-XLA; the kernel routes of the Swin tower are in ops/fused_attn.py.
+`gather_bias` (:63), `window_attention` (:70), `temporal_attention` (:77),
+`cross_modal_fuse` (:87-118, without the resident-pad key masks: the port
+never pads a token stream) and `mha` (:121-167, the float path, without
+train-time dropout). Plain torch, as the JAX package leaves these to XLA;
+the kernel routes of the Swin tower are in ops/fused_attn.py.
 """
 from __future__ import annotations
 
 import torch
+from torch import nn
 
-from .common import linear
+from .common import Linear, linear
 
 
 def qkv_attention(p, x, num_heads: int, bias=None, mask=None):
@@ -75,3 +77,37 @@ def cross_modal_fuse(v_hidden, a_hidden, gate_v, gate_a):
     v_out = v_hidden + gate_v.to(dt) * a2v
     a_out = a_hidden + gate_a.to(dt) * v2a
     return v_out, a_out
+
+
+class MultiheadAttention(nn.Module):
+    """nn.MultiheadAttention's parameters: the packed `in_proj` (3C, C),
+    [q; k; v] on the out dim as torch packs them, and `out_proj`."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.in_proj = Linear(dim, 3 * dim)
+        self.out_proj = Linear(dim, dim)
+
+
+def mha(p: MultiheadAttention, q, k, v, num_heads: int):
+    """torch nn.MultiheadAttention in eval mode on batch-first (B, N, C)
+    q / k / v, with the JAX `mha`'s rounding points (:150-167): each
+    projection rounded to the input's dtype, then its bias added; q scaled by
+    dh^-1/2 rounded to that dtype before the product; fp32 logits and
+    softmax, cast back before p.v. The JAX function's mask, int8 `kernel_q`
+    branch and train-time dropout are not ported (no AVQA path passes a mask
+    or reaches the other two)."""
+    B, Nq, C = q.shape
+    dh = C // num_heads
+    dt = q.dtype
+    w, b = p.in_proj.weight.to(dt), p.in_proj.bias.to(dt)
+
+    def heads(x, i):
+        y = torch.matmul(x, w[i * C:(i + 1) * C].t()) + b[i * C:(i + 1) * C]
+        return y.reshape(B, -1, num_heads, dh).transpose(1, 2)
+    qh, kh, vh = heads(q, 0), heads(k, 1), heads(v, 2)
+    qh = qh * torch.tensor(dh ** -0.5, dtype=dt)
+    attn = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    attn = torch.softmax(attn, dim=-1).to(dt)
+    out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, Nq, C)
+    return linear(p.out_proj, out)

@@ -72,7 +72,7 @@ products with the bf16 epilogue must equal it bit for bit, the fp32 GELU
 hiddens lie within 1e-6 of it, for the ulps of erff / expf, and their row
 maxima equal those of the stored hidden; the script exits 1 if a row is not
 held), then timed with CUDA events (the
-mean of 20 calls after 3). With --tree the package is imported from another
+mean of 20 calls after 3; its plain version, `plain_ms`, of 3 after 1). With --tree the package is imported from another
 checkout, e.g. an earlier commit unpacked with `git archive` into a
 directory .gitignore lists, so that two versions run in one chip call in
 turns (each builds its own kernels); every int8 product row carries a
@@ -267,6 +267,7 @@ def s8_cases(g):
     `_gemm_s8` positionally, as both trees take it; the fp32 hidden gets its
     row maxima where the tree's `_gemm_s8` takes `amax`."""
     import torch
+    import torch.nn.functional as F
     from stgcma_tpu_torch.ops import fused_attn as FA
     dev = "cuda"
     takes_amax = "amax" in inspect.signature(FA._gemm_s8).parameters
@@ -315,18 +316,26 @@ def s8_cases(g):
     def quant_hidden():
         s = torch.cuda.current_stream().cuda_stream
         return FA._quant_rows(h, s, amax=hmax) if takes_given else FA._quant_rows(h, s)
+
+    def library_quant(xf, amax=None):
+        """Row quantization from PyTorch's own calls (timed only)."""
+        sx = (xf.abs().amax(-1) if amax is None else amax).clamp_min(1e-30) / 127
+        return torch.round(xf / sx[:, None]).clamp(-127, 127).to(torch.int8), sx
     cases += [
         {"row": f"rowprep.cu LN + row quantization {(M, C)} bf16",
          "fn": lambda: FA._quant_rows(x, torch.cuda.current_stream().cuda_stream, lw, lb),
          "plain": lambda: quant_plain(FA._ln_f32(x, lw, lb)),
+         "library": lambda: library_quant(F.layer_norm(x.float(), (C,), lw.float(), lb.float())),
          "bound": bound_ms(0, 2 * M * C + M * C + 4 * M)},
         {"row": f"rowprep.cu row quantization of the fp32 hidden {(M, H)}"
                 f"{', given row maxima' if takes_given else ''}",
          "fn": quant_hidden, "plain": lambda: quant_plain(h),
+         "library": lambda: library_quant(h, hmax),
          "bound": bound_ms(0, 4 * M * H + M * H + 8 * M)},
         {"row": f"rowprep.cu row quantization of the fp32 hidden {(M, H)}, own row maxima",
          "fn": lambda: FA._quant_rows(h, torch.cuda.current_stream().cuda_stream),
-         "plain": lambda: quant_plain(h), "bound": bound_ms(0, 4 * M * H + M * H + 4 * M)}]
+         "plain": lambda: quant_plain(h), "library": lambda: library_quant(h),
+         "bound": bound_ms(0, 4 * M * H + M * H + 4 * M)}]
     return cases
 
 
@@ -713,6 +722,12 @@ def tadapt_cases(g, sfu):
     def sdpa(qkv):
         qq, kk, vv = qkv.view(R, T, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
         return F.scaled_dot_product_attention(qq, kk, vv)
+
+    def deq(a8, s8, w8, ws8, b8):
+        """The int8 product from PyTorch's own calls: `torch._int_mm`, the
+        fp32 dequant and bias, bf16 (timed only)."""
+        return (torch._int_mm(a8, w8.t()).float() * s8[:, None] * ws8.float()
+                + b8.float()).to(bf)
     grams = 4 * R * T * T * C
     t_bytes = 2 * (2 * M * C + 3 * C * C)
     cases += [
@@ -728,6 +743,7 @@ def tadapt_cases(g, sfu):
                                  cur()),
          "plain": lambda: attend(s8_plain(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"],
                                           "bf16")),
+         "library": lambda: sdpa(deq(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"])),
          "tol": TOL_Q, "graph": True,
          "bound": max(bound_ms(2 * M * 3 * C * C, 3 * M * C + 3 * C * C + 4 * M,
                                peak=H100_INT8, exps=R * heads * T * T, sfu=sfu),
@@ -777,10 +793,14 @@ def tadapt_cases(g, sfu):
          "bound": bound_ms(r_flops, 2 * (3 * M * C + C * C + 2 * C * D))},
         {"row": f"rowadapt.cu R int8 K11 qd CLIP-B/16 video rows ({M}, {C}, {C}) D {D}",
          "fn": rq, "plain": rq_plain, "tol": TOL_Q, "graph": True,
+         "library": lambda: F.gelu(F.linear(deq(codes, sa, wq["w_proj"], wq["s_proj"],
+                                                wq["b_proj"]), qd[8], qd[9])),
          "bound": max(bound_ms(2 * M * C * C, M * C + C * C + 2 * M * D + 4 * M, peak=H100_INT8),
                       bound_ms(2 * M * C * D, 0))},
         {"row": f"rowadapt.cu R int8 K11 ffn_qh fc2 CLIP-B/16 video ({M}, {C}, {4 * C}) D {D}",
          "fn": rf, "plain": rf_plain, "tol": TOL_Q, "graph": True,
+         "library": lambda: (lambda o: (o, F.gelu(F.linear(o, qd[8], qd[9]))))(
+             deq(codes4, sa, w2q.weight_q, w2q.weight_s, w2q.bias)),
          "bound": max(bound_ms(2 * M * C * 4 * C, 4 * M * C + 4 * C * C + 2 * M * (C + D) + 4 * M,
                                peak=H100_INT8), bound_ms(2 * M * C * D, 0))}]
     if "tokens" not in inspect.signature(FA._tattn).parameters:
@@ -821,6 +841,7 @@ def tadapt_cases(g, sfu):
                                  cur(), tokens=N),
          "plain": lambda: attend_v2(s8_plain(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"],
                                              "bf16")),
+         "library": lambda: sdpa_v2(deq(codes, sa, wq["w_qkv"], wq["s_qkv"], wq["b_qkv"])),
          "tol": TOL_Q, "graph": True,
          "bound": max(bound_ms(2 * M * 3 * C * C, 3 * M * C + 3 * C * C + 4 * M,
                                peak=H100_INT8, exps=R * heads * T * T, sfu=sfu),
@@ -1046,7 +1067,8 @@ def main(argv=None) -> int:
             tol = case.get("tol", 0.0 if case.get("exact") else TOL_S8_F32 if "amax" in case
                            else TOL)
             ms = cuda_ms(case["fn"])
-            row = {"label": args.label, "row": case["row"], "ms": ms, "rel_err": err, "tol": tol}
+            row = {"label": args.label, "row": case["row"], "ms": ms, "rel_err": err, "tol": tol,
+                   "plain_ms": cuda_ms(case["plain"], iters=3, warmup=1)}
             if "amax" in case:
                 row["digest"] = _digest(case["fn"]())
             if "bare" in case:

@@ -1,20 +1,25 @@
 """Where the time of one serving forward goes on the card.
 
-    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion|avs] [--int8]
-        [--preset swin_base|swin_large] [--fused] [--qfuse] [--tv2] [--seed 0] [--out DIR]
+    python3 -m stgcma_tpu_torch.tools.trace_slice [--model clip|swin|swin-fusion|avs|avqa]
+        [--int8] [--preset swin_base|swin_large|clip_b16|clip_l14] [--fused] [--qfuse] [--tv2]
+        [--seed 0] [--out DIR]
 
 Serves AVE-29 through the port's MultiTaskServer at full width, random
-seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode, bf16 and
-int8 towers; `swin` is Swin-Base in multimodal mode; `swin-fusion` is
-Swin-Base in fusion mode (the STG-CMA exchange), or Swin-Large with
-`--preset swin_large`; the Swin models serve a bf16 tower, or with `--int8`
-the tower made int8 by `quantize_swin_tower` (`--int8` takes a Swin AVE
-model). `avs` serves AVSBench segmentation (`add_avs`): Swin-Large fusion
-(or Swin-Base with `--preset swin_base`) at T = 5 frames with its
-multi-scale taps, TPAVI and the FPN decoder, bf16; beside the request's
-trace it traces the tower and the decoder once each on the inputs already
-on the card and prints the device time of each, so that the request's
-device time splits into the host-to-device copy, the tower and the head.
+seeded weights: `clip` (default) is CLIP ViT-B/16 in fusion mode (ViT-L/14
+with `--preset clip_l14`), bf16 and int8 towers; `swin` is Swin-Base in
+multimodal mode; `swin-fusion` is Swin-Base in fusion mode (the STG-CMA
+exchange), or Swin-Large with `--preset swin_large`; the Swin models serve a
+bf16 tower, or with `--int8` the tower made int8 by `quantize_swin_tower`.
+`avs` serves AVSBench segmentation (`add_avs`): Swin-Large fusion (or
+Swin-Base with `--preset swin_base`) at T = 5 frames with its multi-scale
+taps, TPAVI and the FPN decoder, bf16. `avqa` serves MUSIC-AVQA
+(`add_avqa`): Swin-Large fusion (or Swin-Base) at T = 10 frames with the
+question LSTM, grounding and QA attention, bf16 or with `--int8`; its
+request carries v_nega, which the server leaves on the host. For `avs` and
+`avqa`, beside the request's trace it traces the tower and the head once
+each on the inputs already on the card and prints the device time of each,
+so that the request's device time splits into the host-to-device copy, the
+tower and the head.
 With `--fused` the CLIP model also serves
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
 STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
@@ -48,8 +53,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs import AVSHeadConfig, clip_b16, swin_base, swin_large
+from ..configs import AVQAHeadConfig, AVSHeadConfig, clip_b16, clip_l14, swin_base, swin_large
 from ..models.ave import random_clip_ave, random_swin_ave
+from ..models.avqa import answer_head_apply, random_avqa
 from ..models.avs import avs_head_apply, random_avs
 from ..nn import swin
 from ..ops.quant import quantize_clip_tower
@@ -72,10 +78,12 @@ PORT_KERNELS = ("gemm_wgmma_kernel", "attn_small_kernel", "attn_resident_kernel"
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("clip", "swin", "swin-fusion", "avs"), default="clip")
+    ap.add_argument("--model", choices=("clip", "swin", "swin-fusion", "avs", "avqa"),
+                    default="clip")
     ap.add_argument("--int8", action="store_true", help="serve the Swin tower in int8")
-    ap.add_argument("--preset", choices=("swin_base", "swin_large"), default=None,
-                    help="the Swin model's preset (swin_base; avs: swin_large)")
+    ap.add_argument("--preset", choices=("swin_base", "swin_large", "clip_b16", "clip_l14"),
+                    default=None, help="the model's preset (clip_b16, swin_base; avs and avqa: "
+                                       "swin_large)")
     ap.add_argument("--fused", action="store_true",
                     help="also serve the CLIP model in the fused-block configuration")
     ap.add_argument("--qfuse", action="store_true",
@@ -86,8 +94,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/trace")
     args = ap.parse_args(argv)
     if args.int8 and args.model in ("clip", "avs"):
-        ap.error("--int8 takes a Swin AVE model (clip serves its bf16 and int8 towers already)")
-    preset = args.preset or ("swin_large" if args.model == "avs" else "swin_base")
+        ap.error("--int8 takes a Swin AVE or the AVQA model (clip serves its bf16 and int8 "
+                 "towers already)")
+    preset = args.preset or {"clip": "clip_b16", "avs": "swin_large",
+                             "avqa": "swin_large"}.get(args.model, "swin_base")
+    if preset.startswith("clip") != (args.model == "clip"):
+        ap.error(f"--preset {preset} does not fit --model {args.model}")
     if (args.fused or args.qfuse or args.tv2) and args.model != "clip":
         ap.error("--fused, --qfuse and --tv2 take the CLIP model")
     if not torch.cuda.is_available():
@@ -97,10 +109,22 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     srv = MultiTaskServer(device="cuda")
     rng = np.random.RandomState(args.seed)
-    make_swin = {"swin_base": swin_base, "swin_large": swin_large}[preset]
-    avs = None
-    if args.model == "avs":
-        cfg = make_swin(ftmode="fusion", num_frames=5)
+    make = {"swin_base": swin_base, "swin_large": swin_large, "clip_b16": clip_b16,
+            "clip_l14": clip_l14}[preset]
+    avs = avqa = None
+    if args.model == "avqa":
+        cfg = make(ftmode="fusion", num_frames=10)
+        hcfg = AVQAHeadConfig(feat_dim=cfg.num_features, grid=7, num_frames=cfg.num_frames)
+        task = f"avqa_{preset}_fusion_{'int8' if args.int8 else 'bf16'}"
+        srv.add_avqa(task, cfg, hcfg, random_avqa(cfg, hcfg, args.seed, int8=args.int8))
+        avqa = (cfg, hcfg)
+        n, T = cfg.img_size, cfg.num_frames
+        batch = {"a": rng.randn(B, T, n, n).astype(np.float32),
+                 "v": rng.randn(B, T, n, n, 3).astype(np.float32),
+                 "v_nega": rng.randn(B, T, n, n, 3).astype(np.float32),
+                 "question": rng.randint(0, hcfg.vocab_size, (B, 14)).astype(np.int64)}
+    elif args.model == "avs":
+        cfg = make(ftmode="fusion", num_frames=5)
         hcfg = AVSHeadConfig(stage_dims=tuple(cfg.stage_dim(i) for i in range(cfg.num_layers)),
                              audio_dim=cfg.num_features, num_frames=cfg.num_frames)
         model = random_avs(cfg, hcfg, args.seed)
@@ -111,14 +135,14 @@ def main(argv=None) -> int:
                  "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}
     elif args.model in ("swin", "swin-fusion"):
         ftmode = "multimodal" if args.model == "swin" else "fusion"
-        cfg = make_swin(ftmode=ftmode, label_dim=29)
+        cfg = make(ftmode=ftmode, label_dim=29)
         srv.add_ave(f"{preset}_{ftmode}_{'int8' if args.int8 else 'bf16'}", cfg,
                     random_swin_ave(cfg, args.seed, int8=args.int8))
         n = cfg.img_size
         batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
                  "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}
     else:
-        cfg = clip_b16(ftmode="fusion", label_dim=29)
+        cfg = make(ftmode="fusion", label_dim=29)
         model = random_clip_ave(cfg, args.seed)
         model_q = random_clip_ave(cfg, args.seed)
         model_q.backbone = quantize_clip_tower(model_q.backbone)
@@ -184,6 +208,8 @@ def main(argv=None) -> int:
                   f"{e.key[:110]}")
         if avs is not None:
             trace_avs_parts(task, *avs, srv.models[task], batch, h2d_us, wall, args.out)
+        if avqa is not None:
+            trace_avqa_parts(task, *avqa, srv.models[task], batch, h2d_us, wall, args.out)
     return 0
 
 
@@ -220,6 +246,33 @@ def trace_avs_parts(task, cfg, hcfg, model, batch, h2d_us, wall, out_dir):
     print(f"[{task}] split: host-to-device copy {h2d_us / 1e3:.3f} ms, tower {tower_us / 1e3:.2f} "
           f"ms, head {head_us / 1e3:.2f} ms of device time; untraced wall {wall * 1e3:.2f} ms = "
           f"{frames / wall:.2f} masks/s ({B} clips of {cfg.num_ttokens} frames)")
+
+
+def trace_avqa_parts(task, cfg, hcfg, model, batch, h2d_us, wall, out_dir):
+    """The AVQA request split on the served `model` (the server's own cast
+    copy): the two-stream tower (`backbone_apply`) and the head
+    (`answer_head_apply`: the question encoder, the grounding and the two
+    attentions), each traced once on inputs already on the card, beside the
+    request's host-to-device copy and untraced wall time."""
+    a, v = (torch.as_tensor(batch[k]).to("cuda", torch.bfloat16) for k in ("a", "v"))
+    q = torch.as_tensor(batch["question"]).to("cuda")
+    T = cfg.num_ttokens
+    with torch.inference_mode():
+        def tower():
+            return swin.backbone_apply(model.backbone, cfg, a=a, v=v)
+        feats = tower()                                   # warm-up
+        answer_head_apply(model.avqatask, hcfg, feats, q, B, T)
+        tower_rows, feats = _device_rows(tower, os.path.join(out_dir, f"{task}_tower.json"))
+        head_rows, _ = _device_rows(lambda: answer_head_apply(model.avqatask, hcfg, feats, q, B, T),
+                                    os.path.join(out_dir, f"{task}_head.json"))
+    tower_us, head_us = (sum(e.self_device_time_total for e in rows)
+                         for rows in (tower_rows, head_rows))
+    print(f"[{task}] the head's kernels, by device time:")
+    for e in sorted(head_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    print(f"[{task}] split: host-to-device copy {h2d_us / 1e3:.3f} ms, tower {tower_us / 1e3:.2f} "
+          f"ms, head {head_us / 1e3:.2f} ms of device time; untraced wall {wall * 1e3:.2f} ms = "
+          f"{B / wall:.2f} clips/s ({B} clips of {T} frames, v_nega not copied)")
 
 
 if __name__ == "__main__":
