@@ -76,7 +76,8 @@ line:
      Swin-Large tower: K2 at the same four sites, K3 with erf-GELU at the
      stage 0-1 FFNs and at the nega stream's stage 2-3 FFNs (15680 / 3920
      rows of C = 768 / 1536), K4's int8 variant at D = 96 (stage 2 shifted
-     and unshifted, stage 3 at TOL_K4Q_LARGE) with its five wiring faults, and `int8_matmul`
+     and unshifted; stage 3 held by F5's bar, the kernel and its bf16 plain
+     version each against the block in fp32) with its five wiring faults, and `int8_matmul`
      at the stage 2-3 qkv and proj around the K8 site; for the int8 CLIP
      ViT-L/14 tower (`phase_l14_int8_kernels`), K2 at the video and audio
      temporal sites (2056 / 512, 10, 1024) and the audio spatial site (80,
@@ -156,7 +157,23 @@ line:
        heads) with exactly `launches_per_forward(nega=True)`, new negative
        frames moving out_match_nega alone (out_qa and out_match_posi bit
        for bit), and its three outputs at B = 1 against the CPU at depths
-       2/2/2/2.
+       2/2/2/2;
+     - the stream (`phase_stream`): CLIP ViT-B/16 fusion at full width and
+       depth built through `load_pretrained_clip` from a random OpenAI-layout
+       visual state dict (`proj` dropped) over live adapters, gates and head,
+       bf16 and with the int8 tower quantized after the load; 2B + 3
+       requests of 10 s 16 kHz WAVs (tones with seeded noise, written to a
+       temporary directory) and uint8 frames (10, 256, 256, 3) through
+       `serve_stream` at batch_size B (`HostDecoder`: native where `make -C
+       native` builds, scipy otherwise; the host batch pinned; the fbank and
+       the frame transforms on the card): ids complete and in order, the
+       tail padded and dropped, launches = forwards x launches_per_forward,
+       the tail request against the CPU pipeline and the CPU model; the
+       AVE, AVQA and AVS pipelines on the card against the CPU (fbank 1e-3,
+       frames 1e-5); the H2D bytes and ms of the stream's copy against
+       `predict`'s float copy; streamed and `predict` clips/s; a second task
+       on the same frozen tower (`share_frozen_tower`: every frozen leaf
+       shares storage, the logits do not move).
 The script logs its total wall time. The line before the last is one JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 1 at once.
@@ -193,7 +210,12 @@ TOL_K4Q_LARGE = 1e-1  # K4's int8 variant at Swin-Large stage 3 (C = 1536, D = 9
                       # 4.8% and 6.8% from it on three draws (923 of 12 M outputs past 2e-2),
                       # but 1.7% with the gates zeroed and 1.6% with D_fc1 halved; so the row
                       # logs that noise floor, and the same block with D_fc1 halved is held
-                      # at TOL_KERNEL_Q beside it
+                      # at TOL_KERNEL_Q beside it. Since F5 was settled (F5_FACTOR) this is
+                      # only the cap of the row's bar
+F5_FACTOR = 1.5      # ROADMAP F5: the int8 K4 at Swin-Large stage 3 may sit at most this many
+                     # times as far from the block's fp32 plain version as its bf16 plain
+                     # version does; its kernel-vs-plain bar is then (1 + F5_FACTOR) x the
+                     # plain version's distance (the triangle bound), capped at TOL_K4Q_LARGE
 TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 through
                      # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
@@ -1336,11 +1358,16 @@ def k4_rows(cfg, g, sfu, int8, tower="Swin", tol=None, stage3_tol=None):
             floor = plain_noise_floor(plain, args, g)
             log(f"  {name}: the plain version moves {floor:.4g} of max |plain| when 0.01% of "
                 f"v's elements move by one bf16 ulp")
+            f5 = None
+            if row_tol != tol:              # F5: kernel and plain against the block in fp32
+                row_tol, f5 = f5_bar(name, kernel, plain, args, row_tol)
             row = check_kernel(name, kernel, plain, args, {},
                                block_k4_bound(BT, N, C, st.num_heads, D, sfu, int8,
                                               window=st.window_size ** 2),
                                library_k4(v, a, w, st.num_heads, bias, fuse_mask), row_tol)
             row["noise_floor_rel"] = floor
+            if f5:
+                row["f5"] = f5
             row["bound_fullgrid_ms"] = block_k4_bound(BT, N, C, st.num_heads, D, sfu, int8)[0]
             log(f"  {name}: full-grid bound {row['bound_fullgrid_ms']:.4f} ms")
             row["faults_rel"] = check_k4_faults(name, args, kernel, plain, row_tol)
@@ -1355,6 +1382,31 @@ def k4_rows(cfg, g, sfu, int8, tower="Swin", tol=None, stage3_tol=None):
                                                    tol)
         rows.append(row)
     return rows
+
+
+def f5_bar(name, kernel, plain, args, cap):
+    """ROADMAP F5: the kernel (int8 K4 at Swin-Large stage 3) and its bf16
+    plain version, each against the same block's plain version in fp32 on
+    the same inputs and int8 weights (bf16 values widened exactly). The
+    kernel must be no further from it than F5_FACTOR x the plain version's
+    distance d_p; it then holds the kernel-vs-plain row at (1 + F5_FACTOR)
+    d_p (the triangle bound), no looser than `cap`. Returns (bar, the two
+    distances)."""
+    v, a, w = args[:3]
+    w32 = {k: t.float() if t.is_floating_point() else t for k, t in w.items()}
+    ref = _flat(plain(v.float(), a.float(), w32, *args[3:]))
+    scale = ref.abs().max()
+    d_k = ((_flat(kernel(*args)) - ref).abs().max() / scale).item()
+    p = _flat(plain(*args))
+    d_p = ((p - ref).abs().max() / scale).item()
+    bar = min(cap, (1 + F5_FACTOR) * d_p * (scale / p.abs().max()).item())
+    log(f"  {name}: F5, against the same block in fp32: kernel {d_k:.4g}, bf16 plain {d_p:.4g} "
+        f"of max |fp32| (ratio {d_k / d_p:.3f}, must be <= {F5_FACTOR}); kernel vs plain held "
+        f"at {bar:.4g} = min({cap}, (1 + {F5_FACTOR}) x {d_p:.4g} rescaled)")
+    if not d_k <= F5_FACTOR * d_p:
+        fail(f"{name}: the kernel sits {d_k:.4g} from the fp32 block, more than {F5_FACTOR} x "
+             f"its plain version's {d_p:.4g}: a fault, not bf16 noise (ROADMAP F5)")
+    return bar, {"kernel_vs_fp32": d_k, "plain_vs_fp32": d_p, "bar": bar}
 
 
 def plain_noise_floor(plain, args, g, frac=1e-4):
@@ -2692,6 +2744,267 @@ def phase_avqa_slice(cfg, hcfg, smi, cpu_depths=(2, 2, 2, 2)):
     return totals, clips
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the stream, from a reference checkpoint and raw media to logits
+# ---------------------------------------------------------------------------
+
+def openai_visual_state_dict(cfg, seed):
+    """A random OpenAI-layout CLIP visual tower at cfg's widths (numpy, from
+    `seed`): conv1, class and positional embeddings, ln_pre / ln_post, the
+    resblocks' packed in_proj, out_proj, ln_1 / ln_2, mlp.c_fc / c_proj, and
+    `proj`, which the loader drops. Linears N(0, 0.02), LayerNorm weights
+    1 + N(0, 0.1), embeddings N(0, C^-1/2), conv1 uniform(+-1/sqrt(fan_in)),
+    as `random_clip_ave` draws them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d, p = cfg.embed_dim, cfg.patch_size
+
+    def n(*shape, std=0.02, mean=0.0):
+        return (mean + std * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+    bound = (3 * p * p) ** -0.5
+    sd = {"conv1.weight": rng.uniform(-bound, bound, (d, 3, p, p)).astype(np.float32),
+          "class_embedding": n(d, std=d ** -0.5),
+          "positional_embedding": n(cfg.num_patches + 1, d, std=d ** -0.5),
+          "ln_pre.weight": n(d, std=0.1, mean=1.0), "ln_pre.bias": n(d),
+          "ln_post.weight": n(d, std=0.1, mean=1.0), "ln_post.bias": n(d),
+          "proj": n(d, 512)}
+    for i in range(cfg.layers):
+        pre = f"transformer.resblocks.{i}"
+        sd.update({f"{pre}.attn.in_proj_weight": n(3 * d, d), f"{pre}.attn.in_proj_bias": n(3 * d),
+                   f"{pre}.attn.out_proj.weight": n(d, d), f"{pre}.attn.out_proj.bias": n(d),
+                   f"{pre}.ln_1.weight": n(d, std=0.1, mean=1.0), f"{pre}.ln_1.bias": n(d),
+                   f"{pre}.ln_2.weight": n(d, std=0.1, mean=1.0), f"{pre}.ln_2.bias": n(d),
+                   f"{pre}.mlp.c_fc.weight": n(4 * d, d), f"{pre}.mlp.c_fc.bias": n(4 * d),
+                   f"{pre}.mlp.c_proj.weight": n(d, 4 * d), f"{pre}.mlp.c_proj.bias": n(d)})
+    return sd
+
+
+def write_wavs(dirname, count, seconds, seed):
+    """`count` WAV files of `seconds` s at 16 kHz, int16: a tone of its own
+    pitch with seeded noise. Returns their paths."""
+    import numpy as np
+    from scipy.io import wavfile
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    paths = []
+    for i in range(count):
+        x = 0.3 * np.sin(2 * np.pi * (220.0 + 110.0 * i) * t) + 0.05 * rng.randn(t.size)
+        path = os.path.join(dirname, f"clip{i}.wav")
+        wavfile.write(path, 16000, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+        paths.append(path)
+    return paths
+
+
+def build_native_decoder():
+    """`make -C native` (the native WAV / jpg / png decoder links libjpeg and
+    libpng, which a machine may lack). Returns a line saying what happened."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        out = subprocess.run(["make", "-C", os.path.join(here, "native")], capture_output=True,
+                             text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"not built ({e})"
+    if out.returncode != 0:
+        return f"not built (make: {(out.stderr or out.stdout).strip().splitlines()[-1:]})"
+    return "built"
+
+
+def hold_pipeline(name, pipe_card, pipe_cpu, host, smi):
+    """A device pipeline on the card against the same on the CPU, on one
+    host batch: the fbank image within 1e-3 absolute (normalized log-mel
+    units), the frames within 1e-5 absolute. Returns the card's pipeline ms."""
+    import torch
+    card = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+    a, v = pipe_card(card)
+    ra, rv = pipe_cpu(host)
+    err_a = float((a.cpu() - ra).abs().max())
+    err_v = float((v.cpu() - rv).abs().max())
+    if not (err_a <= 1e-3 and err_v <= 1e-5 and a.shape == ra.shape and v.shape == rv.shape):
+        fail(f"{name} pipeline card vs CPU: fbank {err_a:.4g} (tol 1e-3), frames {err_v:.4g} "
+             f"(tol 1e-5), shapes {tuple(a.shape)} / {tuple(ra.shape)}, {tuple(v.shape)} / "
+             f"{tuple(rv.shape)}")
+    ms = cuda_ms(lambda: pipe_card(card), iters=10)
+    log(f"  {name} pipeline card vs CPU on one host batch (frames {host['frames'].shape} uint8, "
+        f"wave {host['wave'].shape} f32): a {tuple(a.shape)} max_abs_err {err_a:.4g} (tol 1e-3), "
+        f"v {tuple(v.shape)} max_abs_err {err_v:.4g} (tol 1e-5); {ms:.3f} ms on the card, {smi}")
+    return ms
+
+
+def phase_stream(cfg, avqa_cfg, avs_cfg, smi):
+    """CLIP ViT-B/16 fusion from a reference (OpenAI-layout) visual state dict
+    through `load_pretrained_clip`, live adapters and gates, served bf16 and
+    with the int8 tower; 2B + 3 = 19 requests of 10 s WAVs and uint8 frames
+    through `serve_stream` (HostDecoder, pinned H2D, the AVE device pipeline
+    on the card, `predict`) at batch_size B, the tail padded. Returns
+    ({kernel: launches}, {task: clips/s})."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    from stgcma_tpu_torch.checkpoint.torch_convert import load_pretrained_clip
+    from stgcma_tpu_torch.data.loader import (make_ave_device_pipeline,
+                                              make_avqa_device_pipeline,
+                                              make_avs_device_pipeline)
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.nn.clip_vit import launches_per_forward
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.fbank import CLIP_FBANK, SWIN_FBANK
+    from stgcma_tpu_torch.ops.quant import quantize_clip_tower
+    from stgcma_tpu_torch.serving import (HostDecoder, MultiTaskServer, StreamRequest,
+                                          serve_stream, share_frozen_tower)
+    from stgcma_tpu_torch.train.optim import label
+    t0 = time.perf_counter()
+    native = build_native_decoder()
+    sd = openai_visual_state_dict(cfg, SEED)
+    # adapters, gates and head drawn live first: the load keeps what the state dict lacks
+    model, unexpected = load_pretrained_clip(live_clip_adapters_(random_clip_ave(cfg, SEED), SEED),
+                                             sd, cfg, device="cuda")
+    if unexpected or model.backbone.positional_embedding.device.type != "cuda":
+        fail(f"load_pretrained_clip: unexpected {unexpected}, on "
+             f"{model.backbone.positional_embedding.device}")
+    model_q = copy.deepcopy(model)
+    model_q.backbone = quantize_clip_tower(model_q.backbone)
+    tasks = {"stream_clip_bf16": (model, False), "stream_clip_int8": (model_q, True)}
+    srv, cpu = MultiTaskServer(device="cuda"), MultiTaskServer(device="cpu")
+    for task, (m, _) in tasks.items():
+        srv.add_clip_ave(task, cfg, m)
+        cpu.add_clip_ave(task, cfg, m)
+    T, n = cfg.num_frames, cfg.input_resolution
+    pipe = make_ave_device_pipeline(CLIP_FBANK, cfg.audio_tdim, image_size=n, device="cuda")
+    pipe_cpu = make_ave_device_pipeline(CLIP_FBANK, cfg.audio_tdim, image_size=n, device="cpu")
+    pipelines = {task: (lambda h: dict(zip("av", pipe(h)))) for task in tasks}
+    decoder = HostDecoder(num_segments=T, seg_samples=16000)
+    log(f"  set-up: OpenAI-layout ViT-B/16 visual state dict ({len(sd)} entries, proj dropped) "
+        f"through load_pretrained_clip onto the card, live adapters and gates, int8 tower "
+        f"after the load; native decoder {native}: HostDecoder takes the "
+        f"{'native' if decoder.native else 'scipy'} WAV decoder; "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(SEED)
+    n_req = 2 * B + 3
+    frames = [rng.randint(0, 256, (T, 256, 256, 3), dtype=np.uint8) for _ in range(n_req)]
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = write_wavs(tmp, 4, 10.0, SEED)
+
+        def requests(task):
+            return [StreamRequest(task=task, wav_path=wavs[i % len(wavs)], frames=frames[i],
+                                  rid=i) for i in range(n_req)]
+        t1 = time.perf_counter()
+        host = decoder(requests("")[:B])                 # one host batch, for the checks
+        log(f"  HostDecoder alone, {B} requests ({'native' if decoder.native else 'scipy'} "
+            f"WAVs, frames stacked): {(time.perf_counter() - t1) * 1e3:.1f} ms on the host")
+        tail = decoder(requests("")[-1:])
+        a, v = (x.cpu().numpy() for x in pipe({k: torch.from_numpy(x).cuda()
+                                               for k, x in host.items()}))
+        totals, clips = {k: 0 for k in KERNELS}, {}
+        for task, (_, int8) in tasks.items():
+            with clip_switches(task):
+                list(serve_stream(srv, pipelines, requests(task)[:B], batch_size=B,
+                                  decoder=decoder, device="cuda"))   # warm-up, not counted
+                torch.cuda.synchronize()
+                FA.reset_launches()
+                stats = []
+                t1 = time.perf_counter()
+                outs = list(serve_stream(srv, pipelines, requests(task), batch_size=B,
+                                         decoder=decoder, device="cuda", stats=stats))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = launches()
+                per = launches_per_forward(cfg, quantized=int8)
+            want = {k: len(outs) * per.get(k, 0) for k in KERNELS}
+            if got != want:
+                fail(f"{task} stream: launches {got}, expected {want} ({len(outs)} forwards)")
+            totals = {k: totals[k] + got[k] for k in KERNELS}
+            rids = [r for ids, _ in outs for r in ids]
+            if rids != list(range(n_req)) or [len(ids) for ids, _ in outs] != [B, B, 3]:
+                fail(f"{task} stream: request ids {[ids for ids, _ in outs]}")
+            for ids, o in outs:
+                if o.shape != (len(ids) * T, cfg.label_dim) or not np.isfinite(o).all():
+                    fail(f"{task} stream: logits {o.shape} for {len(ids)} requests, finite="
+                         f"{np.isfinite(o).all()}")
+            clips[task] = n_req / wall
+            dec_ms = [round(s["decode_ms"], 1) for s in stats]
+            stage_ms = [round(s["stage_ms"], 1) for s in stats]
+            log(f"  {task}: serve_stream of {n_req} requests at batch_size {B} (tail of 3 padded "
+                f"and dropped): ids complete and in order, logits {[o.shape for _, o in outs]} "
+                f"finite; launches {got} = {len(outs)} x launches_per_forward; "
+                f"{wall * 1e3:.1f} ms = {clips[task]:.2f} streamed clips/s; host decode "
+                f"{dec_ms} ms a batch ({'native' if decoder.native else 'scipy'} WAVs), then "
+                f"padding and pinning {stage_ms} ms ({stats[0]['h2d_bytes'] / 1e6:.2f} MB a "
+                f"batch to the card); {smi}")
+            # the streamed logits against the CPU pipeline and the CPU model, on the tail request
+            ref = predict(cpu, task, dict(zip("av", (x.numpy() for x in pipe_cpu(tail)))))
+            card = outs[-1][1][-T:]
+            err, scale = float(np.abs(card - ref).max()), float(np.abs(ref).max())
+            if not err <= TOL_SLICE * scale:
+                fail(f"{task} stream rid {n_req - 1}: max |stream - cpu| = {err:.4g} > "
+                     f"{TOL_SLICE} * {scale:.4g}")
+            log(f"  {task} stream rid {n_req - 1} (the padded tail's last) against the CPU "
+                f"pipeline and the CPU model: max_abs_err {err:.4g} (max |cpu| {scale:.4g}, "
+                f"tol {TOL_SLICE} rel)")
+            # predict's own clips/s on the same model, with float inputs from the host
+            times = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                predict(srv, task, {"a": a, "v": v})
+                times.append(time.perf_counter() - t1)
+            med = sorted(times[1:])[1]
+            on_card = dict(zip("av", pipe({k: torch.from_numpy(x).cuda() for k, x in host.items()})))
+            with clip_switches(task):
+                model_ms = cuda_ms(lambda: srv.predict(task, on_card), iters=5)
+            log(f"  {task}: predict of B={B} float (a, v) from the host: median {med * 1e3:.2f} "
+                f"ms = {B / med:.2f} clips/s beside {clips[task]:.2f} streamed; predict of the "
+                f"pipeline's (a, v) already on the card {model_ms:.2f} ms; {smi}")
+    # the two copies to the card: the stream's pinned uint8 frames + f32 waves, predict's floats
+    pinned = {k: torch.from_numpy(x).pin_memory() for k, x in host.items()}
+    s_bytes = sum(x.numel() * x.element_size() for x in pinned.values())
+    s_ms = cuda_ms(lambda: [x.to("cuda", non_blocking=True) for x in pinned.values()], iters=10)
+    p_bytes = a.nbytes + v.nbytes
+    p_ms = cuda_ms(lambda: [torch.as_tensor(x).to("cuda") for x in (a, v)], iters=5)
+    log(f"  H2D a batch of B={B}: the stream's pinned uint8 frames + f32 waves {s_bytes / 1e6:.2f} "
+        f"MB in {s_ms:.3f} ms ({s_bytes / s_ms / 1e6:.1f} GB/s) against predict's pageable f32 "
+        f"(a, v) {p_bytes / 1e6:.2f} MB in {p_ms:.3f} ms ({p_bytes / p_ms / 1e6:.1f} GB/s); {smi}")
+    # the device pipelines on the card against the CPU, at their B = 8 input shapes
+    hold_pipeline("AVE CLIP (CLIP_FBANK, eval_transform)", pipe, pipe_cpu, host, smi)
+    prng = np.random.RandomState(SEED + 1)
+    for name, make, c, hw in (("AVQA (SWIN_FBANK, bicubic)", make_avqa_device_pipeline,
+                               avqa_cfg, 256),
+                              ("AVS (SWIN_FBANK, normalize)", make_avs_device_pipeline, avs_cfg,
+                               avs_cfg.img_size)):
+        hb = {"frames": prng.randint(0, 256, (B, c.num_frames, hw, hw, 3), dtype=np.uint8),
+              "wave": host["wave"][:, :c.num_frames].copy()}
+        hold_pipeline(name, make(SWIN_FBANK, c.img_size, device="cuda"),
+                      make(SWIN_FBANK, c.img_size, device="cpu"), hb, smi)
+    # two tasks on one frozen tower: a second bf16 task with adapters and head of its own
+    other = live_clip_adapters_(copy.deepcopy(model).cpu(), SEED + 1)
+    g = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for p in other.mlp_head.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    srv.add_clip_ave("stream_clip_bf16_b", cfg, other)
+    one = {"a": a[:1], "v": v[:1]}
+    before = {t: predict(srv, t, one) for t in ("stream_clip_bf16", "stream_clip_bf16_b")}
+    canon, mine = srv.models["stream_clip_bf16"], srv.models["stream_clip_bf16_b"]
+    free0 = torch.cuda.memory_allocated()
+    share_frozen_tower(canon, {"b": mine})
+    freed = free0 - torch.cuda.memory_allocated()
+    held = dict(mine.backbone.named_parameters())
+    ref_held = dict(canon.backbone.named_parameters())
+    shared = [k for k, t in held.items() if t.data_ptr() == ref_held[k].data_ptr()]
+    frozen = [k for k in held if label(f"backbone.{k}") == "frozen"]
+    if sorted(shared) != sorted(frozen):
+        fail(f"share_frozen_tower: {len(shared)} leaves share storage, {len(frozen)} frozen")
+    after = {t: predict(srv, t, one) for t in before}
+    moved = {t: float(np.abs(after[t] - before[t]).max()) for t in before}
+    if any(moved.values()):
+        fail(f"share_frozen_tower moved the logits: {moved}")
+    differ = float(np.abs(after["stream_clip_bf16"] - after["stream_clip_bf16_b"]).max())
+    log(f"  share_frozen_tower: {len(shared)} frozen tower leaves of stream_clip_bf16_b share "
+        f"storage with stream_clip_bf16 (every frozen leaf; adapters, gates, embeddings' "
+        f"temporal tables and heads its own), {freed / 2 ** 20:.1f} MiB freed on the card; "
+        f"logits bit for bit unchanged, the two tasks' differ by {differ:.4g}")
+    return totals, clips
+
+
 def main():
     try:
         import torch
@@ -2746,7 +3059,8 @@ def main():
     avqa_hcfg = AVQAHeadConfig(feat_dim=avqa_cfg.num_features, grid=7, num_frames=10)
     log(f"[3/4] kernels against their plain versions (bf16, B={B}, tol {TOL_KERNEL} rel, "
         f"{TOL_KERNEL_Q} for the int8 variants of K4, K12, K13, for K11 and for K4 at "
-        f"Swin-Large, {TOL_K4Q_LARGE} for K4's int8 variant at Swin-Large stage 3)")
+        f"Swin-Large; K4's int8 variant at Swin-Large stage 3 at (1 + {F5_FACTOR}) x its plain "
+        f"version's distance from the block in fp32, at most {TOL_K4Q_LARGE})")
     results = phase_kernels(cfg)
     phases = (lambda: phase_swin_kernels(swin_cfg, large_cfg),
               lambda: phase_fusion_kernels(fusion_cfg),
@@ -2806,6 +3120,13 @@ def main():
     avqa_totals, avqa_clips = phase_avqa_slice(avqa_cfg, avqa_hcfg, smi)
     clips.update(avqa_clips)
     totals = {k: totals[k] + avqa_totals[k] for k in KERNELS}
+    log(f"[4/4] stream: CLIP ViT-B/16 fusion AVE-29 from a reference visual state dict "
+        f"(load_pretrained_clip), {cfg.layers} layers, T={cfg.num_frames}, bf16 and int8 towers; "
+        f"{2 * B + 3} requests of 10 s WAVs and uint8 frames through serve_stream at batch_size "
+        f"{B}, the fbank and the frame transforms on the card")
+    stream_totals, stream_clips = phase_stream(cfg, avqa_cfg, avs_cfg, smi)
+    clips.update(stream_clips)
+    totals = {k: totals[k] + stream_totals[k] for k in KERNELS}
 
     kernels = []
     for k in KERNELS:
