@@ -173,9 +173,34 @@ line:
        frames 1e-5); the H2D bytes and ms of the stream's copy against
        `predict`'s float copy; streamed and `predict` clips/s; a second task
        on the same frozen tower (`share_frozen_tower`: every frozen leaf
-       shares storage, the logits do not move).
+       shares storage, the logits do not move);
+     - training (`phase_train`): AVE-29 on CLIP ViT-B/16 fusion at full width
+       (12 layers, C = 768, T = 10), B = TRAIN_B = 2, bf16 compute with fp32
+       masters. K1 at its four sites ((394, 10, 768), (98, 10, 768), (20,
+       197, 768), (20, 49, 768)) through `fused_attn._Recompute` (the kernel
+       forward, `win_block_recompute`'s bf16 products recomputed under
+       autograd): the forward against `win_block_plain` and every input's
+       gradient against its plain autograd (fp32 products) with the same
+       upstream gradient (TOL_KERNEL each), the backward launching nothing,
+       with forward + backward times beside
+       plain autograd's, PyTorch's own composition and the bound (rows under
+       K1 in the kernels line); `cli.run_adapt_ave29.main` with `--synthetic
+       True --n-epochs 2` on the card (4 steps of the train pipeline on the
+       card, the head's dropout, Adam; 2 eval batches): finite step losses,
+       every trainable leaf moved, every frozen leaf bit for bit, K1 exactly
+       48 x forwards and no other kernel, result.csv, progress.json,
+       state_meta.json and models/ written; a run resumed after epoch 1
+       against the straight run (plateau LR, whose table does not depend on
+       the epoch count; TOL_RESUME); one train step at depth 2 against the
+       CPU's fp32 plain path on live weights (loss and all gradients within
+       TOL_KERNEL, each leaf within TOL_TRAIN_LEAF); the train step's wall
+       ms, its spans between CUDA events and its kernel time (torch.profiler)
+       split into pipeline, forward, backward and Adam, clips/s, peak memory
+       and the device's busy share.
 The script logs its total wall time. The line before the last is one JSON
-object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+object {"kernels": [...]}; the last is {"ok": true, "device": {...}}. The
+training path's launches (set to 0 just before its CLI run, read just after
+it) add K1 288 to the kernels line's totals.
 Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
@@ -183,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -216,6 +242,18 @@ F5_FACTOR = 1.5      # ROADMAP F5: the int8 K4 at Swin-Large stage 3 may sit at 
                      # times as far from the block's fp32 plain version as its bf16 plain
                      # version does; its kernel-vs-plain bar is then (1 + F5_FACTOR) x the
                      # plain version's distance (the triangle bound), capped at TOL_K4Q_LARGE
+TRAIN_B, TRAIN_N = 2, 4   # phase_train: the reference's batch size; synthetic items (2 steps
+                          # an epoch, one eval batch of the TRAIN_N // 2 eval items)
+TOL_TRAIN_LEAF = 1e-1  # one train step at depth 2, card bf16 vs CPU fp32: each trainable leaf's
+                       # gradient within this share of its own max |cpu| (the scalar gates'
+                       # gradients sum a product over every token and both streams, so their
+                       # bf16 rounding does not average out as a matrix's does; a term missing
+                       # from the backward moves a leaf by its whole size); all gradients
+                       # together are held at TOL_KERNEL
+TOL_RESUME = 1e-2    # a run resumed after epoch 1: max |resumed - straight| over the masters
+                     # within this share of the run's largest update (bf16 sums in another
+                     # order would move them by far less; a moment or an LR not restored
+                     # moves them by the size of an update)
 TOL_SLICE = 5e-2     # max |card - cpu| / max |cpu| over the logits, bf16 through
                      # 12 or 24 blocks on two devices (different sum orders everywhere)
 H100_BF16, H100_INT8, H100_BYTES = 989e12, 1979e12, 3.35e12   # dense peaks, 700 W
@@ -307,6 +345,22 @@ def sfu_rate():
     """exps per second: 16 per clock per SM x 132 SMs x the card's maximum SM clock."""
     from stgcma_tpu_torch.tools import bench_parts
     return bench_parts.sfu_rate()
+
+
+def kernel_ms(fn, iters=3):
+    """The card's kernel ms a call of fn (torch.profiler, the card's events
+    only), after one call to warm up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -3005,6 +3059,385 @@ def phase_stream(cfg, avqa_cfg, avs_cfg, smi):
     return totals, clips
 
 
+# ---------------------------------------------------------------------------
+# phase 5: AVE-29 training on CLIP ViT-B/16 fusion
+# ---------------------------------------------------------------------------
+
+def k1_grad_bound(Bq, N, C, heads):
+    """Least time of K1's forward and backward at (Bq, N, C): the forward's
+    operations and three times them for the backward's products (dx and
+    dW of each product, dq, dk, dv and the probabilities' of each gram);
+    bytes: x, the weights and the upstream gradient read once, dx and the
+    weights' gradients written once."""
+    M, dh = Bq * N, C // heads
+    ops = 3 * (2 * M * C * 4 * C + 2 * 2 * Bq * heads * N * N * dh)
+    nbytes = 3 * M * C * 2 + 2 * (4 * C * C + 7 * C) * 2
+    t_ops, t_bytes = ops / H100_BF16, nbytes / H100_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_grad_rows(cfg, b):
+    """K1 on the card at the four CLIP-B/16 fusion sites at B = b, through
+    `fused_attn._Recompute` (the kernel forward, `win_block_recompute`'s
+    bf16 products recomputed under autograd): the forward, and every input's
+    gradient with the same upstream gradient, against `win_block_plain` and
+    its plain autograd (fp32 products), each within TOL_KERNEL of max
+    |plain|; the backward launches no kernel. The row's max_abs_err is the
+    forward's. Times: the Function's forward and backward against plain
+    autograd's and against PyTorch's own layer_norm / linear /
+    scaled_dot_product_attention composition, forward and backward."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    T, C, h = cfg.num_frames, cfg.embed_dim, cfg.heads
+    Nv, Na = cfg.num_patches + 1, cfg.num_patches_audio + 1
+    sites = {"video temporal": (b * Nv, T), "audio temporal": (b * Na, T),
+             "video spatial": (b * T, Nv), "audio spatial": (b * T, Na)}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for site, (Bq, N) in sites.items():
+        args, _ = make_block_inputs(g, Bq, N, C, h, int8=False)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        gup = torch.randn(Bq, N, C, generator=g, device="cuda").to(torch.bfloat16)
+        out = FA.win_block(*leaves, h)
+        if type(out.grad_fn).__name__ != "_RecomputeBackward":
+            fail(f"K1 at the {site} site: the output's grad_fn is {out.grad_fn}, not the Function")
+        before = FA.win_block.launches
+        got = torch.autograd.grad(out, leaves, gup, retain_graph=True)
+        torch.cuda.synchronize()
+        if FA.win_block.launches != before:
+            fail(f"K1 at the {site} site: the backward launched the kernel")
+        ref_out = FA.win_block_plain(*leaves, h)
+        fwd_err, fwd_scale = ((out.float() - ref_out.float()).abs().max().item(),
+                              ref_out.float().abs().max().item())
+        if not (torch.isfinite(out).all() and fwd_err <= TOL_KERNEL * fwd_scale):
+            fail(f"K1 forward at the {site} site: max |kernel - plain| = {fwd_err:.4g} > "
+                 f"{TOL_KERNEL} * {fwd_scale:.4g}")
+        ref = torch.autograd.grad(ref_out, leaves, gup, retain_graph=True)
+        errs = []
+        for name, a, r in zip(("x", "ln_w", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj"),
+                              got, ref):
+            err, scale = (a.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+            if not (torch.isfinite(a).all() and err <= TOL_KERNEL * scale):
+                fail(f"K1 gradient at the {site} site, d/d{name}: max |Function - plain| = "
+                     f"{err:.4g} > {TOL_KERNEL} * {scale:.4g}")
+            errs.append((name, err, scale))
+        lib = library_block(leaves, h, False)
+        ms = cuda_ms(lambda: torch.autograd.grad(FA.win_block(*leaves, h), leaves, gup), 10)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gup, retain_graph=True), 10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(FA.win_block_plain(*leaves, h), leaves,
+                                                       gup), 5, warmup=1)
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, gup,
+                                                           retain_graph=True), 5, warmup=1)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib().view(Bq, N, C), leaves, gup), 10)
+        bwd_kernels = kernel_ms(lambda: torch.autograd.grad(out, leaves, gup, retain_graph=True))
+        plain_bwd_kernels = kernel_ms(lambda: torch.autograd.grad(ref_out, leaves, gup,
+                                                                  retain_graph=True))
+        bound_ms, bound_by = k1_grad_bound(Bq, N, C, h)
+        worst = max(errs, key=lambda e: e[1] / max(e[2], 1e-30))
+        log(f"  K1 gradient {site} ({Bq}, {N}, {C}) h{h}: "
+            + ", ".join(f"d{n} {e:.3g} ({e / max(s, 1e-30):.2e} rel)" for n, e, s in errs)
+            + f"; forward {fwd_err:.3g} ({fwd_err / fwd_scale:.2e} rel); tol {TOL_KERNEL} rel; "
+            f"forward + backward {ms:.4f} ms "
+            f"(backward {bwd_ms:.4f}: the recompute and its autograd, {bwd_kernels:.4f} of "
+            f"kernels), plain autograd {plain_ms:.4f} ms (backward {plain_bwd_ms:.4f}, "
+            f"{plain_bwd_kernels:.4f} of kernels), library {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append({"shape": f"K1 forward + recompute backward, {site} ({Bq}, {N}, {C}) h{h}",
+                     "max_abs_err": fwd_err, "grad_max_rel_err": worst[1] / max(worst[2], 1e-30),
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                     "backward_ms": bwd_ms, "plain_backward_ms": plain_bwd_ms,
+                     "backward_kernel_ms": bwd_kernels,
+                     "plain_backward_kernel_ms": plain_bwd_kernels,
+                     "site": site})
+        del out, ref_out, got, ref, leaves, args
+    return rows
+
+
+def train_cli(exp, *flags):
+    """`cli.run_adapt_ave29.main` on CLIP ViT-B/16 fusion at full width on
+    the card, synthetic AVE at B = TRAIN_B."""
+    from stgcma_tpu_torch.cli import run_adapt_ave29
+    with contextlib.redirect_stdout(sys.stderr):     # the CLI's own prints
+        return run_adapt_ave29.main(
+            ["--model", "MM-CLIP-AVE-Base", "--ftmode", "fusion", "--synthetic", "True",
+             "--batch_size", str(TRAIN_B), "--synthetic_n", str(TRAIN_N), "--num_workers", "2",
+             "--device", "cuda", "--exp-dir", exp, *flags])
+
+
+def check_train_run(cfg, trainer, n_launched):
+    """The straight CLI run: finite losses, every trainable leaf moved, every
+    frozen leaf bit for bit as the CLI's init left it, K1 launched exactly
+    48 x forwards (train and eval) and no other kernel, its files written."""
+    import torch
+    from stgcma_tpu_torch.models.ave import init_clip_ave
+    losses = trainer.step_losses
+    if not losses or not all(map(math.isfinite, losses)):
+        fail(f"train: a non-finite step loss in {losses}")
+    init = init_clip_ave(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    start = dict(init.named_parameters())
+    moved, frozen = 0, 0
+    for n, p in trainer.model.named_parameters():
+        if p.requires_grad:
+            if torch.equal(p, start[n]):
+                fail(f"train: the trainable leaf {n} did not move")
+            moved += 1
+        else:
+            if not torch.equal(p, start[n]):
+                fail(f"train: the frozen leaf {n} changed")
+            frozen += 1
+    eval_batches = -(-(TRAIN_N // 2) // TRAIN_B) * trainer.n_epochs
+    forwards = trainer.global_step + eval_batches
+    want = {**{k: 0 for k in KERNELS}, "K1": 4 * cfg.layers * forwards}
+    if n_launched != want:
+        fail(f"train: launches {n_launched}, expected {want} ({forwards} forwards: "
+             f"{trainer.global_step} steps and {eval_batches} eval batches)")
+    for name in ("result.csv", "progress.json", "state_meta.json", "models/model.1",
+                 "models/best_model", "state/train_params", "state/opt_state"):
+        if not os.path.exists(os.path.join(trainer.exp_dir, name)):
+            fail(f"train: {name} was not written")
+    log(f"  CLI (cosine, warm-up): {trainer.global_step} steps + {eval_batches} eval batches, "
+        f"step losses {', '.join(f'{x:.4f}' for x in losses)}; {moved} trainable leaves moved, "
+        f"{frozen} frozen leaves bit for bit; launches {n_launched['K1']} K1 = "
+        f"{4 * cfg.layers} x {forwards} forwards, no other kernel; result.csv, progress.json, "
+        f"state_meta.json, models/ written")
+    return forwards
+
+
+def check_resume(straight, resumed, init):
+    """A run resumed after epoch 1 against the straight run: every master
+    within TOL_RESUME x the largest update of the straight run."""
+    a, b = straight.trainable(), resumed.trainable()
+    if set(a) != set(b):
+        fail("train resume: the two runs train other leaves")
+    diff = max((a[n] - b[n]).abs().max().item() for n in a)
+    update = max((a[n] - init[n]).abs().max().item() for n in a)
+    if not (update > 0 and diff <= TOL_RESUME * update):
+        fail(f"train resume: max |resumed - straight| = {diff:.4g} > {TOL_RESUME} x the "
+             f"largest update {update:.4g}")
+    if [h["epoch"] for h in resumed.history] != [1, 2]:
+        fail(f"train resume: history epochs {[h['epoch'] for h in resumed.history]}")
+    log(f"  resume (plateau LR): epoch 1, then --resume True to epoch 2, against 2 epochs "
+        f"straight: max |resumed - straight| over the masters {diff:.4g} (largest update "
+        f"{update:.4g}, tol {TOL_RESUME} x it)")
+
+
+def check_train_step_against_cpu(cfg, cut_layers=2):
+    """One train step at depth `cut_layers`, full width, B = TRAIN_B: the
+    card's bf16 loss and every trainable leaf's gradient against the CPU's
+    fp32 plain path on the same live weights and batch: the loss within
+    TOL_KERNEL of |cpu|, all gradients together within TOL_KERNEL of their
+    max |cpu|, each leaf within TOL_TRAIN_LEAF of its own; the card's step
+    launches exactly K1 at its 4 x cut_layers sites, its backward none."""
+    import copy
+    import numpy as np
+    import torch
+    from stgcma_tpu_torch.models.ave import apply_clip_ave, random_clip_ave
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.train import losses, optim, steps
+    cut = dataclasses.replace(cfg, layers=cut_layers)
+    rng = np.random.RandomState(SEED)
+    batch = clip_batch(cut, rng, TRAIN_B)
+    labels = np.eye(cut.label_dim, dtype=np.float32)[rng.randint(0, cut.label_dim,
+                                                                TRAIN_B * cut.num_frames)]
+    base = live_clip_adapters_(random_clip_ave(cut, SEED), SEED)
+    out = []
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = copy.deepcopy(base).to(dev)
+        steps.init_train_state(model)
+        opt = optim.build_optimizer(model, 0.0, 1.0)        # lr 0: the gradients alone
+        a, v, y = (torch.from_numpy(x).to(dev) for x in (batch["a"], batch["v"], labels))
+
+        def loss_fn(m, _, generator):
+            logits = apply_clip_ave(m, cut, a.to(dt), v.to(dt), generator=generator)
+            return losses.ave_loss(logits, y.view(TRAIN_B, cut.num_frames, -1)), {}
+        FA.reset_launches()
+        loss, _ = steps.make_train_step(loss_fn, opt, dt)(model, None)
+        out.append((float(loss), {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                                  if p.requires_grad}, launches()))
+    (lc, gc, nc), (lp, gp, _) = out
+    if nc != {**{k: 0 for k in KERNELS}, "K1": 4 * cut_layers}:
+        fail(f"train step at depth {cut_layers}: launches {nc}")
+    if not abs(lc - lp) <= TOL_KERNEL * abs(lp):
+        fail(f"train step at depth {cut_layers}: loss card {lc:.6g} vs cpu {lp:.6g}")
+    worst = (0.0, "")
+    for n, ref in gp.items():
+        err, scale = (gc[n] - ref).abs().max().item(), ref.abs().max().item()
+        if not (scale > 0 and err <= TOL_TRAIN_LEAF * scale):
+            fail(f"train step at depth {cut_layers}: d/d{n} max |card - cpu| = {err:.4g} > "
+                 f"{TOL_TRAIN_LEAF} * {scale:.4g}")
+        worst = max(worst, (err / scale, n))
+    everything = torch.cat([g.flatten() for g in gp.values()])
+    err = torch.cat([gc[n].flatten() for n in gp]).sub(everything).abs().max().item()
+    scale = everything.abs().max().item()
+    if not err <= TOL_KERNEL * scale:
+        fail(f"train step at depth {cut_layers}: max |card - cpu| over every gradient = "
+             f"{err:.4g} > {TOL_KERNEL} * {scale:.4g}")
+    log(f"  one train step at depth {cut_layers}, B={TRAIN_B}, card bf16 vs CPU fp32 on live "
+        f"weights: loss {lc:.6f} vs {lp:.6f} ({abs(lc - lp) / abs(lp):.2e} rel, tol "
+        f"{TOL_KERNEL}); {len(gp)} trainable leaves' gradients: {err / scale:.3e} of max |cpu| "
+        f"over all (tol {TOL_KERNEL}), the worst leaf {worst[0]:.3e} of its own max at "
+        f"{worst[1]} (tol {TOL_TRAIN_LEAF}); launches K1 {nc['K1']}, no other")
+
+
+def port_kernel_names():
+    """The names of every __global__ function in the port's CUDA sources."""
+    import re
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "stgcma_tpu_torch", "csrc")
+    kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^()]*\)\s*)?(\w+)\s*\(")
+    names = set()
+    for f in os.listdir(csrc):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                names.update(kernel.findall(fh.read()))
+    return names
+
+
+def time_train_step(cfg, smi, k1_rows, steps_timed=5):
+    """A train step at full width, B = TRAIN_B, on the CLI's path (the train
+    pipeline on the card, bf16 compute, fp32 masters, Adam): wall ms, the
+    span of each part between CUDA events (pipeline, forward: the loss,
+    backward: K1's recompute and plain autograd, Adam), clips/s, peak
+    memory; then three steps under torch.profiler: kernel ms a step, split
+    into the pipeline's, the forward's (its torch ops' kernels and the
+    port's, all K1's), Adam's and the backward's (the rest), and the
+    device's busy share. K1's recompute alone: the gradient rows' backward
+    kernel ms over the step's 4 x layers calls."""
+    import re
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from stgcma_tpu_torch.data.datasets import SyntheticAVE
+    from stgcma_tpu_torch.data.loader import collate, make_ave_device_pipeline
+    from stgcma_tpu_torch.models.ave import apply_clip_ave, random_clip_ave
+    from stgcma_tpu_torch.ops.fbank import CLIP_FBANK
+    from stgcma_tpu_torch.train import losses, optim, steps
+    model = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED).to("cuda")
+    steps.init_train_state(model)
+    opt = optim.build_optimizer(model, 1e-4, 50.0)
+    pipe = make_ave_device_pipeline(CLIP_FBANK, 102, train=True, image_size=224, device="cuda")
+    ds = SyntheticAVE(n=TRAIN_B, num_frames=cfg.num_frames, size=224, label_dim=cfg.label_dim)
+    batch = collate([ds[i] for i in range(TRAIN_B)])
+    labels = torch.from_numpy(batch["labels"]).to("cuda")
+    ev = {}
+
+    def mark(key):
+        ev[key] = torch.cuda.Event(enable_timing=True)
+        ev[key].record()
+
+    def loss_fn(m, b, generator):
+        mark("start")
+        with record_function("train: pipeline"):
+            a, v = pipe(b, generator)
+        mark("pipeline")
+        with record_function("train: forward"):
+            logits = apply_clip_ave(m, cfg, a.to(torch.bfloat16), v.to(torch.bfloat16),
+                                    generator=generator)
+            loss = losses.ave_loss(logits, labels)
+        mark("forward")
+        return loss, {}
+    real_step = opt.step
+
+    def adam():
+        mark("backward")
+        with record_function("train: Adam"):
+            real_step()
+        mark("adam")
+    opt.step = adam
+    step = steps.make_train_step(loss_fn, opt, torch.bfloat16)
+    g = torch.Generator().manual_seed(SEED)
+    for _ in range(2):
+        step(model, batch, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, parts = [], []
+    for _ in range(steps_timed):
+        t0 = time.perf_counter()
+        loss, _ = step(model, batch, g)
+        float(loss)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        keys = ("start", "pipeline", "forward", "backward", "adam")
+        parts.append([ev[a].elapsed_time(ev[b]) for a, b in zip(keys, keys[1:])])
+    peak = torch.cuda.max_memory_allocated()
+    wall = statistics.median(walls)
+    spans = [statistics.median(p[i] for p in parts) for i in range(4)]
+    recompute = cfg.layers * sum(r["backward_kernel_ms"] for r in k1_rows)   # a call a site
+    log(f"  train step CLIP ViT-B/16 fusion, {cfg.layers} layers, B={TRAIN_B}, bf16 compute, fp32 "
+        f"masters, on {smi}: wall {wall:.2f} ms (median of {steps_timed}; "
+        f"{', '.join(f'{w:.2f}' for w in walls)}), {TRAIN_B * 1e3 / wall:.2f} clips/s; spans "
+        f"between events: pipeline {spans[0]:.2f} ms, forward {spans[1]:.2f}, backward "
+        f"{spans[2]:.2f}, Adam {spans[3]:.2f}; peak memory {peak / 2 ** 30:.2f} GiB")
+
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            float(step(model, batch, g)[0])
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0) / n
+    # the port's kernels, launched through ctypes, hang under no torch op: they
+    # are told by name (in this step all are K1's forward); a range's other
+    # kernels are its torch ops'
+    port = re.compile(r"\b(" + "|".join(sorted(port_kernel_names())) + r")\b")
+    dev, k1, part = 0.0, 0.0, {"pipeline": 0.0, "forward": 0.0, "Adam": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            name = e.name[len("train: "):] if e.name.startswith("train: ") else None
+            if name in part:
+                part[name] += e.device_time_total / 1e3 / n
+        elif not e.name.startswith("train: "):     # not a range's span on the card
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / n
+            dev += ms
+            if port.search(e.name):
+                k1 += ms
+    if dev <= 0:
+        log("  torch.profiler: no kernel on the card; the split is not measured")
+        return
+    back = dev - part["pipeline"] - part["forward"] - k1 - part["Adam"]
+    log(f"  profiled ({n} steps, {prof_wall:.2f} ms a step under the profiler, {smi}): kernels "
+        f"{dev:.2f} ms a step = {100 * dev / prof_wall:.1f}% busy ({100 * dev / wall:.1f}% of the "
+        f"untraced median); pipeline {part['pipeline']:.2f} ms, forward "
+        f"{part['forward'] + k1:.2f} (K1's kernels {k1:.2f}), backward {back:.2f} (K1's "
+        f"recompute {recompute:.2f}, from the gradient rows' backward kernels at the step's "
+        f"{4 * cfg.layers} calls; plain autograd of the rest {back - recompute:.2f}), Adam "
+        f"{part['Adam']:.2f}")
+
+
+def phase_train(cfg, smi):
+    """AVE-29 training on CLIP ViT-B/16 fusion at full width (12 layers, C =
+    768, T = 10), B = TRAIN_B, bf16 compute with fp32 masters: K1's gradient
+    at its four sites; the CLI's training run (default cosine LR) with exact
+    K1 launches; a run resumed after epoch 1 against the straight run; one
+    step at depth 2 against the CPU; the step's times. Returns (K1's
+    gradient rows, the launches of the CLI's training run: the path's own)."""
+    import tempfile
+    import torch
+    from stgcma_tpu_torch.models.ave import init_clip_ave
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    t0 = time.perf_counter()
+    rows = k1_grad_rows(cfg, TRAIN_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        FA.reset_launches()
+        trainer = train_cli(os.path.join(tmp, "a"), "--n-epochs", "2")
+        totals = launches()
+        check_train_run(cfg, trainer, totals)
+        del trainer
+        straight = train_cli(os.path.join(tmp, "b"), "--n-epochs", "2", "--lr_adapt", "True")
+        train_cli(os.path.join(tmp, "c"), "--n-epochs", "1", "--lr_adapt", "True")
+        resumed = train_cli(os.path.join(tmp, "c"), "--n-epochs", "2", "--lr_adapt", "True",
+                            "--resume", "True")
+        start = dict(init_clip_ave(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cuda").named_parameters())
+        check_resume(straight, resumed, start)
+        del straight, resumed, start
+    check_train_step_against_cpu(cfg)
+    time_train_step(cfg, smi, rows)
+    log(f"  phase_train: {time.perf_counter() - t0:.1f} s")
+    return rows, totals
+
+
 def main():
     try:
         import torch
@@ -3127,6 +3560,12 @@ def main():
     stream_totals, stream_clips = phase_stream(cfg, avqa_cfg, avs_cfg, smi)
     clips.update(stream_clips)
     totals = {k: totals[k] + stream_totals[k] for k in KERNELS}
+    log(f"[4/4] train: AVE-29 training on CLIP ViT-B/16 fusion through cli.run_adapt_ave29, "
+        f"{cfg.layers} layers, C={cfg.embed_dim}, T={cfg.num_frames}, B={TRAIN_B}, bf16 compute "
+        f"with fp32 masters, K1 forward and its recomputing backward")
+    train_rows, train_totals = phase_train(cfg, smi)
+    results["K1"].extend(train_rows)
+    totals = {k: totals[k] + train_totals[k] for k in KERNELS}
 
     kernels = []
     for k in KERNELS:

@@ -2,9 +2,10 @@
 
 Port of `stgcma_tpu/models/ave.py`: the CLIP half (:20-37, :69-84) and the
 Swin half (:44-62), each in its four ftmodes, float or int8 towers. The
-two-stream modes carry the dual MLP head Linear(2C, 512) -> Linear(512,
-label_dim), without dropout (serving); `videoonly` and `audioonly` the
-single-stream head LayerNorm(C) -> Linear(C, label_dim). I/O: CLIP a (B, T,
+two-stream modes carry the dual MLP head Linear(2C, 512) -> Dropout(0.5) ->
+Linear(512, label_dim), the dropout only where a training generator is
+given; `videoonly` and `audioonly` the single-stream head LayerNorm(C) ->
+Linear(C, label_dim). I/O: CLIP a (B, T,
 102, 128), Swin a (B, T, 224, 224); v (B, T, 224, 224, 3) -> logits (B*T,
 label_dim).
 """
@@ -36,11 +37,22 @@ class SingleHead(nn.Module):
         self.fc = Linear(in_dim, label_dim)
 
 
-def mlp_head_apply(head, x):
-    """`_mlp_head_apply` (:30) without dropout: fc2(fc1(x)), or fc(ln(x))."""
-    if isinstance(head, MlpHead):
-        return linear(head.fc2, linear(head.fc1, x))
-    return linear(head.fc, layernorm(head.ln, x))
+HEAD_DROPOUT = 0.5                    # the dual head's Dropout (Swin_AVE.py:1319-1325)
+
+
+def mlp_head_apply(head, x, generator: torch.Generator = None):
+    """`_mlp_head_apply` (:30): fc2(dropout(fc1(x))), or fc(ln(x)). With a
+    `generator` (training) fc1's output goes through inverted dropout, each
+    value kept with probability 1 - HEAD_DROPOUT and scaled by 1 / (1 -
+    HEAD_DROPOUT) in its dtype (:33-35); the keep mask is drawn on the
+    generator's device. Without one (serving) there is no dropout."""
+    if not isinstance(head, MlpHead):
+        return linear(head.fc, layernorm(head.ln, x))
+    x = linear(head.fc1, x)
+    if generator is not None:
+        keep = torch.rand(x.shape, generator=generator, device=generator.device) >= HEAD_DROPOUT
+        x = torch.where(keep.to(x.device), x / (1.0 - HEAD_DROPOUT), 0.0).to(x.dtype)
+    return linear(head.fc2, x)
 
 
 class ClipAVE(nn.Module):
@@ -66,11 +78,13 @@ def init_clip_ave(cfg: ClipConfig, generator: torch.Generator = None,
     return model.to(device)
 
 
-def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a=None, v=None):
+def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a=None, v=None,
+                   generator: torch.Generator = None):
     """Forward in cfg.ftmode: the class-token features of the mode's streams,
     concatenated as (a, v) in the two-stream modes, through the head
-    (`apply_clip_ave` :76). `videoonly` needs no a, `audioonly` no v. Returns
-    logits (B*T, label_dim)."""
+    (`apply_clip_ave` :76; `generator`: the head's training dropout, as JAX's
+    `rng`). `videoonly` needs no a, `audioonly` no v. Returns logits (B*T,
+    label_dim)."""
     feats = clip_backbone_apply(model.backbone, cfg, a=a, v=v)
     if cfg.ftmode == "videoonly":
         pooled = feats["v"]
@@ -78,7 +92,7 @@ def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a=None, v=None):
         pooled = feats["a"]
     else:
         pooled = torch.cat([feats["a"], feats["v"]], dim=-1)
-    return mlp_head_apply(model.mlp_head, pooled)
+    return mlp_head_apply(model.mlp_head, pooled, generator)
 
 
 def random_clip_ave(cfg: ClipConfig, seed: int) -> ClipAVE:
@@ -163,11 +177,12 @@ def init_swin_ave(cfg: SwinConfig, generator: torch.Generator = None,
     return model.to(device)
 
 
-def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a=None, v=None):
+def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a=None, v=None,
+                   generator: torch.Generator = None):
     """Forward in cfg.ftmode: the tokens of each stream are averaged; in the
     two-stream modes the two are concatenated as (a, v) (Swin_AVE.py:1596).
-    `videoonly` needs no a, `audioonly` no v. Returns logits (B*T,
-    label_dim)."""
+    `videoonly` needs no a, `audioonly` no v; `generator` as in
+    `apply_clip_ave`. Returns logits (B*T, label_dim)."""
     feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
     if cfg.ftmode == "videoonly":
         pooled = feats["v"].mean(dim=1)
@@ -175,7 +190,7 @@ def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a=None, v=None):
         pooled = feats["a"].mean(dim=1)
     else:
         pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
-    return mlp_head_apply(model.mlp_head, pooled)
+    return mlp_head_apply(model.mlp_head, pooled, generator)
 
 
 def random_swin_(module: nn.Module, g: torch.Generator):

@@ -476,11 +476,12 @@ def _tv2_q_cuda(x, w, heads, T, bias=None):
 
 clip_fusion_block = _Kernel("K12", "clip_fusion_block", fusion_block_plain, _clip_block_cuda)
 clip_fusion_block_q = _Kernel("K12", "clip_fusion_block_q", fusion_block_q_plain,
-                              _clip_block_q_cuda)
+                              _clip_block_q_cuda, differentiable=False)
 clip_tadapt = _Kernel("K13", "clip_tadapt", tadapt_plain, _tadapt_cuda)
-clip_tadapt_q = _Kernel("K13", "clip_tadapt_q", tadapt_q_plain, _tadapt_q_cuda)
+clip_tadapt_q = _Kernel("K13", "clip_tadapt_q", tadapt_q_plain, _tadapt_q_cuda,
+                        differentiable=False)
 clip_tv2 = _Kernel("K14", "clip_tv2", tv2_plain, _tv2_cuda)
-clip_tv2_q = _Kernel("K14", "clip_tv2_q", tv2_q_plain, _tv2_q_cuda)
+clip_tv2_q = _Kernel("K14", "clip_tv2_q", tv2_q_plain, _tv2_q_cuda, differentiable=False)
 
 
 # ---------------------------------------------------------------------------

@@ -75,6 +75,24 @@ it never falls back. Each wrapper counts the calls in which it launched its
 kernels in `.launches` (one per call, however many CUDA launches the call
 makes).
 
+Gradients (`_Recompute`, the counterpart of the JAX package's `custom_vjp`
+pairs, e.g. `_win_block_op` :451 with `_win_block_fwd` :499 and
+`_win_block_bwd` :504): where grad mode is on and a tensor argument
+requires grad, a wrapper's call is one autograd node. Its forward is the
+call as above (the kernel on the card, the plain version on the CPU, the
+launch counted) and saves only the inputs; the value used downstream is
+always the forward's. Its backward recomputes the wrapper's `recompute`
+on the saved inputs under autograd and takes `torch.autograd.grad` for
+exactly the inputs that need one (frozen weights get none and cost none).
+That recompute is the port of the XLA recompute in the JAX `_*_bwd`: it is
+not a fallback, launches none of the port's kernels, and is the only place
+on the card where the plain math runs. K1's is `win_block_recompute`, the
+port of `_win_block_naive` with its products in bf16 (fp32 accumulation);
+the other wrappers recompute their plain version, whose products run in
+fp32 (ROADMAP queue 3). The int8 wrappers (K2, K3, K11 and
+the int8 variants of K4, K12-K14) have no gradient, as the JAX package
+never differentiates a quantized tower: their backward raises.
+
 Departures from the TPU kernels' layout, on purpose: no 8-row block-diagonal
 packing of the T = 10 temporal sites (`pallas_attn.py:622-647, :879-905`), no
 2-window packing and 49 -> 64 pad of the Swin windows (:578-608) and no
@@ -206,6 +224,31 @@ def win_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
     qkv = (torch.matmul(xn.float(), w_qkv.float().t()) + b_qkv.float()).to(dt)
     o = _heads_attention(qkv, heads, bias, dt)
     return (torch.matmul(o.float(), w_proj.float().t()) + b_proj.float()).to(dt)
+
+
+def win_block_recompute(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads, bias=None):
+    """K1's backward recompute: the port of `_win_block_naive` (:426), the
+    XLA reference that the JAX `_win_block_bwd` differentiates. Its products
+    take x's dtype (bf16 operands on the card: tensor-core products with
+    fp32 accumulation, rounded once to bf16, the bias added after), the
+    logits and the softmax fp32. The same bf16 x bf16 products as
+    `win_block_plain`, which runs every product in fp32 and stays the
+    yardstick that the kernel and this gradient are held to."""
+    dt = x.dtype
+    B_, N, C = x.shape
+    dh = C // heads
+    xn = _ln_f32(x, ln_w, ln_b).to(dt)
+    qkv = torch.matmul(xn, w_qkv.to(dt).t()) + b_qkv.to(dt)
+    q, k, v = qkv.view(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q = q * torch.tensor(dh ** -0.5, dtype=dt)          # scale rounded to dt
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        nWb = bias.shape[0]
+        logits = (logits.view(B_ // nWb, nWb, heads, N, N) + bias.float()
+                  ).view(B_, heads, N, N)
+    p = torch.softmax(logits, dim=-1).to(dt)
+    o = torch.matmul(p, v).transpose(1, 2).reshape(B_, N, C)
+    return torch.matmul(o, w_proj.to(dt).t()) + b_proj.to(dt)
 
 
 def _win_block_q_core(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
@@ -810,21 +853,96 @@ def _check_block(x, heads, bias, weights):
 KERNELS = []                          # every wrapper, in the order they are made
 
 
+class _Leaf:
+    """The place of the i-th tensor in a flattened argument list."""
+
+    __slots__ = ("i",)
+
+    def __init__(self, i):
+        self.i = i
+
+
+def _flatten(obj, leaves):
+    """obj (arguments: tensors, dicts / lists / tuples of them, constants)
+    with every tensor appended to `leaves` and replaced by its _Leaf."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return _Leaf(len(leaves) - 1)
+    if isinstance(obj, dict):
+        return {k: _flatten(v, leaves) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_flatten(v, leaves) for v in obj)
+    return obj
+
+
+def _unflatten(obj, leaves):
+    if isinstance(obj, _Leaf):
+        return leaves[obj.i]
+    if isinstance(obj, dict):
+        return {k: _unflatten(v, leaves) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_unflatten(v, leaves) for v in obj)
+    return obj
+
+
+class _Recompute(torch.autograd.Function):
+    """One wrapper call as an autograd node: forward the call itself (kernel
+    or CPU plain version, counted), backward the plain version recomputed on
+    the saved inputs (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, kernel, spec, *leaves):
+        ctx.kernel, ctx.spec = kernel, spec
+        ctx.save_for_backward(*leaves)
+        args, kw = _unflatten(spec, leaves)
+        return kernel.run(*args, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kernel = ctx.kernel
+        if not kernel.differentiable:
+            raise RuntimeError(f"{kernel.name} has no gradient: the JAX package never "
+                               f"differentiates a quantized tower")
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            args, kw = _unflatten(ctx.spec, inputs)
+            out = kernel.recompute(*args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            got = iter(torch.autograd.grad(outs, [t for t, n in zip(inputs, need) if n], grads,
+                                           allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in need)
+
+
 class _Kernel:
     """A kernel wrapper with its id ("K1"...), its launch count; registers
-    itself in KERNELS."""
+    itself in KERNELS. `recompute` is what its backward differentiates (the
+    plain version unless given). `differentiable` False (the int8
+    wrappers): a gradient through it raises."""
 
-    def __init__(self, kid, fn, plain, launch):
+    def __init__(self, kid, fn, plain, launch, differentiable=True, recompute=None):
         self.id = kid
         self.name = f"{fn} ({kid})"
         self.plain = plain
+        self.recompute = recompute or plain
         self._launch = launch
+        self.differentiable = differentiable
         self.launches = 0
         KERNELS.append(self)
 
     def __call__(self, x, *args, **kw):
         if not x.is_contiguous():      # checked on every device, so that the
             raise ValueError(f"{self.name}: x must be contiguous")   # CPU tests see it
+        if torch.is_grad_enabled():
+            leaves = []
+            spec = _flatten(((x,) + args, kw), leaves)
+            if any(t.requires_grad for t in leaves):
+                return _Recompute.apply(self, spec, *leaves)
+        return self.run(x, *args, **kw)
+
+    def run(self, x, *args, **kw):
+        """The call without autograd: the plain version on the CPU, else the
+        kernel, counted."""
         if x.device.type == "cpu":
             return self.plain(x, *args, **kw)
         dev = x.device
@@ -1093,9 +1211,11 @@ def _unscaled_attn_cuda(q, k, v):
     return o
 
 
-win_block = _Kernel("K1", "win_block", win_block_plain, _win_block_cuda)
-win_block_q = _Kernel("K2", "win_block_q", win_block_q_plain, _win_block_q_cuda)
-ffn_q = _Kernel("K3", "ffn_q", ffn_q_plain, _ffn_q_cuda)
+win_block = _Kernel("K1", "win_block", win_block_plain, _win_block_cuda,
+                    recompute=win_block_recompute)
+win_block_q = _Kernel("K2", "win_block_q", win_block_q_plain, _win_block_q_cuda,
+                      differentiable=False)
+ffn_q = _Kernel("K3", "ffn_q", ffn_q_plain, _ffn_q_cuda, differentiable=False)
 win_fuse = _Kernel("K5", "win_fuse", fuse_plain, _fuse_cuda)
 bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda)
 ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda)
@@ -1105,10 +1225,10 @@ layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda)
 unscaled_attention = _Kernel("K10", "unscaled_attention", unscaled_attention_plain,
                              _unscaled_attn_cuda)
 win_block_qd = _Kernel("K11", "win_block_qd", functools.partial(win_block_qad_plain, emit_o=False),
-                       functools.partial(_win_block_qad_cuda, emit_o=False))
+                       functools.partial(_win_block_qad_cuda, emit_o=False), differentiable=False)
 win_block_qh = _Kernel("K11", "win_block_qh", functools.partial(win_block_qad_plain, emit_o=True),
-                       functools.partial(_win_block_qad_cuda, emit_o=True))
-ffn_qh = _Kernel("K11", "ffn_qh", ffn_qh_plain, _ffn_qh_cuda)
+                       functools.partial(_win_block_qad_cuda, emit_o=True), differentiable=False)
+ffn_qh = _Kernel("K11", "ffn_qh", ffn_qh_plain, _ffn_qh_cuda, differentiable=False)
 
 
 def reset_launches():

@@ -442,7 +442,8 @@ def _swin_block_q_cuda(v, a, w, heads, bias, fuse_mask):
 
 
 swin_block = _Kernel("K4", "swin_block", swin_block_plain, _swin_block_cuda)
-swin_block_q = _Kernel("K4", "swin_block_q", swin_block_q_plain, _swin_block_q_cuda)
+swin_block_q = _Kernel("K4", "swin_block_q", swin_block_q_plain, _swin_block_q_cuda,
+                       differentiable=False)
 
 
 # ---------------------------------------------------------------------------
