@@ -176,31 +176,68 @@ line:
        shares storage, the logits do not move);
      - training (`phase_train`): AVE-29 on CLIP ViT-B/16 fusion at full width
        (12 layers, C = 768, T = 10), B = TRAIN_B = 2, bf16 compute with fp32
-       masters. K1 at its four sites ((394, 10, 768), (98, 10, 768), (20,
-       197, 768), (20, 49, 768)) through `fused_attn._Recompute` (the kernel
-       forward, `win_block_recompute`'s bf16 products recomputed under
-       autograd): the forward against `win_block_plain` and every input's
-       gradient against its plain autograd (fp32 products) with the same
-       upstream gradient (TOL_KERNEL each), the backward launching nothing,
-       with forward + backward times beside
-       plain autograd's, PyTorch's own composition and the bound (rows under
-       K1 in the kernels line); `cli.run_adapt_ave29.main` with `--synthetic
-       True --n-epochs 2` on the card (4 steps of the train pipeline on the
-       card, the head's dropout, Adam; 2 eval batches): finite step losses,
-       every trainable leaf moved, every frozen leaf bit for bit, K1 exactly
-       48 x forwards and no other kernel, result.csv, progress.json,
-       state_meta.json and models/ written; a run resumed after epoch 1
-       against the straight run (plateau LR, whose table does not depend on
-       the epoch count; TOL_RESUME); one train step at depth 2 against the
-       CPU's fp32 plain path on live weights (loss and all gradients within
+       masters. Gradient rows (`grad_row`: the kernel through
+       `fused_attn._Recompute`, its forward held to its plain version at the
+       kernel's bar, the backward launching nothing; the witness: the
+       recompute and the plain version on float64 copies of the inputs give
+       every leaf the same gradient within TOL_GRAD_F64 under a random
+       upstream gradient and under 1/2 |out|^2; every leaf's bf16 gradient
+       through the recompute held to plain autograd of the plain version
+       (fp32 products), a tensor under the random upstream gradient, a gate
+       under 1/2 |out|^2, the other pairing logged; times beside plain
+       autograd's, PyTorch's own composition and the bound) of K1 at its
+       four sites ((394, 10, 768), (98, 10, 768), (20, 197, 768), (20, 49,
+       768); TOL_KERNEL for the forward and the gradients);
+       `cli.run_adapt_ave29.main --synthetic True --n-epochs 2 --lr_adapt
+       True` on the card, the straight run (4 steps of the train pipeline on
+       the card, the head's dropout, Adam; 2 eval batches): finite step
+       losses, every trainable leaf moved, every frozen leaf bit for bit, K1
+       exactly 48 x forwards and no other kernel, its files written
+       (`check_cli_run`); a run resumed after epoch 1 against it (plateau
+       LR, whose table does not depend on the epoch count; TOL_RESUME); one
+       train step at depth 2 against the CPU's fp32 plain path on live
+       weights (`step_against_cpu`: loss and all gradients within
        TOL_KERNEL, each leaf within TOL_TRAIN_LEAF); the train step's wall
        ms, its spans between CUDA events and its kernel time (torch.profiler)
        split into pipeline, forward, backward and Adam, clips/s, peak memory
-       and the device's busy share.
+       and the device's busy share;
+     - Swin training (`phase_train_swin`): AVE-29 on Swin-Base fusion
+       (BASELINE.json configs[1]'s tower) at full width and depth, B =
+       TRAIN_B, bf16 compute with fp32 masters. Gradient rows (TOL_GRAD) of
+       K1 at the stage 0-1 shifted windows and temporal sites (the trainable
+       temporal table a leaf, its gradient through `gather_bias`'s index
+       backward), K4 at stage 2 unshifted and shifted and stage 3 (live
+       adapters and gates, the relative table a leaf), K5 and K6 at stages
+       0-1, K7 at the stage-0 FFN's shape, the K8 site at stage 3's temporal
+       branch and K9 at every norm; `cli.run_adapt_ave29.main --model
+       MM-Swin-AVE-Base`, the straight run, as CLIP's (`launches_per_forward`
+       x forwards); a resumed run against it (TOL_RESUME; the leaves that
+       differ named); one step at depths 2/2/2/2 against the CPU; the step's
+       times;
+     - AVS training (`phase_train_avs`): `cli.run_adapt_avs.main` at its
+       defaults (Swin-Large fusion, T = 5, TPAVI at all four stages) at B =
+       TRAIN_B: the K8 site's gradient rows at the stage 2-3 temporal sites
+       (the bias gradient dbm reaching the temporal table); the straight run
+       as above; `--eval_only` on its best checkpoint reproducing its best
+       miou; under STGCMA_DETERMINISTIC=1 (the CLIs' switch for torch's
+       deterministic algorithms) a straight run and a run resumed after
+       epoch 1 (TOL_RESUME), their BatchNorm statistics too; two steps at
+       depths 2/2/2/2 against the CPU (the CLI's loss, TPAVI's BatchNorm on
+       batch statistics) with the BatchNorm statistics after them, and one
+       with that BatchNorm on its running statistics, where the audio
+       branch's gradient does not cancel; in both a CPU bf16 step measures
+       what bf16 rounding alone does to each leaf (ZERO_SHARE: zero to
+       rounding; the bar TOL_TRAIN_LEAF plus TRAIN_NOISE x that distance);
+       the step's times;
+     - `phase_grad_kernels` (phase 3): K10's gradient row at its Swin-Base
+       168^2 check site and K12's, K13's and K14's at the CLIP-B/16 fusion
+       check sites at B = TRAIN_B, so that every recompute has run on the
+       card.
 The script logs its total wall time. The line before the last is one JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}. The
 training path's launches (set to 0 just before its CLI run, read just after
-it) add K1 288 to the kernels line's totals.
+it) add K1 288 to the kernels line's totals; the Swin and AVS training
+runs add theirs.
 Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
@@ -250,6 +287,25 @@ TOL_TRAIN_LEAF = 1e-1  # one train step at depth 2, card bf16 vs CPU fp32: each 
                        # bf16 rounding does not average out as a matrix's does; a term missing
                        # from the backward moves a leaf by its whole size); all gradients
                        # together are held at TOL_KERNEL
+ZERO_SHARE = 1e-2    # a step's leaf is zero to rounding where its fp32 gradient is at most this
+                     # share of the CPU's bf16 distance from it (TPAVI's W_z conv biases: their
+                     # fp32 gradient sat at 1.1e-4 to 1.3e-4 of that distance, every other
+                     # leaf at 0.74 or more, on the H100)
+TRAIN_NOISE = 1.5    # with a CPU bf16 step: each leaf within TOL_TRAIN_LEAF of its max plus this
+                     # many times the CPU's own bf16 distance (the card sat at 0.04-1.67 of it
+                     # where that distance passed TOL_TRAIN_LEAF, on the H100)
+TOL_GRAD = 3e-2      # a gradient row: each leaf's gradient through the recompute (bf16
+                     # products, fp32 accumulation, as the JAX references' dots) within this
+                     # share of its own max |plain| from plain autograd of the plain version
+                     # (every product in fp32); a term missing from a backward moves a leaf
+                     # by its whole size
+TOL_GRAD_F64 = 1e-2  # a gradient row's witness: the recompute and the plain version on
+                     # float64 copies of the inputs (their fp32 steps stay fp32), each leaf's
+                     # gradient within this share of its max (on the H100 <= 1.1e-5, and 7.0e-4
+                     # for K6 st.0's gate under a random upstream gradient, a sum that cancels
+                     # to 1e-3 of its terms); a term missing from a backward moves a leaf by
+                     # its whole size
+SWIN_AVE = "MM-Swin-AVE-Base"   # phase_train_swin: BASELINE.json configs[1]'s tower
 TOL_RESUME = 1e-2    # a run resumed after epoch 1: max |resumed - straight| over the masters
                      # within this share of the run's largest update (bf16 sums in another
                      # order would move them by far less; a moment or an LR not restored
@@ -375,6 +431,18 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(t_tensor, t_exp, t_bytes, grad=False):
+    """(least ms, what bounds it) of a function whose products take t_tensor
+    s, its exps t_exp s and its bytes t_bytes s. With `grad`, of its forward
+    and backward: three times the products (the forward's, and the
+    backward's two for each: the input's gradient and the weight's), the
+    exps once (the probabilities kept), twice the bytes (the inputs read
+    again and each gradient written, as large as its input)."""
+    t_ops = max(3 * t_tensor if grad else t_tensor, t_exp)
+    t_bytes = 2 * t_bytes if grad else t_bytes
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -937,26 +1005,24 @@ def check_faults(name, kernel, plain, args, faults, tol=TOL_KERNEL):
     return moved
 
 
-def wmsa_bound(R, N, dh, P):
+def wmsa_bound(R, N, dh, P, grad=False):
     ops = 2 * 2 * R * N * N * dh
     nbytes = 4 * R * N * dh * 2 + P * N * N * 4
-    t_ops, t_bytes = ops / H100_BF16, nbytes / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops / H100_BF16, 0.0, nbytes / H100_BYTES, grad)
 
 
-def ln_bound(M, C):
-    t_ops, t_bytes = 8 * M * C / H100_FP32, (2 * M * C * 2 + 2 * C * 2) / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def ln_bound(M, C, grad=False):
+    return _bound(8 * M * C / H100_FP32, 0.0, (2 * M * C * 2 + 2 * C * 2) / H100_BYTES, grad)
 
 
-def k9_sites(cfg):
+def k9_sites(cfg, b=B):
     """(site, rows, width) of the LayerNorms of one Swin stream at B clips of
     cfg.num_ttokens frames: the patch embed's, the three merges', the
     temporal norm of each stage with more heads than K1 takes (LN + the K8
     core: stage 3 of Swin-Base, stages 2-3 of Swin-Large) and the final
     norm."""
     from stgcma_tpu_torch.ops.fused_attn import block_kernel_route
-    rows, T = B * cfg.num_ttokens, cfg.num_ttokens
+    rows, T = b * cfg.num_ttokens, cfg.num_ttokens
     H0, _ = cfg.stage_resolution(0)
     sites = [("patch-embed norm", rows * H0 * H0, cfg.embed_dim)]
     for s in range(cfg.num_layers - 1):
@@ -965,7 +1031,7 @@ def k9_sites(cfg):
     for s in range(cfg.num_layers):
         if not block_kernel_route(cfg.num_heads[s]):
             Hs, _ = cfg.stage_resolution(s)
-            sites.append((f"stage-{s} temporal norm", B * Hs * Hs * T, cfg.stage_dim(s)))
+            sites.append((f"stage-{s} temporal norm", b * Hs * Hs * T, cfg.stage_dim(s)))
     H, _ = cfg.stage_resolution(cfg.num_layers - 1)
     return sites + [("final norm", rows * H * H, cfg.num_features)]
 
@@ -1157,16 +1223,15 @@ def phase_swin_kernels(cfg, large_cfg):
     return results
 
 
-def fuse_bound(B, Nv, Na, D, sfu):
+def fuse_bound(B, Nv, Na, D, sfu, grad=False):
     """The fusion of K5/K6: vh, ah read and vo, ao written once; the gram and
     the two probability products on the tensor cores; one exp per gram
     entry on the special function units (the TPU kernel derives the second
     direction from the same exps). Operations bound it where either the
     tensor time or the exp time exceeds the byte time."""
     nbytes = 2 * 2 * B * (Nv + Na) * D
-    t_ops = max(3 * 2 * B * Nv * Na * D / H100_BF16, B * Nv * Na / sfu)
-    t_bytes = nbytes / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(3 * 2 * B * Nv * Na * D / H100_BF16, B * Nv * Na / sfu, nbytes / H100_BYTES,
+                  grad)
 
 
 def library_fuse(vh, ah, gv, ga):
@@ -1180,7 +1245,7 @@ def library_fuse(vh, ah, gv, ga):
     return run
 
 
-def block_k4_bound(BT, N, C, heads, D, sfu, int8=False, window=None):
+def block_k4_bound(BT, N, C, heads, D, sfu, int8=False, window=None, grad=False):
     """K4 per call, both streams: qkv, proj, FFN (hidden 4C), attention
     grams and adapters on the tensor cores (the four tower products at the
     int8 rate in the int8 variant), plus both fusions; one exp per attention
@@ -1201,9 +1266,7 @@ def block_k4_bound(BT, N, C, heads, D, sfu, int8=False, window=None):
     tower_bytes = 12 * C * C + 9 * C * 2 if int8 else 2 * 12 * C * C
     wbytes = tower_bytes + 2 * 8 * C * D + heads * grams * 4 + (0 if window else N * N * 4)
     t_tensor = tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16
-    t_ops = max(t_tensor, exps / sfu)
-    t_bytes = (4 * M * C * 2 + wbytes) / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(t_tensor, exps / sfu, (4 * M * C * 2 + wbytes) / H100_BYTES, grad)
 
 
 def library_k4(v, a, w, heads, bias, fuse_mask):
@@ -1519,7 +1582,7 @@ def phase_int8_swin_kernels(cfg):
     return results
 
 
-def clip_block_bound(BT, Nv, Na, C, heads, D, sfu, int8):
+def clip_block_bound(BT, Nv, Na, C, heads, D, sfu, int8, grad=False):
     """K12 per call, both streams: qkv, proj and the FFN (hidden 4C) over the
     BT * (Nv + Na) rows (at the int8 rate in the int8 variant), the attention
     grams of each stream, the eight adapter products and both fusions on the
@@ -1531,12 +1594,11 @@ def clip_block_bound(BT, Nv, Na, C, heads, D, sfu, int8):
     rest = (4 * BT * (Nv * Nv + Na * Na) * C + 8 * M * C * D + 2 * 3 * 2 * BT * Nv * Na * D)
     exps = BT * heads * (Nv * Nv + Na * Na) + 2 * BT * Nv * Na
     wbytes = (12 * C * C + 9 * C * 2 if int8 else 2 * 12 * C * C) + 2 * 8 * C * D
-    t_ops = max(tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16, exps / sfu)
-    t_bytes = (2 * M * C * 2 + wbytes) / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16, exps / sfu,
+                  (2 * M * C * 2 + wbytes) / H100_BYTES, grad)
 
 
-def tadapt_bound(R, T, C, heads, D, sfu, int8):
+def tadapt_bound(R, T, C, heads, D, sfu, int8, grad=False):
     """K13 per call: qkv and proj over the R * T rows (int8 rate in the int8
     variant), the T x T grams, the two adapter products; x read and written
     once, the weights once."""
@@ -1544,10 +1606,8 @@ def tadapt_bound(R, T, C, heads, D, sfu, int8):
     tower = 2 * M * C * 3 * C + 2 * M * C * C
     rest = 4 * R * T * T * C + 4 * M * C * D
     wbytes = (4 * C * C + 4 * C * 2 if int8 else 2 * 4 * C * C) + 2 * 2 * C * D
-    t_ops = max(tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16,
-                R * heads * T * T / sfu)
-    t_bytes = (2 * M * C * 2 + wbytes) / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(tower / (H100_INT8 if int8 else H100_BF16) + rest / H100_BF16,
+                  R * heads * T * T / sfu, (2 * M * C * 2 + wbytes) / H100_BYTES, grad)
 
 
 def _library_tower(w, int8):
@@ -1915,13 +1975,12 @@ def phase_tv2_kernels(cfg, l14_cfg):
     return {"K14": rows}
 
 
-def k10_bound(Bk, Nq, Nk, D, sfu):
+def k10_bound(Bk, Nq, Nk, D, sfu, grad=False):
     """One K10 call: q, k, v read and o written once; q.k^T and p.v on the
     tensor cores; one exp per logit on the special function units."""
     nbytes = 2 * Bk * (2 * Nq + 2 * Nk) * D
-    t_ops = max(2 * 2 * Bk * Nq * Nk * D / H100_BF16, Bk * Nq * Nk / sfu)
-    t_bytes = nbytes / H100_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(2 * 2 * Bk * Nq * Nk * D / H100_BF16, Bk * Nq * Nk / sfu, nbytes / H100_BYTES,
+                  grad)
 
 
 def k10_route_plain(vh, ah, gate_v, gate_a):
@@ -2203,16 +2262,11 @@ def phase_l14_int8_kernels(cfg):
 
 
 @contextlib.contextmanager
-def clip_switches(task):
-    """The switches read at call time: the two of the fused CLIP block on for
-    a task whose name has `_fused_`, STGCMA_QFUSE_ADAPTERS (K11) for one with
-    `_qfuse_`, STGCMA_TV2 (K14) for one with `_tv2_`, each off for any other
-    task."""
-    want = {**{k: "_fused_" in task for k in CLIP_SWITCHES}, QFUSE: "_qfuse_" in task,
-            TV2: "_tv2_" in task}
-    old = {k: os.environ.get(k) for k in want}
-    for k, on in want.items():
-        os.environ[k] = "1" if on else "0"
+def environment(values):
+    """The environment variables `values` ({name: str}) set for the block,
+    each restored after it: the port's switches, read at call time."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -2221,6 +2275,15 @@ def clip_switches(task):
                 del os.environ[k]
             else:
                 os.environ[k] = val
+
+
+def clip_switches(task):
+    """The two switches of the fused CLIP block on for a task whose name has
+    `_fused_`, STGCMA_QFUSE_ADAPTERS (K11) for one with `_qfuse_`, STGCMA_TV2
+    (K14) for one with `_tv2_`, each off for any other task."""
+    want = {**{k: "_fused_" in task for k in CLIP_SWITCHES}, QFUSE: "_qfuse_" in task,
+            TV2: "_tv2_" in task}
+    return environment({k: "1" if on else "0" for k, on in want.items()})
 
 
 def predict(srv, task, batch):
@@ -3076,16 +3139,145 @@ def k1_grad_bound(Bq, N, C, heads):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def tick(t0, what):
+    log(f"  ({time.perf_counter() - t0:.1f} s into the phase: {what} done)")
+
+
+def grad_row(name, kernel, plain, run, leaves, bound, library=None, tol=TOL_KERNEL,
+             grad_tol=TOL_GRAD):
+    """A kernel through `fused_attn._Recompute` on the card: `run(fn, lv)`
+    calls `fn` (the wrapper, its plain version or its recompute) on the
+    row's inputs, taking the leaves from `lv` ({name: tensor}, as `leaves`:
+    the inputs that take a gradient, a bias table among them where the call
+    gathers its bias). The forward is held to the plain version within
+    `tol` of max |plain|; the backward launches no kernel. Two upstream
+    gradients: "rand", N(0, 1) in the output's dtype, and "out", the
+    kernel's output (the gradient of 1/2 |out|^2).
+    - The witness: the recompute and the plain version, both on float64
+      copies of the inputs (no bf16 rounding anywhere; their fp32 steps stay
+      fp32), give every leaf the same gradient within TOL_GRAD_F64 of its
+      max under both upstream gradients: the backward differentiates the
+      plain version's function, so a term missing from it fails here.
+    - Precision: the bf16 recompute against plain autograd of the plain
+      version in bf16 (its products in fp32), each leaf within `grad_tol`
+      of its own max: a tensor under "rand", a one-element leaf (a gate)
+      under "out". A gate's gradient is one sum over every element of the
+      call: "rand" cancels it to ~1/sqrt(n) of its terms, where the bf16
+      products' rounding, which does not cancel, is of the terms' size.
+      Under "out" a leaf that feeds the output through LN1 (v, x) sums the
+      output's own large term against the LayerNorm backward's, which
+      cancel the same way. The other pairing's distances are logged, not
+      held; the witness holds it.
+    max_abs_err is the larger of the forward's and the held gradients'
+    absolute errors. Times: the Function's forward + backward and backward
+    alone, plain autograd's, `library()` (PyTorch's own calls, timed only)
+    under autograd, and the backward's kernel ms (torch.profiler)."""
+    import torch
+    names = list(leaves)
+    xs = [leaves[n] for n in names]
+
+    def outs_of(fn, lv=leaves):
+        out = fn() if fn is library else run(fn, lv)
+        return out if isinstance(out, tuple) else (out,)
+
+    def grads(outs, ups, wrt=xs, retain=True):
+        got = torch.autograd.grad(outs, wrt, ups, retain_graph=retain, allow_unused=True)
+        return [torch.zeros_like(x) if d is None else d for x, d in zip(wrt, got)]
+
+    outs = outs_of(kernel)
+    if any(type(o.grad_fn).__name__ != "_RecomputeBackward" for o in outs):
+        fail(f"{name}: the output's grad_fn is {outs[0].grad_fn}, not the Function")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    ups = {"rand": [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype) for o in outs],
+           "out": [o.detach() for o in outs]}
+    gups = ups["rand"]
+    before = kernel.launches
+    got = {k: grads(outs, u) for k, u in ups.items()}
+    torch.cuda.synchronize()
+    if kernel.launches != before:
+        fail(f"{name}: the backward launched the kernel")
+    ref_outs = outs_of(plain)
+    fwd = _flat(tuple(o.detach() for o in outs))
+    fref = _flat(tuple(o.detach() for o in ref_outs))
+    fwd_err, fwd_scale = (fwd - fref).abs().max().item(), fref.abs().max().item()
+    if not (torch.isfinite(fwd).all() and fwd_err <= tol * fwd_scale):
+        fail(f"{name}: forward max |kernel - plain| = {fwd_err:.4g} > {tol} * {fwd_scale:.4g}")
+    del fwd, fref
+    ref = {k: grads(ref_outs, u) for k, u in ups.items()}
+
+    def rel(a, r):
+        err, scale = (a.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+        return err, scale, err / max(scale, 1e-30)
+    lv64 = {n: _leaf(x.detach().double()) for n, x in leaves.items()}
+    xs64 = [lv64[n] for n in names]
+    r64, p64 = outs_of(kernel.recompute, lv64), outs_of(plain, lv64)
+    witness = 0.0
+    for k, u in ups.items():
+        u64 = [t.double() for t in u]
+        for n, a, r in zip(names, grads(r64, u64, xs64), grads(p64, u64, xs64)):
+            err, scale, e = rel(a, r)
+            if not (torch.isfinite(a).all() and err <= TOL_GRAD_F64 * scale):
+                fail(f"{name}: the float64 witness under the '{k}' upstream gradient: d/d{n} "
+                     f"max |recompute - plain| = {err:.4g} > {TOL_GRAD_F64} * {scale:.4g}")
+            witness = max(witness, e)
+    del r64, p64, lv64, xs64
+    errs, other = [], []
+    for i, n in enumerate(names):
+        held = "out" if xs[i].numel() == 1 else "rand"
+        err, scale, e = rel(got[held][i], ref[held][i])
+        if not (torch.isfinite(got[held][i]).all() and err <= grad_tol * scale):
+            fail(f"{name}: d/d{n} under the '{held}' upstream gradient max |Function - plain| = "
+                 f"{err:.4g} > {grad_tol} * {scale:.4g}")
+        errs.append((n, err, scale, held))
+        o = "rand" if held == "out" else "out"
+        other.append((n, rel(got[o][i], ref[o][i])[2], o))
+    del got, ref
+    ms = cuda_ms(lambda: grads(outs_of(kernel), gups, retain=False), 5)
+    bwd_ms = cuda_ms(lambda: grads(outs, gups), 5)
+    plain_ms = cuda_ms(lambda: grads(outs_of(plain), gups, retain=False), 2, warmup=1)
+    plain_bwd_ms = cuda_ms(lambda: grads(ref_outs, gups), 2, warmup=1)
+    library_ms = None
+    if library is not None:
+        try:
+            library_ms = cuda_ms(lambda: grads(outs_of(library), gups, retain=False), 5)
+        except RuntimeError as e:          # a yardstick only; the port never calls it
+            log(f"  {name}: library yardstick unavailable: {e}")
+    bwd_kernels = kernel_ms(lambda: grads(outs, gups), iters=2)
+    plain_bwd_kernels = kernel_ms(lambda: grads(ref_outs, gups), iters=1)
+    bound_ms, bound_by = bound
+    worst = max(errs, key=lambda e: e[1] / max(e[2], 1e-30))
+    lib_s = "null" if library_ms is None else f"{library_ms:.4f}"
+    log(f"  {name}: forward {fwd_err:.3g} ({fwd_err / fwd_scale:.2e} rel, tol {tol}); gradients "
+        + ", ".join(f"d{n} {e / max(s, 1e-30):.2e} ({h})" for n, e, s, h in errs)
+        + f" rel (tol {grad_tol}); not held: "
+        + ", ".join(f"d{n} {e:.2e} ({h})" for n, e, h in other)
+        + f"; float64 witness {witness:.2e} (tol {TOL_GRAD_F64}); forward + backward {ms:.4f} ms "
+        f"(backward {bwd_ms:.4f}, {bwd_kernels:.4f} of kernels), plain autograd {plain_ms:.4f} ms "
+        f"(backward {plain_bwd_ms:.4f}, {plain_bwd_kernels:.4f} of kernels), library {lib_s} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"shape": f"{name}, forward + recompute backward", "max_abs_err": max(
+        [fwd_err] + [e for _, e, _, _ in errs]), "forward_rel_err": fwd_err / fwd_scale,
+        "grad_max_rel_err": worst[1] / max(worst[2], 1e-30), "grad_worst_leaf": worst[0],
+        "grad_other_max_rel_err": max(e for _, e, _ in other), "grad_f64_witness": witness,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "backward_ms": bwd_ms, "plain_backward_ms": plain_bwd_ms,
+        "backward_kernel_ms": bwd_kernels, "plain_backward_kernel_ms": plain_bwd_kernels}
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def _rnd(g, *shape, std=1.0, dtype=None):
+    import torch
+    t = torch.randn(*shape, generator=g, device="cuda") * std
+    return t if dtype is None else t.to(dtype)
+
+
 def k1_grad_rows(cfg, b):
-    """K1 on the card at the four CLIP-B/16 fusion sites at B = b, through
-    `fused_attn._Recompute` (the kernel forward, `win_block_recompute`'s
-    bf16 products recomputed under autograd): the forward, and every input's
-    gradient with the same upstream gradient, against `win_block_plain` and
-    its plain autograd (fp32 products), each within TOL_KERNEL of max
-    |plain|; the backward launches no kernel. The row's max_abs_err is the
-    forward's. Times: the Function's forward and backward against plain
-    autograd's and against PyTorch's own layer_norm / linear /
-    scaled_dot_product_attention composition, forward and backward."""
+    """`grad_row` of K1 at the four CLIP-B/16 fusion sites at B = b, its bars
+    TOL_KERNEL for the forward and the gradients alike; library: PyTorch's
+    own layer_norm / linear / scaled_dot_product_attention composition."""
     import torch
     from stgcma_tpu_torch.ops import fused_attn as FA
     T, C, h = cfg.num_frames, cfg.embed_dim, cfg.heads
@@ -3093,191 +3285,208 @@ def k1_grad_rows(cfg, b):
     sites = {"video temporal": (b * Nv, T), "audio temporal": (b * Na, T),
              "video spatial": (b * T, Nv), "audio spatial": (b * T, Na)}
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    names = ("x", "ln_w", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")
     rows = []
     for site, (Bq, N) in sites.items():
         args, _ = make_block_inputs(g, Bq, N, C, h, int8=False)
-        leaves = [a.detach().clone().requires_grad_(True) for a in args]
-        gup = torch.randn(Bq, N, C, generator=g, device="cuda").to(torch.bfloat16)
-        out = FA.win_block(*leaves, h)
-        if type(out.grad_fn).__name__ != "_RecomputeBackward":
-            fail(f"K1 at the {site} site: the output's grad_fn is {out.grad_fn}, not the Function")
-        before = FA.win_block.launches
-        got = torch.autograd.grad(out, leaves, gup, retain_graph=True)
-        torch.cuda.synchronize()
-        if FA.win_block.launches != before:
-            fail(f"K1 at the {site} site: the backward launched the kernel")
-        ref_out = FA.win_block_plain(*leaves, h)
-        fwd_err, fwd_scale = ((out.float() - ref_out.float()).abs().max().item(),
-                              ref_out.float().abs().max().item())
-        if not (torch.isfinite(out).all() and fwd_err <= TOL_KERNEL * fwd_scale):
-            fail(f"K1 forward at the {site} site: max |kernel - plain| = {fwd_err:.4g} > "
-                 f"{TOL_KERNEL} * {fwd_scale:.4g}")
-        ref = torch.autograd.grad(ref_out, leaves, gup, retain_graph=True)
-        errs = []
-        for name, a, r in zip(("x", "ln_w", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj"),
-                              got, ref):
-            err, scale = (a.float() - r.float()).abs().max().item(), r.float().abs().max().item()
-            if not (torch.isfinite(a).all() and err <= TOL_KERNEL * scale):
-                fail(f"K1 gradient at the {site} site, d/d{name}: max |Function - plain| = "
-                     f"{err:.4g} > {TOL_KERNEL} * {scale:.4g}")
-            errs.append((name, err, scale))
-        lib = library_block(leaves, h, False)
-        ms = cuda_ms(lambda: torch.autograd.grad(FA.win_block(*leaves, h), leaves, gup), 10)
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gup, retain_graph=True), 10)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(FA.win_block_plain(*leaves, h), leaves,
-                                                       gup), 5, warmup=1)
-        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, gup,
-                                                           retain_graph=True), 5, warmup=1)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(lib().view(Bq, N, C), leaves, gup), 10)
-        bwd_kernels = kernel_ms(lambda: torch.autograd.grad(out, leaves, gup, retain_graph=True))
-        plain_bwd_kernels = kernel_ms(lambda: torch.autograd.grad(ref_out, leaves, gup,
-                                                                  retain_graph=True))
-        bound_ms, bound_by = k1_grad_bound(Bq, N, C, h)
-        worst = max(errs, key=lambda e: e[1] / max(e[2], 1e-30))
-        log(f"  K1 gradient {site} ({Bq}, {N}, {C}) h{h}: "
-            + ", ".join(f"d{n} {e:.3g} ({e / max(s, 1e-30):.2e} rel)" for n, e, s in errs)
-            + f"; forward {fwd_err:.3g} ({fwd_err / fwd_scale:.2e} rel); tol {TOL_KERNEL} rel; "
-            f"forward + backward {ms:.4f} ms "
-            f"(backward {bwd_ms:.4f}: the recompute and its autograd, {bwd_kernels:.4f} of "
-            f"kernels), plain autograd {plain_ms:.4f} ms (backward {plain_bwd_ms:.4f}, "
-            f"{plain_bwd_kernels:.4f} of kernels), library {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-        rows.append({"shape": f"K1 forward + recompute backward, {site} ({Bq}, {N}, {C}) h{h}",
-                     "max_abs_err": fwd_err, "grad_max_rel_err": worst[1] / max(worst[2], 1e-30),
-                     "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                     "backward_ms": bwd_ms, "plain_backward_ms": plain_bwd_ms,
-                     "backward_kernel_ms": bwd_kernels,
-                     "plain_backward_kernel_ms": plain_bwd_kernels,
-                     "site": site})
-        del out, ref_out, got, ref, leaves, args
+        leaves = dict(zip(names, (_leaf(a) for a in args)))
+
+        def run(fn, lv):
+            return fn(*lv.values(), h)
+
+        def library(lv=leaves, Bq=Bq, N=N):
+            return library_block(list(lv.values()), h, False)().view(Bq, N, C)
+        rows.append(grad_row(f"K1 CLIP {site} {(Bq, N, C)} h{h}", FA.win_block,
+                             FA.win_block_plain, run, leaves, k1_grad_bound(Bq, N, C, h),
+                             library, tol=TOL_KERNEL, grad_tol=TOL_KERNEL))
+        del leaves, args
     return rows
 
 
-def train_cli(exp, *flags):
-    """`cli.run_adapt_ave29.main` on CLIP ViT-B/16 fusion at full width on
-    the card, synthetic AVE at B = TRAIN_B."""
+def train_cli(exp, *flags, model="MM-CLIP-AVE-Base"):
+    """`cli.run_adapt_ave29.main` on `model` (CLIP ViT-B/16 by default) in
+    fusion mode at full width on the card, synthetic AVE at B = TRAIN_B."""
     from stgcma_tpu_torch.cli import run_adapt_ave29
     with contextlib.redirect_stdout(sys.stderr):     # the CLI's own prints
         return run_adapt_ave29.main(
-            ["--model", "MM-CLIP-AVE-Base", "--ftmode", "fusion", "--synthetic", "True",
+            ["--model", model, "--ftmode", "fusion", "--synthetic", "True",
              "--batch_size", str(TRAIN_B), "--synthetic_n", str(TRAIN_N), "--num_workers", "2",
              "--device", "cuda", "--exp-dir", exp, *flags])
 
 
-def check_train_run(cfg, trainer, n_launched):
-    """The straight CLI run: finite losses, every trainable leaf moved, every
-    frozen leaf bit for bit as the CLI's init left it, K1 launched exactly
-    48 x forwards (train and eval) and no other kernel, its files written."""
+def check_cli_run(label, trainer, init, want_of, n_launched):
+    """The straight CLI run on the card (2 epochs of TRAIN_N // TRAIN_B
+    steps, one eval batch an epoch: AVE's and AVS's synthetic test splits
+    hold TRAIN_B items): finite step losses, every trainable leaf that the
+    loss reaches moved, every frozen parameter bit for bit as the CLI's
+    init left it, the launches exactly `want_of(forwards)` (the path's
+    launches a forward x its forwards, train and eval), its files
+    written."""
     import torch
-    from stgcma_tpu_torch.models.ave import init_clip_ave
     losses = trainer.step_losses
     if not losses or not all(map(math.isfinite, losses)):
-        fail(f"train: a non-finite step loss in {losses}")
-    init = init_clip_ave(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+        fail(f"{label}: a non-finite step loss in {losses}")
     start = dict(init.named_parameters())
     moved, frozen = 0, 0
+    unreached = []                 # trainable leaves the loss does not reach (no gradient)
     for n, p in trainer.model.named_parameters():
-        if p.requires_grad:
-            if torch.equal(p, start[n]):
-                fail(f"train: the trainable leaf {n} did not move")
-            moved += 1
-        else:
-            if not torch.equal(p, start[n]):
-                fail(f"train: the frozen leaf {n} changed")
-            frozen += 1
-    eval_batches = -(-(TRAIN_N // 2) // TRAIN_B) * trainer.n_epochs
-    forwards = trainer.global_step + eval_batches
-    want = {**{k: 0 for k in KERNELS}, "K1": 4 * cfg.layers * forwards}
+        same = torch.equal(p, start[n])
+        if p.requires_grad and same and p.grad is not None:
+            fail(f"{label}: the trainable leaf {n} did not move")
+        if not p.requires_grad and not same:
+            fail(f"{label}: the frozen leaf {n} changed")
+        if p.requires_grad and p.grad is None:
+            unreached.append(n)
+        moved, frozen = moved + (p.requires_grad and not same), frozen + (not p.requires_grad)
+    forwards = trainer.global_step + trainer.n_epochs
+    want = want_of(forwards)
     if n_launched != want:
-        fail(f"train: launches {n_launched}, expected {want} ({forwards} forwards: "
-             f"{trainer.global_step} steps and {eval_batches} eval batches)")
+        fail(f"{label}: launches {n_launched}, expected {want} ({forwards} forwards)")
     for name in ("result.csv", "progress.json", "state_meta.json", "models/model.1",
-                 "models/best_model", "state/train_params", "state/opt_state"):
+                 "models/best_model", "state/train_params", "state/opt_state", "state/buffers"):
         if not os.path.exists(os.path.join(trainer.exp_dir, name)):
-            fail(f"train: {name} was not written")
-    log(f"  CLI (cosine, warm-up): {trainer.global_step} steps + {eval_batches} eval batches, "
-        f"step losses {', '.join(f'{x:.4f}' for x in losses)}; {moved} trainable leaves moved, "
-        f"{frozen} frozen leaves bit for bit; launches {n_launched['K1']} K1 = "
-        f"{4 * cfg.layers} x {forwards} forwards, no other kernel; result.csv, progress.json, "
-        f"state_meta.json, models/ written")
-    return forwards
+            fail(f"{label}: {name} was not written")
+    log(f"  {label} CLI ({trainer.lr_mode} LR): {trainer.global_step} steps + "
+        f"{trainer.n_epochs} eval batches, step losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, history "
+        f"{[{k: round(v, 5) for k, v in h.items()} for h in trainer.history]}; {moved} "
+        f"trainable leaves moved ({len(unreached)} the loss does not reach, unmoved"
+        + (f": {', '.join(unreached)}" if unreached else "") + f"), {frozen} frozen leaves "
+        f"bit for bit; launches "
+        f"{ {k: v for k, v in n_launched.items() if v} } = the path's launches a forward x "
+        f"{forwards} forwards, exactly; result.csv, progress.json, state_meta.json, models/, "
+        f"state/ written")
 
 
 def check_resume(straight, resumed, init):
     """A run resumed after epoch 1 against the straight run: every master
-    within TOL_RESUME x the largest update of the straight run."""
+    within TOL_RESUME x the largest update of the straight run; the leaves
+    that differ named."""
     a, b = straight.trainable(), resumed.trainable()
     if set(a) != set(b):
         fail("train resume: the two runs train other leaves")
-    diff = max((a[n] - b[n]).abs().max().item() for n in a)
+    moved = sorted(((a[n] - b[n]).abs().max().item(), n) for n in a)[::-1]
+    moved = [(d, n) for d, n in moved if d > 0]
+    diff = moved[0][0] if moved else 0.0
     update = max((a[n] - init[n]).abs().max().item() for n in a)
     if not (update > 0 and diff <= TOL_RESUME * update):
         fail(f"train resume: max |resumed - straight| = {diff:.4g} > {TOL_RESUME} x the "
              f"largest update {update:.4g}")
     if [h["epoch"] for h in resumed.history] != [1, 2]:
         fail(f"train resume: history epochs {[h['epoch'] for h in resumed.history]}")
-    log(f"  resume (plateau LR): epoch 1, then --resume True to epoch 2, against 2 epochs "
-        f"straight: max |resumed - straight| over the masters {diff:.4g} (largest update "
-        f"{update:.4g}, tol {TOL_RESUME} x it)")
+    log(f"  resume ({straight.lr_mode} LR): epoch 1, then --resume True to epoch 2, against 2 "
+        f"epochs straight: max |resumed - straight| over the masters {diff:.4g} (largest update "
+        f"{update:.4g}, tol {TOL_RESUME} x it); {len(moved)} of {len(a)} leaves differ"
+        + (": " + ", ".join(f"{n} {d:.3g}" for d, n in moved[:4]) if moved else ""))
 
 
-def check_train_step_against_cpu(cfg, cut_layers=2):
-    """One train step at depth `cut_layers`, full width, B = TRAIN_B: the
-    card's bf16 loss and every trainable leaf's gradient against the CPU's
-    fp32 plain path on the same live weights and batch: the loss within
-    TOL_KERNEL of |cpu|, all gradients together within TOL_KERNEL of their
-    max |cpu|, each leaf within TOL_TRAIN_LEAF of its own; the card's step
-    launches exactly K1 at its 4 x cut_layers sites, its backward none."""
+def resumed_buffers(straight, resumed, init):
+    """The BatchNorm statistics of a run resumed after epoch 1 against the
+    straight run's, within TOL_RESUME x their largest change from init."""
+    a, b = straight.buffers(), resumed.buffers()
+    start = dict(init.named_buffers())
+    diff = max((a[n] - b[n]).abs().max().item() for n in a)
+    change = max((a[n] - start[n].to(a[n].device)).abs().max().item() for n in a)
+    if not (change > 0 and diff <= TOL_RESUME * change):
+        fail(f"train resume: BatchNorm statistics max |resumed - straight| = {diff:.4g} > "
+             f"{TOL_RESUME} x their largest change {change:.4g}")
+    log(f"  resume: the {len(a)} BatchNorm statistics max |resumed - straight| {diff:.4g} "
+        f"(largest change from init {change:.4g}, tol {TOL_RESUME} x it)")
+
+
+def step_against_cpu(label, base, make_loss, want, n_steps=1, stats=False, cpu_bf16=False):
+    """`n_steps` train steps of `base` (live weights) at lr 0, on the card in
+    bf16 and on the CPU in fp32 (the plain versions): the first step's loss
+    within TOL_KERNEL of |cpu|, all gradients together within TOL_KERNEL of
+    their max |cpu|, each trainable leaf's within TOL_TRAIN_LEAF of its own
+    max |cpu|, the card's first step launching exactly `want`; with
+    `stats`, the BatchNorm running statistics after the last step within
+    TOL_KERNEL of max |cpu| (the momentum updates copied in after each
+    step, as the Trainer does). With `cpu_bf16`, the same first step on the
+    CPU in bf16 too: its distance d from the fp32 step is what bf16
+    rounding alone does to a leaf. A leaf whose fp32 gradient is at most
+    ZERO_SHARE x d is zero to rounding (TPAVI's W_z conv biases, zero in
+    exact arithmetic ahead of a batch-statistics BatchNorm): named, held
+    only within all the gradients together. Every other leaf's bar is
+    TOL_TRAIN_LEAF of its max plus TRAIN_NOISE x d (AVS's audio branch
+    reaches the loss through TPAVI's sums over every position, where bf16
+    moves it by 10-130% on the CPU; `phase_train_avs` also holds it in a
+    step where those sums do not cancel)."""
     import copy
-    import numpy as np
     import torch
-    from stgcma_tpu_torch.models.ave import apply_clip_ave, random_clip_ave
     from stgcma_tpu_torch.ops import fused_attn as FA
-    from stgcma_tpu_torch.train import losses, optim, steps
-    cut = dataclasses.replace(cfg, layers=cut_layers)
-    rng = np.random.RandomState(SEED)
-    batch = clip_batch(cut, rng, TRAIN_B)
-    labels = np.eye(cut.label_dim, dtype=np.float32)[rng.randint(0, cut.label_dim,
-                                                                TRAIN_B * cut.num_frames)]
-    base = live_clip_adapters_(random_clip_ave(cut, SEED), SEED)
+    from stgcma_tpu_torch.train import optim, steps
     out = []
-    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+    runs = [("cuda", torch.bfloat16, n_steps), ("cpu", torch.float32, n_steps)]
+    for dev, dt, n in runs + ([("cpu", torch.bfloat16, 1)] if cpu_bf16 else []):
         model = copy.deepcopy(base).to(dev)
         steps.init_train_state(model)
-        opt = optim.build_optimizer(model, 0.0, 1.0)        # lr 0: the gradients alone
-        a, v, y = (torch.from_numpy(x).to(dev) for x in (batch["a"], batch["v"], labels))
-
-        def loss_fn(m, _, generator):
-            logits = apply_clip_ave(m, cut, a.to(dt), v.to(dt), generator=generator)
-            return losses.ave_loss(logits, y.view(TRAIN_B, cut.num_frames, -1)), {}
-        FA.reset_launches()
-        loss, _ = steps.make_train_step(loss_fn, opt, dt)(model, None)
-        out.append((float(loss), {n: p.grad.float().cpu() for n, p in model.named_parameters()
-                                  if p.requires_grad}, launches()))
-    (lc, gc, nc), (lp, gp, _) = out
-    if nc != {**{k: 0 for k in KERNELS}, "K1": 4 * cut_layers}:
-        fail(f"train step at depth {cut_layers}: launches {nc}")
+        step = steps.make_train_step(make_loss(dev, dt), optim.build_optimizer(model, 0.0, 1.0),
+                                     dt)
+        for i in range(n):
+            FA.reset_launches()
+            loss, aux = step(model, None)
+            if aux.get("state_updates"):
+                steps.apply_state_updates(model, aux["state_updates"])
+            if i == 0:
+                first = (float(loss), {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                                       if p.requires_grad and p.grad is not None}, launches())
+        bufs = {n: b.float().cpu() for n, b in model.named_buffers() if steps.bn_stat(n)}
+        out.append(first + (bufs,))
+        del model
+    (lc, gc, nc, bc), (lp, gp, _, bp) = out[:2]
+    gb = out[2][1] if cpu_bf16 else None
+    if nc != want:
+        fail(f"{label}: launches {nc}, expected {want}")
     if not abs(lc - lp) <= TOL_KERNEL * abs(lp):
-        fail(f"train step at depth {cut_layers}: loss card {lc:.6g} vs cpu {lp:.6g}")
-    worst = (0.0, "")
+        fail(f"{label}: loss card {lc:.6g} vs cpu {lp:.6g}")
+    if set(gc) != set(gp) or (gb is not None and set(gb) != set(gp)):
+        fail(f"{label}: the card and the CPU give gradients to other leaves")
+    worst, zero, noisy, live = (0.0, "", 0.0, 0.0), [], [], (math.inf, "")
     for n, ref in gp.items():
         err, scale = (gc[n] - ref).abs().max().item(), ref.abs().max().item()
-        if not (scale > 0 and err <= TOL_TRAIN_LEAF * scale):
-            fail(f"train step at depth {cut_layers}: d/d{n} max |card - cpu| = {err:.4g} > "
-                 f"{TOL_TRAIN_LEAF} * {scale:.4g}")
-        worst = max(worst, (err / scale, n))
-    everything = torch.cat([g.flatten() for g in gp.values()])
-    err = torch.cat([gc[n].flatten() for n in gp]).sub(everything).abs().max().item()
-    scale = everything.abs().max().item()
+        rounding = (gb[n] - ref).abs().max().item() if gb is not None else 0.0
+        if gb is not None and scale <= ZERO_SHARE * rounding:
+            zero.append((rounding / max(scale, 1e-30), n, err / max(rounding, 1e-30)))
+            continue
+        live = min(live, (scale / max(rounding, 1e-30), n))
+        bar = TOL_TRAIN_LEAF * scale + TRAIN_NOISE * rounding
+        if not (scale > 0 and err <= bar):
+            fail(f"{label}: d/d{n} max |card - cpu| = {err:.4g} > {bar:.4g} = {TOL_TRAIN_LEAF} * "
+                 f"{scale:.4g} + {TRAIN_NOISE} * {rounding:.4g} (the CPU's bf16 distance)")
+        worst = max(worst, (err / bar, n, err / scale, bar / scale))
+        if rounding > TOL_TRAIN_LEAF * scale:
+            noisy.append((rounding / scale, n, err / scale))
+    every = torch.cat([g.flatten() for g in gp.values()])
+    err = torch.cat([gc[n].flatten() for n in gp]).sub(every).abs().max().item()
+    scale = every.abs().max().item()
     if not err <= TOL_KERNEL * scale:
-        fail(f"train step at depth {cut_layers}: max |card - cpu| over every gradient = "
-             f"{err:.4g} > {TOL_KERNEL} * {scale:.4g}")
-    log(f"  one train step at depth {cut_layers}, B={TRAIN_B}, card bf16 vs CPU fp32 on live "
-        f"weights: loss {lc:.6f} vs {lp:.6f} ({abs(lc - lp) / abs(lp):.2e} rel, tol "
-        f"{TOL_KERNEL}); {len(gp)} trainable leaves' gradients: {err / scale:.3e} of max |cpu| "
-        f"over all (tol {TOL_KERNEL}), the worst leaf {worst[0]:.3e} of its own max at "
-        f"{worst[1]} (tol {TOL_TRAIN_LEAF}); launches K1 {nc['K1']}, no other")
+        fail(f"{label}: max |card - cpu| over every gradient = {err:.4g} > {TOL_KERNEL} * "
+             f"{scale:.4g}")
+    msg = ""
+    if stats:
+        serr = max((bc[n] - bp[n]).abs().max().item() / bp[n].abs().max().item() for n in bp)
+        if not (bp and serr <= TOL_KERNEL):
+            fail(f"{label}: BatchNorm statistics after {n_steps} steps {serr:.4g} of max |cpu| "
+                 f"from the CPU's, tol {TOL_KERNEL}")
+        msg = (f"; the {len(bp)} BatchNorm statistics after {n_steps} steps {serr:.3e} of max "
+               f"|cpu| (tol {TOL_KERNEL})")
+    if gb is not None:
+        noisy.sort(reverse=True)
+        msg += (f"; {len(zero)} leaves zero to rounding (fp32 gradient <= {ZERO_SHARE} x the "
+                f"CPU's bf16 distance), held only within all: "
+                + ", ".join(f"{n} (CPU bf16 {r:.3g}x its fp32 max, card {c:.3g}x the CPU's bf16 "
+                            f"distance)" for r, n, c in sorted(zero)[::-1])
+                + f"; every other leaf's fp32 gradient at least {live[0]:.3g} x the CPU's bf16 "
+                f"distance ({live[1]}); {len(noisy)} leaves that bf16 rounding moves past "
+                f"{TOL_TRAIN_LEAF} of their max on the CPU, the largest "
+                + ", ".join(f"{n} CPU bf16 {r:.3g}, card {c:.3g}" for r, n, c in noisy[:6]))
+    log(f"  {label}, card bf16 vs CPU fp32 on live weights: loss {lc:.6f} vs {lp:.6f} "
+        f"({abs(lc - lp) / abs(lp):.2e} rel, tol {TOL_KERNEL}); {len(gp)} trainable leaves' "
+        f"gradients: {err / scale:.3e} of max |cpu| over all (tol {TOL_KERNEL}), the leaf nearest "
+        f"its bar {worst[1]}: {worst[2]:.3e} of its own max (its bar {worst[3]:.3g}: "
+        f"{TOL_TRAIN_LEAF}" + (f" + {TRAIN_NOISE} x the CPU's bf16 distance" if gb is not None
+                              else "") + f"); launches { {k: v for k, v in nc.items() if v} }{msg}")
 
 
 def port_kernel_names():
@@ -3293,33 +3502,23 @@ def port_kernel_names():
     return names
 
 
-def time_train_step(cfg, smi, k1_rows, steps_timed=5):
-    """A train step at full width, B = TRAIN_B, on the CLI's path (the train
-    pipeline on the card, bf16 compute, fp32 masters, Adam): wall ms, the
-    span of each part between CUDA events (pipeline, forward: the loss,
-    backward: K1's recompute and plain autograd, Adam), clips/s, peak
-    memory; then three steps under torch.profiler: kernel ms a step, split
-    into the pipeline's, the forward's (its torch ops' kernels and the
-    port's, all K1's), Adam's and the backward's (the rest), and the
-    device's busy share. K1's recompute alone: the gradient rows' backward
-    kernel ms over the step's 4 x layers calls."""
+def profile_train_step(title, model, opt, pipe, forward, batch, smi, steps_timed=5,
+                       recompute=None):
+    """A train step on the card through `make_train_step` (bf16 compute, fp32
+    masters, Adam): `pipe(batch, generator)` -> (a, v), `forward(model, a,
+    v, generator)` -> the loss. Wall ms, the span of each part between CUDA
+    events (pipeline, forward, backward, Adam), clips/s, peak memory; then
+    three steps under torch.profiler: kernel ms a step, split into the
+    pipeline's, the forward's (its torch ops' kernels and the port's, told
+    by name), Adam's and the backward's (the rest), and the device's busy
+    share. `recompute` (ms, calls, kernel): one kernel's recompute estimated
+    from its gradient rows."""
     import re
     import statistics
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from stgcma_tpu_torch.data.datasets import SyntheticAVE
-    from stgcma_tpu_torch.data.loader import collate, make_ave_device_pipeline
-    from stgcma_tpu_torch.models.ave import apply_clip_ave, random_clip_ave
-    from stgcma_tpu_torch.ops.fbank import CLIP_FBANK
-    from stgcma_tpu_torch.train import losses, optim, steps
-    model = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED).to("cuda")
-    steps.init_train_state(model)
-    opt = optim.build_optimizer(model, 1e-4, 50.0)
-    pipe = make_ave_device_pipeline(CLIP_FBANK, 102, train=True, image_size=224, device="cuda")
-    ds = SyntheticAVE(n=TRAIN_B, num_frames=cfg.num_frames, size=224, label_dim=cfg.label_dim)
-    batch = collate([ds[i] for i in range(TRAIN_B)])
-    labels = torch.from_numpy(batch["labels"]).to("cuda")
+    from stgcma_tpu_torch.train import steps
     ev = {}
 
     def mark(key):
@@ -3332,9 +3531,7 @@ def time_train_step(cfg, smi, k1_rows, steps_timed=5):
             a, v = pipe(b, generator)
         mark("pipeline")
         with record_function("train: forward"):
-            logits = apply_clip_ave(m, cfg, a.to(torch.bfloat16), v.to(torch.bfloat16),
-                                    generator=generator)
-            loss = losses.ave_loss(logits, labels)
+            loss = forward(m, a, v, generator)
         mark("forward")
         return loss, {}
     real_step = opt.step
@@ -3363,13 +3560,11 @@ def time_train_step(cfg, smi, k1_rows, steps_timed=5):
     peak = torch.cuda.max_memory_allocated()
     wall = statistics.median(walls)
     spans = [statistics.median(p[i] for p in parts) for i in range(4)]
-    recompute = cfg.layers * sum(r["backward_kernel_ms"] for r in k1_rows)   # a call a site
-    log(f"  train step CLIP ViT-B/16 fusion, {cfg.layers} layers, B={TRAIN_B}, bf16 compute, fp32 "
-        f"masters, on {smi}: wall {wall:.2f} ms (median of {steps_timed}; "
-        f"{', '.join(f'{w:.2f}' for w in walls)}), {TRAIN_B * 1e3 / wall:.2f} clips/s; spans "
-        f"between events: pipeline {spans[0]:.2f} ms, forward {spans[1]:.2f}, backward "
-        f"{spans[2]:.2f}, Adam {spans[3]:.2f}; peak memory {peak / 2 ** 30:.2f} GiB")
-
+    log(f"  train step {title}, B={TRAIN_B}, bf16 compute, fp32 masters, on {smi}: wall "
+        f"{wall:.2f} ms (median of {steps_timed}; {', '.join(f'{w:.2f}' for w in walls)}), "
+        f"{TRAIN_B * 1e3 / wall:.2f} clips/s; spans between events: pipeline {spans[0]:.2f} ms, "
+        f"forward {spans[1]:.2f}, backward {spans[2]:.2f}, Adam {spans[3]:.2f}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
     n = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3377,11 +3572,12 @@ def time_train_step(cfg, smi, k1_rows, steps_timed=5):
             float(step(model, batch, g)[0])
         torch.cuda.synchronize()
         prof_wall = 1e3 * (time.perf_counter() - t0) / n
+    opt.step = real_step
     # the port's kernels, launched through ctypes, hang under no torch op: they
-    # are told by name (in this step all are K1's forward); a range's other
+    # are told by name (all of them run in the forward); a range's other
     # kernels are its torch ops'
     port = re.compile(r"\b(" + "|".join(sorted(port_kernel_names())) + r")\b")
-    dev, k1, part = 0.0, 0.0, {"pipeline": 0.0, "forward": 0.0, "Adam": 0.0}
+    dev, ours, part = 0.0, 0.0, {"pipeline": 0.0, "forward": 0.0, "Adam": 0.0}
     for e in prof.events():
         if e.device_type == DeviceType.CPU:
             name = e.name[len("train: "):] if e.name.startswith("train: ") else None
@@ -3391,51 +3587,580 @@ def time_train_step(cfg, smi, k1_rows, steps_timed=5):
             ms = (e.time_range.end - e.time_range.start) / 1e3 / n
             dev += ms
             if port.search(e.name):
-                k1 += ms
+                ours += ms
     if dev <= 0:
         log("  torch.profiler: no kernel on the card; the split is not measured")
-        return
-    back = dev - part["pipeline"] - part["forward"] - k1 - part["Adam"]
+        return {"wall_ms": wall, "peak_gib": peak / 2 ** 30}
+    back = dev - part["pipeline"] - part["forward"] - ours - part["Adam"]
+    extra = ""
+    if recompute is not None:
+        rms, calls, kid = recompute
+        extra = (f" ({kid}'s recompute {rms:.2f}, from the gradient rows' backward kernels at "
+                 f"the step's {calls} calls; plain autograd of the rest {back - rms:.2f})")
     log(f"  profiled ({n} steps, {prof_wall:.2f} ms a step under the profiler, {smi}): kernels "
         f"{dev:.2f} ms a step = {100 * dev / prof_wall:.1f}% busy ({100 * dev / wall:.1f}% of the "
         f"untraced median); pipeline {part['pipeline']:.2f} ms, forward "
-        f"{part['forward'] + k1:.2f} (K1's kernels {k1:.2f}), backward {back:.2f} (K1's "
-        f"recompute {recompute:.2f}, from the gradient rows' backward kernels at the step's "
-        f"{4 * cfg.layers} calls; plain autograd of the rest {back - recompute:.2f}), Adam "
-        f"{part['Adam']:.2f}")
+        f"{part['forward'] + ours:.2f} (the port's kernels {ours:.2f}), backward {back:.2f}"
+        f"{extra}, Adam {part['Adam']:.2f}")
+    return {"wall_ms": wall, "peak_gib": peak / 2 ** 30, "kernels_ms": dev,
+            "busy": dev / prof_wall}
 
 
-def phase_train(cfg, smi):
+def time_train_step(cfg, smi, k1_rows, steps_timed=5):
+    """`profile_train_step` on CLIP ViT-B/16 fusion at full width, B =
+    TRAIN_B, the CLI's path (the train pipeline on the card); K1's
+    recompute estimated from the gradient rows' backward kernel ms over the
+    step's 4 x layers calls."""
+    import torch
+    from stgcma_tpu_torch.data.datasets import SyntheticAVE
+    from stgcma_tpu_torch.data.loader import collate, make_ave_device_pipeline
+    from stgcma_tpu_torch.models.ave import apply_clip_ave, random_clip_ave
+    from stgcma_tpu_torch.ops.fbank import CLIP_FBANK
+    from stgcma_tpu_torch.train import losses, optim, steps
+    model = live_clip_adapters_(random_clip_ave(cfg, SEED), SEED).to("cuda")
+    steps.init_train_state(model)
+    pipe = make_ave_device_pipeline(CLIP_FBANK, 102, train=True, image_size=224, device="cuda")
+    ds = SyntheticAVE(n=TRAIN_B, num_frames=cfg.num_frames, size=224, label_dim=cfg.label_dim)
+    batch = collate([ds[i] for i in range(TRAIN_B)])
+    labels = torch.from_numpy(batch["labels"]).to("cuda")
+    recompute = cfg.layers * sum(r["backward_kernel_ms"] for r in k1_rows)   # a call a site
+    return profile_train_step(
+        f"CLIP ViT-B/16 fusion, {cfg.layers} layers", model,
+        optim.build_optimizer(model, 1e-4, 50.0), pipe,
+        lambda m, a, v, gen: losses.ave_loss(apply_clip_ave(
+            m, cfg, a.to(torch.bfloat16), v.to(torch.bfloat16), generator=gen), labels), batch,
+        smi, steps_timed, recompute=(recompute, 4 * cfg.layers, "K1"))
+
+
+def phase_train(cfg, smi, cut_layers=2):
     """AVE-29 training on CLIP ViT-B/16 fusion at full width (12 layers, C =
     768, T = 10), B = TRAIN_B, bf16 compute with fp32 masters: K1's gradient
-    at its four sites; the CLI's training run (default cosine LR) with exact
-    K1 launches; a run resumed after epoch 1 against the straight run; one
-    step at depth 2 against the CPU; the step's times. Returns (K1's
+    at its four sites; the CLI's straight 2-epoch run (plateau LR) with
+    exact K1 launches; a run resumed after epoch 1 against it; one step at
+    depth `cut_layers` against the CPU; the step's times. Returns (K1's
     gradient rows, the launches of the CLI's training run: the path's own)."""
     import tempfile
+    import numpy as np
     import torch
-    from stgcma_tpu_torch.models.ave import init_clip_ave
+    from stgcma_tpu_torch.models.ave import apply_clip_ave, init_clip_ave, random_clip_ave
     from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.train import losses
     t0 = time.perf_counter()
     rows = k1_grad_rows(cfg, TRAIN_B)
+
+    def init():
+        return init_clip_ave(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+
+    def k1_only(n):
+        return {**{k: 0 for k in KERNELS}, "K1": n}
     with tempfile.TemporaryDirectory() as tmp:
         FA.reset_launches()
-        trainer = train_cli(os.path.join(tmp, "a"), "--n-epochs", "2")
-        totals = launches()
-        check_train_run(cfg, trainer, totals)
-        del trainer
         straight = train_cli(os.path.join(tmp, "b"), "--n-epochs", "2", "--lr_adapt", "True")
+        totals = launches()
+        check_cli_run("train CLIP ViT-B/16", straight, init(),
+                      lambda forwards: k1_only(4 * cfg.layers * forwards), totals)
         train_cli(os.path.join(tmp, "c"), "--n-epochs", "1", "--lr_adapt", "True")
         resumed = train_cli(os.path.join(tmp, "c"), "--n-epochs", "2", "--lr_adapt", "True",
                             "--resume", "True")
-        start = dict(init_clip_ave(cfg, generator=torch.Generator().manual_seed(0),
-                                   device="cuda").named_parameters())
-        check_resume(straight, resumed, start)
-        del straight, resumed, start
-    check_train_step_against_cpu(cfg)
+        check_resume(straight, resumed, dict(init().named_parameters()))
+        del straight, resumed
+    cut = dataclasses.replace(cfg, layers=cut_layers)
+    rng = np.random.RandomState(SEED)
+    batch = clip_batch(cut, rng, TRAIN_B)
+    labels = np.eye(cut.label_dim, dtype=np.float32)[rng.randint(0, cut.label_dim,
+                                                                TRAIN_B * cut.num_frames)]
+
+    def make_loss(dev, dt):
+        a, v, y = (torch.from_numpy(x).to(dev) for x in (batch["a"], batch["v"], labels))
+        return lambda m, _, generator: (losses.ave_loss(
+            apply_clip_ave(m, cut, a.to(dt), v.to(dt), generator=generator),
+            y.view(TRAIN_B, cut.num_frames, -1)), {})
+    step_against_cpu(f"one train step at depth {cut_layers}, B={TRAIN_B}",
+                     live_clip_adapters_(random_clip_ave(cut, SEED), SEED), make_loss,
+                     k1_only(4 * cut_layers))
     time_train_step(cfg, smi, rows)
     log(f"  phase_train: {time.perf_counter() - t0:.1f} s")
     return rows, totals
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Swin training — AVE-29 on Swin-Base fusion and AVSBench on
+# Swin-Large, every float kernel's recompute on the card
+# ---------------------------------------------------------------------------
+
+def k1_swin_grad_rows(cfg, b, g, tower):
+    """K1 at Swin sites at B = b: the shifted windows of stages 0-1 (bias:
+    a random table gathered, plus the shift mask) and the temporal sites of
+    stages 0-1, whose trainable per-modality table (random, std 0.5) is a
+    leaf: its gradient flows from K1's recompute through `gather_bias`'s
+    index backward (an accumulating index_put on the card)."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    T, ws = cfg.num_ttokens, cfg.window_size
+    rel = torch.from_numpy(window.relative_position_index(ws)).cuda()
+    t_idx = torch.from_numpy(window.temporal_relative_index(T)).cuda()
+    names = ("x", "ln_w", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")
+    rows = []
+    for s, temporal in ((0, False), (1, False), (0, True), (1, True)):
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        if temporal:
+            N, Bq, idx, mask = T, b * H * H, t_idx, None
+        else:
+            N, idx = ws * ws, rel
+            mask = torch.from_numpy(window.shift_attn_mask(H, H, ws, ws // 2)).cuda()
+            Bq = b * T * mask.shape[0]
+        args, _ = make_block_inputs(g, Bq, N, C, heads, False)
+        leaves = dict(zip(names, (_leaf(a) for a in args)))
+        leaves["table"] = _leaf(_rnd(g, int(idx.max()) + 1, heads, std=0.5,
+                                     dtype=torch.bfloat16))
+
+        def run(fn, lv, idx=idx, mask=mask, N=N, heads=heads):
+            bias = gather_bias(lv["table"], idx, heads, N)[None]
+            bias = (bias if mask is None else bias + mask[:, None]).contiguous()
+            return fn(*(lv[n] for n in names), heads, bias=bias)
+
+        def library(lv=leaves, Bq=Bq, N=N, C=C, heads=heads, idx=idx, mask=mask):
+            bias = gather_bias(lv["table"], idx, heads, N)[None]
+            bias = (bias if mask is None else bias + mask[:, None]).contiguous()
+            return library_block([lv[n] for n in names], heads, False, bias)().view(Bq, N, C)
+        site = f"temporal T={T}" if temporal else "shifted windows"
+        rows.append(grad_row(f"K1 {tower} stage {s} {site} {(Bq, N, C)} h{heads}", FA.win_block,
+                             FA.win_block_plain, run, leaves, k1_grad_bound(Bq, N, C, heads),
+                             library))
+        del leaves
+    return rows
+
+
+def k4_grad_rows(cfg, b, g, sfu, tower, tol):
+    """K4 at stage 2 unshifted and shifted and stage 3 at B = b, the block of
+    `random_swin_ave` with live adapters and gates (`live_k4_weights`), every
+    float operand a leaf, the relative-position table too (its bias gathered
+    in the call, the window and shift masks added, as
+    `swin_fusion_whole_block` does)."""
+    import torch
+    from stgcma_tpu_torch.models.ave import random_swin_ave
+    from stgcma_tpu_torch.nn.swin import backbone_statics
+    from stgcma_tpu_torch.ops import swin_block as SB
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    from stgcma_tpu_torch.ops.common import cast_tree
+    bf = torch.bfloat16
+    BT = b * cfg.num_ttokens
+    model = random_swin_ave(dataclasses.replace(cfg, depths=cfg.depths[:3] + (1,)), SEED)
+    statics = backbone_statics(cfg)
+    rows = []
+    for s, i in ((2, 0), (2, 1), (3, 0)):
+        st = statics[s][i]
+        blk = cast_tree(model.backbone.layers[s].blocks[i], bf).cuda()
+        index, attn_mask, fuse_mask = SB._geo_tensors(st.H, st.W, st.window_size,
+                                                      st.shift_size, torch.device("cuda"))
+        N, C = st.H * st.W, st.dim
+        w = {k: _leaf(t) for k, t in live_k4_weights(SB.block_weights(blk), g).items()}
+        leaves = {"v": _leaf(_rnd(g, BT, N, C, std=0.1, dtype=bf)),
+                  "a": _leaf(_rnd(g, BT, N, C, std=0.1, dtype=bf)), **w,
+                  "table": _leaf(blk.attn.relative_position_bias_table)}
+
+        def bias_of(lv, st=st, index=index, attn_mask=attn_mask, N=N):
+            return (gather_bias(lv["table"], index, st.num_heads, N) + attn_mask)[None].contiguous()
+
+        def run(fn, lv, st=st, fuse_mask=fuse_mask, bias_of=bias_of):
+            return fn(lv["v"], lv["a"], {k: lv[k] for k in w}, st.num_heads, bias_of(lv),
+                      fuse_mask)
+
+        def library(lv=leaves, st=st, fuse_mask=fuse_mask, bias_of=bias_of):
+            return library_k4(lv["v"], lv["a"], {k: lv[k] for k in w}, st.num_heads,
+                              bias_of(lv), fuse_mask)()
+        D = w["s2v_w1"].shape[0]
+        rows.append(grad_row(
+            f"K4 {tower} stage {s} block {i} {(BT, N, C)} h{st.num_heads} shift {st.shift_size} "
+            f"D {D}", SB.swin_block, SB.swin_block_plain, run, leaves,
+            block_k4_bound(BT, N, C, st.num_heads, D, sfu, window=st.window_size ** 2, grad=True),
+            library, tol))
+        del leaves, w
+    return rows
+
+
+def fuse_grad_rows(cfg, b, g, sfu, tower):
+    """K5 over the windows and K6 over the full grid of stages 0-1 at B = b,
+    hiddens N(0, 0.7), gates 0.8 and -0.6, all four leaves."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf = torch.bfloat16
+    BT, ws = b * cfg.num_ttokens, cfg.window_size
+    rows = {"K5": [], "K6": []}
+    for kid, kernel in (("K5", FA.win_fuse), ("K6", FA.bidir_fuse)):
+        for s in (0, 1):
+            H, _ = cfg.stage_resolution(s)
+            D = int(cfg.stage_dim(s) * cfg.adapter_ratios[s])
+            R, n = (BT * (H // ws) ** 2, ws * ws) if kid == "K5" else (BT, H * H)
+            leaves = {"vh": _leaf(_rnd(g, R, n, D, std=0.7, dtype=bf)),
+                      "ah": _leaf(_rnd(g, R, n, D, std=0.7, dtype=bf)),
+                      "gate_v": _leaf(torch.tensor([0.8], dtype=bf, device="cuda")),
+                      "gate_a": _leaf(torch.tensor([-0.6], dtype=bf, device="cuda"))}
+
+            def run(fn, lv):
+                return fn(lv["vh"], lv["ah"], lv["gate_v"], lv["gate_a"])
+            site = "windows" if kid == "K5" else "full grid"
+            rows[kid].append(grad_row(
+                f"{kid} {tower} stage {s} {site} {(R, n, D)}", kernel, FA.fuse_plain, run, leaves,
+                fuse_bound(R, n, n, D, sfu, grad=True),
+                lambda lv=leaves: library_fuse(lv["vh"], lv["ah"], lv["gate_v"], lv["gate_a"])()))
+            del leaves
+    return rows
+
+
+def k7_grad_row(g, name, M, C):
+    """K7 at (M, C), hidden 4C, every operand a leaf."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf, Hd = torch.bfloat16, 4 * C
+    leaves = dict(zip(("x", "ln_w", "ln_b", "w1", "b1", "w2", "b2"), (_leaf(t) for t in (
+        _rnd(g, M, C, dtype=bf), (1 + _rnd(g, C, std=0.1)).to(bf), _rnd(g, C, std=0.02, dtype=bf),
+        _rnd(g, Hd, C, std=0.05, dtype=bf), _rnd(g, Hd, dtype=bf),
+        _rnd(g, C, Hd, std=0.02, dtype=bf), _rnd(g, C, std=0.02, dtype=bf)))))
+
+    def run(fn, lv):
+        return fn(*lv.values())
+
+    def library():
+        a = list(leaves.values())
+        return F.linear(F.gelu(F.linear(F.layer_norm(a[0], (C,), a[1], a[2]), a[3], a[4])), a[5],
+                        a[6])
+    t_tensor = 2 * 2 * M * C * Hd / H100_BF16
+    t_bytes = (2 * M * C * 2 + 2 * C * Hd * 2 + (Hd + 3 * C) * 2) / H100_BYTES
+    return grad_row(f"{name} {(M, C)} hidden {Hd}", FA.ffn, FA.ffn_plain, run, leaves,
+                    _bound(t_tensor, 0.0, t_bytes, grad=True), library)
+
+
+def k9_grad_rows(cfg, b, g, tower):
+    """K9 at every norm site of one stream of `cfg` at B = b (`k9_sites`)."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    bf = torch.bfloat16
+    rows = []
+    for site, M, Cn in k9_sites(cfg, b):
+        leaves = {"x": _leaf(_rnd(g, M, Cn, std=2.0, dtype=bf)),
+                  "ln_w": _leaf((1 + _rnd(g, Cn, std=0.1)).to(bf)),
+                  "ln_b": _leaf(_rnd(g, Cn, std=0.02, dtype=bf))}
+
+        def run(fn, lv):
+            return fn(lv["x"], lv["ln_w"], lv["ln_b"])
+        rows.append(grad_row(f"K9 {tower} {site} {(M, Cn)}", FA.layernorm, FA.layernorm_plain,
+                             run, leaves, ln_bound(M, Cn, grad=True),
+                             lambda lv=leaves, Cn=Cn: F.layer_norm(lv["x"], (Cn,), lv["ln_w"],
+                                                                    lv["ln_b"])))
+        del leaves
+    return rows
+
+
+def k8_grad_rows(cfg, b, g, tower):
+    """The K8 site at the temporal branches that take it (more than 16 heads)
+    at B = b: the packed qkv (B * H * W, T, 3C) and the trainable temporal
+    table (random, std 0.5) as leaves; the bias (heads, T, T) gathered in the
+    call, so that K8's bias gradient (dbm, summed over the rows as
+    `_wmsa_bwd` sums it) reaches the table through `gather_bias`."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    T = cfg.num_ttokens
+    t_idx = torch.from_numpy(window.temporal_relative_index(T)).cuda()
+    rows = []
+    for s in range(cfg.num_layers):
+        if FA.block_kernel_route(cfg.num_heads[s]):
+            continue
+        H, _ = cfg.stage_resolution(s)
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        Bq = b * H * H
+        leaves = {"qkv": _leaf(_rnd(g, Bq, T, 3 * C, dtype=torch.bfloat16)),
+                  "table": _leaf(_rnd(g, 2 * T - 1, heads, std=0.5, dtype=torch.bfloat16))}
+
+        def bias_of(lv, heads=heads):
+            return gather_bias(lv["table"], t_idx, heads, T).contiguous()
+
+        def run(fn, lv, heads=heads, bias_of=bias_of):
+            return fn(lv["qkv"], bias_of(lv), heads)
+        rows.append(grad_row(
+            f"K8 {tower} stage {s} temporal T={T} {(Bq, T, 3 * C)} h{heads}", FA.wmsa_qkv,
+            FA.wmsa_qkv_plain, run, leaves, wmsa_bound(Bq * heads, T, C // heads, heads, grad=True),
+            lambda lv=leaves, heads=heads, bias_of=bias_of: library_wmsa_qkv(
+                lv["qkv"], bias_of(lv), heads)()))
+        del leaves
+    return rows
+
+
+def phase_grad_kernels(cfg, k10_cfg):
+    """The gradient rows of K10 (its Swin-Base 168^2 check site at B = 8,
+    (80, 1764, 16)) and of K12, K13, K14 at the CLIP-B/16 fusion check sites
+    at B = TRAIN_B, with live adapters and gates: every new recompute runs on
+    the card once."""
+    import torch
+    import torch.nn.functional as F
+    from stgcma_tpu_torch.models.ave import random_clip_ave
+    from stgcma_tpu_torch.ops import clip_block as PCB
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.common import cast_tree
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    sfu = sfu_rate()
+    out = {"K10": [], "K12": [], "K13": [], "K14": []}
+    BT = B * k10_cfg.num_ttokens
+    H, _ = k10_cfg.stage_resolution(0)
+    D = int(k10_cfg.stage_dim(0) * k10_cfg.adapter_ratios[0])
+    leaves = {n: _leaf(_rnd(g, BT, H * H, D, std=0.7, dtype=bf)) for n in ("q", "k")}
+    leaves["v"] = leaves["k"]
+
+    def run10(fn, lv):
+        return fn(lv["q"], lv["k"], lv["k"])
+    out["K10"].append(grad_row(
+        f"K10 Swin-Base 168^2 stage 0 grid {(BT, H * H, D)}, a2v", FA.unscaled_attention,
+        FA.unscaled_attention_plain, run10, {"q": leaves["q"], "k": leaves["k"]},
+        k10_bound(BT, H * H, H * H, D, sfu, grad=True),
+        lambda: F.scaled_dot_product_attention(leaves["q"], leaves["k"], leaves["k"], scale=1.0)))
+    del leaves
+
+    C, heads, T = cfg.embed_dim, cfg.heads, cfg.num_frames
+    Nv, Na, BT = cfg.num_patches + 1, cfg.num_patches_audio + 1, TRAIN_B * cfg.num_frames
+    blk = cast_tree(random_clip_ave(dataclasses.replace(cfg, layers=1), SEED).backbone
+                    .resblocks[0], bf).cuda()
+    w = {k: _leaf(t) for k, t in live_k4_weights(PCB.block_weights(blk), g,
+                                                   [k for k, _ in PCB.ADAPTERS]).items()}
+    D = w["sv_w1"].shape[0]
+    lv = {"v": _leaf(_rnd(g, BT, Nv, C, std=0.1, dtype=bf)),
+          "a": _leaf(_rnd(g, BT, Na, C, std=0.1, dtype=bf)), **w}
+    out["K12"].append(grad_row(
+        f"K12 v {(BT, Nv, C)} a {(BT, Na, C)} h{heads} D {D}", PCB.clip_fusion_block,
+        PCB.fusion_block_plain, lambda fn, x: fn(x["v"], x["a"], {k: x[k] for k in w}, heads), lv,
+        clip_block_bound(BT, Nv, Na, C, heads, D, sfu, False, grad=True),
+        lambda: library_k12(lv["v"], lv["a"], {k: lv[k] for k in w}, heads)()))
+    del lv, w
+    wt = {k: _leaf(t) for k, t in live_k4_weights(
+        PCB.tadapt_weights(blk.attn, blk.ln_1, blk.T_Adapter), g, ["ad"]).items()}
+    R = TRAIN_B * Nv
+    lv = {"x": _leaf(_rnd(g, R, T, C, std=0.1, dtype=bf)), **wt}
+    out["K13"].append(grad_row(
+        f"K13 video rows {(R, T, C)} h{heads} D {D}", PCB.clip_tadapt, PCB.tadapt_plain,
+        lambda fn, x: fn(x["x"], {k: x[k] for k in wt}, heads), lv,
+        tadapt_bound(R, T, C, heads, D, sfu, False, grad=True),
+        lambda: library_k13(lv["x"], {k: lv[k] for k in wt}, heads)()))
+    lv = {"x": _leaf(_rnd(g, BT, Nv, C, std=0.1, dtype=bf)), **wt}
+    out["K14"].append(grad_row(
+        f"K14 video rows {(BT, Nv, C)} h{heads} T {T} D {D}", PCB.clip_tv2, PCB.tv2_plain,
+        lambda fn, x: fn(x["x"], {k: x[k] for k in wt}, heads, T), lv,
+        tadapt_bound(TRAIN_B * Nv, T, C, heads, D, sfu, False, grad=True),
+        lambda: library_k14(lv["x"], {k: lv[k] for k in wt}, heads, T, None)()))
+    return out
+
+
+def swin_launches(cfg, batches):
+    """{kernel: launches} of forwards at the batch sizes `batches`."""
+    from stgcma_tpu_torch.nn.swin import launches_per_forward
+    want = {k: 0 for k in KERNELS}
+    for b in batches:
+        for k, v in launches_per_forward(cfg, b).items():
+            want[k] += v
+    return want
+
+
+def swin_clip_batch(cfg, rng, b):
+    """Random (a, v) of a Swin AVE (a (b, T, 224, 224), v (b, T, 224, 224, 3))
+    and one-hot labels (b, T, label_dim)."""
+    import numpy as np
+    n, T = cfg.img_size, cfg.num_frames
+    labels = np.eye(cfg.label_dim, dtype=np.float32)[rng.randint(0, cfg.label_dim, b * T)]
+    return (rng.randn(b, T, n, n).astype(np.float32), rng.randn(b, T, n, n, 3).astype(np.float32),
+            labels.reshape(b, T, -1))
+
+
+def phase_train_swin(cfg, smi, cut_depths=(2, 2, 2, 2)):
+    """AVE-29 training on Swin-Base fusion (`BASELINE.json` configs[1]'s
+    tower) at full width and depth, B = TRAIN_B, bf16 compute with fp32
+    masters: gradient rows of K1 (stage 0-1 windows and temporal sites, the
+    temporal table's gradient through `gather_bias`), K4 (stage 2 unshifted
+    and shifted, stage 3), K5, K6, K7 (the stage-0 FFN's shape; at B = 2 the
+    route sends no FFN to K7), K8 (stage 3's temporal site) and K9; the
+    CLI's straight 2-epoch run (plateau LR) with exact launches; a run
+    resumed after epoch 1 against it; one step at depths `cut_depths`
+    against the CPU; the step's times. Returns (rows by kernel, the CLI
+    run's launches, the step's times)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from stgcma_tpu_torch.data.datasets import SyntheticAVE
+    from stgcma_tpu_torch.data.loader import collate, make_ave_device_pipeline
+    from stgcma_tpu_torch.models.ave import apply_swin_ave, init_swin_ave, random_swin_ave
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.fbank import SWIN_FBANK
+    from stgcma_tpu_torch.train import losses, optim, steps
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    sfu = sfu_rate()
+    tower = "Swin-Base"
+    H0, _ = cfg.stage_resolution(0)
+    rows = {"K1": k1_swin_grad_rows(cfg, TRAIN_B, g, tower),
+            "K4": k4_grad_rows(cfg, TRAIN_B, g, sfu, tower, TOL_KERNEL),
+            **fuse_grad_rows(cfg, TRAIN_B, g, sfu, tower),
+            "K7": [k7_grad_row(g, f"K7 {tower} stage 0 FFN", TRAIN_B * cfg.num_ttokens * H0 * H0,
+                               cfg.embed_dim)],
+            "K8": k8_grad_rows(cfg, TRAIN_B, g, tower),
+            "K9": k9_grad_rows(cfg, TRAIN_B, g, f"{tower} ")}
+    tick(t0, "the gradient rows")
+
+    def init():
+        return init_swin_ave(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        FA.reset_launches()
+        straight = train_cli(os.path.join(tmp, "b"), "--n-epochs", "2", "--lr_adapt", "True",
+                             model=SWIN_AVE)
+        totals = launches()
+        check_cli_run("train Swin-Base", straight, init(),
+                      lambda forwards: swin_launches(cfg, [TRAIN_B] * forwards), totals)
+        train_cli(os.path.join(tmp, "c"), "--n-epochs", "1", "--lr_adapt", "True", model=SWIN_AVE)
+        resumed = train_cli(os.path.join(tmp, "c"), "--n-epochs", "2", "--lr_adapt", "True",
+                            "--resume", "True", model=SWIN_AVE)
+        check_resume(straight, resumed, dict(init().named_parameters()))
+        del straight, resumed
+    tick(t0, "the CLI runs")
+    cut = dataclasses.replace(cfg, depths=cut_depths)
+    a, v, y = swin_clip_batch(cut, np.random.RandomState(SEED), TRAIN_B)
+
+    def make_loss(dev, dt):
+        ta, tv, ty = (torch.from_numpy(x).to(dev) for x in (a, v, y))
+        return lambda m, _, generator: (losses.ave_loss(
+            apply_swin_ave(m, cut, ta.to(dt), tv.to(dt), generator=generator), ty), {})
+    step_against_cpu(f"one train step at depths {cut_depths}, B={TRAIN_B}",
+                     random_swin_ave(cut, SEED), make_loss, swin_launches(cut, [TRAIN_B]))
+    tick(t0, "the step against the CPU")
+    model = random_swin_ave(cfg, SEED).to("cuda")
+    steps.init_train_state(model)
+    pipe = make_ave_device_pipeline(SWIN_FBANK, 224, train=True, image_size=224, device="cuda")
+    ds = SyntheticAVE(n=TRAIN_B, num_frames=cfg.num_frames, size=224, label_dim=cfg.label_dim)
+    batch = collate([ds[i] for i in range(TRAIN_B)])
+    labels = torch.from_numpy(batch["labels"]).to("cuda")
+    timing = profile_train_step(
+        f"Swin-Base fusion, depths {cfg.depths}", model, optim.build_optimizer(model, 1e-4, 50.0),
+        pipe, lambda m, a_, v_, gen: losses.ave_loss(apply_swin_ave(
+            m, cfg, a_.to(torch.bfloat16), v_.to(torch.bfloat16), generator=gen), labels),
+        batch, smi)
+    del model
+    log(f"  phase_train_swin: {time.perf_counter() - t0:.1f} s")
+    return rows, totals, timing
+
+
+def avs_cli(exp, *flags):
+    """`cli.run_adapt_avs.main` at its defaults (Swin-Large fusion, T = 5,
+    TPAVI at all four stages) on the card, synthetic AVS at B = TRAIN_B."""
+    from stgcma_tpu_torch.cli import run_adapt_avs
+    with contextlib.redirect_stdout(sys.stderr):
+        return run_adapt_avs.main(["--synthetic", "True", "--batch_size", str(TRAIN_B),
+                                   "--num_workers", "2", "--device", "cuda", "--exp-dir", exp,
+                                   *flags])
+
+
+def phase_train_avs(cfg, hcfg, smi, cut_depths=(2, 2, 2, 2)):
+    """AVSBench training through the port's `run_adapt_avs` on Swin-Large
+    fusion at T = 5 with TPAVI at all four stages, full width and depth, B =
+    TRAIN_B: K8's gradient rows at the stage 2-3 temporal sites (the bias
+    gradient dbm reaching the temporal table); the CLI's straight 2-epoch
+    run (plateau LR) with exact launches; `--eval_only` on its saved best
+    checkpoint reproducing its best miou; under STGCMA_DETERMINISTIC=1 a
+    straight run and a run resumed after epoch 1 against it (TOL_RESUME),
+    the BatchNorm statistics too; two steps at depths `cut_depths` against
+    the CPU, the BatchNorm statistics after them, and one step with TPAVI's
+    BatchNorm on its running statistics (`step_against_cpu`'s `cpu_bf16`
+    rule in both); the step's times. Returns
+    (rows, the CLI run's launches, the step's times)."""
+    import tempfile
+    import torch
+    from stgcma_tpu_torch.cli import run_adapt_avs as cli
+    from stgcma_tpu_torch.cli.common import DETERMINISTIC
+    from stgcma_tpu_torch.data.loader import collate, make_avs_device_pipeline
+    from stgcma_tpu_torch.models.avs import apply_avs, init_avs, random_avs
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.fbank import SWIN_FBANK
+    from stgcma_tpu_torch.train import losses, optim, steps
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows = {"K8": k8_grad_rows(cfg, TRAIN_B, g, "Swin-Large AVS")}
+    tick(t0, "the gradient rows")
+
+    def init():
+        return init_avs(cfg, hcfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        FA.reset_launches()
+        straight = avs_cli(os.path.join(tmp, "b"), "--n-epochs", "2", "--lr_adapt", "True")
+        totals = launches()
+        check_cli_run("train AVS Swin-Large", straight, init(),
+                      lambda forwards: swin_launches(cfg, [TRAIN_B] * forwards), totals)
+        got = avs_cli(os.path.join(tmp, "e"), "--eval_only", "True", "--ckpt",
+                      os.path.join(straight.exp_dir, "models", "best_model"))["miou"]
+        if not abs(got - straight.best_metric) <= 1e-6:
+            fail(f"AVS --eval_only on models/best_model: miou {got} against the run's best "
+                 f"{straight.best_metric} (epoch {straight.best_epoch})")
+        log(f"  AVS --eval_only --ckpt models/best_model: miou {got:.6f}, the run's best "
+            f"{straight.best_metric:.6f} (epoch {straight.best_epoch} of {straight.n_epochs})")
+        tick(t0, "the AVS CLI run and --eval_only")
+        with environment({DETERMINISTIC: "1"}):      # the CLIs' switch
+            straight = avs_cli(os.path.join(tmp, "d"), "--n-epochs", "2", "--lr_adapt", "True")
+            avs_cli(os.path.join(tmp, "c"), "--n-epochs", "1", "--lr_adapt", "True")
+            resumed = avs_cli(os.path.join(tmp, "c"), "--n-epochs", "2", "--lr_adapt", "True",
+                              "--resume", "True")
+        start = init()
+        log("  the resume under STGCMA_DETERMINISTIC=1 (torch's deterministic algorithms):")
+        check_resume(straight, resumed, dict(start.named_parameters()))
+        resumed_buffers(straight, resumed, start)
+        del straight, resumed, start
+    tick(t0, "the resume")
+    cut = dataclasses.replace(cfg, depths=cut_depths)
+    args = cli.parse_args([])
+    ds = cli.SyntheticAVS(TRAIN_B, cfg.num_frames, cfg.img_size, seed=SEED)
+    batch = collate([ds[i] for i in range(TRAIN_B)])
+
+    def make_loss(dev, dt):
+        pipe = make_avs_device_pipeline(SWIN_FBANK, 224, args.dataset_mean, args.dataset_std,
+                                        device=dev)
+        loss_fn = cli.make_loss_fn(cut, hcfg, pipe, args, dt)
+        return lambda m, _, generator: loss_fn(m, batch, generator)
+    step_against_cpu(f"two AVS train steps at depths {cut_depths}, B={TRAIN_B}",
+                     random_avs(cut, hcfg, SEED), make_loss, swin_launches(cut, [TRAIN_B]),
+                     n_steps=2, stats=True, cpu_bf16=True)
+
+    def make_running_loss(dev, dt):
+        pipe = make_avs_device_pipeline(SWIN_FBANK, 224, args.dataset_mean, args.dataset_std,
+                                        device=dev)
+        gt = torch.from_numpy(batch["masks"][:, 0]).to(dev)[..., None]
+
+        def loss_fn(m, _, generator):
+            a, v = pipe({"frames": batch["frames"], "wave": batch["wave"]})
+            pred, fmaps, afeas = apply_avs(m, cut, hcfg, a.to(dt), v.to(dt), train=False)
+            return losses.iou_semantic_aware_loss(pred, gt, afeas, fmaps,
+                                                  frames_per_clip=cut.num_frames)[0], {}
+        return loss_fn
+    step_against_cpu(f"one AVS step at depths {cut_depths}, B={TRAIN_B}, TPAVI's BatchNorm on "
+                     f"its running statistics", random_avs(cut, hcfg, SEED), make_running_loss,
+                     swin_launches(cut, [TRAIN_B]), cpu_bf16=True)
+    tick(t0, "the steps against the CPU")
+    model = random_avs(cfg, hcfg, SEED).to("cuda")
+    steps.init_train_state(model)
+    pipe = make_avs_device_pipeline(SWIN_FBANK, 224, args.dataset_mean, args.dataset_std,
+                                    device="cuda")
+    gt = torch.from_numpy(batch["masks"][:, 0]).to("cuda")[..., None]
+
+    def forward(m, a_, v_, gen):
+        pred, fmaps, afeas, _ = apply_avs(m, cfg, hcfg, a_.to(torch.bfloat16),
+                                          v_.to(torch.bfloat16), train=True, return_state=True)
+        return losses.iou_semantic_aware_loss(pred, gt, afeas, fmaps,
+                                              frames_per_clip=cfg.num_frames)[0]
+    timing = profile_train_step(
+        f"AVS Swin-Large fusion T={cfg.num_frames}, depths {cfg.depths}", model,
+        optim.build_optimizer(model, 1e-4, 0.1), lambda b, gen: pipe(b), forward, batch, smi)
+    del model
+    log(f"  phase_train_avs: {time.perf_counter() - t0:.1f} s")
+    return rows, totals, timing
 
 
 def main():
@@ -3504,7 +4229,8 @@ def main():
                                            k4_tol=TOL_K4_LARGE),
               lambda: phase_tv2_kernels(cfg, l14_cfg), lambda: phase_k10_kernels(k10_cfg),
               lambda: phase_avs_kernels(avs_cfg), lambda: phase_avqa_kernels(avqa_cfg),
-              lambda: phase_l14_int8_kernels(l14_cfg), phase_parts)
+              lambda: phase_l14_int8_kernels(l14_cfg), phase_parts,
+              lambda: phase_grad_kernels(cfg, k10_cfg))
     for phase in phases:
         for k, rows in phase().items():
             results.setdefault(k, []).extend(rows)
@@ -3566,6 +4292,18 @@ def main():
     train_rows, train_totals = phase_train(cfg, smi)
     results["K1"].extend(train_rows)
     totals = {k: totals[k] + train_totals[k] for k in KERNELS}
+    log(f"[4/4] train: AVE-29 training on Swin-Base fusion through cli.run_adapt_ave29, depths "
+        f"{fusion_cfg.depths}, C={fusion_cfg.embed_dim}..{fusion_cfg.num_features}, "
+        f"T={fusion_cfg.num_frames}, B={TRAIN_B}, bf16 compute with fp32 masters, every float "
+        f"kernel's recompute in its backward")
+    swin_rows, swin_totals, _ = phase_train_swin(fusion_cfg, smi)
+    log(f"[4/4] train: AVSBench training on Swin-Large fusion through cli.run_adapt_avs, T="
+        f"{avs_cfg.num_frames}, TPAVI at stages {avs_hcfg.tpavi_stages}, B={TRAIN_B}")
+    avs_rows, avs_totals, _ = phase_train_avs(avs_cfg, avs_hcfg, smi)
+    for rows in (swin_rows, avs_rows):
+        for k, r in rows.items():
+            results[k].extend(r)
+    totals = {k: totals[k] + swin_totals[k] + avs_totals[k] for k in KERNELS}
 
     kernels = []
     for k in KERNELS:

@@ -7,6 +7,7 @@ identifiers (BASELINE.json): MM-Swin-AVE-{Base,Large}, MM-CLIP-AVE-{Base,Large}.
 from __future__ import annotations
 
 import ast
+import contextlib
 import json
 import os
 import pickle
@@ -16,6 +17,38 @@ import numpy as np
 import torch
 
 from ..configs import clip_b16, clip_l14, swin_base, swin_large
+
+
+DETERMINISTIC = "STGCMA_DETERMINISTIC"
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """With STGCMA_DETERMINISTIC=1 in the environment, torch's deterministic
+    algorithms inside the block (or the decorated call): an op that has
+    none raises, cuDNN picks deterministic convolutions, and cuBLAS gets a
+    fixed workspace. A run resumed after an epoch then reaches the straight
+    run's masters bit for bit on the card. Unset (the default), the card's
+    backwards sum in a varying order (cuDNN's algorithms, atomics), and Adam
+    turns the sign of a gradient that is rounding noise into a whole update,
+    so a resumed AVS run drifts from the straight one. An environment
+    switch, so that the CLIs keep the JAX CLIs' flags."""
+    if os.environ.get(DETERMINISTIC) != "1":
+        yield
+        return
+    old = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    workspace = "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    if workspace:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        torch.backends.cudnn.deterministic = old[1]
+        if workspace:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
 
 
 def str2bool(v):

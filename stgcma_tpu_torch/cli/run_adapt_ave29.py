@@ -9,6 +9,8 @@ erasing, optional waveform mixup, fbank) on the device, the model with the
 head's dropout, the AVE loss, the Trainer with its per-epoch evaluation and
 checkpoints, weight averaging (--wa) and the multi-frame evaluation
 (--skip_frame_agg False). `--tiny` means `swin_tiny_test`, as in JAX.
+STGCMA_DETERMINISTIC=1 in the environment runs it under torch's
+deterministic algorithms (`common.deterministic_algorithms`).
 
 Compute is bf16 with fp32 masters (`train.steps`), in training and in
 evaluation, and the pipeline's fp32 (a, v) are cast to bf16 before the
@@ -39,8 +41,8 @@ from ..ops.fbank import CLIP_FBANK, SWIN_FBANK
 from ..train import losses
 from ..train.loop import Trainer, weight_average
 from ..train.steps import make_eval_step
-from .common import (archive_args, build_ave_model, maybe_load_pretrained, seed_everything,
-                     str2bool)
+from .common import (archive_args, build_ave_model, deterministic_algorithms,
+                     maybe_load_pretrained, seed_everything, str2bool)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -194,6 +196,7 @@ def frame_agg_eval(infer, model, eval_pipe, te, args):
     np.savetxt(os.path.join(args.exp_dir, "mul_frame_res.csv"), np.asarray(res), delimiter=",")
 
 
+@deterministic_algorithms()
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)

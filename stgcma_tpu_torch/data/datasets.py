@@ -4,15 +4,18 @@ finishes them on the device.
 
 Port of `stgcma_tpu/data/datasets.py`: `load_wav` (:33, the scipy decoder
 behind `serving.HostDecoder`'s Python path), `load_image` (:51),
-`_select_frames` (:79), `_segment_waveform` (:91), `AVEDataset` (:107) and
-`SyntheticAVE` (:338). `load_image` decodes with PIL, which the JAX
-package's native decoder matches bit for bit. `h5py` is imported by
-`AVEDataset` alone. The AVQA and AVS datasets wait for their trainers
-(ROADMAP.md).
+`load_mask` (:68), `_select_frames` (:79), `_segment_waveform` (:91),
+`AVEDataset` (:107), `AVSDataset` (:263) and `SyntheticAVE` (:338).
+`load_image` decodes with PIL, which the JAX package's native decoder
+matches bit for bit. `h5py` is imported by `AVEDataset` alone. The AVQA
+dataset waits for its trainer (ROADMAP.md).
 
 AVE layout (AVE/dataloader.py:73-525): train/test_order.h5 'order',
 labels.h5 'avadataset' one-hot [N, 10, 29], Annotations.txt '&'-separated
-rows, frame directories of jpgs, 10 x 1 s wav segments.
+rows, frame directories of jpgs, 10 x 1 s wav segments. AVS layout
+(AVS/dataloader.py:40-193): s4_meta_data.csv splits (MS3's csv has no
+category column), 5 png frames, 1 (train) / 5 (test) gt masks, 5 x 1.95 s
+wav segments, optional VGGish log-mel pkls.
 """
 from __future__ import annotations
 
@@ -46,6 +49,15 @@ def load_image(path: str) -> np.ndarray:
     from PIL import Image
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def load_mask(path: str, size: int = 224) -> np.ndarray:
+    """An AVS ground-truth mask png (PIL mode '1') -> (size, size) float32 in
+    {0, 1}, resized by nearest neighbour."""
+    from PIL import Image
+    with Image.open(path) as im:
+        im = im.convert("1").resize((size, size), Image.NEAREST)
+        return np.asarray(im, np.float32)
 
 
 def _select_frames(frame_dir: str, num: int) -> List[str]:
@@ -131,6 +143,64 @@ class AVEDataset:
         return {"frames": frames, "wave": segs,
                 "labels": self.labels[vid] if np.issubdtype(type(vid), np.integer)
                 else self.labels[i]}
+
+
+class AVSDataset:
+    """Items: frames (T, H, W, 3) uint8, wave (T, 1.95 s of samples) f32,
+    masks (k, 224, 224) f32 with k = 1 (train) or T (test); with the VGGish
+    log-mel pkls, `audio_log_mel` too (the reference S4Dataset returns them
+    with every item; the Swin trainer does not read them). `dir_image`,
+    `dir_mask` and `dir_audio_wav` override data_root's visual_frames /
+    gt_masks / audio_wav (AVS/run_adapt_avs.py:89-92). Whether the pkls are
+    loaded is decided once here (None: the directory exists), so that a
+    partly filled tree raises on its missing item rather than making
+    batches of two schemas."""
+
+    def __init__(self, meta_csv: str, data_root: str, split: str = "train",
+                 num_frames: int = 5, dir_image: str = "", dir_mask: str = "",
+                 dir_audio_wav: str = "", dir_audio_log_mel: str = "",
+                 load_audio_log_mel: Optional[bool] = None):
+        import csv
+        with open(meta_csv) as f:
+            self.rows = [row for row in csv.DictReader(f) if row.get("split") == split]
+        self.dir_image = dir_image or os.path.join(data_root, "visual_frames")
+        self.dir_mask = dir_mask or os.path.join(data_root, "gt_masks")
+        self.dir_audio_wav = dir_audio_wav or os.path.join(data_root, "audio_wav")
+        self.dir_audio_log_mel = dir_audio_log_mel or os.path.join(data_root, "audio_log_mel")
+        if load_audio_log_mel is None:
+            load_audio_log_mel = os.path.isdir(self.dir_audio_log_mel)
+        self.load_audio_log_mel = load_audio_log_mel
+        self.split = split
+        self.num_frames = num_frames
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        row = self.rows[i]
+        name, category = row["name"], row.get("category", "")
+        base = os.path.join(self.dir_image, self.split, category, name)
+        frames = np.stack([load_image(os.path.join(base, f"{name}_{k + 1}.png"))
+                           for k in range(self.num_frames)])
+        mask_base = os.path.join(self.dir_mask, self.split, category, name)
+        n_masks = 1 if self.split == "train" else self.num_frames
+        masks = np.stack([load_mask(os.path.join(mask_base, f"{name}_{k + 1}.png"))
+                          for k in range(n_masks)])
+        wav, sr = load_wav(os.path.join(self.dir_audio_wav, self.split, category,
+                                        name + ".wav"))
+        wav = wav.mean(axis=0)
+        wav = wav - wav.mean()
+        item = {"frames": frames, "wave": _segment_waveform(wav, sr, self.num_frames, 1.95),
+                "masks": masks}
+        if self.load_audio_log_mel:
+            import pickle
+            path = os.path.join(self.dir_audio_log_mel, self.split, category, name + ".pkl")
+            with open(path, "rb") as f:      # a missing pkl raises, as the reference's
+                lm = pickle.load(f)
+            if hasattr(lm, "detach"):        # a torch tensor pkl (the reference's layout)
+                lm = lm.detach().cpu().numpy()
+            item["audio_log_mel"] = np.asarray(lm, np.float32)
+        return item
 
 
 class SyntheticAVE:

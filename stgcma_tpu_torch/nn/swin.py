@@ -34,7 +34,6 @@ index and mask constants are built once per geometry and device.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Dict, List
 
 import torch
@@ -42,7 +41,7 @@ from torch import nn
 
 from ..configs import SwinConfig
 from ..ops import window as W
-from ..ops.common import LayerNorm, Linear, layernorm, linear, mlp_apply
+from ..ops.common import LayerNorm, Linear, layernorm, linear, mlp_apply, tensor_cache
 from ..ops.conv import conv3d
 from ..ops.fused_attn import (block_kernel_route, cross_modal_fuse_flash,
                               cross_modal_fuse_windows, ffn_kernel_route, ffn_megakernel,
@@ -109,17 +108,17 @@ def backbone_statics(cfg: SwinConfig) -> List[List[BlockStatic]]:
             for s in range(cfg.num_layers)]
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def _rel_index(ws: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(W.relative_position_index(ws)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def _t_index(T: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(W.temporal_relative_index(T)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def _shift_mask(H: int, Wd: int, ws: int, ss: int, device: torch.device):
     if ss == 0:
         return None

@@ -64,12 +64,16 @@ def temporal_attention(p, x, num_heads: int, t_index, signal: str = "video"):
     return qkv_attention(p, x, num_heads, bias=bias)
 
 
-def cross_modal_fuse(v_hidden, a_hidden, gate_v, gate_a):
+def cross_modal_fuse(v_hidden, a_hidden, gate_v, gate_a, mask=None):
     """v_hidden: (B, Nv, d); a_hidden: (B, Na, d). Returns the updated
     (v_hidden, a_hidden). The logits are unscaled (no 1/sqrt(d)) and kept in
-    float32; the probabilities are cast back to the hidden dtype before p.v."""
+    float32; the probabilities are cast back to the hidden dtype before p.v.
+    `mask` (Nv, Na), added to the logits of both directions, is the
+    per-window fusion of `_fullgrid_naive`'s `fuse` (pallas_swin_block.py:210)."""
     dt = v_hidden.dtype
     logits_va = torch.matmul(v_hidden.float(), a_hidden.float().transpose(1, 2))
+    if mask is not None:
+        logits_va = logits_va + mask.float()
     attn_vs = torch.softmax(logits_va, dim=-1).to(dt)               # (B, Nv, Na)
     a2v = torch.matmul(attn_vs, a_hidden)
     attn_as = torch.softmax(logits_va.transpose(1, 2), dim=-1).to(dt)  # (B, Na, Nv)

@@ -71,14 +71,16 @@ from __future__ import annotations
 
 import torch
 
+from .common import gelu, quick_gelu
 from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_GELU, _EPI_BF16_QUICKGELU, _EPI_BF16_RES1,
                          _EPI_BF16_RESF, _EPI_BF16_RGELU, _EPI_Q_BF16, _QUICK_GELU, _Kernel, _attn_core,
                          _attn_core_t, _check_cuda, _check_shapes, _erf_gelu, _fuse_cuda,
                          _gemm_bf16, _gemm_res, _gemm_s8, _heads_attention, _ln_bf16, _ln_f32,
                          _quant_rows, _rowadapt, _stream, _tattn, check_attn_shape,
-                         check_fuse_width, dotq, fuse_plain, rowadapt_route, tattn_route)
-from .swin_block import (TOWER, _gemm_res2, _lin, _ln_quant_pair, adapter_weights,
-                         tower_weights)
+                         check_fuse_width, dense, dotq, fuse_plain, heads_attention_recompute,
+                         rowadapt_route, tattn_route)
+from .swin_block import (TOWER, _fusion_recompute, _gemm_res2, _lin, _ln_quant_pair,
+                         adapter_weights, tower_weights)
 
 # the four adapters K12 reads: short name -> attribute of a fusion-mode ClipBlock
 ADAPTERS = (("sv", "S_Adapter"), ("sa", "S_Adapter_Audio"),
@@ -222,6 +224,56 @@ def tv2_q_plain(x, w, heads, T, bias=None):
     rows) and proj (of the merged heads); the core and the adapter are the
     float variant's."""
     return _tv2_plain(x, w, heads, T, bias, quantized=True)
+
+
+# ---------------------------------------------------------------------------
+# backward recomputes: the ports of the XLA references that the JAX
+# `custom_vjp` backwards differentiate, in the activations' dtype
+# ---------------------------------------------------------------------------
+
+def _self_attn_recompute(x, w, heads, bias=None):
+    """LN1 (fp32, rounded to x's dtype), then the JAX `mha` of x with itself
+    on the operands of w: qkv = x . W_qkv + b, the attention of
+    `heads_attention_recompute` (`_tv2_naive`'s (heads, T, T) bias where
+    given), proj, all in x's dtype."""
+    xn = _ln_f32(x, w["ln1_w"], w["ln1_b"]).to(x.dtype)
+    o = heads_attention_recompute(dense(xn, w["w_qkv"], w["b_qkv"]), heads,
+                                  None if bias is None else bias[None])
+    return dense(o, w["w_proj"], w["b_proj"])
+
+
+def fusion_block_recompute(v, a, w, heads):
+    """K12's backward recompute: the port of `_fusion_spatial_naive` (:257),
+    which the JAX `_fb_bwd` differentiates: `swin_block._fusion_recompute`
+    with the self-attention of each stream over its own tokens, no fusion
+    mask, and QuickGELU in the FFN."""
+    return _fusion_recompute(v, a, w, lambda x: _self_attn_recompute(x, w, heads),
+                                  quick_gelu, [k for k, _ in ADAPTERS])
+
+
+def _t_adapter(o, w):
+    """T_Adapter without skip (`adapter_apply(skip=False)`) in o's dtype."""
+    return dense(gelu(dense(o, w["ad_w1"], w["ad_b1"])), w["ad_w2"], w["ad_b2"])
+
+
+def tadapt_recompute(x, w, heads):
+    """K13's backward recompute: the port of `_tadapt_naive` (:392),
+    x + T_Adapter(mha(LN x)) in x's dtype."""
+    return x + _t_adapter(_self_attn_recompute(x, w, heads), w)
+
+
+def tv2_recompute(x, w, heads, T, bias=None):
+    """K14's backward recompute: the port of `_tv2_naive` (pallas_attn.py:1899):
+    x (B*T, N, C) transposed to each token's T frames, `_tadapt_naive`'s
+    function with the optional bias (without an adapter: the attention
+    output alone), transposed back."""
+    BT, N, C = x.shape
+    B = BT // T
+    xt = x.reshape(B, T, N, C).transpose(1, 2).reshape(B * N, T, C)
+    out = _self_attn_recompute(xt, w, heads, bias)
+    if "ad_w1" in w:
+        out = xt + _t_adapter(out, w)
+    return out.reshape(B, N, T, C).transpose(1, 2).reshape(BT, N, C)
 
 
 # ---------------------------------------------------------------------------
@@ -474,14 +526,14 @@ def _tv2_q_cuda(x, w, heads, T, bias=None):
     return _tv2_cuda(x, w, heads, T, bias, quantized=True)
 
 
-clip_fusion_block = _Kernel("K12", "clip_fusion_block", fusion_block_plain, _clip_block_cuda)
+clip_fusion_block = _Kernel("K12", "clip_fusion_block", fusion_block_plain, _clip_block_cuda,
+                            recompute=fusion_block_recompute)
 clip_fusion_block_q = _Kernel("K12", "clip_fusion_block_q", fusion_block_q_plain,
-                              _clip_block_q_cuda, differentiable=False)
-clip_tadapt = _Kernel("K13", "clip_tadapt", tadapt_plain, _tadapt_cuda)
-clip_tadapt_q = _Kernel("K13", "clip_tadapt_q", tadapt_q_plain, _tadapt_q_cuda,
-                        differentiable=False)
-clip_tv2 = _Kernel("K14", "clip_tv2", tv2_plain, _tv2_cuda)
-clip_tv2_q = _Kernel("K14", "clip_tv2_q", tv2_q_plain, _tv2_q_cuda, differentiable=False)
+                              _clip_block_q_cuda)
+clip_tadapt = _Kernel("K13", "clip_tadapt", tadapt_plain, _tadapt_cuda, recompute=tadapt_recompute)
+clip_tadapt_q = _Kernel("K13", "clip_tadapt_q", tadapt_q_plain, _tadapt_q_cuda)
+clip_tv2 = _Kernel("K14", "clip_tv2", tv2_plain, _tv2_cuda, recompute=tv2_recompute)
+clip_tv2_q = _Kernel("K14", "clip_tv2_q", tv2_q_plain, _tv2_q_cuda)
 
 
 # ---------------------------------------------------------------------------

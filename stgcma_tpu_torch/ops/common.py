@@ -11,6 +11,7 @@ package does for its bf16 policy (`stgcma_tpu/ops/common.py:72-81`).
 from __future__ import annotations
 
 import copy
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +27,21 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to "
                            "run the plain PyTorch versions on the CPU")
     return device
+
+
+def tensor_cache(fn):
+    """`functools.lru_cache` for the builders of process-wide constant
+    tensors (window indices, masks, K4's geometry), which never keeps an
+    inference tensor: the builder runs under `torch.inference_mode(False)`.
+    The first call often comes from inside `MultiTaskServer.predict`
+    (`torch.inference_mode`), and a tensor made there could not be saved for
+    the backward of a later train step in the same process."""
+    @functools.lru_cache(maxsize=64)
+    @functools.wraps(fn)
+    def cached(*args):
+        with torch.inference_mode(False):
+            return fn(*args)
+    return cached
 
 
 class Linear(nn.Module):

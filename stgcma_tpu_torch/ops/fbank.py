@@ -12,7 +12,9 @@ XLA, outside any Pallas kernel, so the port is plain torch:
 with kaldi's defaults (frame length 25 ms, preemphasis 0.97,
 snip_edges=True, remove_dc_offset=True, low_freq 20, high_freq nyquist,
 round_to_power_of_two). The filter banks are built in numpy, as the JAX
-package builds them, and cached. On the card the mel product is fp32 only
+package builds them, and cached as numpy arrays: each call makes its own
+tensor of them, so no cached tensor outlives a request made in inference
+mode. On the card the mel product is fp32 only
 while TF32 is off (`torch.backends.cuda.matmul.allow_tf32`, off by default).
 """
 from __future__ import annotations

@@ -86,10 +86,19 @@ on the saved inputs under autograd and takes `torch.autograd.grad` for
 exactly the inputs that need one (frozen weights get none and cost none).
 That recompute is the port of the XLA recompute in the JAX `_*_bwd`: it is
 not a fallback, launches none of the port's kernels, and is the only place
-on the card where the plain math runs. K1's is `win_block_recompute`, the
-port of `_win_block_naive` with its products in bf16 (fp32 accumulation);
-the other wrappers recompute their plain version, whose products run in
-fp32 (ROADMAP queue 3). The int8 wrappers (K2, K3, K11 and
+on the card where the plain math runs. Its products take the activations'
+dtype (bf16 operands: fp32 accumulation, each result rounded), as the JAX
+references' dots do: K1 `win_block_recompute` (`_win_block_naive`), K4
+`swin_block.py::swin_block_recompute` (`_fullgrid_naive`), K5 and K6 the
+port's own `ops/attention.py::cross_modal_fuse` (JAX's `_wf_bwd` and
+`_bidir_bwd` differentiate `cross_modal_fuse`), K7 `ffn_recompute`
+(`_ffn_naive`), K8 `wmsa_recompute` / `wmsa_qkv_recompute` and K10
+`unscaled_attention_recompute` (the backwards `_wmsa_bwd` and `_bwd` write
+out in fp32), K9 `layernorm_plain` (already `common.layernorm`'s port), K12-K14
+`clip_block.py`'s `*_recompute` (`_fusion_spatial_naive`, `_tadapt_naive`,
+`_tv2_naive`). The `*_plain` versions, whose products run in fp32, are the
+yardstick that the kernels and these gradients are held to. The int8
+wrappers (K2, K3, K11 and
 the int8 variants of K4, K12-K14) have no gradient, as the JAX package
 never differentiates a quantized tower: their backward raises.
 
@@ -119,7 +128,7 @@ import torch
 
 from . import cuda_lib
 from .attention import cross_modal_fuse, gather_bias, temporal_table
-from .common import linear
+from .common import gelu, linear
 
 _QUICK_GELU, _GELU = "quick_gelu", "gelu"
 _EPI = {_QUICK_GELU: 2, _GELU: 3}    # gemm.cu epilogues writing an fp32 hidden
@@ -226,19 +235,25 @@ def win_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads,
     return (torch.matmul(o.float(), w_proj.float().t()) + b_proj.float()).to(dt)
 
 
-def win_block_recompute(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads, bias=None):
-    """K1's backward recompute: the port of `_win_block_naive` (:426), the
-    XLA reference that the JAX `_win_block_bwd` differentiates. Its products
-    take x's dtype (bf16 operands on the card: tensor-core products with
-    fp32 accumulation, rounded once to bf16, the bias added after), the
-    logits and the softmax fp32. The same bf16 x bf16 products as
-    `win_block_plain`, which runs every product in fp32 and stays the
-    yardstick that the kernel and this gradient are held to."""
+def dense(x, w, b):
+    """The JAX package's float `linear` (`stgcma_tpu/ops/common.py:62`) in
+    x's dtype: x . W^T rounded to the dtype (bf16 operands: fp32
+    accumulation), then + b in the dtype. w in torch's (out, in) layout."""
     dt = x.dtype
-    B_, N, C = x.shape
+    return torch.matmul(x, w.to(dt).t()) + b.to(dt)
+
+
+def heads_attention_recompute(qkv, heads, bias=None):
+    """The multi-head attention of the JAX XLA references that the float
+    kernels' `custom_vjp` backwards differentiate (`_win_block_naive`,
+    `_fullgrid_naive`, `mha`, `_tv2_naive`), on qkv (B_, N, 3C) in its dtype
+    dt: q scaled by a dh^-1/2 rounded to dt, fp32 logits, the bias (nWb, h,
+    N, N) fp32 added with period nWb along B_, the softmax in fp32 rounded
+    to dt, p.v in dt; heads merged into (B_, N, C)."""
+    dt = qkv.dtype
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
     dh = C // heads
-    xn = _ln_f32(x, ln_w, ln_b).to(dt)
-    qkv = torch.matmul(xn, w_qkv.to(dt).t()) + b_qkv.to(dt)
     q, k, v = qkv.view(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
     q = q * torch.tensor(dh ** -0.5, dtype=dt)          # scale rounded to dt
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -247,8 +262,20 @@ def win_block_recompute(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads, bias
         logits = (logits.view(B_ // nWb, nWb, heads, N, N) + bias.float()
                   ).view(B_, heads, N, N)
     p = torch.softmax(logits, dim=-1).to(dt)
-    o = torch.matmul(p, v).transpose(1, 2).reshape(B_, N, C)
-    return torch.matmul(o, w_proj.to(dt).t()) + b_proj.to(dt)
+    return torch.matmul(p, v).transpose(1, 2).reshape(B_, N, C)
+
+
+def win_block_recompute(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads, bias=None):
+    """K1's backward recompute: the port of `_win_block_naive` (:426), the
+    XLA reference that the JAX `_win_block_bwd` differentiates. Its products
+    take x's dtype (bf16 operands on the card: tensor-core products with
+    fp32 accumulation, rounded once to bf16, the bias added after), the
+    logits and the softmax fp32. The same bf16 x bf16 products as
+    `win_block_plain`, which runs every product in fp32 and stays the
+    yardstick that the kernel and this gradient are held to."""
+    xn = _ln_f32(x, ln_w, ln_b).to(x.dtype)
+    o = heads_attention_recompute(dense(xn, w_qkv, b_qkv), heads, bias)
+    return dense(o, w_proj, b_proj)
 
 
 def _win_block_q_core(x, ln_w, ln_b, wqkv_q, wqkv_s, b_qkv, wproj_q, wproj_s, b_proj,
@@ -315,6 +342,14 @@ def ffn_plain(x, ln_w, ln_b, w1, b1, w2, b2):
     return (torch.matmul(h.float(), w2.float().t()) + b2.float()).to(dt)
 
 
+def ffn_recompute(x, ln_w, ln_b, w1, b1, w2, b2):
+    """K7's backward recompute: the port of `_ffn_naive` (:734), which the
+    JAX `_ffn_bwd` differentiates: LayerNorm in fp32 rounded to x's dtype,
+    then both products with their bias adds and the erf-GELU in x's dtype."""
+    xn = _ln_f32(x, ln_w, ln_b).to(x.dtype)
+    return dense(gelu(dense(xn, w1, b1)), w2, b2)
+
+
 def wmsa_plain(q, k, v, bm):
     dt = q.dtype
     R, N, _ = q.shape
@@ -326,19 +361,54 @@ def wmsa_plain(q, k, v, bm):
     return torch.matmul(p.float(), v.float()).to(dt)
 
 
-def wmsa_qkv_plain(qkv, bm, heads):
-    """K8 at its Swin sites: the packed qkv (B_, N, 3C) taken apart into
-    (B_ * heads, N, dh) rows (head fastest), q scaled by dh^-1/2 rounded to
-    qkv's dtype, `wmsa_plain` with the bias (P, N, N), heads merged back into
-    (B_, N, C)."""
+def _qkv_site(qkv, heads, core):
+    """K8's Swin site around `core(q, k, v)`: the packed qkv (B_, N, 3C)
+    taken apart into (B_ * heads, N, dh) rows (head fastest), q scaled by
+    dh^-1/2 rounded to qkv's dtype, the core's rows merged back into (B_,
+    N, C)."""
     B_, N, C3 = qkv.shape
     C = C3 // 3
     dh = C // heads
     q, k, v = qkv.reshape(B_, N, 3, heads, dh).permute(2, 0, 3, 1, 4)
     q = q * torch.tensor(dh ** -0.5, dtype=qkv.dtype)
-    q, k, v = (t.reshape(B_ * heads, N, dh) for t in (q, k, v))
-    out = wmsa_plain(q, k, v, bm)
+    out = core(*(t.reshape(B_ * heads, N, dh) for t in (q, k, v)))
     return out.reshape(B_, heads, N, dh).transpose(1, 2).reshape(B_, N, C)
+
+
+def wmsa_qkv_plain(qkv, bm, heads):
+    """K8 at its Swin sites: `wmsa_plain` with the bias (P, N, N) inside
+    `_qkv_site`."""
+    return _qkv_site(qkv, heads, lambda q, k, v: wmsa_plain(q, k, v, bm))
+
+
+def _attn_recompute(q, k, v, bias=None):
+    """The recompute that the JAX `_bwd` (:209) and `_wmsa_bwd` (:330)
+    write out by hand, as a function whose autograd gives their formulas:
+    fp32 logits of q (R, N, dh) and k from the saved inputs, the bias (P, N,
+    N) added with period P along R, the softmax in fp32, not rounded before
+    p.v (unlike the forward), p.v against v in fp32, rounded to q's dtype.
+    So dv = p^T g, ds = (g v^T - rowsum) * p, dq = ds k, dk = ds^T q, all
+    in fp32 and each cast to its input's dtype, and the bias's gradient ds
+    summed over the R / P periods (JAX's `dbm`)."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        R, N, M = logits.shape
+        P = bias.shape[0]
+        logits = (logits.view(R // P, P, N, M) + bias.float()).view(R, N, M)
+    return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+
+
+def wmsa_recompute(q, k, v, bm):
+    """K8's backward recompute: the port of `_wmsa_bwd` (:330)."""
+    return _attn_recompute(q, k, v, bm)
+
+
+def wmsa_qkv_recompute(qkv, bm, heads):
+    """K8's backward recompute at its Swin sites: `wmsa_recompute` inside
+    `_qkv_site`, whose split, scale and merge are XLA's part of JAX's site
+    (`temporal_attention_fused` :650), differentiated by autograd as JAX
+    differentiates them."""
+    return _qkv_site(qkv, heads, lambda q, k, v: wmsa_recompute(q, k, v, bm))
 
 
 def unscaled_attention_plain(q, k, v):
@@ -352,7 +422,18 @@ def unscaled_attention_plain(q, k, v):
     return torch.matmul(p.float(), v.float()).to(dt)
 
 
+def unscaled_attention_recompute(q, k, v):
+    """K10's backward recompute: the port of the JAX `_bwd` (:209)."""
+    return _attn_recompute(q, k, v)
+
+
 def layernorm_plain(x, ln_w, ln_b):
+    """K9's plain version, and also its backward recompute: it is already
+    the port of `common.layernorm` (`stgcma_tpu/ops/common.py:72`), which
+    the JAX `_ln_bwd` (:809) differentiates: fp32 statistics, (x - mean) *
+    rsqrt(var + eps) * scale + bias in fp32, cast back to x's dtype
+    (held bit for bit to JAX's in bf16 by
+    tests/test_torch_port_train_swin.py)."""
     return _ln_f32(x, ln_w, ln_b).to(x.dtype)
 
 
@@ -887,8 +968,8 @@ def _unflatten(obj, leaves):
 
 class _Recompute(torch.autograd.Function):
     """One wrapper call as an autograd node: forward the call itself (kernel
-    or CPU plain version, counted), backward the plain version recomputed on
-    the saved inputs (module docstring)."""
+    or CPU plain version, counted), backward the wrapper's `recompute` on the
+    saved inputs (module docstring)."""
 
     @staticmethod
     def forward(ctx, kernel, spec, *leaves):
@@ -916,17 +997,18 @@ class _Recompute(torch.autograd.Function):
 
 class _Kernel:
     """A kernel wrapper with its id ("K1"...), its launch count; registers
-    itself in KERNELS. `recompute` is what its backward differentiates (the
-    plain version unless given). `differentiable` False (the int8
-    wrappers): a gradient through it raises."""
+    itself in KERNELS. `recompute` is what its backward differentiates: the
+    port of the XLA reference of the JAX `_*_bwd`, never the plain version
+    (K9's plain version is that port). None (the int8 wrappers): a gradient
+    through it raises."""
 
-    def __init__(self, kid, fn, plain, launch, differentiable=True, recompute=None):
+    def __init__(self, kid, fn, plain, launch, recompute=None):
         self.id = kid
         self.name = f"{fn} ({kid})"
         self.plain = plain
-        self.recompute = recompute or plain
+        self.recompute = recompute
         self._launch = launch
-        self.differentiable = differentiable
+        self.differentiable = recompute is not None
         self.launches = 0
         KERNELS.append(self)
 
@@ -1213,22 +1295,23 @@ def _unscaled_attn_cuda(q, k, v):
 
 win_block = _Kernel("K1", "win_block", win_block_plain, _win_block_cuda,
                     recompute=win_block_recompute)
-win_block_q = _Kernel("K2", "win_block_q", win_block_q_plain, _win_block_q_cuda,
-                      differentiable=False)
-ffn_q = _Kernel("K3", "ffn_q", ffn_q_plain, _ffn_q_cuda, differentiable=False)
-win_fuse = _Kernel("K5", "win_fuse", fuse_plain, _fuse_cuda)
-bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda)
-ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda)
-wmsa = _Kernel("K8", "wmsa", wmsa_plain, _wmsa_cuda)
-wmsa_qkv = _Kernel("K8", "wmsa_qkv", wmsa_qkv_plain, _wmsa_qkv_cuda)
-layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda)
+win_block_q = _Kernel("K2", "win_block_q", win_block_q_plain, _win_block_q_cuda)
+ffn_q = _Kernel("K3", "ffn_q", ffn_q_plain, _ffn_q_cuda)
+win_fuse = _Kernel("K5", "win_fuse", fuse_plain, _fuse_cuda, recompute=cross_modal_fuse)
+bidir_fuse = _Kernel("K6", "bidir_fuse", fuse_plain, _fuse_cuda, recompute=cross_modal_fuse)
+ffn = _Kernel("K7", "ffn", ffn_plain, _ffn_cuda, recompute=ffn_recompute)
+wmsa = _Kernel("K8", "wmsa", wmsa_plain, _wmsa_cuda, recompute=wmsa_recompute)
+wmsa_qkv = _Kernel("K8", "wmsa_qkv", wmsa_qkv_plain, _wmsa_qkv_cuda,
+                   recompute=wmsa_qkv_recompute)
+layernorm = _Kernel("K9", "layernorm", layernorm_plain, _layernorm_cuda,
+                    recompute=layernorm_plain)
 unscaled_attention = _Kernel("K10", "unscaled_attention", unscaled_attention_plain,
-                             _unscaled_attn_cuda)
+                             _unscaled_attn_cuda, recompute=unscaled_attention_recompute)
 win_block_qd = _Kernel("K11", "win_block_qd", functools.partial(win_block_qad_plain, emit_o=False),
-                       functools.partial(_win_block_qad_cuda, emit_o=False), differentiable=False)
+                       functools.partial(_win_block_qad_cuda, emit_o=False))
 win_block_qh = _Kernel("K11", "win_block_qh", functools.partial(win_block_qad_plain, emit_o=True),
-                       functools.partial(_win_block_qad_cuda, emit_o=True), differentiable=False)
-ffn_qh = _Kernel("K11", "ffn_qh", ffn_qh_plain, _ffn_qh_cuda, differentiable=False)
+                       functools.partial(_win_block_qad_cuda, emit_o=True))
+ffn_qh = _Kernel("K11", "ffn_qh", ffn_qh_plain, _ffn_qh_cuda)
 
 
 def reset_launches():

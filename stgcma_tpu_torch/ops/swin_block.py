@@ -50,13 +50,14 @@ import numpy as np
 import torch
 
 from . import cuda_lib
-from .attention import gather_bias
+from .attention import cross_modal_fuse, gather_bias
+from .common import gelu, tensor_cache
 from .fused_attn import (_EPI, _EPI_BF16, _EPI_BF16_RGELU, _EPI_Q_BF16, _GELU, _LN_EPS,
                          _Kernel, _attn_core, _attn_core_win, _check_cuda,
                          _check_shapes, _erf_gelu, _fuse_cuda, _gemm_bf16, _gemm_s8,
                          _heads_attention, _ln_f32, _ptr, _quant_rows, _stream,
-                         check_attn_shape, check_fuse_width, check_gemm_operands, dotq,
-                         fuse_plain)
+                         check_attn_shape, check_fuse_width, check_gemm_operands, dense, dotq,
+                         fuse_plain, heads_attention_recompute)
 from .window import relative_position_index
 
 WHOLE_BLOCK_MAX_GRID = 256            # K4 for grids of <= 256 tokens (pallas_swin_block.py:587)
@@ -145,7 +146,7 @@ def _remember_table(fuse_mask, table):
     return table
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def _geo_tensors(H: int, W: int, ws: int, ss: int, device: torch.device):
     g = geo(H, W, ws, ss)
     fuse_mask = torch.from_numpy(g.fuse_mask).to(device)
@@ -162,7 +163,8 @@ def _window_table_of(fuse_mask):
     hit = _TABLES.get(id(fuse_mask))
     if hit is not None and hit[0]() is fuse_mask and hit[1] == _version(fuse_mask):
         return hit[2]
-    table = torch.from_numpy(window_table(fuse_mask.cpu().numpy())).to(fuse_mask.device)
+    with torch.inference_mode(False):        # kept past the request that made it
+        table = torch.from_numpy(window_table(fuse_mask.cpu().numpy())).to(fuse_mask.device)
     return _remember_table(fuse_mask, table)
 
 
@@ -265,6 +267,51 @@ def swin_block_q_plain(v, a, w, heads, bias, fuse_mask):
     erf-GELU in fp32 -> `_dotq` + b2, rounded. w: `block_weights` of an int8
     block (the `s_*` scales of TOWER)."""
     return _swin_block_plain(v, a, w, heads, bias, fuse_mask, quantized=True)
+
+
+def _fusion_recompute(v, a, w, attn, act, keys, fuse_mask=None):
+    """The XLA reference of a whole fusion block (`_fullgrid_naive` of K4,
+    `_fusion_spatial_naive` of K12) in v's dtype: `attn(x)` the attention
+    of each stream; the adapter hiddens gelu(x . W1 + b1) of the first two
+    adapters of `keys` fused by `cross_modal_fuse` (masked by `fuse_mask`
+    where given), (x + s) + (h . W2 + b2); LN2, the FFN with `act`, the
+    last two adapters' fusion unmasked, the residuals. Every product, bias
+    add, activation and residual in the dtype; LayerNorm and the softmaxes in
+    fp32. The same order of operations as JAX's, for its autograd to match
+    JAX's vjp."""
+    def hidden(x, key):
+        return gelu(dense(x, w[f"{key}_w1"], w[f"{key}_b1"]))
+
+    def up(h, key):
+        return dense(h, w[f"{key}_w2"], w[f"{key}_b2"])
+
+    def ffn(x):
+        xn = _ln_f32(x, w["ln2_w"], w["ln2_b"]).to(x.dtype)
+        return dense(act(dense(xn, w["w1"], w["b1"])), w["w2"], w["b2"])
+
+    kv, ka, kv2, ka2 = keys
+    vs, as_ = attn(v), attn(a)
+    vh, ah = cross_modal_fuse(hidden(vs, kv), hidden(as_, ka), w["gate_v"], w["gate_a"],
+                              fuse_mask)
+    v = v + vs + up(vh, kv)
+    a = a + as_ + up(ah, ka)
+    vn, an = ffn(v), ffn(a)
+    vh, ah = cross_modal_fuse(hidden(vn, kv2), hidden(an, ka2), w["gate_v"], w["gate_a"])
+    return v + vn + up(vh, kv2), a + an + up(ah, ka2)
+
+
+def swin_block_recompute(v, a, w, heads, bias, fuse_mask):
+    """K4's backward recompute: the port of `_fullgrid_naive` (:182), which
+    the JAX `_sb_bwd` (:558) differentiates: `_fusion_recompute` with
+    the attention over the masked full grid (`bias` (1, h, N, N): the
+    gathered table plus the window and shift masks, JAX's `bias_full`), the
+    S_Adapter2 fusion masked by `fuse_mask`, erf-GELU in the FFN. The
+    gradient of `bias` flows on to the table through `gather_bias`."""
+    def attn(x):
+        xn = _ln_f32(x, w["ln1_w"], w["ln1_b"]).to(x.dtype)
+        return dense(heads_attention_recompute(dense(xn, w["w_qkv"], w["b_qkv"]), heads, bias),
+                     w["w_proj"], w["b_proj"])
+    return _fusion_recompute(v, a, w, attn, gelu, [k for k, _ in ADAPTERS], fuse_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -441,9 +488,9 @@ def _swin_block_q_cuda(v, a, w, heads, bias, fuse_mask):
     return _swin_block_cuda(v, a, w, heads, bias, fuse_mask, quantized=True)
 
 
-swin_block = _Kernel("K4", "swin_block", swin_block_plain, _swin_block_cuda)
-swin_block_q = _Kernel("K4", "swin_block_q", swin_block_q_plain, _swin_block_q_cuda,
-                       differentiable=False)
+swin_block = _Kernel("K4", "swin_block", swin_block_plain, _swin_block_cuda,
+                     recompute=swin_block_recompute)
+swin_block_q = _Kernel("K4", "swin_block_q", swin_block_q_plain, _swin_block_q_cuda)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,11 @@ Port of `stgcma_tpu/train/loop.py` (`Trainer` :41, `weight_average` :259),
 which mirrors the reference engine (AVE/traintest_adapt_ave29.py:14-257) and
 adds the resume the reference lacks (SURVEY §5). Where JAX keeps the
 trainable and frozen subtrees apart, the port keeps one model whose
-trainable parameters (`requires_grad`) are the fp32 masters. Epoch e draws
+trainable parameters (`requires_grad`) are the fp32 masters, and a step's
+`aux["state_updates"]` (TPAVI's BatchNorm statistics) are copied into its
+buffers after the step (`steps.apply_state_updates`); `save_state` keeps
+them beside the masters, which JAX's `save_state` does not (its resumed run
+restarts them from the initial tree). Epoch e draws
 its randomness (the train pipeline's augmentation, the head's dropout) from
 `torch.Generator().manual_seed(seed + e)`, in place of JAX's
 `fold_in(rng, e)`, and a loader with `set_epoch` is told the epoch, so a
@@ -124,7 +128,9 @@ class Trainer:
             if isinstance(batch, dict):      # drop non-array fields (AVQA qtype strings)
                 batch = {k: v for k, v in batch.items()
                          if isinstance(v, (np.ndarray, torch.Tensor))}
-            loss, _ = self.step_fn(self.model, batch, generator)
+            loss, aux = self.step_fn(self.model, batch, generator)
+            if isinstance(aux, dict) and aux.get("state_updates"):
+                S.apply_state_updates(self.model, aux["state_updates"])
             self.step_losses.append(float(loss))
             loss_meter.update(self.step_losses[-1])
             time_meter.update(time.time() - t0)
@@ -143,9 +149,15 @@ class Trainer:
     def _state_dir(self):
         return os.path.join(self.exp_dir, "state")
 
+    def buffers(self) -> Dict[str, torch.Tensor]:
+        """The floating buffers a step updates (the BatchNorms' running
+        statistics), by name."""
+        return {n: b for n, b in self.model.named_buffers() if S.bn_stat(n)}
+
     def save_state(self, epoch: int):
         save_checkpoint(os.path.join(self._state_dir(), "train_params"), self.trainable())
         save_checkpoint(os.path.join(self._state_dir(), "opt_state"), self.opt.state_dict())
+        save_checkpoint(os.path.join(self._state_dir(), "buffers"), self.buffers())
         with open(os.path.join(self.exp_dir, "state_meta.json"), "w") as f:
             json.dump({"epoch": epoch, "history": self.history,
                        "best_metric": float(self.best_metric), "best_epoch": self.best_epoch,
@@ -155,9 +167,9 @@ class Trainer:
 
     def try_restore(self) -> int:
         """The epoch to start from (1 if no state was saved); restores the
-        masters, the Adam moments and count, the step count, the history and
-        the plateau state (its count of bad epochs, best metric and the LR
-        scale reached)."""
+        masters, the Adam moments and count, the BatchNorms' running
+        statistics, the step count, the history and the plateau state (its
+        count of bad epochs, best metric and the LR scale reached)."""
         meta_path = os.path.join(self.exp_dir, "state_meta.json")
         if not os.path.exists(meta_path):
             return 1
@@ -165,6 +177,8 @@ class Trainer:
         with torch.no_grad():
             for n, p in self.opt.named_parameters():
                 p.copy_(masters[n])
+        S.apply_state_updates(self.model,
+                              load_checkpoint(os.path.join(self._state_dir(), "buffers")))
         self.opt.load_state_dict(load_checkpoint(os.path.join(self._state_dir(), "opt_state")))
         with open(meta_path) as f:
             meta = json.load(f)

@@ -30,7 +30,7 @@ from torch.func import functional_call
 from .optim import Optimizer, trainable_mask
 
 
-def _bn_stat(name: str) -> bool:
+def bn_stat(name: str) -> bool:
     parts = name.split(".")
     return "bn" in parts and parts[-1] in ("running_mean", "running_var")
 
@@ -54,7 +54,7 @@ def _tensors(model: nn.Module):
 
 
 def _cast(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    if not t.is_floating_point() or _bn_stat(name):
+    if not t.is_floating_point() or bn_stat(name):
         return t
     return t.to(dtype)
 
@@ -88,6 +88,19 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         return loss.detach(), aux
 
     return train_step
+
+
+def apply_state_updates(model: nn.Module, updates: Dict[str, torch.Tensor]):
+    """Copy a step's mutable forward state into the model's buffers by name
+    (`aux["state_updates"]`: the TPAVI BatchNorms' momentum-updated running
+    statistics, fp32), as JAX's Trainer deep-merges them into its frozen
+    tree after each step (`stgcma_tpu/train/loop.py:155-159`). The frozen
+    casts of `make_train_step` keep these fp32 buffers themselves, so the
+    next step reads the new values."""
+    buffers = dict(model.named_buffers())
+    with torch.no_grad():
+        for name, t in updates.items():
+            buffers[name].copy_(t)
 
 
 def make_eval_step(apply_fn: Callable, compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
