@@ -227,8 +227,28 @@ line:
        with that BatchNorm on its running statistics, where the audio
        branch's gradient does not cancel; in both a CPU bf16 step measures
        what bf16 rounding alone does to each leaf (ZERO_SHARE: zero to
-       rounding; the bar TOL_TRAIN_LEAF plus TRAIN_NOISE x that distance);
+       rounding; the bar TOL_TRAIN_LEAF plus TRAIN_NOISE x that distance,
+       the larger of two roundings' for a leaf below its own);
        the step's times;
+     - AVQA training (`phase_train_avqa`): `cli.run_adapt_avqa.main` at its
+       defaults (Swin-Large fusion, T = 10, the AVQA head with its attention
+       dropout) at B = TRAIN_B: gradient rows at AVQA's sites (K1 at the
+       stage 0-1 shifted windows and T = 10 temporal sites, K4 at stage 2
+       unshifted and shifted and stage 3 over 20 frames, K5 and K6 at D = 96,
+       the K8 site at the stage 2-3 temporal branches and, as under
+       --freeze_base False, at the nega stream's windows with the relative
+       table a leaf; stage 3's K4 row held against the same recompute on
+       the CPU); the straight run (`launches_per_forward(nega=True)` x
+       train steps plus the two-stream eval forwards' launches, exactly),
+       `--eval_only` on its best checkpoint reproducing its best accuracy;
+       under STGCMA_DETERMINISTIC=1 a straight run and a run resumed after
+       epoch 1 against it (TOL_RESUME); one step at depths 2/2/2/2 and B =
+       TRAIN_B against the CPU (the CLI's loss, dropout off;
+       `step_against_cpu`'s CPU bf16 rule); the step's times, and its
+       forward split into the fused tower, the nega stream and the head,
+       with the memory the nega stream keeps for the backward (none under
+       freeze_base); `tools.grounding_gen.main --synthetic True` on the
+       card;
      - `phase_grad_kernels` (phase 3): K10's gradient row at its Swin-Base
        168^2 check site and K12's, K13's and K14's at the CLIP-B/16 fusion
        check sites at B = TRAIN_B, so that every recompute has run on the
@@ -236,8 +256,8 @@ line:
 The script logs its total wall time. The line before the last is one JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}. The
 training path's launches (set to 0 just before its CLI run, read just after
-it) add K1 288 to the kernels line's totals; the Swin and AVS training
-runs add theirs.
+it) add K1 288 to the kernels line's totals; the Swin, AVS and AVQA
+training runs add theirs.
 Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
@@ -299,6 +319,14 @@ TOL_GRAD = 3e-2      # a gradient row: each leaf's gradient through the recomput
                      # share of its own max |plain| from plain autograd of the plain version
                      # (every product in fp32); a term missing from a backward moves a leaf
                      # by its whole size
+K4_ST3_JAX_BF16 = 7.1e-2  # the distance JAX's own bf16 backward of `_fullgrid_naive` sits from
+                     # its fp32 gradient at Swin-Large stage 3 (C = 1536, D = 96, a sharp fusion
+                     # softmax): its largest leaf's, as a share of that leaf's max, on the CPU
+                     # (tests/test_torch_port_swin_large_grad.py reads 5.77e-2 and holds the
+                     # port's recompute no farther from fp32 than JAX's). K4's gradient row
+                     # there is held at TOL_GRAD on top of it: bf16 rounding alone moves the
+                     # port's recompute 6.83% from plain autograd on the H100, 7.14% on the
+                     # CPU, and the card's recompute 4.53% from the CPU's on the same inputs
 TOL_GRAD_F64 = 1e-2  # a gradient row's witness: the recompute and the plain version on
                      # float64 copies of the inputs (their fp32 steps stay fp32), each leaf's
                      # gradient within this share of its max (on the H100 <= 1.1e-5, and 7.0e-4
@@ -371,7 +399,13 @@ META = {
 }
 
 
+_START = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's heading ("[n/4] ...") with the script's time so far."""
+    if msg.startswith("["):
+        msg += f"  ({time.perf_counter() - _START:.1f} s into the script)"
     print(msg, flush=True)
 
 
@@ -3314,7 +3348,7 @@ def train_cli(exp, *flags, model="MM-CLIP-AVE-Base"):
              "--device", "cuda", "--exp-dir", exp, *flags])
 
 
-def check_cli_run(label, trainer, init, want_of, n_launched):
+def check_cli_run(label, trainer, init, want_of, n_launched, rounding_zero=()):
     """The straight CLI run on the card (2 epochs of TRAIN_N // TRAIN_B
     steps, one eval batch an epoch: AVE's and AVS's synthetic test splits
     hold TRAIN_B items): finite step losses, every trainable leaf that the
@@ -3329,9 +3363,13 @@ def check_cli_run(label, trainer, init, want_of, n_launched):
     start = dict(init.named_parameters())
     moved, frozen = 0, 0
     unreached = []                 # trainable leaves the loss does not reach (no gradient)
+    zeroed = []                    # leaves of `rounding_zero` whose bf16 gradient stayed 0
     for n, p in trainer.model.named_parameters():
         same = torch.equal(p, start[n])
         if p.requires_grad and same and p.grad is not None:
+            if n in rounding_zero and not p.grad.any():
+                zeroed.append(n)
+                continue
             fail(f"{label}: the trainable leaf {n} did not move")
         if not p.requires_grad and not same:
             fail(f"{label}: the frozen leaf {n} changed")
@@ -3351,7 +3389,9 @@ def check_cli_run(label, trainer, init, want_of, n_launched):
         f"{', '.join(f'{x:.4f}' for x in losses)}, history "
         f"{[{k: round(v, 5) for k, v in h.items()} for h in trainer.history]}; {moved} "
         f"trainable leaves moved ({len(unreached)} the loss does not reach, unmoved"
-        + (f": {', '.join(unreached)}" if unreached else "") + f"), {frozen} frozen leaves "
+        + (f": {', '.join(unreached)}" if unreached else "")
+        + (f"; {len(zeroed)} whose bf16 gradient rounds to 0 at every step, unmoved: "
+           f"{', '.join(zeroed)}" if zeroed else "") + f"), {frozen} frozen leaves "
         f"bit for bit; launches "
         f"{ {k: v for k, v in n_launched.items() if v} } = the path's launches a forward x "
         f"{forwards} forwards, exactly; result.csv, progress.json, state_meta.json, models/, "
@@ -3411,14 +3451,21 @@ def step_against_cpu(label, base, make_loss, want, n_steps=1, stats=False, cpu_b
     TOL_TRAIN_LEAF of its max plus TRAIN_NOISE x d (AVS's audio branch
     reaches the loss through TPAVI's sums over every position, where bf16
     moves it by 10-130% on the CPU; `phase_train_avs` also holds it in a
-    step where those sums do not cancel)."""
+    step where those sums do not cancel), where d, for a leaf whose fp32
+    gradient is below d (its bf16 gradient mostly rounding), is the larger
+    of two roundings' distances: the CPU's and that of the same step on the
+    card with every wrapper on its plain version (`tools.grad_noise`'s
+    `card plain`). Such a leaf's distance is one draw of a rounding larger
+    than its value, and one draw does not scale it: over 4 seeds of the
+    AVQA step, 15 of 64 gates on the card and 17 of 64 in `card plain` sat
+    past 1.5x the CPU's distance (PERF.md, PR 19)."""
     import copy
     import torch
     from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.tools.grad_noise import plain_forward
     from stgcma_tpu_torch.train import optim, steps
-    out = []
-    runs = [("cuda", torch.bfloat16, n_steps), ("cpu", torch.float32, n_steps)]
-    for dev, dt, n in runs + ([("cpu", torch.bfloat16, 1)] if cpu_bf16 else []):
+
+    def first_step(dev, dt, n):
         model = copy.deepcopy(base).to(dev)
         steps.init_train_state(model)
         step = steps.make_train_step(make_loss(dev, dt), optim.build_optimizer(model, 0.0, 1.0),
@@ -3432,8 +3479,9 @@ def step_against_cpu(label, base, make_loss, want, n_steps=1, stats=False, cpu_b
                 first = (float(loss), {n: p.grad.float().cpu() for n, p in model.named_parameters()
                                        if p.requires_grad and p.grad is not None}, launches())
         bufs = {n: b.float().cpu() for n, b in model.named_buffers() if steps.bn_stat(n)}
-        out.append(first + (bufs,))
-        del model
+        return first + (bufs,)
+    runs = [("cuda", torch.bfloat16, n_steps), ("cpu", torch.float32, n_steps)]
+    out = [first_step(*r) for r in runs + ([("cpu", torch.bfloat16, 1)] if cpu_bf16 else [])]
     (lc, gc, nc, bc), (lp, gp, _, bp) = out[:2]
     gb = out[2][1] if cpu_bf16 else None
     if nc != want:
@@ -3442,21 +3490,34 @@ def step_against_cpu(label, base, make_loss, want, n_steps=1, stats=False, cpu_b
         fail(f"{label}: loss card {lc:.6g} vs cpu {lp:.6g}")
     if set(gc) != set(gp) or (gb is not None and set(gb) != set(gp)):
         fail(f"{label}: the card and the CPU give gradients to other leaves")
+    dist = {n: (gb[n] - ref).abs().max().item() if gb is not None else 0.0
+            for n, ref in gp.items()}
+    below = [n for n, ref in gp.items() if ref.abs().max().item() < dist[n]]
+    plain = {}                     # the card's plain versions' distance, for the leaves below d
+    if below:
+        with plain_forward({k.id for k in FA.KERNELS}):
+            gpl = first_step("cuda", torch.bfloat16, 1)[1]
+        plain = {n: (gpl[n] - gp[n]).abs().max().item() for n in below}
     worst, zero, noisy, live = (0.0, "", 0.0, 0.0), [], [], (math.inf, "")
+    held_below = []
     for n, ref in gp.items():
         err, scale = (gc[n] - ref).abs().max().item(), ref.abs().max().item()
-        rounding = (gb[n] - ref).abs().max().item() if gb is not None else 0.0
-        if gb is not None and scale <= ZERO_SHARE * rounding:
-            zero.append((rounding / max(scale, 1e-30), n, err / max(rounding, 1e-30)))
+        rounding = max(dist[n], plain.get(n, 0.0))
+        if gb is not None and scale <= ZERO_SHARE * dist[n]:
+            zero.append((dist[n] / max(scale, 1e-30), n, err / max(dist[n], 1e-30)))
             continue
-        live = min(live, (scale / max(rounding, 1e-30), n))
+        live = min(live, (scale / max(dist[n], 1e-30), n))
         bar = TOL_TRAIN_LEAF * scale + TRAIN_NOISE * rounding
         if not (scale > 0 and err <= bar):
             fail(f"{label}: d/d{n} max |card - cpu| = {err:.4g} > {bar:.4g} = {TOL_TRAIN_LEAF} * "
-                 f"{scale:.4g} + {TRAIN_NOISE} * {rounding:.4g} (the CPU's bf16 distance)")
+                 f"{scale:.4g} + {TRAIN_NOISE} * {rounding:.4g} (the "
+                 + ("larger of the CPU's and the card's plain versions' bf16 distances: "
+                    f"{dist[n]:.4g}, {plain[n]:.4g})" if n in plain else "CPU's bf16 distance)"))
         worst = max(worst, (err / bar, n, err / scale, bar / scale))
-        if rounding > TOL_TRAIN_LEAF * scale:
-            noisy.append((rounding / scale, n, err / scale))
+        if n in plain:
+            held_below.append((n, scale, dist[n], plain[n], err))
+        if dist[n] > TOL_TRAIN_LEAF * scale:
+            noisy.append((dist[n] / scale, n, err / scale))
     every = torch.cat([g.flatten() for g in gp.values()])
     err = torch.cat([gc[n].flatten() for n in gp]).sub(every).abs().max().item()
     scale = every.abs().max().item()
@@ -3478,7 +3539,11 @@ def step_against_cpu(label, base, make_loss, want, n_steps=1, stats=False, cpu_b
                 + ", ".join(f"{n} (CPU bf16 {r:.3g}x its fp32 max, card {c:.3g}x the CPU's bf16 "
                             f"distance)" for r, n, c in sorted(zero)[::-1])
                 + f"; every other leaf's fp32 gradient at least {live[0]:.3g} x the CPU's bf16 "
-                f"distance ({live[1]}); {len(noisy)} leaves that bf16 rounding moves past "
+                f"distance ({live[1]}); {len(held_below)} below it, held by the larger of the "
+                f"CPU's and the card's plain versions' distances"
+                + "".join(f", {n} (fp32 {s_:.3g}, CPU bf16 {d_:.3g}, card plain {p_:.3g}, card "
+                          f"{e_:.3g})" for n, s_, d_, p_, e_ in held_below)
+                + f"; {len(noisy)} leaves that bf16 rounding moves past "
                 f"{TOL_TRAIN_LEAF} of their max on the CPU, the largest "
                 + ", ".join(f"{n} CPU bf16 {r:.3g}, card {c:.3g}" for r, n, c in noisy[:6]))
     log(f"  {label}, card bf16 vs CPU fp32 on live weights: loss {lc:.6f} vs {lp:.6f} "
@@ -3508,7 +3573,8 @@ def profile_train_step(title, model, opt, pipe, forward, batch, smi, steps_timed
     masters, Adam): `pipe(batch, generator)` -> (a, v), `forward(model, a,
     v, generator)` -> the loss. Wall ms, the span of each part between CUDA
     events (pipeline, forward, backward, Adam), clips/s, peak memory; then
-    three steps under torch.profiler: kernel ms a step, split into the
+    one step under torch.profiler (reading a step's trace takes 5-11 s on
+    the H100's host): kernel ms a step, split into the
     pipeline's, the forward's (its torch ops' kernels and the port's, told
     by name), Adam's and the backward's (the rest), and the device's busy
     share. `recompute` (ms, calls, kernel): one kernel's recompute estimated
@@ -3565,13 +3631,14 @@ def profile_train_step(title, model, opt, pipe, forward, batch, smi, steps_timed
         f"{TRAIN_B * 1e3 / wall:.2f} clips/s; spans between events: pipeline {spans[0]:.2f} ms, "
         f"forward {spans[1]:.2f}, backward {spans[2]:.2f}, Adam {spans[3]:.2f}; peak memory "
         f"{peak / 2 ** 30:.2f} GiB")
-    n = 3
+    n = 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             float(step(model, batch, g)[0])
         torch.cuda.synchronize()
         prof_wall = 1e3 * (time.perf_counter() - t0) / n
+    t_read = time.perf_counter()
     opt.step = real_step
     # the port's kernels, launched through ctypes, hang under no torch op: they
     # are told by name (all of them run in the forward); a range's other
@@ -3597,11 +3664,11 @@ def profile_train_step(title, model, opt, pipe, forward, batch, smi, steps_timed
         rms, calls, kid = recompute
         extra = (f" ({kid}'s recompute {rms:.2f}, from the gradient rows' backward kernels at "
                  f"the step's {calls} calls; plain autograd of the rest {back - rms:.2f})")
-    log(f"  profiled ({n} steps, {prof_wall:.2f} ms a step under the profiler, {smi}): kernels "
+    log(f"  profiled (one step, {prof_wall:.2f} ms under the profiler, {smi}): kernels "
         f"{dev:.2f} ms a step = {100 * dev / prof_wall:.1f}% busy ({100 * dev / wall:.1f}% of the "
         f"untraced median); pipeline {part['pipeline']:.2f} ms, forward "
         f"{part['forward'] + ours:.2f} (the port's kernels {ours:.2f}), backward {back:.2f}"
-        f"{extra}, Adam {part['Adam']:.2f}")
+        f"{extra}, Adam {part['Adam']:.2f}; the trace read in {time.perf_counter() - t_read:.1f} s")
     return {"wall_ms": wall, "peak_gib": peak / 2 ** 30, "kernels_ms": dev,
             "busy": dev / prof_wall}
 
@@ -3734,12 +3801,17 @@ def k1_swin_grad_rows(cfg, b, g, tower):
     return rows
 
 
-def k4_grad_rows(cfg, b, g, sfu, tower, tol):
+def k4_grad_rows(cfg, b, g, sfu, tower, tol, sharp_stage3=False):
     """K4 at stage 2 unshifted and shifted and stage 3 at B = b, the block of
     `random_swin_ave` with live adapters and gates (`live_k4_weights`), every
     float operand a leaf, the relative-position table too (its bias gathered
     in the call, the window and shift masks added, as
-    `swin_fusion_whole_block` does)."""
+    `swin_fusion_whole_block` does). With `sharp_stage3` (Swin-Large, C =
+    1536 and D = 96 at stage 3, whose sharp fusion softmax carries bf16
+    rounding through the backward) the stage-3 row's gradients are held at
+    TOL_GRAD on top of K4_ST3_JAX_BF16, JAX's own bf16 distance there, and
+    stage 3 runs once more with D_fc1 halved (a softer fusion softmax) at
+    TOL_GRAD alone."""
     import torch
     from stgcma_tpu_torch.models.ave import random_swin_ave
     from stgcma_tpu_torch.nn.swin import backbone_statics
@@ -3751,33 +3823,41 @@ def k4_grad_rows(cfg, b, g, sfu, tower, tol):
     model = random_swin_ave(dataclasses.replace(cfg, depths=cfg.depths[:3] + (1,)), SEED)
     statics = backbone_statics(cfg)
     rows = []
-    for s, i in ((2, 0), (2, 1), (3, 0)):
+    sites = [(2, 0, False), (2, 1, False), (3, 0, False)] + ([(3, 0, True)] if sharp_stage3
+                                                             else [])
+    for s, i, halved in sites:
         st = statics[s][i]
         blk = cast_tree(model.backbone.layers[s].blocks[i], bf).cuda()
-        index, attn_mask, fuse_mask = SB._geo_tensors(st.H, st.W, st.window_size,
-                                                      st.shift_size, torch.device("cuda"))
+        geo = {dev: SB._geo_tensors(st.H, st.W, st.window_size, st.shift_size, torch.device(dev))
+               for dev in ("cuda", "cpu")}
         N, C = st.H * st.W, st.dim
-        w = {k: _leaf(t) for k, t in live_k4_weights(SB.block_weights(blk), g).items()}
+        w = live_k4_weights(SB.block_weights(blk), g)
+        if halved:
+            w.update({f"{k}_w1": w[f"{k}_w1"] * 0.5 for k in ("s2v", "s2a", "sv", "sa")})
+        w = {k: _leaf(t) for k, t in w.items()}
         leaves = {"v": _leaf(_rnd(g, BT, N, C, std=0.1, dtype=bf)),
                   "a": _leaf(_rnd(g, BT, N, C, std=0.1, dtype=bf)), **w,
                   "table": _leaf(blk.attn.relative_position_bias_table)}
 
-        def bias_of(lv, st=st, index=index, attn_mask=attn_mask, N=N):
+        def bias_of(lv, st=st, geo=geo, N=N):
+            index, attn_mask, _ = geo[lv["v"].device.type]
             return (gather_bias(lv["table"], index, st.num_heads, N) + attn_mask)[None].contiguous()
 
-        def run(fn, lv, st=st, fuse_mask=fuse_mask, bias_of=bias_of):
+        def run(fn, lv, st=st, geo=geo, bias_of=bias_of):
             return fn(lv["v"], lv["a"], {k: lv[k] for k in w}, st.num_heads, bias_of(lv),
-                      fuse_mask)
+                      geo[lv["v"].device.type][2])
 
-        def library(lv=leaves, st=st, fuse_mask=fuse_mask, bias_of=bias_of):
+        def library(lv=leaves, st=st, geo=geo, bias_of=bias_of):
             return library_k4(lv["v"], lv["a"], {k: lv[k] for k in w}, st.num_heads,
-                              bias_of(lv), fuse_mask)()
+                              bias_of(lv), geo["cuda"][2])()
         D = w["s2v_w1"].shape[0]
         rows.append(grad_row(
             f"K4 {tower} stage {s} block {i} {(BT, N, C)} h{st.num_heads} shift {st.shift_size} "
-            f"D {D}", SB.swin_block, SB.swin_block_plain, run, leaves,
+            f"D {D}" + (", D_fc1 halved" if halved else ""), SB.swin_block, SB.swin_block_plain,
+            run, leaves,
             block_k4_bound(BT, N, C, st.num_heads, D, sfu, window=st.window_size ** 2, grad=True),
-            library, tol))
+            library, tol, grad_tol=TOL_GRAD + (K4_ST3_JAX_BF16 if sharp_stage3 and s == 3
+                                                and not halved else 0.0)))
         del leaves, w
     return rows
 
@@ -4163,6 +4243,256 @@ def phase_train_avs(cfg, hcfg, smi, cut_depths=(2, 2, 2, 2)):
     return rows, totals, timing
 
 
+def avqa_cli(exp, *flags):
+    """`cli.run_adapt_avqa.main` at its defaults (Swin-Large fusion, T = 10,
+    the AVQA head, the QA head's dropout) on the card, synthetic AVQA at B =
+    TRAIN_B."""
+    from stgcma_tpu_torch.cli import run_adapt_avqa
+    with contextlib.redirect_stdout(sys.stderr):
+        return run_adapt_avqa.main(["--synthetic", "True", "--batch_size", str(TRAIN_B),
+                                    "--num_workers", "2", "--device", "cuda", "--exp-dir", exp,
+                                    *flags])
+
+
+def avqa_launches(cfg, train_forwards, eval_forwards):
+    """{kernel: launches} of `train_forwards` three-stream forwards (the nega
+    stream's too) and `eval_forwards` two-stream ones (`answer_avqa`), each
+    at B = TRAIN_B."""
+    from stgcma_tpu_torch.nn.swin import launches_per_forward
+    want = {k: 0 for k in KERNELS}
+    for n, nega in ((train_forwards, True), (eval_forwards, False)):
+        for k, v in launches_per_forward(cfg, TRAIN_B, nega=nega).items():
+            want[k] += n * v
+    return want
+
+
+def k8_nega_grad_rows(cfg, b, g, tower):
+    """The K8 site at the nega stream's windows at B = b, as under
+    --freeze_base False, where its relative-position table trains: stage 2
+    shifted (the bias of period nW x heads, the shift mask folded in) and
+    stage 3 (one window a frame); leaves the packed qkv and the table, the
+    bias gathered in the call as `window_attention_fused` gathers it."""
+    import torch
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops import window
+    from stgcma_tpu_torch.ops.attention import gather_bias
+    ws = cfg.window_size
+    N = ws * ws
+    rel = torch.from_numpy(window.relative_position_index(ws)).cuda()
+    rows = []
+    for s, shift in ((2, ws // 2), (3, 0)):
+        H, _ = cfg.stage_resolution(s)
+        shift = shift if H > ws else 0
+        C, heads = cfg.stage_dim(s), cfg.num_heads[s]
+        mask = (torch.from_numpy(window.shift_attn_mask(H, H, ws, shift)).cuda() if shift
+                else None)
+        Bq = b * cfg.num_ttokens * (H // ws) ** 2
+        leaves = {"qkv": _leaf(_rnd(g, Bq, N, 3 * C, dtype=torch.bfloat16)),
+                  "table": _leaf(_rnd(g, int(rel.max()) + 1, heads, std=0.5,
+                                      dtype=torch.bfloat16))}
+
+        def bias_of(lv, heads=heads, mask=mask):
+            bias = gather_bias(lv["table"], rel, heads, N)
+            if mask is not None:
+                bias = (bias[None] + mask[:, None].float()).reshape(-1, N, N)
+            return bias.contiguous()
+
+        def run(fn, lv, heads=heads, bias_of=bias_of):
+            return fn(lv["qkv"], bias_of(lv), heads)
+        P = heads * (1 if mask is None else mask.shape[0])
+        rows.append(grad_row(
+            f"K8 {tower} nega stage {s} windows shift {shift} {(Bq, N, 3 * C)} h{heads} "
+            f"period {P} (--freeze_base False)", FA.wmsa_qkv, FA.wmsa_qkv_plain, run, leaves,
+            wmsa_bound(Bq * heads, N, C // heads, P, grad=True),
+            lambda lv=leaves, heads=heads, bias_of=bias_of: library_wmsa_qkv(
+                lv["qkv"], bias_of(lv), heads)()))
+        del leaves
+    return rows
+
+
+def avqa_forward_split(cfg, hcfg, model, a, v, vn, q, smi):
+    """The AVQA train forward split into its parts on the card (bf16 casts
+    of the masters, B = TRAIN_B, under autograd as the train step runs it):
+    the device ms (torch.profiler) and the host span of the two-stream tower,
+    the three-stream tower (`backbone_apply` with v_nega: the nega stream is
+    the difference) and the whole `apply_avqa` (the head and match MLPs: the
+    difference from the three-stream tower), with the memory each tower
+    keeps for the backward (allocated after the forward, the graph alive).
+    The nega stream reads only frozen leaves, so the three-stream tower may
+    keep no more than its output beside the two-stream one's (fails past 64
+    MiB). Its split by stage at the served B = 8 is
+    `tools/trace_slice.py --model avqa`'s."""
+    import torch
+    from stgcma_tpu_torch.models import avqa
+    from stgcma_tpu_torch.nn import swin
+    from stgcma_tpu_torch.ops.common import cast_tree
+    from stgcma_tpu_torch.train import steps
+    m = cast_tree(model, torch.bfloat16)
+    steps.init_train_state(m)
+    bb = m.backbone
+    parts = {"two-stream tower": lambda: swin.backbone_apply(bb, cfg, a=a, v=v),
+             "three-stream tower": lambda: swin.backbone_apply(bb, cfg, a=a, v=v, v_nega=vn),
+             "apply_avqa": lambda: avqa.apply_avqa(m, cfg, hcfg, a, v, vn, q, train=True,
+                                                   generator=torch.Generator().manual_seed(0))}
+    out = {}
+    for name, fn in parts.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - base
+        if name == "three-stream tower" and res["v_nega"].requires_grad:
+            fail("AVQA: the nega stream recorded an autograd graph under freeze_base")
+        del res
+        out[name] = (kernel_ms(fn), cuda_ms(fn, 3, warmup=1), kept)
+    two, three, whole = out["two-stream tower"], out["three-stream tower"], out["apply_avqa"]
+    if three[2] - two[2] > 64 * 2 ** 20:
+        fail(f"AVQA: the three-stream tower keeps {(three[2] - two[2]) / 2 ** 20:.1f} MiB more "
+             f"for the backward than the two-stream one: the nega stream kept a graph")
+    nega = [three[k] - two[k] for k in (0, 1)]
+    head = [whole[k] - three[k] for k in (0, 1)]
+    log(f"  AVQA train forward split, B={TRAIN_B}, under autograd, on {smi}: device ms (host "
+        f"span ms): two-stream tower {two[0]:.2f} ({two[1]:.2f}), keeping "
+        f"{two[2] / 2 ** 30:.3f} GiB for the backward; three-stream tower {three[0]:.2f} "
+        f"({three[1]:.2f}) = {three[0] / two[0]:.3f}x, keeping {three[2] / 2 ** 30:.3f} GiB (the "
+        f"nega stream {(three[2] - two[2]) / 2 ** 20:.1f} MiB: its output); the nega stream "
+        f"{nega[0]:.2f} ({nega[1]:.2f}) = {2 * nega[0] / two[0]:.2f} of one fused stream; "
+        f"apply_avqa {whole[0]:.2f} ({whole[1]:.2f}): the head and match MLPs {head[0]:.2f} "
+        f"({head[1]:.2f})")
+    split = {f"{n} device ms": v[0] for n, v in out.items()}
+    split.update({f"{n} span ms": v[1] for n, v in out.items()})
+    del m
+    return split
+
+
+def phase_train_avqa(cfg, hcfg, smi, cut_depths=(2, 2, 2, 2)):
+    """MUSIC-AVQA training through the port's `run_adapt_avqa` on Swin-Large
+    fusion at T = 10 (20 frames a stream at B = TRAIN_B, the nega stream a
+    third), full width and depth: gradient rows at AVQA's sites; the CLI's
+    straight 2-epoch run (plateau LR) with exact launches, `--eval_only` on
+    its best checkpoint reproducing its best accuracy; under
+    STGCMA_DETERMINISTIC=1 a straight run and a run resumed after epoch 1
+    against it (TOL_RESUME); one step at depths `cut_depths` and B =
+    TRAIN_B against the CPU (`step_against_cpu`'s `cpu_bf16` rule); the
+    step's times and its forward's split; the grounding pretrainer on the
+    card. Returns (rows, the CLI run's launches, the step's times)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from stgcma_tpu_torch.cli import run_adapt_avqa as cli
+    from stgcma_tpu_torch.cli.common import DETERMINISTIC
+    from stgcma_tpu_torch.data.loader import collate, make_avqa_device_pipeline
+    from stgcma_tpu_torch.models.avqa import apply_avqa, init_avqa, random_avqa
+    from stgcma_tpu_torch.nn.swin import launches_per_forward
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.fbank import SWIN_FBANK
+    from stgcma_tpu_torch.tools import grounding_gen
+    from stgcma_tpu_torch.train import losses, optim, steps
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    sfu = sfu_rate()
+    tower = "Swin-Large AVQA"
+    k4_cfg = dataclasses.replace(cfg, depths=cut_depths)     # K4's blocks: stage 2's first two
+    rows = {"K1": k1_swin_grad_rows(cfg, TRAIN_B, g, tower),
+            "K4": k4_grad_rows(k4_cfg, TRAIN_B, g, sfu, tower, TOL_K4_LARGE, sharp_stage3=True),
+            **fuse_grad_rows(cfg, TRAIN_B, g, sfu, tower),
+            "K8": k8_grad_rows(cfg, TRAIN_B, g, tower) + k8_nega_grad_rows(cfg, TRAIN_B, g,
+                                                                           tower)}
+    tick(t0, "the gradient rows")
+
+    def init():
+        return init_avqa(cfg, hcfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        FA.reset_launches()
+        straight = avqa_cli(os.path.join(tmp, "b"), "--n-epochs", "2", "--lr_adapt", "True")
+        totals = launches()
+        steps_run, evals = straight.global_step, straight.n_epochs    # one eval batch an epoch
+        # the balanced match CE's gradient of fc4's bias, mean(p) - 1/2 a class, is a
+        # sum of (p - y) / n rounded to bf16, +-1/2n wherever p lies within 2^-9 of 1/2:
+        # at init_avqa's weights the pairs cancel to 0 at every step
+        check_cli_run("train AVQA Swin-Large", straight, init(),
+                      lambda forwards: avqa_launches(cfg, steps_run, evals), totals,
+                      rounding_zero=("avqatask.fc4.bias",))
+        got = avqa_cli(os.path.join(tmp, "e"), "--eval_only", "True", "--ckpt",
+                       os.path.join(straight.exp_dir, "models", "best_model"))["acc"]
+        if got != straight.best_metric:
+            fail(f"AVQA --eval_only on models/best_model: acc {got} against the run's best "
+                 f"{straight.best_metric} (epoch {straight.best_epoch})")
+        log(f"  AVQA --eval_only --ckpt models/best_model: acc {got}, the run's best "
+            f"{straight.best_metric} (epoch {straight.best_epoch} of {straight.n_epochs})")
+        tick(t0, "the AVQA CLI run and --eval_only")
+        with environment({DETERMINISTIC: "1"}):      # the CLIs' switch
+            straight = avqa_cli(os.path.join(tmp, "d"), "--n-epochs", "2", "--lr_adapt", "True")
+            avqa_cli(os.path.join(tmp, "c"), "--n-epochs", "1", "--lr_adapt", "True")
+            resumed = avqa_cli(os.path.join(tmp, "c"), "--n-epochs", "2", "--lr_adapt", "True",
+                               "--resume", "True")
+        log("  the resume under STGCMA_DETERMINISTIC=1 (torch's deterministic algorithms):")
+        check_resume(straight, resumed, dict(init().named_parameters()))
+        del straight, resumed
+    tick(t0, "the resume")
+    cut = dataclasses.replace(cfg, depths=cut_depths)
+    args = cli.parse_args([])
+    ds = cli.SyntheticAVQA(TRAIN_B, cfg.num_frames, cfg.img_size, seed=SEED)
+    batch = {k: v for k, v in collate([ds[i] for i in range(TRAIN_B)]).items() if k != "qtype"}
+
+    def make_loss(dev, dt):
+        pipe = make_avqa_device_pipeline(SWIN_FBANK, 224, args.dataset_mean, args.dataset_std,
+                                         device=dev)
+        loss_fn = cli.make_loss_fn(cut, hcfg, pipe, args, dt)
+        return lambda m, _, generator: loss_fn(m, batch, None)      # no dropout draw
+    want = {k: 0 for k in KERNELS}
+    want.update(launches_per_forward(cut, TRAIN_B, nega=True))
+    step_against_cpu(f"one AVQA train step at depths {cut_depths}, B={TRAIN_B}",
+                     random_avqa(cut, hcfg, SEED), make_loss, want, cpu_bf16=True)
+    tick(t0, "the step against the CPU")
+    model = random_avqa(cfg, hcfg, SEED).to("cuda")
+    steps.init_train_state(model)
+    pipe = make_avqa_device_pipeline(SWIN_FBANK, 224, args.dataset_mean, args.dataset_std,
+                                     device="cuda")
+    q = torch.from_numpy(batch["question"].astype(np.int64)).cuda()
+    answer = torch.from_numpy(batch["answer"]).cuda()
+
+    def pipes(b, gen):
+        a_, v_ = pipe({"frames": b["frames"], "wave": b["wave"]})
+        return a_, (v_, pipe({"frames": b["frames_nega"], "wave": b["wave"]})[1])
+
+    def forward(m, a_, vv, gen):
+        bf = torch.bfloat16
+        out = apply_avqa(m, cfg, hcfg, a_.to(bf), vv[0].to(bf), vv[1].to(bf), q, train=True,
+                         generator=gen)
+        return losses.avqa_loss(*out, answer)[0]
+    tick(t0, "the full-size model")
+    timing = profile_train_step(
+        f"AVQA Swin-Large fusion T={cfg.num_frames} with the nega stream, depths {cfg.depths} "
+        f"(pipeline: two calls)", model, optim.build_optimizer(model, 1e-4, 0.1), pipes, forward,
+        batch, smi)
+    tick(t0, "the profiled step")
+    a_, (v_, vn_) = pipes(batch, None)
+    bf = torch.bfloat16
+    timing.update(avqa_forward_split(cfg, hcfg, model, a_.to(bf), v_.to(bf), vn_.to(bf), q, smi))
+    del model, a_, v_, vn_
+    tick(t0, "the step's times")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
+        t1 = time.perf_counter()
+        grd = grounding_gen.main(["--synthetic", "True", "--epochs", "2", "--batch-size", "4",
+                                  "--synthetic_n", "8", "--model_save_dir", tmp,
+                                  "--device", "cuda"])
+        best = os.path.join(tmp, "main_grounding_gen_best.pt")
+        exported = torch.load(best, map_location="cpu", weights_only=False)
+    losses_ = grd.step_losses
+    if len(losses_) != 4 or not all(map(math.isfinite, losses_)):
+        fail(f"grounding_gen on the card: step losses {losses_}")
+    if set(exported) != {f"module.{k}.{w}" for k in grounding_gen.HEAD_KEYS
+                         for w in ("weight", "bias")}:
+        fail(f"grounding_gen on the card: export keys {sorted(exported)}")
+    log(f"  tools.grounding_gen.main --synthetic True on the card (ResNet-18 at 224^2, 2 epochs "
+        f"of 2 steps at batch 4): losses {', '.join(f'{x:.4f}' for x in losses_)}, the "
+        f"reference-layout export written, {time.perf_counter() - t1:.1f} s")
+    del grd
+    log(f"  phase_train_avqa: {time.perf_counter() - t0:.1f} s")
+    return rows, totals, timing
+
+
 def main():
     try:
         import torch
@@ -4300,10 +4630,14 @@ def main():
     log(f"[4/4] train: AVSBench training on Swin-Large fusion through cli.run_adapt_avs, T="
         f"{avs_cfg.num_frames}, TPAVI at stages {avs_hcfg.tpavi_stages}, B={TRAIN_B}")
     avs_rows, avs_totals, _ = phase_train_avs(avs_cfg, avs_hcfg, smi)
-    for rows in (swin_rows, avs_rows):
+    log(f"[4/4] train: MUSIC-AVQA training on Swin-Large fusion through cli.run_adapt_avqa, T="
+        f"{avqa_cfg.num_frames} with the nega stream, B={TRAIN_B}; the grounding pretrainer")
+    avqa_rows, avqa_train_totals, _ = phase_train_avqa(avqa_cfg, avqa_hcfg, smi)
+    for rows in (swin_rows, avs_rows, avqa_rows):
         for k, r in rows.items():
             results[k].extend(r)
-    totals = {k: totals[k] + swin_totals[k] + avs_totals[k] for k in KERNELS}
+    totals = {k: totals[k] + swin_totals[k] + avs_totals[k] + avqa_train_totals[k]
+              for k in KERNELS}
 
     kernels = []
     for k in KERNELS:

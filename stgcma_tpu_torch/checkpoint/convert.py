@@ -30,6 +30,7 @@ from ..configs import AVQAHeadConfig, AVSHeadConfig, ClipConfig, SwinConfig
 from ..models.ave import ClipAVE, SwinAVE
 from ..models.avqa import AVQAModel
 from ..models.avs import AVSModel
+from ..nn.resnet import ResNet18
 from ..ops.common import resolve_device
 from ..ops.quant import quantize_clip_tower, quantize_swin_tower
 
@@ -115,3 +116,23 @@ def avqa_from_jax(cfg: SwinConfig, hcfg: AVQAHeadConfig, tree: Any, device="cuda
     tower), the attentions' packed `in_proj` (C, 3C) -> (3C, C), the LSTM's
     `w_ih` / `w_hh` transposed to torch's layout, `word2vec` as it is."""
     return _load_swin(AVQAModel(cfg, hcfg), tree, device)
+
+
+def resnet18_from_jax(tree: Any, device="cuda") -> ResNet18:
+    """A ResNet18 holding the JAX `resnet18_init` tree's weights, loaded
+    strictly: convs HWIO -> OIHW, the BatchNorms' `scale` / `bias` / `mean` /
+    `var` -> `weight` / `bias` / `running_mean` / `running_var`, the
+    downsample's `conv` / `bn` as they are."""
+    model = ResNet18()
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    return model.to(resolve_device(device))
+
+
+def grounding_from_jax(tree: Any, device="cuda"):
+    """A `tools/grounding_gen.py::GroundingModel` holding the JAX
+    `init_grounding` tree's weights (the head's linears and `visual_net`),
+    loaded strictly."""
+    from ..tools.grounding_gen import GroundingModel
+    model = GroundingModel()
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    return model.to(resolve_device(device))

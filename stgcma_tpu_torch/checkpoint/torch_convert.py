@@ -22,11 +22,12 @@ the JAX package does them.
   `audio_patch_embed_from_video` (:95), `load_reference_swin` (:356);
 - `derive_clip_audio_pos_embed` (:370), `load_pretrained_clip` (:398, `proj`
   dropped) and `load_reference_clip` (:452);
+- `load_resnet18` (:508), the grounding pretrainer's visual net;
 - `average_params` (:611).
 The port has no resident pad, so the positional embeddings keep 197 rows
-(257 at ViT-L/14). `load_resnet18` and `load_pvt_v2` wait for their modules
-(ROADMAP.md). Each loader returns (model, unexpected) with the model on
-`device`, the card unless the caller asks for the CPU.
+(257 at ViT-L/14). `load_pvt_v2` waits for its module (ROADMAP.md). Each
+loader returns (model, unexpected) with the model on `device`, the card
+unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -348,6 +349,28 @@ def load_reference_clip(model, state_dict, cfg, dual_head: bool = True,
                 raise ValueError(f"unhandled reference CLIP key {key}")
             entries.update(_clip_block_generic(m.group(2), v,
                                                f"{prefix}resblocks.{m.group(1)}."))
+    return _merged(model, entries, device)
+
+
+def load_resnet18(model, state_dict, prefix: str = "", device="cuda"):
+    """A torchvision resnet18 state dict into `nn/resnet.py::ResNet18`
+    (`load_resnet18` :508): `fc.*` and `num_batches_tracked` dropped, a
+    DataParallel `module.` prefix too; `downsample.0` / `downsample.1` ->
+    `downsample.conv` / `downsample.bn`; every other name kept. A key
+    outside conv1 / bn1 / layer1-4 raises."""
+    entries: Dict[str, np.ndarray] = {}
+    for key, v in state_dict.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        if key.startswith("fc.") or "num_batches_tracked" in key:
+            continue
+        parts = key.split(".")
+        if parts[0] in ("conv1", "bn1") or re.fullmatch(r"layer[1-4]", parts[0]):
+            if len(parts) > 3 and parts[2] == "downsample":
+                parts[3] = {"0": "conv", "1": "bn"}.get(parts[3], parts[3])
+            entries[prefix + ".".join(parts)] = _np(v)
+        else:
+            raise ValueError(f"unhandled resnet key {key}")
     return _merged(model, entries, device)
 
 

@@ -5,20 +5,29 @@ finishes them on the device.
 Port of `stgcma_tpu/data/datasets.py`: `load_wav` (:33, the scipy decoder
 behind `serving.HostDecoder`'s Python path), `load_image` (:51),
 `load_mask` (:68), `_select_frames` (:79), `_segment_waveform` (:91),
-`AVEDataset` (:107), `AVSDataset` (:263) and `SyntheticAVE` (:338).
+`AVEDataset` (:107), `build_avqa_vocab` (:170), `encode_question` (:196),
+`AVQADataset` (:213), `AVSDataset` (:263) and `SyntheticAVE` (:338).
 `load_image` decodes with PIL, which the JAX package's native decoder
-matches bit for bit. `h5py` is imported by `AVEDataset` alone. The AVQA
-dataset waits for its trainer (ROADMAP.md).
+matches bit for bit. `h5py` is imported by `AVEDataset` alone. A question's
+`templ_values` string is read by `ast.literal_eval` where the JAX package
+calls `eval`: the same list for the reference's "['dog', 'piano']" strings,
+and no code runs.
 
 AVE layout (AVE/dataloader.py:73-525): train/test_order.h5 'order',
 labels.h5 'avadataset' one-hot [N, 10, 29], Annotations.txt '&'-separated
-rows, frame directories of jpgs, 10 x 1 s wav segments. AVS layout
+rows, frame directories of jpgs, 10 x 1 s wav segments. AVQA layout
+(AVQA/dataloader.py:36-263): avqa-{train,test}.json, the 93-word question
+vocabulary and 42 answers built from the train json, 10 frames and 10
+negative frames of another video, 10 x 1.95 s wav segments, questions
+padded to 14 words. AVS layout
 (AVS/dataloader.py:40-193): s4_meta_data.csv splits (MS3's csv has no
 category column), 5 png frames, 1 (train) / 5 (test) gt masks, 5 x 1.95 s
 wav segments, optional VGGish log-mel pkls.
 """
 from __future__ import annotations
 
+import ast
+import json
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -143,6 +152,104 @@ class AVEDataset:
         return {"frames": frames, "wave": segs,
                 "labels": self.labels[vid] if np.issubdtype(type(vid), np.integer)
                 else self.labels[i]}
+
+
+def _templ_list(templ_values):
+    """A question's template values: the json's string literal, or a list."""
+    return list(ast.literal_eval(templ_values)) if isinstance(templ_values, str) \
+        else templ_values
+
+
+def _question_words(question_content: str, templ_values) -> List[str]:
+    """The question's words, the trailing '?' stripped, each '<...>'
+    placeholder replaced by the next template value (AVQA/dataloader.py:51-76)."""
+    question = question_content.rstrip().split(" ")
+    question[-1] = question[-1][:-1]
+    templ = _templ_list(templ_values)
+    p = 0
+    for pos in range(len(question)):
+        if "<" in question[pos]:
+            question[pos] = templ[p]
+            p += 1
+    return question
+
+
+def build_avqa_vocab(train_json: str) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """Question-word and answer vocabularies scanned from the train json, in
+    first-seen order, "<pad>" at 0 (AVQA/dataloader.py:51-76)."""
+    with open(train_json) as f:
+        samples = json.load(f)
+    ques_vocab, ans_vocab = ["<pad>"], []
+    for s in samples:
+        for w in _question_words(s["question_content"], s["templ_values"]):
+            if w not in ques_vocab:
+                ques_vocab.append(w)
+        if s["anser"] not in ans_vocab:
+            ans_vocab.append(s["anser"])
+    return ({w: i for i, w in enumerate(ques_vocab)},
+            {a: i for i, a in enumerate(ans_vocab)})
+
+
+def encode_question(question_content: str, templ_values, word2idx: Dict[str, int],
+                    max_len: int = 14) -> np.ndarray:
+    """The question's word ids (unknown words 0), padded with "<pad>" or cut
+    to `max_len`: (max_len,) int32."""
+    question = _question_words(question_content, templ_values)
+    if len(question) < max_len:
+        question += ["<pad>"] * (max_len - len(question))
+    return np.asarray([word2idx.get(w, 0) for w in question[:max_len]], np.int32)
+
+
+class AVQADataset:
+    """Items: frames / frames_nega (T, H, W, 3) uint8, wave (T, 1.95 s of
+    samples) f32, question (14,) int32, answer () int32, qtype (the json's
+    'type' as it is). The negative frames are another video's, drawn from
+    the dataset's own RandomState(seed) (AVQA/dataloader.py:214-231), so a
+    loader's worker threads draw them in the order they ask for items. A
+    json of one video has no negative to draw: an item raises, where the
+    JAX package's draw loops forever."""
+
+    def __init__(self, samples_json: str, train_json: str, frames_root: str,
+                 audio_root: str, num_frames: int = 10, mode: str = "train",
+                 seed: int = 0):
+        with open(samples_json) as f:
+            self.samples = json.load(f)
+        self.word2idx, self.ans2idx = build_avqa_vocab(train_json)
+        self.frames_root = frames_root
+        self.audio_root = audio_root
+        self.num_frames = num_frames
+        self.mode = mode
+        self.rng = np.random.RandomState(seed)
+        self.n_videos = len({s["video_id"] for s in self.samples})
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _frames(self, vid: str) -> np.ndarray:
+        return np.stack([load_image(p) for p in
+                         _select_frames(os.path.join(self.frames_root, vid), self.num_frames)])
+
+    def __getitem__(self, i: int):
+        s = self.samples[i]
+        vid = s["video_id"]
+        frames = self._frames(vid)
+        if self.n_videos < 2:
+            raise ValueError(f"{self.n_videos} video in the json: no other video to draw the "
+                             "negative frames from")
+        while True:
+            j = self.rng.randint(len(self.samples))
+            if self.samples[j]["video_id"] != vid:
+                break
+        frames_nega = self._frames(self.samples[j]["video_id"])
+        wav, sr = load_wav(os.path.join(self.audio_root, vid + ".wav"))
+        wav = wav.mean(axis=0)
+        wav = wav - wav.mean()
+        return {"frames": frames, "frames_nega": frames_nega,
+                "wave": _segment_waveform(wav, sr, self.num_frames, 1.95),
+                "question": encode_question(s["question_content"], s["templ_values"],
+                                            self.word2idx),
+                "answer": np.int32(self.ans2idx.get(s["anser"], 0)),
+                "qtype": s.get("type", ["", ""])}
 
 
 class AVSDataset:

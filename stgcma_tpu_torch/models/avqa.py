@@ -131,18 +131,24 @@ def _grounding_and_match(hp: AVQAHead, audio_feat, f_v, hcfg: AVQAHeadConfig):
     return grd, _match(hp, audio_feat, grd)
 
 
-def qa_combined(hp: AVQAHead, hcfg: AVQAHeadConfig, qst_feature, grd, audio_feat, B, T):
+def qa_combined(hp: AVQAHead, hcfg: AVQAHeadConfig, qst_feature, grd, audio_feat, B, T,
+                generator: torch.Generator = None):
     """The question-as-query attention over the grounded visual and the audio
     sequences (:1873-1891), up to tanh(fc_fusion(...) * qst_feature): (B, C),
-    the input of fc_ans."""
+    the input of fc_ans. With a `generator` (training) both attentions take
+    the dropout of `hcfg.attn_dropout` on their weights, attn_v's mask drawn
+    first, then attn_a's (JAX splits its key into rng_v, rng_a, :145-155)."""
     d = hcfg.feat_dim
+    drop = hcfg.attn_dropout if generator is not None else 0.0
     xq = qst_feature[:, None, :]                                          # (B, 1, C)
     v_seq = grd.reshape(B, T, d)
     a_seq = audio_feat.reshape(B, T, d)
-    v_att = mha(hp.attn_v, xq, v_seq, v_seq, hcfg.attn_heads)[:, 0]
+    v_att = mha(hp.attn_v, xq, v_seq, v_seq, hcfg.attn_heads, dropout_rate=drop,
+                generator=generator)[:, 0]
     src = linear(hp.linear12, torch.relu(linear(hp.linear11, v_att)))
     v_att = layernorm(hp.norm1, v_att + src)
-    a_att = mha(hp.attn_a, xq, a_seq, a_seq, hcfg.attn_heads)[:, 0]
+    a_att = mha(hp.attn_a, xq, a_seq, a_seq, hcfg.attn_heads, dropout_rate=drop,
+                generator=generator)[:, 0]
     src = linear(hp.linear22, torch.relu(linear(hp.linear21, a_att)))
     a_att = layernorm(hp.norm2, a_att + src)
     feat = torch.cat([a_att + a_seq.mean(dim=1), v_att + v_seq.mean(dim=1)], dim=-1)
@@ -150,9 +156,11 @@ def qa_combined(hp: AVQAHead, hcfg: AVQAHeadConfig, qst_feature, grd, audio_feat
     return torch.tanh(feat * qst_feature)
 
 
-def _qa(hp: AVQAHead, hcfg: AVQAHeadConfig, qst_feature, grd, audio_feat, B, T):
+def _qa(hp: AVQAHead, hcfg: AVQAHeadConfig, qst_feature, grd, audio_feat, B, T,
+        generator: torch.Generator = None):
     """out_qa (B, answer_dim)."""
-    return linear(hp.fc_ans, qa_combined(hp, hcfg, qst_feature, grd, audio_feat, B, T))
+    return linear(hp.fc_ans, qa_combined(hp, hcfg, qst_feature, grd, audio_feat, B, T,
+                                         generator))
 
 
 def answer_head_apply(hp: AVQAHead, hcfg: AVQAHeadConfig, feats, question, B, T):
@@ -169,16 +177,22 @@ def answer_head_apply(hp: AVQAHead, hcfg: AVQAHeadConfig, feats, question, B, T)
 # ---------------------------------------------------------------------------
 
 def apply_avqa(model: AVQAModel, cfg: SwinConfig, hcfg: AVQAHeadConfig, a, v, v_nega,
-               question):
-    """The fusion forward with the three tower streams (avqa.py:109-165, eval:
-    no dropout). Returns (out_qa, out_match_posi, out_match_nega)."""
+               question, train: bool = False, generator: torch.Generator = None):
+    """The fusion forward with the three tower streams (avqa.py:109-165).
+    Returns (out_qa, out_match_posi, out_match_nega). With `train` and a
+    `generator` the QA head's two attentions take their dropout
+    (`qa_combined`); otherwise the forward is deterministic. The nega
+    stream reads only frozen parameters under `freeze_base` (no temporal
+    branch, no adapter; the relative-position tables frozen), so autograd
+    records no graph for it there; the match MLP over it does."""
     feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v, v_nega=v_nega)
     hp = model.avqatask
     audio_feat = audio_features(hp, feats["a"])
     qst = apply_qst_encoder(hp.question_encoder, question, hcfg)
     grd_posi, out_match_posi = _grounding_and_match(hp, audio_feat, feats["v"], hcfg)
     _, out_match_nega = _grounding_and_match(hp, audio_feat, feats["v_nega"], hcfg)
-    out_qa = _qa(hp, hcfg, qst, grd_posi, audio_feat, feats["B"], feats["T"])
+    out_qa = _qa(hp, hcfg, qst, grd_posi, audio_feat, feats["B"], feats["T"],
+                 generator if train else None)
     return out_qa, out_match_posi, out_match_nega
 
 

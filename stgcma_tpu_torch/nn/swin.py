@@ -389,26 +389,36 @@ def patch_merging_apply(pm: PatchMerging, x, H: int, Wd: int):
     return linear(pm.reduction, layernorm_fused(pm.norm, W.patch_merge(x, H, Wd)))
 
 
+def stage_apply(bb: SwinBackbone, cfg: SwinConfig, statics, s: int, x):
+    """Stage s over x, a tensor, the pair (v, a) or the fusion triple (v, a,
+    v_nega): its blocks, then its patch merging. Returns (x after the
+    blocks, x after the merge); the two are one where the stage has no
+    merge."""
+    layer = bb.layers[s]
+    for blk, st in zip(layer.blocks, statics[s]):
+        x = block_apply(blk, x, st)
+    if layer.downsample is None:
+        return x, x
+    H, Wd = cfg.stage_resolution(s)
+    if isinstance(x, tuple):
+        return x, tuple(patch_merging_apply(layer.downsample, xi, H, Wd) for xi in x)
+    return x, patch_merging_apply(layer.downsample, x, H, Wd)
+
+
 def _run_layers(bb: SwinBackbone, cfg: SwinConfig, statics, x, collect_multiscale=False):
-    """Every stage over x, a tensor or the pair (v, a). Returns (x, taps):
-    with `collect_multiscale`, the visual stream before each downsample (the
-    AVS taps, Swin_AVSModel.py:1811-1821), the last one through the final
-    norm; else an empty list."""
+    """Every stage over x (`stage_apply`). Returns (x, taps): with
+    `collect_multiscale`, the visual stream before each downsample (the AVS
+    taps, Swin_AVSModel.py:1811-1821), the last one through the final norm;
+    else an empty list."""
     multi_scale = []
-    for s, layer in enumerate(bb.layers):
-        for blk, st in zip(layer.blocks, statics[s]):
-            x = block_apply(blk, x, st)
+    for s in range(len(bb.layers)):
+        x, merged = stage_apply(bb, cfg, statics, s, x)
         if collect_multiscale:
             v_tap = x[0] if isinstance(x, tuple) else x
             if s == cfg.num_layers - 1:
                 v_tap = layernorm_fused(bb.norm, v_tap)
             multi_scale.append(v_tap)
-        if layer.downsample is not None:
-            H, Wd = cfg.stage_resolution(s)
-            if isinstance(x, tuple):
-                x = tuple(patch_merging_apply(layer.downsample, xi, H, Wd) for xi in x)
-            else:
-                x = patch_merging_apply(layer.downsample, x, H, Wd)
+        x = merged
     return x, multi_scale
 
 

@@ -4,9 +4,10 @@ STG-CMA bidirectional gated cross-modal fusion.
 Port of `stgcma_tpu/ops/attention.py`: `qkv_attention` (:33-60),
 `gather_bias` (:63), `window_attention` (:70), `temporal_attention` (:77),
 `cross_modal_fuse` (:87-118, without the resident-pad key masks: the port
-never pads a token stream) and `mha` (:121-167, the float path, without
-train-time dropout). Plain torch, as the JAX package leaves these to XLA;
-the kernel routes of the Swin tower are in ops/fused_attn.py.
+never pads a token stream) and `mha` (:121-167, with its int8 branch, its
+additive mask and its train-time dropout). Plain torch, as the JAX package
+leaves these to XLA; the kernel routes of the Swin tower are in
+ops/fused_attn.py.
 """
 from __future__ import annotations
 
@@ -93,25 +94,69 @@ class MultiheadAttention(nn.Module):
         self.out_proj = Linear(dim, dim)
 
 
-def mha(p: MultiheadAttention, q, k, v, num_heads: int):
-    """torch nn.MultiheadAttention in eval mode on batch-first (B, N, C)
-    q / k / v, with the JAX `mha`'s rounding points (:150-167): each
-    projection rounded to the input's dtype, then its bias added; q scaled by
-    dh^-1/2 rounded to that dtype before the product; fp32 logits and
-    softmax, cast back before p.v. The JAX function's mask, int8 `kernel_q`
-    branch and train-time dropout are not ported (no AVQA path passes a mask
-    or reaches the other two)."""
+def attn_dropout_keep(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    """The keep mask of a dropout on attention weights: Bernoulli(1 - rate)
+    drawn by `torch.bernoulli` from `generator` (on the generator's own
+    device, then moved to `device`), as a bool tensor of `shape`."""
+    probs = torch.full(shape, 1.0 - rate, device=generator.device)
+    return torch.bernoulli(probs, generator=generator).to(device=device, dtype=torch.bool)
+
+
+def attn_dropout_apply(attn: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """attn * keep / (1 - rate) in attn's dtype, the divisor rounded to that
+    dtype first, as JAX's weakly typed scalar is (:163-165)."""
+    return attn * keep.to(attn.dtype) / torch.tensor(1.0 - rate, dtype=attn.dtype)
+
+
+def _in_proj_heads(p: MultiheadAttention, q, k, v, C: int):
+    """The q, k, v projections, each in its input's dtype. A float in_proj
+    rounds its weight and bias to the input's dtype and adds the bias after
+    the product; an int8 one (`QLinear`) takes `ops/quant.py::linear_q`, on
+    the packed (3C, C) weight when q, k and v are one tensor, else on each
+    projection's rows (JAX :135-149)."""
+    ip = p.in_proj
+    if ip.quantized:
+        from types import SimpleNamespace
+
+        from .quant import linear_q
+        if q is k and k is v:
+            qkv = linear_q(ip, q)
+            return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+        def rows(i):
+            sl = slice(i * C, (i + 1) * C)
+            return SimpleNamespace(weight_q=ip.weight_q[sl], weight_s=ip.weight_s[sl],
+                                   bias=ip.bias[sl])
+        return linear_q(rows(0), q), linear_q(rows(1), k), linear_q(rows(2), v)
+    dt = q.dtype
+    w, b = ip.weight.to(dt), ip.bias.to(dt)
+    return tuple(torch.matmul(x, w[i * C:(i + 1) * C].t()) + b[i * C:(i + 1) * C]
+                 for i, x in enumerate((q, k, v)))
+
+
+def mha(p: MultiheadAttention, q, k, v, num_heads: int, mask=None, dropout_rate: float = 0.0,
+        generator: torch.Generator = None):
+    """torch nn.MultiheadAttention on batch-first (B, N, C) q / k / v, with
+    the JAX `mha`'s rounding points (:121-167): each projection in the
+    input's dtype (`_in_proj_heads`); q scaled by dh^-1/2 rounded to that
+    dtype before the product; fp32 logits, plus the additive `mask` (any
+    shape that broadcasts to (B, heads, Nq, Nk)); the softmax cast back
+    before p.v. With `dropout_rate` > 0 and a `generator` (training), the
+    attention weights take a dropout: a keep mask drawn from the generator
+    (`attn_dropout_keep`), the kept weights scaled by 1 / (1 - rate); without
+    a generator no dropout, as JAX's without a key."""
     B, Nq, C = q.shape
     dh = C // num_heads
     dt = q.dtype
-    w, b = p.in_proj.weight.to(dt), p.in_proj.bias.to(dt)
-
-    def heads(x, i):
-        y = torch.matmul(x, w[i * C:(i + 1) * C].t()) + b[i * C:(i + 1) * C]
-        return y.reshape(B, -1, num_heads, dh).transpose(1, 2)
-    qh, kh, vh = heads(q, 0), heads(k, 1), heads(v, 2)
+    qh, kh, vh = (x.reshape(B, -1, num_heads, dh).transpose(1, 2)
+                  for x in _in_proj_heads(p, q, k, v, C))
     qh = qh * torch.tensor(dh ** -0.5, dtype=dt)
     attn = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    if mask is not None:
+        attn = attn + mask.float()
     attn = torch.softmax(attn, dim=-1).to(dt)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = attn_dropout_keep(attn.shape, dropout_rate, generator, attn.device)
+        attn = attn_dropout_apply(attn, keep, dropout_rate)
     out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, Nq, C)
     return linear(p.out_proj, out)

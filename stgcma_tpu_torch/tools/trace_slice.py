@@ -19,7 +19,10 @@ request carries v_nega, which the server leaves on the host. For `avs` and
 `avqa`, beside the request's trace it traces the tower and the head once
 each on the inputs already on the card and prints the device time of each,
 so that the request's device time splits into the host-to-device copy, the
-tower and the head.
+tower and the head. For `avqa` it also traces the tower with v_nega (the
+three-output forward of training) and each stage (`swin.stage_apply`) over
+the fused pair and over the triple, so that the nega stream's device time
+splits by stage.
 With `--fused` the CLIP model also serves
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
 STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
@@ -273,6 +276,35 @@ def trace_avqa_parts(task, cfg, hcfg, model, batch, h2d_us, wall, out_dir):
     print(f"[{task}] split: host-to-device copy {h2d_us / 1e3:.3f} ms, tower {tower_us / 1e3:.2f} "
           f"ms, head {head_us / 1e3:.2f} ms of device time; untraced wall {wall * 1e3:.2f} ms = "
           f"{B / wall:.2f} clips/s ({B} clips of {T} frames, v_nega not copied)")
+    trace_nega_stages(task, cfg, model, a, v, batch, out_dir)
+
+
+def trace_nega_stages(task, cfg, model, a, v, batch, out_dir):
+    """The device time of the tower with and without the nega stream, and of
+    each stage (`swin.stage_apply`, its blocks and merge) over the fused pair
+    and over the triple: the nega stream's time is the difference."""
+    bb, statics = model.backbone, swin.backbone_statics(cfg)
+    vn = torch.as_tensor(batch["v_nega"]).to("cuda", torch.bfloat16)
+    path = os.path.join(out_dir, f"{task}_stage.json")
+
+    def device_ms(fn):
+        fn()                                              # warm-up
+        return sum(e.self_device_time_total for e in _device_rows(fn, path)[0]) / 1e3
+    with torch.inference_mode():
+        two = device_ms(lambda: swin.backbone_apply(bb, cfg, a=a, v=v))
+        three = device_ms(lambda: swin.backbone_apply(bb, cfg, a=a, v=v, v_nega=vn))
+        pair = (swin.patch_embed_apply(bb.patch_embed, v, cfg),
+                swin.patch_embed_apply(bb.patch_embed_audio, a[..., None], cfg))
+        triple = pair + (swin.patch_embed_apply(bb.patch_embed, vn, cfg),)
+        by_stage = []
+        for s in range(cfg.num_layers):
+            by_stage.append([device_ms(lambda s=s, x=x: swin.stage_apply(bb, cfg, statics, s, x))
+                             for x in (pair, triple)])
+            pair, triple = (swin.stage_apply(bb, cfg, statics, s, x)[1] for x in (pair, triple))
+    print(f"[{task}] the three-output tower (with v_nega) {three:.2f} ms of device time against "
+          f"{two:.2f} ms: {three / two:.3f}x; by stage (blocks and merge), the fused pair / the "
+          f"triple / the nega stream's share of one fused stream: "
+          + "; ".join(f"{p:.2f} / {t:.2f} / {2 * (t - p) / p:.2f}" for p, t in by_stage))
 
 
 if __name__ == "__main__":
