@@ -252,12 +252,26 @@ line:
      - `phase_grad_kernels` (phase 3): K10's gradient row at its Swin-Base
        168^2 check site and K12's, K13's and K14's at the CLIP-B/16 fusion
        check sites at B = TRAIN_B, so that every recompute has run on the
-       card.
+       card;
+     - the PVT-v2-b5 AVS baseline (`phase_avs_pvt`): depths 3/6/40/3 at
+       224^2, B = 8 clips x T = 5, random weights and VGGish-shaped audio
+       features; bf16 against the card's fp32 (TOL_PVT_BF16), the
+       train-mode forward with its BatchNorm statistics, fp32 against the
+       CPU at depths 1/1/2/1 (TOL_PVT_FP32); wall, device ms, busy share,
+       peak memory, launches, `cost_analysis`'s flops and TFLOP/s; and
+       `runtime/profiling.py`'s trace around one forward holding its
+       annotated region and the card's kernels;
+     - the mesh (`phase_mesh`): an NCCL world of one through
+       `init_distributed` and `make_mesh(1, 1)`: Swin-Base fusion served
+       with `shard_tower` (every split leaf gathered where read) equal to
+       the meshless server bit for bit with the same launches, and one AVS
+       train step at depths 2/2/2/2 with the mesh equal to the step without
+       it bit for bit under torch's deterministic algorithms.
 The script logs its total wall time. The line before the last is one JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}. The
 training path's launches (set to 0 just before its CLI run, read just after
 it) add K1 288 to the kernels line's totals; the Swin, AVS and AVQA
-training runs add theirs.
+training runs add theirs, and the mesh server's forward its K1, K4-K9.
 Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
@@ -4492,6 +4506,277 @@ def phase_train_avqa(cfg, hcfg, smi, cut_depths=(2, 2, 2, 2)):
     log(f"  phase_train_avqa: {time.perf_counter() - t0:.1f} s")
     return rows, totals, timing
 
+TOL_PVT_FP32 = 1e-3  # phase_avs_pvt: the card's fp32 mask logits against the CPU's at a cut
+                     # depth, max |card - cpu| / max |cpu| (cuDNN's fp32 convolutions sum in
+                     # another order, TF32 off)
+TOL_PVT_BF16 = TOL_SLICE  # phase_avs_pvt: the card's bf16 mask logits against its own fp32 at
+                     # full depth, max |bf16 - fp32| / max |fp32|: bf16 through PVT's 52 blocks
+                     # and some 15 rounded decoder layers; the H100 read 2.23% (2e-2 missed), and
+                     # the JAX package's own bf16 sits 2.6-3.3% from its fp32 on the CPU at
+                     # depths 1/1/2/1 (tests/test_torch_port_pvt.py)
+PVT_CUT = (1, 1, 2, 1)
+
+
+def phase_avs_pvt(smi, b=B, cut_depths=PVT_CUT):
+    """The PVT-v2-b5 AVS baseline (`models/avs.py::apply_avs_pvt`) at full
+    size on the card: depths (3, 6, 40, 3), 224^2, b clips of T = 5 frames,
+    `random_avs_pvt` weights, synthetic (b, 5, 128) VGGish features (the
+    VGGish network is in neither package). The bf16 forward (mask logits
+    (b*5, 224, 224, 1) finite; none of the port's kernels: PVT and the
+    decoder are plain torch, as XLA in JAX) held to the card's fp32 at
+    TOL_PVT_BF16; the train-mode forward with the four TPAVI BatchNorms'
+    statistics; the card's fp32 against the CPU's at `cut_depths` on one
+    clip (TOL_PVT_FP32); the bf16 forward's median wall, device ms and busy
+    share (torch.profiler), peak memory, CUDA launches, `cost_analysis`'s
+    flops and the achieved TFLOP/s; and `runtime/profiling.py`'s `trace`
+    and `annotate` around one forward, whose exported trace must hold the
+    region and CUDA kernels."""
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stgcma_tpu_torch.configs import AVSHeadConfig
+    from stgcma_tpu_torch.models.avs import apply_avs_pvt, random_avs_pvt
+    from stgcma_tpu_torch.nn import pvt
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.common import cast_tree
+    from stgcma_tpu_torch.runtime import profiling as P
+    t0 = time.perf_counter()
+    T = 5
+    hcfg = AVSHeadConfig(num_frames=T)          # vis_dim (64, 128, 320, 512), TPAVI at all four
+    host = random_avs_pvt(hcfg, SEED)
+    m32 = host.to("cuda").eval()
+    m16 = cast_tree(m32, torch.bfloat16)
+    n_par = sum(p.numel() for p in m32.parameters())
+    rng = np.random.RandomState(SEED)
+    frames = torch.from_numpy(rng.randn(b * T, 224, 224, 3).astype(np.float32)).cuda()
+    audio = torch.from_numpy(rng.randn(b, T, 128).astype(np.float32)).cuda()
+    f16, a16 = frames.bfloat16(), audio.bfloat16()
+    log(f"  set-up: PVT-v2-b5 AVS ({n_par / 1e6:.1f} M parameters, encoder depths "
+        f"{m32.encoder.cfg['depths']}), random weights on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run16():
+        return apply_avs_pvt(m16, hcfg, a16, f16)[0]
+
+    with torch.no_grad():
+        FA.reset_launches()
+        out16 = run16()
+        torch.cuda.synchronize()
+        got = launches()
+        if any(got.values()):
+            fail(f"avs_pvt: the forward launched the port's kernels {got}; PVT reaches none")
+        shape = (b * T, 224, 224, 1)
+        if tuple(out16.shape) != shape or not torch.isfinite(out16).all():
+            fail(f"avs_pvt bf16: masks of shape {tuple(out16.shape)}, finite="
+                 f"{bool(torch.isfinite(out16).all())}")
+        out32 = apply_avs_pvt(m32, hcfg, audio, frames)[0]
+        err = float((out16.float() - out32).abs().max() / out32.abs().max())
+        if not err <= TOL_PVT_BF16:
+            fail(f"avs_pvt: bf16 against fp32 on the card at full depth {err:.4g} > "
+                 f"{TOL_PVT_BF16}")
+        log(f"  avs_pvt b={b} clips x T={T}: mask logits {shape} finite, no port kernel "
+            f"launched; bf16 vs the card's fp32 at full depth: {err:.4g} of max |fp32| "
+            f"(tol {TOL_PVT_BF16})")
+        pred, _, afeas, state = apply_avs_pvt(m16, hcfg, a16, f16, train=True,
+                                              return_state=True)
+        want = sorted(f"tpavi_b{i + 1}" for i in hcfg.tpavi_stages)
+        if sorted(state) != want or not torch.isfinite(pred).all() or not all(
+                torch.isfinite(st[k]).all() for st in state.values() for k in ("mean", "var")):
+            fail(f"avs_pvt train-mode forward: BatchNorm state {sorted(state)}, finite pred "
+                 f"{bool(torch.isfinite(pred).all())}")
+        moved = max(float((st["var"] - getattr(m16.avstask, k).W_z.bn.running_var.float())
+                          .abs().max()) for k, st in state.items())
+        log(f"  avs_pvt train mode: pred finite, BatchNorm statistics of {want} returned "
+            f"(running var moved by up to {moved:.4g})")
+        del out32, pred, afeas, state
+        cut_cfg = dict(pvt.B5, depths=cut_depths)
+        cut = random_avs_pvt(hcfg, SEED, pvt_cfg=cut_cfg)
+        t1 = time.perf_counter()
+        ref = apply_avs_pvt(cut, hcfg, audio[:1].cpu(), frames[:T].cpu())[0]
+        cpu_s = time.perf_counter() - t1
+        card = apply_avs_pvt(cut.to("cuda"), hcfg, audio[:1], frames[:T])[0].cpu()
+        err = float((card - ref).abs().max() / ref.abs().max())
+        if not err <= TOL_PVT_FP32:
+            fail(f"avs_pvt fp32 at depths {cut_depths}: card vs CPU {err:.4g} > {TOL_PVT_FP32}")
+        log(f"  avs_pvt fp32 at depths {cut_depths}, 1 clip: card vs CPU {err:.4g} of max |cpu| "
+            f"(tol {TOL_PVT_FP32}; CPU forward {cpu_s:.1f} s)")
+        del cut, card, ref
+        for _ in range(2):
+            run16()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(7):
+            t1 = time.perf_counter()
+            run16()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t1))
+        peak = torch.cuda.max_memory_allocated()
+        wall = statistics.median(walls)
+        flops = P.cost_analysis(run16)["flops"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run16()
+            torch.cuda.synchronize()
+            prof_wall = 1e3 * (time.perf_counter() - t1)
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
+        log(f"  avs_pvt bf16 forward, b={b} clips x T={T} at 224^2 on {smi}: median wall "
+            f"{wall:.2f} ms of 7 ({', '.join(f'{w:.2f}' for w in walls)}) = "
+            f"{b * 1e3 / wall:.2f} clips/s = {b * T * 1e3 / wall:.1f} masks/s; device "
+            f"{dev:.2f} ms in {len(kern)} CUDA launches = {100 * dev / prof_wall:.1f}% busy "
+            f"(one forward under torch.profiler, {prof_wall:.2f} ms); peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; cost_analysis {flops / 1e12:.3f} TFLOP a forward = "
+            f"{flops / dev / 1e9:.1f} TFLOP/s over the device time, "
+            f"{flops / wall / 1e9:.1f} TFLOP/s over the wall")
+        with tempfile.TemporaryDirectory() as d:
+            with P.trace(d):
+                with P.annotate("avs_pvt_forward"):
+                    run16()
+                torch.cuda.synchronize()
+            files = [f for f in os.listdir(d) if f.endswith(".json")]
+            if len(files) != 1:
+                fail(f"profiling.trace wrote {files} into its directory")
+            with open(os.path.join(d, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+        region = [e for e in events if e.get("name") == "avs_pvt_forward"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not region or not kernels:
+            fail(f"profiling.trace: {len(region)} events of the annotated region, "
+                 f"{len(kernels)} CUDA kernel events")
+        log(f"  runtime.profiling: trace + annotate around one forward: {len(events)} events, "
+            f"the region 'avs_pvt_forward' {len(region)}x, {len(kernels)} CUDA kernels")
+    del m16, m32, host
+    torch.cuda.empty_cache()
+    log(f"  phase_avs_pvt: {time.perf_counter() - t0:.1f} s")
+    return {"wall_ms": wall, "device_ms": dev, "busy": dev / prof_wall, "peak_gib": peak / 2 ** 30,
+            "cuda_launches": len(kern), "flops": flops}
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_mesh(cfg, avs_cfg, avs_hcfg, smi, cut_depths=(2, 2, 2, 2)):
+    """`runtime/mesh.py` on the card: a world of one under NCCL through
+    `init_distributed` (STGCMA_COORDINATOR=127.0.0.1:<free port>,
+    STGCMA_NUM_PROCESSES=1, STGCMA_PROCESS_ID=0) and `make_mesh(1, 1)`.
+    Swin-Base fusion (`cfg`) served by `MultiTaskServer(mesh=...,
+    shard_tower=True)`, every split leaf read through its gather, B = 8:
+    the logits equal the meshless server's bit for bit, with the same
+    launches (K1, K4-K9); one AVS train step at `cut_depths`, B = TRAIN_B,
+    with the mesh (the frozen tower sharded, the masters' gradients
+    averaged over 'data', TPAVI's BatchNorm summed over it), under torch's
+    deterministic algorithms: the loss and the masters equal the step
+    without the mesh bit for bit. The group is destroyed after. Returns the
+    served forward's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from stgcma_tpu_torch.cli import run_adapt_avs as cli
+    from stgcma_tpu_torch.cli.common import DETERMINISTIC, deterministic_algorithms
+    from stgcma_tpu_torch.data.loader import collate, make_avs_device_pipeline
+    from stgcma_tpu_torch.models.ave import random_swin_ave
+    from stgcma_tpu_torch.models.avs import random_avs
+    from stgcma_tpu_torch.nn.swin import launches_per_forward
+    from stgcma_tpu_torch.ops import fused_attn as FA
+    from stgcma_tpu_torch.ops.fbank import SWIN_FBANK
+    from stgcma_tpu_torch.runtime import mesh as M
+    from stgcma_tpu_torch.serving import MultiTaskServer
+    from stgcma_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    with environment({"STGCMA_COORDINATOR": f"127.0.0.1:{free_port()}",
+                      "STGCMA_NUM_PROCESSES": "1", "STGCMA_PROCESS_ID": "0"}):
+        if not M.init_distributed():
+            fail("init_distributed did not take the STGCMA_* variables")
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"mesh: backend {dist.get_backend()}, world {dist.get_world_size()}; "
+                 f"expected NCCL, 1")
+        mesh = M.make_mesh(1, 1)
+        task = "ave29_swin_base_fusion_mesh"
+        model = live_fusion_adapters_(random_swin_ave(cfg, SEED), SEED)
+        plain = MultiTaskServer(device="cuda")
+        plain.add_ave(task, cfg, model)
+        srv = MultiTaskServer(device="cuda", mesh=mesh, shard_tower=True)
+        srv.add_ave(task, cfg, model)
+        del model
+        split = sum(n.endswith(".original") for n, _ in srv.models[task].named_parameters())
+        rng = np.random.RandomState(SEED)
+        n, T = cfg.img_size, cfg.num_frames
+        batch = {"a": rng.randn(B, T, n, n).astype(np.float32),
+                 "v": rng.randn(B, T, n, n, 3).astype(np.float32)}
+        want = {**{k: 0 for k in KERNELS}, **launches_per_forward(cfg, B)}
+        ref = predict(plain, task, batch)
+        FA.reset_launches()
+        t1 = time.perf_counter()
+        got = predict(srv, task, batch)
+        mesh_s = time.perf_counter() - t1
+        counts = launches()
+        if counts != want:
+            fail(f"mesh server: launches {counts}, expected {want}")
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            fail(f"mesh server: logits {got.shape} differ from the meshless server's by "
+                 f"{float(np.abs(got - ref).max()) if got.shape == ref.shape else 'shape'}")
+        FA.reset_launches()
+        t1 = time.perf_counter()
+        predict(srv, task, batch)
+        mesh_s2 = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        predict(plain, task, batch)
+        plain_s = time.perf_counter() - t1
+        ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        log(f"  mesh server (NCCL world of 1, mesh (1, 1), shard_tower): Swin-Base fusion B={B}, "
+            f"{split} split leaves each gathered where read; logits equal the meshless "
+            f"server's bit for bit; launches {ran}; "
+            f"{mesh_s * 1e3:.1f} ms first, {mesh_s2 * 1e3:.1f} ms after, meshless "
+            f"{plain_s * 1e3:.1f} ms on {smi}")
+        del plain, srv
+        cut = dataclasses.replace(avs_cfg, depths=cut_depths)
+        args = cli.parse_args([])
+        ds = cli.SyntheticAVS(TRAIN_B, cut.num_frames, cut.img_size, seed=SEED)
+        batch = collate([ds[i] for i in range(TRAIN_B)])
+        pipe = make_avs_device_pipeline(SWIN_FBANK, 224, args.dataset_mean, args.dataset_std,
+                                        device="cuda")
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp, environment({DETERMINISTIC: "1"}), \
+                deterministic_algorithms():
+            for i, m in enumerate((None, mesh)):
+                tr = Trainer(loss_fn=cli.make_loss_fn(cut, avs_hcfg, pipe, args),
+                             eval_fn=lambda *_: {}, model=random_avs(cut, avs_hcfg, SEED).cuda(),
+                             base_lr=1e-4, head_lr_mult=10.0, n_epochs=1, steps_per_epoch=1,
+                             exp_dir=os.path.join(tmp, str(i)), mesh=m)
+                with contextlib.redirect_stdout(sys.stderr):
+                    tr.train_epoch(1, [batch], torch.Generator().manual_seed(SEED))
+                runs.append(tr)
+        (a, b_), (la, lb) = [r.trainable() for r in runs], [r.step_losses for r in runs]
+        diff = max(float((a[k] - b_[k]).detach().abs().max()) for k in a)
+        bufs = max(float((runs[0].buffers()[k] - runs[1].buffers()[k]).abs().max())
+                   for k in runs[0].buffers())
+        if la != lb or diff != 0.0 or bufs != 0.0:
+            fail(f"mesh train step: loss {lb} against {la}, masters differ by {diff:.4g}, "
+                 f"BatchNorm statistics by {bufs:.4g}")
+        log(f"  mesh train step: AVS Swin-Large fusion at depths {cut_depths}, B={TRAIN_B}, "
+            f"bf16 compute, the frozen tower sharded over 'model', gradients averaged over "
+            f"'data': loss {la[0]:.6f}, the masters and the TPAVI BatchNorm statistics equal "
+            f"the meshless step's bit for bit (torch's deterministic algorithms)")
+        del runs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"  phase_mesh: {time.perf_counter() - t0:.1f} s")
+    return counts
+
 
 def main():
     try:
@@ -4638,6 +4923,13 @@ def main():
             results[k].extend(r)
     totals = {k: totals[k] + swin_totals[k] + avs_totals[k] + avqa_train_totals[k]
               for k in KERNELS}
+    log(f"[4/4] slice: the PVT-v2-b5 AVS baseline, depths {(3, 6, 40, 3)}, 224^2, B={B} clips "
+        f"x T=5, bf16 and fp32, eval and train mode; the profiler around one forward")
+    phase_avs_pvt(smi)
+    log(f"[4/4] mesh: NCCL world of one through init_distributed, make_mesh(1, 1); Swin-Base "
+        f"fusion served with shard_tower, one AVS train step with the mesh")
+    mesh_totals = phase_mesh(fusion_cfg, avs_cfg, avs_hcfg, smi)
+    totals = {k: totals[k] + mesh_totals[k] for k in KERNELS}
 
     kernels = []
     for k in KERNELS:

@@ -8,8 +8,9 @@ returns the port's state dict. Layouts the port keeps:
   GEMMs read K-contiguous; `bias` as it is;
 - int8 `kernel_q` (in, out) -> `weight_q` (out, in); `kernel_s` (1, out) ->
   `weight_s` (out,);
-- conv `kernel` HWIO -> `weight` OIHW, and DHWIO -> OIDHW (the Swin
-  patch embed's (pt, ph, pw, I, O));
+- conv `kernel` HWIO -> `weight` OIHW (PVT's depthwise (3, 3, 1, C) ->
+  (C, 1, 3, 3)), and DHWIO -> OIDHW (the Swin patch embed's (pt, ph, pw,
+  I, O));
 - LayerNorm and BatchNorm `scale` -> `weight`; the BatchNorm running
   statistics `mean` -> buffer `running_mean`, `var` -> `running_var`
   (`bias` keeps its name);
@@ -29,7 +30,8 @@ import torch
 from ..configs import AVQAHeadConfig, AVSHeadConfig, ClipConfig, SwinConfig
 from ..models.ave import ClipAVE, SwinAVE
 from ..models.avqa import AVQAModel
-from ..models.avs import AVSModel
+from ..models.avs import AVSModel, PVTAVSModel
+from ..nn import pvt
 from ..nn.resnet import ResNet18
 from ..ops.common import resolve_device
 from ..ops.quant import quantize_clip_tower, quantize_swin_tower
@@ -108,6 +110,18 @@ def avs_from_jax(cfg: SwinConfig, hcfg: AVSHeadConfig, tree: Any, device="cuda")
     convs HWIO -> OIHW, the TPAVI BatchNorms' `scale` / `bias` / `mean` /
     `var` -> `weight` / `bias` / `running_mean` / `running_var`."""
     return _load_swin(AVSModel(cfg, hcfg), tree, device)
+
+
+def avs_pvt_from_jax(hcfg: AVSHeadConfig, tree: Any, device="cuda",
+                     pvt_cfg=pvt.B5) -> PVTAVSModel:
+    """A PVTAVSModel holding the JAX `init_avs_pvt` tree's weights, loaded
+    strictly: the encoder's convs HWIO -> OIHW (the depthwise (3, 3, 1, C)
+    -> (C, 1, 3, 3)), its linears (in, out) -> (out, in), the decoder as in
+    `avs_from_jax`. `pvt_cfg` names the encoder's depths where the tree's
+    are cut."""
+    model = PVTAVSModel(hcfg, pvt_cfg)
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    return model.to(resolve_device(device))
 
 
 def avqa_from_jax(cfg: SwinConfig, hcfg: AVQAHeadConfig, tree: Any, device="cuda") -> AVQAModel:

@@ -23,11 +23,11 @@ the JAX package does them.
 - `derive_clip_audio_pos_embed` (:370), `load_pretrained_clip` (:398, `proj`
   dropped) and `load_reference_clip` (:452);
 - `load_resnet18` (:508), the grounding pretrainer's visual net;
+- `load_pvt_v2` (:545), the AVS baseline's PVT-v2 encoder;
 - `average_params` (:611).
 The port has no resident pad, so the positional embeddings keep 197 rows
-(257 at ViT-L/14). `load_pvt_v2` waits for its module (ROADMAP.md). Each
-loader returns (model, unexpected) with the model on `device`, the card
-unless the caller asks for the CPU.
+(257 at ViT-L/14). Each loader returns (model, unexpected) with the model
+on `device`, the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -371,6 +371,29 @@ def load_resnet18(model, state_dict, prefix: str = "", device="cuda"):
             entries[prefix + ".".join(parts)] = _np(v)
         else:
             raise ValueError(f"unhandled resnet key {key}")
+    return _merged(model, entries, device)
+
+
+_PVT_KEY = re.compile(r"(patch_embed\d\.(proj|norm)|norm\d|block\d\.\d+\.(norm1|norm2|"
+                      r"attn\.(q|kv|proj|sr|norm)|mlp\.(fc1|dwconv\.dwconv|fc2)))\.(weight|bias)")
+
+
+def load_pvt_v2(model, state_dict, prefix: str = "", device="cuda"):
+    """A reference pvt_v2_b* state dict (AVS/model/pvt.py) into `nn/pvt.py::
+    PVT` (`load_pvt_v2` :545; prefix "encoder." for a PVTAVSModel): a
+    DataParallel `module.` prefix and the classifier `head.*` dropped,
+    `mlp.dwconv.dwconv.*` -> `mlp.dwconv.*`, every other name and layout
+    kept (torch's own). A key outside the patch embeds, blocks and stage
+    norms raises."""
+    entries: Dict[str, np.ndarray] = {}
+    for key, v in state_dict.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        if key.startswith("head."):
+            continue
+        if not _PVT_KEY.fullmatch(key):
+            raise ValueError(f"unhandled pvt key {key}")
+        entries[prefix + key.replace("mlp.dwconv.dwconv.", "mlp.dwconv.")] = _np(v)
     return _merged(model, entries, device)
 
 

@@ -37,6 +37,7 @@ from ..data.loader import DataLoader, make_ave_device_pipeline
 from ..metrics.stats import calculate_stats
 from ..models import ave
 from ..ops.common import resolve_device
+from ..runtime.mesh import init_distributed
 from ..ops.fbank import CLIP_FBANK, SWIN_FBANK
 from ..train import losses
 from ..train.loop import Trainer, weight_average
@@ -199,6 +200,8 @@ def frame_agg_eval(infer, model, eval_pipe, te, args):
 @deterministic_algorithms()
 def main(argv=None):
     args = parse_args(argv)
+    # multi-host bring-up (a no-op unless STGCMA_COORDINATOR / _DISTRIBUTED is set)
+    init_distributed()
     device = resolve_device(args.device)
     seed_everything(0)
     archive_args(args, args.exp_dir)

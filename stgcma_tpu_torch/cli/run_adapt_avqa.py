@@ -25,8 +25,9 @@ lowering drops the nega stream. A json 'type' kept as its string literal
 (the reference jsons' "['Audio', 'Counting']") is read with
 `ast.literal_eval` for the per-type breakdown. With STGCMA_DETERMINISTIC=1
 in the environment the run takes torch's deterministic algorithms
-(`common.deterministic_algorithms`). The JAX CLI's multi-host bring-up
-(`runtime.mesh.init_distributed`) waits for the port's `runtime/`.
+(`common.deterministic_algorithms`). As the JAX CLI, it first calls
+`runtime.mesh.init_distributed()` (the multi-host bring-up, a no-op
+without the STGCMA_* variables).
 
 Usage (synthetic smoke on the CPU):
     python -m stgcma_tpu_torch.cli.run_adapt_avqa --synthetic True --tiny True \\
@@ -50,6 +51,7 @@ from ..data.loader import DataLoader, make_avqa_device_pipeline
 from ..metrics.stats import avqa_type_accuracy
 from ..models import avqa
 from ..ops.common import resolve_device
+from ..runtime.mesh import init_distributed
 from ..ops.fbank import SWIN_FBANK
 from ..train import losses
 from ..train.loop import Trainer, weight_average
@@ -239,6 +241,8 @@ def load_weights(model, cfg, args, device):
 @deterministic_algorithms()
 def main(argv=None):
     args = parse_args(argv)
+    # multi-host bring-up (a no-op unless STGCMA_COORDINATOR / _DISTRIBUTED is set)
+    init_distributed()
     device = resolve_device(args.device)
     if args.ftmode != "fusion":
         # the reference AVQA model's other branches are AVE-style

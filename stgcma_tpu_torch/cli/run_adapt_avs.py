@@ -40,6 +40,7 @@ from ..data.datasets import AVSDataset
 from ..data.loader import DataLoader, make_avs_device_pipeline
 from ..models import avs
 from ..ops.common import resolve_device
+from ..runtime.mesh import init_distributed
 from ..ops.fbank import SWIN_FBANK
 from ..train import losses
 from ..train.loop import Trainer, weight_average
@@ -217,6 +218,8 @@ def make_eval_fn(infer, pipe, args):
 @deterministic_algorithms()
 def main(argv=None):
     args = parse_args(argv)
+    # multi-host bring-up (a no-op unless STGCMA_COORDINATOR / _DISTRIBUTED is set)
+    init_distributed()
     device = resolve_device(args.device)
     if args.ftmode != "fusion":
         # the reference AVS model's other branches are AVE-style

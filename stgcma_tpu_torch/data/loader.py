@@ -25,6 +25,7 @@ import torch
 
 from ..ops.common import resolve_device
 from ..ops.fbank import SWIN_FBANK, FbankConfig, fbank_image
+from ..runtime import mesh
 from . import transforms
 
 Pipeline = Callable[[Dict[str, object]], Tuple[torch.Tensor, torch.Tensor]]
@@ -60,7 +61,10 @@ def make_ave_device_pipeline(fbank_cfg: FbankConfig = SWIN_FBANK, target_length:
     Training: pipe(batch, generator), each clip through `train_transform`
     with its own draws from `generator` (in batch order), then, where mixup
     > 0, the waveform mixup of the reference (AVE/dataloader.py:491-497,
-    audio only, per-second Beta(10, 10) lambdas) before the fbank."""
+    audio only, per-second Beta(10, 10) lambdas) before the fbank. Inside a
+    mesh step the batch is this rank's rows: the draws are made for the
+    global batch and the mixup mixes it whole (`runtime/mesh.py`), then each
+    keeps its rows."""
     if not train:
         return _pipeline(lambda f: transforms.eval_transform(f, image_size), fbank_cfg,
                          target_length, norm_mean, norm_std, device)
@@ -69,14 +73,15 @@ def make_ave_device_pipeline(fbank_cfg: FbankConfig = SWIN_FBANK, target_length:
     @torch.no_grad()
     def train_pipe(batch, generator: torch.Generator):
         frames = _on(batch["frames"], device)
-        draws = [transforms.sample_train_transform(generator, clip.shape, image_size, device)
-                 for clip in frames]
+        draws = mesh.draw_items(lambda: transforms.sample_train_transform(
+            generator, frames.shape[1:], image_size, device), len(frames))
         v = torch.stack([transforms.train_transform_apply(clip, d, image_size)
                          for clip, d in zip(frames, draws)])
         wave = _on(batch["wave"], device)
         if mixup > 0:
-            wave = transforms.mixup_apply(wave, transforms.sample_mixup(
-                generator, wave.shape[0], wave.shape[1], mixup_prob=mixup))
+            wave = mesh.gather_rows(wave)
+            wave = mesh.local_rows(transforms.mixup_apply(wave, transforms.sample_mixup(
+                generator, wave.shape[0], wave.shape[1], mixup_prob=mixup)))
         a = fbank_image(wave, fbank_cfg, target_length, norm_mean, norm_std)
         return a, v
 

@@ -4,7 +4,8 @@ decode with mono downmix, DC removal and segment slicing, and jpg/png
 decode.
 
 The port's own copy of `stgcma_tpu/data/native_io.py` (`available` :68,
-`decode_wav_batch` :72, `image_available` :90, `decode_image_batch` :95),
+`decode_wav_batch` :72, `image_available` :90, `decode_image_batch` :95,
+and the single-file calls `decode_image` :116 and `decode_wav` :133),
 with the library looked up beside this package's checkout. Where the
 library is not built (it links libjpeg and libpng), `serving.HostDecoder`
 takes the scipy and PIL paths instead.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -46,11 +47,21 @@ def _load():
         ctypes.c_float, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
         ctypes.c_int,
     ]
+    lib.stgcma_decode_wav.restype = ctypes.c_int64
+    lib.stgcma_decode_wav.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int),
+    ]
     try:
         lib.stgcma_decode_image_batch.restype = ctypes.c_int
         lib.stgcma_decode_image_batch.argtypes = [
             ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ]
+        lib.stgcma_decode_image.restype = ctypes.c_int64
+        lib.stgcma_decode_image.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ]
         lib._has_image = True
     except AttributeError:          # a library built before the image decoder
@@ -102,3 +113,35 @@ def decode_image_batch(paths: List[str], height: int, width: int, num_threads: i
         arr, B, height, width, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), num_threads)
     return out, ok.astype(bool)
+
+
+def decode_image(path: str, max_bytes: int = 64 << 20) -> Optional[np.ndarray]:
+    """One jpg/png at its own size -> (H, W, 3) uint8, or None where the
+    file does not decode or the library is not built."""
+    lib = _load()
+    if not lib or not lib._has_image:
+        return None
+    buf = np.zeros((max_bytes,), np.uint8)
+    w, h = ctypes.c_int(0), ctypes.c_int(0)
+    n = lib.stgcma_decode_image(path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                max_bytes, ctypes.byref(w), ctypes.byref(h))
+    if n <= 0:
+        return None
+    return buf[:n].reshape(h.value, w.value, 3).copy()
+
+
+def decode_wav(path: str, max_seconds: float = 60.0) -> Optional[Tuple[np.ndarray, int]]:
+    """One WAV, mono, at most max_seconds at 48 kHz -> (samples float32,
+    sample rate), or None where it does not decode or the library is not
+    built."""
+    lib = _load()
+    if not lib:
+        return None
+    max_samples = int(max_seconds * 48000)
+    buf = np.zeros((max_samples,), np.float32)
+    sr = ctypes.c_int(0)
+    n = lib.stgcma_decode_wav(path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                              max_samples, ctypes.byref(sr))
+    if n <= 0:
+        return None
+    return buf[:n].copy(), sr.value

@@ -19,6 +19,7 @@ from ..nn import swin
 from ..nn.clip_vit import ClipBackbone, clip_backbone_apply, init_clip_backbone_
 from ..ops.common import LayerNorm, Linear, layernorm, linear, resolve_device
 from ..ops.quant import quantize_swin_tower
+from ..runtime.mesh import draw_rows
 
 
 class MlpHead(nn.Module):
@@ -45,12 +46,16 @@ def mlp_head_apply(head, x, generator: torch.Generator = None):
     `generator` (training) fc1's output goes through inverted dropout, each
     value kept with probability 1 - HEAD_DROPOUT and scaled by 1 / (1 -
     HEAD_DROPOUT) in its dtype (:33-35); the keep mask is drawn on the
-    generator's device. Without one (serving) there is no dropout."""
+    generator's device, for the global batch inside a mesh step
+    (`runtime/mesh.py::draw_rows`). Without one (serving) there is no
+    dropout."""
     if not isinstance(head, MlpHead):
         return linear(head.fc, layernorm(head.ln, x))
     x = linear(head.fc1, x)
     if generator is not None:
-        keep = torch.rand(x.shape, generator=generator, device=generator.device) >= HEAD_DROPOUT
+        keep = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                                  device=generator.device), x.shape)
+        keep = keep >= HEAD_DROPOUT
         x = torch.where(keep.to(x.device), x / (1.0 - HEAD_DROPOUT), 0.0).to(x.dtype)
     return linear(head.fc2, x)
 

@@ -5,8 +5,11 @@ Port of `stgcma_tpu/models/avs.py`: `init_avs_head` / `init_avs` (:22-41)
 and `apply_avs` (:101-156), reference SwinTransformer2D_Adapter_AVS
 (AVS/model/Swin_AVSModel.py:1266-1894). I/O: a (B, T, 224, 224), v (B, T,
 224, 224, 3) -> (pred (B*T, 224, 224, 1), feature_map_list 4 x (B*T, h, w,
-256), a_fea_list 4 x (B, T, 256)). The PVT-v2-b5 baseline (:44-98, unwired
-in the reference) is not ported yet (ROADMAP.md).
+256), a_fea_list 4 x (B, T, 256)). And the PVT-v2-b5 baseline, `init_avs_pvt`
+/ `apply_avs_pvt` (:44-98; reference AVS/model/PVT_AVSModel.py:323, left
+unwired there): the `nn/pvt.py` encoder, whose stage widths are the
+decoder's vis_dim, under the same decoder without its stage and audio
+linears, TPAVI reading VGGish features (B, T, 128) as they are.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from torch import nn
 
 from ..configs import AVSHeadConfig, SwinConfig
-from ..nn import swin
+from ..nn import pvt, swin
 from ..nn.decoder import (ASPP, FFB, OutputConv, aspp_apply, ffb_apply,
                           output_conv_apply)
 from ..nn.tpavi import TPAVI, tpavi_apply
@@ -51,6 +54,62 @@ class AVSModel(nn.Module):
             raise ValueError(f"AVS takes a two-stream Swin tower, not ftmode {cfg.ftmode!r}")
         self.backbone = swin.SwinBackbone(cfg)
         self.avstask = AVSHead(hcfg)
+
+
+class PVTAVSHead(nn.Module):
+    """The PVT baseline's decoder: `conv{i}` (ASPP on the stage map, whose
+    width is already vis_dim), `path{i}`, `tpavi_b{i}` at the TPAVI stages
+    and `output_conv`; no `x{i}_linear` and no `audio_linear`."""
+
+    def __init__(self, hcfg: AVSHeadConfig):
+        super().__init__()
+        for i, vd in enumerate(hcfg.vis_dim):
+            setattr(self, f"conv{i + 1}", ASPP(vd, hcfg.channel))
+            setattr(self, f"path{i + 1}", FFB(hcfg.channel))
+        for i in hcfg.tpavi_stages:
+            setattr(self, f"tpavi_b{i + 1}", TPAVI(hcfg.channel, hcfg.tpavi_audio_dim))
+        self.output_conv = OutputConv(hcfg.channel)
+
+
+class PVTAVSModel(nn.Module):
+    """`encoder` (PVT, B5 unless `pvt_cfg` cuts it) and `avstask`."""
+
+    def __init__(self, hcfg: AVSHeadConfig, pvt_cfg=pvt.B5):
+        super().__init__()
+        self.encoder = pvt.PVT(pvt_cfg)
+        self.avstask = PVTAVSHead(hcfg)
+
+
+def apply_avs_pvt(model: PVTAVSModel, hcfg: AVSHeadConfig, audio_feat, frames, train=False,
+                  return_state=False):
+    """audio_feat: (B, T, 128) VGGish features; frames: (B*T, H, W, 3).
+    Returns (pred, feature_map_list, a_fea_list) as `apply_avs` does, and
+    the TPAVI BatchNorms' updated statistics with `return_state` (filled
+    only with `train`). TPAVI runs at every `tpavi_stages` entry, whatever
+    `tpavi_va_flag` says, as in JAX (:72-98)."""
+    hp = model.avstask
+    maps = pvt.pvt_apply(model.encoder, frames)
+    feature_map_list = [aspp_apply(getattr(hp, f"conv{i + 1}"), m) for i, m in enumerate(maps)]
+    B, T = audio_feat.shape[0], audio_feat.shape[1]
+    a_fea_list: List[Optional[torch.Tensor]] = [None] * 4
+    bn_state: Dict[str, Dict[str, torch.Tensor]] = {}
+    for i in hcfg.tpavi_stages:
+        BT, H, W, C = feature_map_list[i].shape
+        z, a_fea, stats = tpavi_apply(getattr(hp, f"tpavi_b{i + 1}"),
+                                      feature_map_list[i].reshape(B, T, H, W, C), audio_feat,
+                                      train=train)
+        if stats is not None:
+            bn_state[f"tpavi_b{i + 1}"] = stats
+        a_fea_list[i] = a_fea
+        feature_map_list[i] = z.reshape(BT, H, W, C)
+    x = ffb_apply(hp.path4, feature_map_list[3])
+    for i in (2, 1, 0):
+        x = ffb_apply(getattr(hp, f"path{i + 1}"), x, feature_map_list[i])
+    pred = output_conv_apply(hp.output_conv, x)
+    feature_map_list = [torch.relu(fm) for fm in feature_map_list]
+    if return_state:
+        return pred, feature_map_list, a_fea_list, bn_state
+    return pred, feature_map_list, a_fea_list
 
 
 def apply_avs(model: AVSModel, cfg: SwinConfig, hcfg: AVSHeadConfig, a, v, train=False,
@@ -119,21 +178,26 @@ def init_avs(cfg: SwinConfig, hcfg: AVSHeadConfig, generator: torch.Generator = 
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     model = AVSModel(cfg, hcfg)
     init_swin_(model.backbone, g)
-    with torch.no_grad():
-        for name, m in model.avstask.named_modules():
-            top = name.split(".")[0]
-            if isinstance(m, Conv2d) or isinstance(m, Linear) and top.startswith("tpavi_b"):
-                bound = m.weight[0].numel() ** -0.5
-                if top.startswith("conv"):                       # ASPP: N(0, 0.01)
-                    m.weight.normal_(0.0, 0.01, generator=g)
-                else:
-                    _uniform_(m.weight, bound, g)
-                _uniform_(m.bias, bound, g)
-            elif isinstance(m, Linear):
-                nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=g)
-            elif isinstance(m, BatchNorm):
-                m.weight.zero_()
+    _init_head_(model.avstask, g)
     return model.to(device)
+
+
+@torch.no_grad()
+def _init_head_(head: nn.Module, g: torch.Generator):
+    """The decoder's initialization, as `init_avs` describes it."""
+    for name, m in head.named_modules():
+        top = name.split(".")[0]
+        if isinstance(m, Conv2d) or isinstance(m, Linear) and top.startswith("tpavi_b"):
+            bound = m.weight[0].numel() ** -0.5
+            if top.startswith("conv"):                       # ASPP: N(0, 0.01)
+                m.weight.normal_(0.0, 0.01, generator=g)
+            else:
+                _uniform_(m.weight, bound, g)
+            _uniform_(m.bias, bound, g)
+        elif isinstance(m, Linear):
+            nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=g)
+        elif isinstance(m, BatchNorm):
+            m.weight.zero_()
 
 
 def random_avs(cfg: SwinConfig, hcfg: AVSHeadConfig, seed: int) -> AVSModel:
@@ -148,18 +212,65 @@ def random_avs(cfg: SwinConfig, hcfg: AVSHeadConfig, seed: int) -> AVSModel:
     g = torch.Generator().manual_seed(seed)
     model = AVSModel(cfg, hcfg)
     random_swin_(model.backbone, g)
-    with torch.no_grad():
-        for m in model.avstask.modules():
-            if isinstance(m, (Conv2d, Linear)):
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
-                _uniform_(m.weight, bound, g)
-                _uniform_(m.bias, bound, g)
-            elif isinstance(m, LayerNorm):
-                m.weight.normal_(1.0, 0.1, generator=g)
-                m.bias.normal_(0.0, 0.02, generator=g)
-            elif isinstance(m, BatchNorm):
-                m.weight.normal_(1.0, 0.2, generator=g)
-                m.bias.normal_(0.0, 0.1, generator=g)
-                m.running_mean.normal_(0.0, 0.1, generator=g)
-                m.running_var.uniform_(0.5, 1.5, generator=g)
+    _random_(model.avstask, g)
+    return model
+
+
+@torch.no_grad()
+def _random_(module: nn.Module, g: torch.Generator):
+    """Every conv and linear weight and bias uniform(+-1/sqrt(fan_in)),
+    LayerNorms and BatchNorms live, as `random_avs` describes its head."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            _uniform_(m.weight, bound, g)
+            _uniform_(m.bias, bound, g)
+        elif isinstance(m, LayerNorm):
+            m.weight.normal_(1.0, 0.1, generator=g)
+            m.bias.normal_(0.0, 0.02, generator=g)
+        elif isinstance(m, BatchNorm):
+            m.weight.normal_(1.0, 0.2, generator=g)
+            m.bias.normal_(0.0, 0.1, generator=g)
+            m.running_mean.normal_(0.0, 0.1, generator=g)
+            m.running_var.uniform_(0.5, 1.5, generator=g)
+
+
+@torch.no_grad()
+def _init_pvt_(enc: pvt.PVT, g: torch.Generator):
+    """PVT's initialization (JAX `pvt_init`): every conv weight
+    N(0, 2 / fan_out) with fan_out = kh kw C_out / groups (9 for the
+    depthwise conv) and a zero bias;
+    linears trunc_normal(0.02) with zero biases; unit LayerNorms."""
+    for name, m in enc.named_modules():
+        if isinstance(m, Conv2d):
+            c_out, _, kh, kw = m.weight.shape
+            fan_out = kh * kw * (1 if name.endswith("dwconv") else c_out)
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=g)
+            m.bias.zero_()
+        elif isinstance(m, Linear):
+            nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=g)
+            m.bias.zero_()
+
+
+def init_avs_pvt(hcfg: AVSHeadConfig, generator: torch.Generator = None, device="cuda",
+                 pvt_cfg=pvt.B5) -> PVTAVSModel:
+    """A PVTAVSModel with the JAX `init_avs_pvt` distributions, drawn on the
+    CPU from `generator` (seed 0 if none), then moved to `device`: the
+    encoder as `pvt_init`'s (`_init_pvt_`), the decoder as `init_avs`'s."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = PVTAVSModel(hcfg, pvt_cfg)
+    _init_pvt_(model.encoder, g)
+    _init_head_(model.avstask, g)
+    return model.to(device)
+
+
+def random_avs_pvt(hcfg: AVSHeadConfig, seed: int, pvt_cfg=pvt.B5) -> PVTAVSModel:
+    """A PVTAVSModel on the CPU with every leaf drawn from one seeded
+    generator, for smoke runs and measurements: the encoder and the decoder
+    as `random_avs`'s head (uniform(+-1/sqrt(fan_in)) convs and linears,
+    live LayerNorms and BatchNorms)."""
+    g = torch.Generator().manual_seed(seed)
+    model = PVTAVSModel(hcfg, pvt_cfg)
+    _random_(model, g)
     return model

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..runtime.mesh import draw_rows
 from .common import Linear, linear
 
 
@@ -97,9 +98,14 @@ class MultiheadAttention(nn.Module):
 def attn_dropout_keep(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
     """The keep mask of a dropout on attention weights: Bernoulli(1 - rate)
     drawn by `torch.bernoulli` from `generator` (on the generator's own
-    device, then moved to `device`), as a bool tensor of `shape`."""
-    probs = torch.full(shape, 1.0 - rate, device=generator.device)
-    return torch.bernoulli(probs, generator=generator).to(device=device, dtype=torch.bool)
+    device, then moved to `device`), as a bool tensor of `shape`; inside a
+    mesh step, drawn for the global batch and sliced to this rank's rows
+    (`runtime/mesh.py::draw_rows`)."""
+    def draw(s):
+        return torch.bernoulli(torch.full(s, 1.0 - rate, device=generator.device),
+                               generator=generator)
+
+    return draw_rows(draw, shape).to(device=device, dtype=torch.bool)
 
 
 def attn_dropout_apply(attn: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:

@@ -16,8 +16,16 @@ native library is not built), `video_requests` (OpenCV) and `serve_stream`,
 which overlaps host decode with the card's work and moves each micro-batch
 to the card through pinned memory, uint8 frames and float32 waves, for the
 device pipelines of `data/loader.py`. `share_frozen_tower` (:23) makes the
-served models of several tasks share one frozen tower. The mesh and shard
-options are not ported yet (ROADMAP.md).
+served models of several tasks share one frozen tower.
+
+With a `mesh` (`runtime/mesh.py`, JAX :62-74 and :109-122) every rank is
+given the whole batch, runs its rows over 'data' and all-gathers the
+outputs over 'data', so every rank returns the whole batch; a batch whose
+leading dim does not divide the 'data' extent raises (`serve_stream` pads
+its tail batch to `batch_size`, which makes a streamed batch divide it).
+The served models are replicated from the mesh's first rank, or with
+`shard_tower` stored split over 'model' (`shard_params`: each split leaf
+all-gathered right before the module that reads it).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from .models.ave import ClipAVE, SwinAVE, apply_clip_ave, apply_swin_ave
 from .models.avqa import AVQAModel, answer_avqa
 from .models.avs import AVSModel, apply_avs
 from .ops.common import cast_tree, resolve_device
+from .runtime import mesh as M
 from .train.optim import label
 
 
@@ -66,9 +75,11 @@ def share_frozen_tower(canonical: nn.Module, others: Dict[str, nn.Module]
 class MultiTaskServer:
     """Dispatches batched inference by task name."""
 
-    def __init__(self, dtype=torch.bfloat16, device="cuda"):
+    def __init__(self, dtype=torch.bfloat16, device="cuda", mesh=None, shard_tower=False):
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.shard_tower = shard_tower
         self._fns: Dict[str, Callable] = {}
         self._reads: Dict[str, Tuple[str, ...]] = {}    # the inputs each task copies
         self.models: Dict[str, torch.nn.Module] = {}    # the cast copy each task serves
@@ -77,14 +88,14 @@ class MultiTaskServer:
         """Serve a Swin AVE `model` of any ftmode, float or with an int8 tower
         (left as it is: the server keeps a cast copy). A `videoonly` task's
         batches need no "a", an `audioonly` task's no "v"."""
-        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
+        m = self.models[name] = self._place(model)
         self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch.get("a"), batch.get("v"))
         self._reads[name] = ("a", "v")
 
     def add_avs(self, name: str, cfg: SwinConfig, hcfg: AVSHeadConfig, model: AVSModel):
         """Serve an AVS `model` (left as it is: the server keeps a cast copy):
         a request {"a", "v"} -> the mask logits `pred` (B*T, H, W, 1)."""
-        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
+        m = self.models[name] = self._place(model)
         self._fns[name] = lambda batch: apply_avs(m, cfg, hcfg, batch["a"], batch["v"])[0]
         self._reads[name] = ("a", "v")
 
@@ -92,7 +103,7 @@ class MultiTaskServer:
         """Serve a CLIP AVE `model` of any ftmode, float or with an int8 tower
         (left as it is: the server keeps a cast copy). A `videoonly` task's
         batches need no "a", an `audioonly` task's no "v"."""
-        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
+        m = self.models[name] = self._place(model)
         self._fns[name] = lambda batch: apply_clip_ave(m, cfg, batch.get("a"), batch.get("v"))
         self._reads[name] = ("a", "v")
 
@@ -102,10 +113,19 @@ class MultiTaskServer:
         answer_dim), through `answer_avqa`, as the JAX server's compiled
         `apply_avqa(...)[0]`. out_qa does not read v_nega, so v_nega stays
         on the host."""
-        m = self.models[name] = cast_tree(model, self.dtype).to(self.device).eval()
+        m = self.models[name] = self._place(model)
         self._fns[name] = lambda batch: answer_avqa(m, cfg, hcfg, batch["a"], batch["v"],
                                                     batch["question"])
         self._reads[name] = ("a", "v", "question")
+
+    def _place(self, model: nn.Module) -> nn.Module:
+        """The served copy: cast to the serving dtype, on the server's
+        device, and under a mesh replicated or split (`shard_tower`)."""
+        m = cast_tree(model, self.dtype).to(self.device).eval()
+        if self.mesh is None:
+            return m
+        M.replicate(m, self.mesh)
+        return M.shard_params(m, self.mesh) if self.shard_tower else m
 
     def tasks(self):
         return sorted(self._fns)
@@ -114,15 +134,32 @@ class MultiTaskServer:
     def predict(self, task: str, batch: Dict[str, object]) -> np.ndarray:
         """batch: numpy arrays or tensors (on any device: those on the
         server's are used as they are); float inputs are cast to the serving
-        dtype on the server's device."""
+        dtype on the server's device. Under a mesh each rank gives the whole
+        batch and gets the whole output."""
+        rows = None
+        if self.mesh is not None:
+            rows = M.batch_sharding(self.mesh)
+            for k, v in batch.items():
+                if v.shape[0] % rows.count:
+                    raise ValueError(
+                        f"batch['{k}'] leading dim {v.shape[0]} does not divide the mesh's "
+                        f"data extent {rows.count}; pad the request micro-batch to a "
+                        "multiple (serve_stream does)")
         dev = {}
         for k, v in batch.items():
             if k not in self._reads[task]:
                 continue
+            if rows is not None:
+                v = v[rows.rows(v.shape[0] // rows.count)]
             t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
             t = t.to(self.device)
             dev[k] = t.to(self.dtype) if t.is_floating_point() else t
-        return self._fns[task](dev).float().cpu().numpy()
+        out = self._fns[task](dev).float()
+        if rows is not None:
+            parts = [torch.empty_like(out) for _ in range(rows.count)]
+            torch.distributed.all_gather(parts, out.contiguous(), group=rows.group)
+            out = torch.cat(parts)
+        return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,14 @@ its randomness (the train pipeline's augmentation, the head's dropout) from
 `torch.Generator().manual_seed(seed + e)`, in place of JAX's
 `fold_in(rng, e)`, and a loader with `set_epoch` is told the epoch, so a
 resumed run draws what the straight run drew.
+
+With a `mesh` (`runtime/mesh.py`, :95-100 and :149-151 of JAX's) the
+frozen tower goes through `shard_params`, the masters, the Adam state and
+the buffers are replicated from the mesh's first rank, each step takes this
+rank's rows of the global batch (`shard_batch`) and averages the masters'
+gradients over 'data' before Adam (`steps.make_train_step`), so the masters
+stay bit-identical on every rank. Every rank iterates the same loader;
+checkpoints gather the split leaves on every rank, and rank 0 writes them.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from torch import nn
 from ..checkpoint.io import load_checkpoint, save_checkpoint
 from ..checkpoint.torch_convert import average_params
 from ..metrics.stats import AverageMeter
+from ..runtime import mesh as M
 from . import optim as O
 from . import steps as S
 
@@ -44,7 +53,7 @@ class Trainer:
                  compute_dtype: torch.dtype = torch.bfloat16, metric_name: str = "acc",
                  save_every_epoch: bool = True, lr_mode: str = "cosine",
                  plateau_patience: int = 2, plateau_factor: float = 0.5,
-                 multistep=(10, 5, 0.5)):
+                 multistep=(10, 5, 0.5), mesh=None):
         """loss_fn(model, batch, generator) -> (loss, aux); eval_fn(model,
         batches) -> {metric: value, "_stats": per-class stats (optional)}.
         lr_mode mirrors the reference scheduler selection
@@ -80,7 +89,13 @@ class Trainer:
         S.init_train_state(model, freeze_base)
         self.opt = O.build_optimizer(model, base_lr, head_lr_mult, weight_decay,
                                      lr_table=lr_table, head_lr_table=head_table)
-        self.step_fn = S.make_train_step(loss_fn, self.opt, compute_dtype)
+        self.mesh = mesh
+        self._writes = mesh is None or torch.distributed.get_rank() == 0
+        if mesh is not None:
+            M.replicate(model, mesh)
+            M.shard_params(model, mesh, [n for n, p in model.named_parameters()
+                                         if not p.requires_grad])
+        self.step_fn = S.make_train_step(loss_fn, self.opt, compute_dtype, mesh)
         self.eval_fn = eval_fn
         self.n_epochs = n_epochs
         self.metric_name = metric_name
@@ -92,7 +107,10 @@ class Trainer:
         self.step_losses: List[float] = []    # each train step's loss in this run, in order
 
     def params(self) -> Dict[str, torch.Tensor]:
-        """Every parameter and buffer of the model (the JAX merged tree)."""
+        """Every parameter and buffer of the model (the JAX merged tree),
+        split leaves gathered (a collective under a mesh)."""
+        if self.mesh is not None:
+            return M.gathered_state_dict(self.model)
         return self.model.state_dict()
 
     def trainable(self) -> Dict[str, torch.Tensor]:
@@ -128,6 +146,8 @@ class Trainer:
             if isinstance(batch, dict):      # drop non-array fields (AVQA qtype strings)
                 batch = {k: v for k, v in batch.items()
                          if isinstance(v, (np.ndarray, torch.Tensor))}
+            if self.mesh is not None:
+                batch = M.shard_batch(batch, self.mesh)
             loss, aux = self.step_fn(self.model, batch, generator)
             if isinstance(aux, dict) and aux.get("state_updates"):
                 S.apply_state_updates(self.model, aux["state_updates"])
@@ -155,6 +175,8 @@ class Trainer:
         return {n: b for n, b in self.model.named_buffers() if S.bn_stat(n)}
 
     def save_state(self, epoch: int):
+        if not self._writes:
+            return
         save_checkpoint(os.path.join(self._state_dir(), "train_params"), self.trainable())
         save_checkpoint(os.path.join(self._state_dir(), "opt_state"), self.opt.state_dict())
         save_checkpoint(os.path.join(self._state_dir(), "buffers"), self.buffers())
@@ -203,7 +225,7 @@ class Trainer:
                 break
             metrics = self.validate(val_loader) if val_loader is not None else {}
             stats = metrics.pop("_stats", None)
-            if stats is not None:      # AVE/traintest_adapt_ave29.py:243-244
+            if stats is not None and self._writes:      # AVE/traintest_adapt_ave29.py:243-244
                 with open(os.path.join(self.exp_dir, f"stats_{epoch}.pickle"), "wb") as f:
                     pickle.dump(stats, f, protocol=pickle.HIGHEST_PROTOCOL)
             metric = metrics.get(self.metric_name, -loss)
@@ -211,16 +233,21 @@ class Trainer:
             self.history.append({"epoch": epoch, "loss": loss, **metrics})
             self._write_results()
             if self.save_every_epoch:
-                save_checkpoint(os.path.join(self.exp_dir, "models", f"model.{epoch}"),
-                                self.params())
+                self._save(os.path.join(self.exp_dir, "models", f"model.{epoch}"))
             if metric > self.best_metric:
                 self.best_metric, self.best_epoch = metric, epoch
-                save_checkpoint(os.path.join(self.exp_dir, "models", "best_model"),
-                                self.params())
+                self._save(os.path.join(self.exp_dir, "models", "best_model"))
             self.save_state(epoch)
         return self.history
 
+    def _save(self, path: str):
+        params = self.params()          # every rank: gathering is a collective
+        if self._writes:
+            save_checkpoint(path, params)
+
     def _write_results(self):
+        if not self._writes:
+            return
         # fixed column order (union of keys, epoch/loss first) + header row
         cols = ["epoch", "loss"]
         for row in self.history:

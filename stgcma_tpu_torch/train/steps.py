@@ -20,6 +20,7 @@ closed-over constants).
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Callable, Dict
 
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..runtime import mesh as M
 from .optim import Optimizer, trainable_mask
 
 
@@ -64,10 +66,15 @@ def _call(model: nn.Module, fn: Callable, state: Dict[str, torch.Tensor], *args)
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+                    compute_dtype: torch.dtype = torch.bfloat16, mesh=None) -> Callable:
     """loss_fn(model, batch, generator) -> (loss, aux). Returns
     train_step(model, batch, generator) -> (loss, aux): the loss and its
-    gradients in compute_dtype, the optimizer's update of the fp32 masters."""
+    gradients in compute_dtype, the optimizer's update of the fp32 masters.
+    With a `mesh` the batch is this rank's rows of the global batch: the
+    loss runs inside `runtime/mesh.py::data_parallel` (draws and batch
+    statistics of the global batch), and the masters' gradients and the
+    loss are averaged over 'data' before the update, so every rank makes
+    the same update, the one a single process makes on the whole batch."""
     frozen = {"model": lambda: None, "state": None}
 
     def frozen_casts(model):
@@ -82,8 +89,13 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         state.update({n: p.to(compute_dtype) for n, p in model.named_parameters()
                       if p.requires_grad})
         optimizer.zero_grad()
-        loss, aux = _call(model, loss_fn, state, batch, generator)
-        loss.backward()
+        with M.data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
+            loss, aux = _call(model, loss_fn, state, batch, generator)
+            loss.backward()
+        if mesh is not None:
+            loss = M.mean_over_data(
+                [loss.detach()] + [p.grad for _, p in optimizer.named_parameters()
+                                   if p.grad is not None], mesh)[0]
         optimizer.step()
         return loss.detach(), aux
 
