@@ -26,6 +26,7 @@ import torch
 from ..ops.common import resolve_device
 from ..ops.fbank import SWIN_FBANK, FbankConfig, fbank_image
 from ..runtime import mesh
+from ..runtime.profiling import annotate
 from . import transforms
 
 Pipeline = Callable[[Dict[str, object]], Tuple[torch.Tensor, torch.Tensor]]
@@ -41,10 +42,11 @@ def _pipeline(frames_fn, fbank_cfg: FbankConfig, target_length: int, norm_mean: 
 
     @torch.no_grad()
     def pipe(batch):
-        v = frames_fn(_on(batch["frames"], device))
-        a = fbank_image(_on(batch["wave"], device), fbank_cfg, target_length, norm_mean,
-                        norm_std)
-        return a, v
+        with annotate("data.pipeline"):
+            v = frames_fn(_on(batch["frames"], device))
+            a = fbank_image(_on(batch["wave"], device), fbank_cfg, target_length, norm_mean,
+                            norm_std)
+            return a, v
 
     return pipe
 
@@ -72,18 +74,19 @@ def make_ave_device_pipeline(fbank_cfg: FbankConfig = SWIN_FBANK, target_length:
 
     @torch.no_grad()
     def train_pipe(batch, generator: torch.Generator):
-        frames = _on(batch["frames"], device)
-        draws = mesh.draw_items(lambda: transforms.sample_train_transform(
-            generator, frames.shape[1:], image_size, device), len(frames))
-        v = torch.stack([transforms.train_transform_apply(clip, d, image_size)
-                         for clip, d in zip(frames, draws)])
-        wave = _on(batch["wave"], device)
-        if mixup > 0:
-            wave = mesh.gather_rows(wave)
-            wave = mesh.local_rows(transforms.mixup_apply(wave, transforms.sample_mixup(
-                generator, wave.shape[0], wave.shape[1], mixup_prob=mixup)))
-        a = fbank_image(wave, fbank_cfg, target_length, norm_mean, norm_std)
-        return a, v
+        with annotate("data.pipeline"):
+            frames = _on(batch["frames"], device)
+            draws = mesh.draw_items(lambda: transforms.sample_train_transform(
+                generator, frames.shape[1:], image_size, device), len(frames))
+            v = torch.stack([transforms.train_transform_apply(clip, d, image_size)
+                             for clip, d in zip(frames, draws)])
+            wave = _on(batch["wave"], device)
+            if mixup > 0:
+                wave = mesh.gather_rows(wave)
+                wave = mesh.local_rows(transforms.mixup_apply(wave, transforms.sample_mixup(
+                    generator, wave.shape[0], wave.shape[1], mixup_prob=mixup)))
+            a = fbank_image(wave, fbank_cfg, target_length, norm_mean, norm_std)
+            return a, v
 
     return train_pipe
 

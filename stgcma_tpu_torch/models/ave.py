@@ -19,6 +19,7 @@ from ..nn import swin
 from ..nn.clip_vit import ClipBackbone, clip_backbone_apply, init_clip_backbone_
 from ..ops.common import LayerNorm, Linear, layernorm, linear, resolve_device
 from ..ops.quant import quantize_swin_tower
+from ..runtime.profiling import annotate
 from ..runtime.mesh import draw_rows
 
 
@@ -90,14 +91,16 @@ def apply_clip_ave(model: ClipAVE, cfg: ClipConfig, a=None, v=None,
     (`apply_clip_ave` :76; `generator`: the head's training dropout, as JAX's
     `rng`). `videoonly` needs no a, `audioonly` no v. Returns logits (B*T,
     label_dim)."""
-    feats = clip_backbone_apply(model.backbone, cfg, a=a, v=v)
-    if cfg.ftmode == "videoonly":
-        pooled = feats["v"]
-    elif cfg.ftmode == "audioonly":
-        pooled = feats["a"]
-    else:
-        pooled = torch.cat([feats["a"], feats["v"]], dim=-1)
-    return mlp_head_apply(model.mlp_head, pooled, generator)
+    with annotate("model.tower"):
+        feats = clip_backbone_apply(model.backbone, cfg, a=a, v=v)
+    with annotate("model.head"):
+        if cfg.ftmode == "videoonly":
+            pooled = feats["v"]
+        elif cfg.ftmode == "audioonly":
+            pooled = feats["a"]
+        else:
+            pooled = torch.cat([feats["a"], feats["v"]], dim=-1)
+        return mlp_head_apply(model.mlp_head, pooled, generator)
 
 
 def random_clip_ave(cfg: ClipConfig, seed: int) -> ClipAVE:
@@ -188,14 +191,16 @@ def apply_swin_ave(model: SwinAVE, cfg: SwinConfig, a=None, v=None,
     two-stream modes the two are concatenated as (a, v) (Swin_AVE.py:1596).
     `videoonly` needs no a, `audioonly` no v; `generator` as in
     `apply_clip_ave`. Returns logits (B*T, label_dim)."""
-    feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
-    if cfg.ftmode == "videoonly":
-        pooled = feats["v"].mean(dim=1)
-    elif cfg.ftmode == "audioonly":
-        pooled = feats["a"].mean(dim=1)
-    else:
-        pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
-    return mlp_head_apply(model.mlp_head, pooled, generator)
+    with annotate("model.tower"):
+        feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
+    with annotate("model.head"):
+        if cfg.ftmode == "videoonly":
+            pooled = feats["v"].mean(dim=1)
+        elif cfg.ftmode == "audioonly":
+            pooled = feats["a"].mean(dim=1)
+        else:
+            pooled = torch.cat([feats["a"].mean(dim=1), feats["v"].mean(dim=1)], dim=-1)
+        return mlp_head_apply(model.mlp_head, pooled, generator)
 
 
 def random_swin_(module: nn.Module, g: torch.Generator):

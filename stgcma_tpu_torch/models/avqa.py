@@ -26,6 +26,7 @@ from ..nn.lstm import LSTM, lstm_apply
 from ..ops.attention import MultiheadAttention, mha
 from ..ops.common import LayerNorm, Linear, layernorm, linear, resolve_device
 from ..ops.quant import quantize_swin_tower
+from ..runtime.profiling import annotate
 from .ave import init_swin_, random_swin_
 
 
@@ -185,23 +186,27 @@ def apply_avqa(model: AVQAModel, cfg: SwinConfig, hcfg: AVQAHeadConfig, a, v, v_
     stream reads only frozen parameters under `freeze_base` (no temporal
     branch, no adapter; the relative-position tables frozen), so autograd
     records no graph for it there; the match MLP over it does."""
-    feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v, v_nega=v_nega)
-    hp = model.avqatask
-    audio_feat = audio_features(hp, feats["a"])
-    qst = apply_qst_encoder(hp.question_encoder, question, hcfg)
-    grd_posi, out_match_posi = _grounding_and_match(hp, audio_feat, feats["v"], hcfg)
-    _, out_match_nega = _grounding_and_match(hp, audio_feat, feats["v_nega"], hcfg)
-    out_qa = _qa(hp, hcfg, qst, grd_posi, audio_feat, feats["B"], feats["T"],
-                 generator if train else None)
+    with annotate("model.tower"):
+        feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v, v_nega=v_nega)
+    with annotate("model.head"):
+        hp = model.avqatask
+        audio_feat = audio_features(hp, feats["a"])
+        qst = apply_qst_encoder(hp.question_encoder, question, hcfg)
+        grd_posi, out_match_posi = _grounding_and_match(hp, audio_feat, feats["v"], hcfg)
+        _, out_match_nega = _grounding_and_match(hp, audio_feat, feats["v_nega"], hcfg)
+        out_qa = _qa(hp, hcfg, qst, grd_posi, audio_feat, feats["B"], feats["T"],
+                     generator if train else None)
     return out_qa, out_match_posi, out_match_nega
 
 
 def answer_avqa(model: AVQAModel, cfg: SwinConfig, hcfg: AVQAHeadConfig, a, v, question):
     """out_qa alone, as `apply_avqa(...)[0]`: the two-stream tower (no nega
     stream) and `answer_head_apply`. This is what the server runs."""
-    feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
-    return answer_head_apply(model.avqatask, hcfg, feats, question, v.shape[0],
-                             v.shape[1] // cfg.patch_size[0])
+    with annotate("model.tower"):
+        feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v)
+    with annotate("model.head"):
+        return answer_head_apply(model.avqatask, hcfg, feats, question, v.shape[0],
+                                 v.shape[1] // cfg.patch_size[0])
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from ..nn.decoder import (ASPP, FFB, OutputConv, aspp_apply, ffb_apply,
 from ..nn.tpavi import TPAVI, tpavi_apply
 from ..ops.common import LayerNorm, Linear, linear, resolve_device
 from ..ops.conv import BatchNorm, Conv2d
+from ..runtime.profiling import annotate
 from .ave import init_swin_, random_swin_
 
 
@@ -120,8 +121,10 @@ def apply_avs(model: AVSModel, cfg: SwinConfig, hcfg: AVSHeadConfig, a, v, train
     (filled only with `train`, which normalizes by the batch statistics).
     The returned maps are relu(map), as the reference's in-place ReLU inside
     the residual conv units leaves them for its caller."""
-    feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v, collect_multiscale=True)
-    return avs_head_apply(model.avstask, hcfg, feats, train, return_state)
+    with annotate("model.tower"):
+        feats = swin.backbone_apply(model.backbone, cfg, a=a, v=v, collect_multiscale=True)
+    with annotate("model.head"):
+        return avs_head_apply(model.avstask, hcfg, feats, train, return_state)
 
 
 def avs_head_apply(hp: AVSHead, hcfg: AVSHeadConfig, feats, train=False, return_state=False):

@@ -128,6 +128,7 @@ import torch
 
 from . import cuda_lib
 from .attention import cross_modal_fuse, gather_bias, temporal_table
+from ..runtime.profiling import annotate
 from .common import gelu, linear
 
 _QUICK_GELU, _GELU = "quick_gelu", "gelu"
@@ -985,7 +986,7 @@ class _Recompute(torch.autograd.Function):
             raise RuntimeError(f"{kernel.name} has no gradient: the JAX package never "
                                f"differentiates a quantized tower")
         need = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
+        with annotate(kernel.span), torch.enable_grad():
             inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
             args, kw = _unflatten(ctx.spec, inputs)
             out = kernel.recompute(*args, **kw)
@@ -1005,6 +1006,7 @@ class _Kernel:
     def __init__(self, kid, fn, plain, launch, recompute=None):
         self.id = kid
         self.name = f"{fn} ({kid})"
+        self.span = f"train.recompute.{kid}"      # `_Recompute.backward`'s span
         self.plain = plain
         self.recompute = recompute
         self._launch = launch

@@ -1,29 +1,27 @@
-"""Tracing and profiling: torch.profiler traces with named regions, step
-meters with the reference's per-sample total / data / DNN split, and an
+"""Tracing and profiling: torch.profiler traces with named spans, and an
 analytic counter of operations and bytes.
 
 Port of `stgcma_tpu/runtime/profiling.py`: `trace` (:20) and `annotate`
 (:29) over `torch.profiler` (the card's kernels through CUPTI where there is
-one) and NVTX; `StepMeters` (:34, AverageMeter wall clock, SURVEY §5,
-AVE/traintest_adapt_ave29.py:19,151-186) copied; `cost_analysis` (:68),
-which JAX reads from XLA's cost analysis, counted here op by op while the
-function runs: the flops by `torch.utils.flop_counter.FlopCounterMode`, the
-bytes as each aten op's inputs read once and outputs written once (views
-move none), which is what XLA counts for an unfused op.
+one) and NVTX, `annotate` free while no session records; `cost_analysis`
+(:68), which JAX reads from XLA's cost analysis, counted here op by op while
+the function runs: the flops by `torch.utils.flop_counter.FlopCounterMode`,
+the bytes as each aten op's inputs read once and outputs written once (views
+move none), which is what XLA counts for an unfused op. The JAX package's
+`StepMeters` has no counterpart: its data / DNN split timed the host's
+enqueue, not the card.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
+from torch.autograd import profiler as _profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
-
-from ..metrics.stats import AverageMeter
 
 
 @contextlib.contextmanager
@@ -43,9 +41,7 @@ def trace(log_dir: str):
 
 
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named region of a trace (`record_function`), and an NVTX range on
-    the card's timeline where CUDA is available."""
+def _span(name: str):
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
@@ -57,42 +53,17 @@ def annotate(name: str):
             torch.cuda.nvtx.range_pop()
 
 
-class StepMeters:
-    """per-sample total / data-loading / DNN-compute wall-clock, printed every
-    n_print_steps like the reference engine."""
+_OFF = contextlib.nullcontext()
 
-    def __init__(self, n_print_steps: int = 100):
-        self.total = AverageMeter()
-        self.data = AverageMeter()
-        self.dnn = AverageMeter()
-        self.loss = AverageMeter()
-        self.n_print = n_print_steps
-        self._t0 = time.time()
-        self._step = 0
 
-    def data_loaded(self, batch_size: int):
-        now = time.time()
-        self.data.update((now - self._t0) / batch_size, batch_size)
-        self._t_data = now
-
-    def step_done(self, batch_size: int, loss: Optional[float] = None):
-        now = time.time()
-        self.dnn.update((now - self._t_data) / batch_size, batch_size)
-        self.total.update((now - self._t0) / batch_size, batch_size)
-        if loss is not None:
-            self.loss.update(loss, batch_size)
-        self._t0 = now
-        self._step += 1
-        if self._step % self.n_print == 0:
-            print(f"step {self._step}: per-sample total {self.total.avg*1e3:.2f} ms "
-                  f"(data {self.data.avg*1e3:.2f} ms, dnn {self.dnn.avg*1e3:.2f} ms)"
-                  f" loss {self.loss.avg:.4f}", flush=True)
-
-    def report(self) -> Dict[str, float]:
-        return {"per_sample_total_s": self.total.avg,
-                "per_sample_data_s": self.data.avg,
-                "per_sample_dnn_s": self.dnn.avg,
-                "loss": self.loss.avg}
+def annotate(name: str):
+    """A named span, as a context manager: while a torch.profiler session
+    records, a `record_function(name)` region, which sits in the session's
+    Chrome trace on the clock of the card's kernels and copies, and an NVTX
+    range where CUDA is available; otherwise nothing beyond reading the
+    profiler's flag. The port's spans (`serve.*`, `model.*`, `data.*`,
+    `train.*`) are named in PERF.md §3."""
+    return _span(name) if _profiler._is_profiler_enabled else _OFF
 
 
 def _nbytes(tree) -> int:

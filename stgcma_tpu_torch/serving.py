@@ -45,6 +45,7 @@ from .models.avqa import AVQAModel, answer_avqa
 from .models.avs import AVSModel, apply_avs
 from .ops.common import cast_tree, resolve_device
 from .runtime import mesh as M
+from .runtime.profiling import annotate
 from .train.optim import label
 
 
@@ -135,31 +136,37 @@ class MultiTaskServer:
         """batch: numpy arrays or tensors (on any device: those on the
         server's are used as they are); float inputs are cast to the serving
         dtype on the server's device. Under a mesh each rank gives the whole
-        batch and gets the whole output."""
-        rows = None
-        if self.mesh is not None:
-            rows = M.batch_sharding(self.mesh)
-            for k, v in batch.items():
-                if v.shape[0] % rows.count:
-                    raise ValueError(
-                        f"batch['{k}'] leading dim {v.shape[0]} does not divide the mesh's "
-                        f"data extent {rows.count}; pad the request micro-batch to a "
-                        "multiple (serve_stream does)")
-        dev = {}
-        for k, v in batch.items():
-            if k not in self._reads[task]:
-                continue
-            if rows is not None:
-                v = v[rows.rows(v.shape[0] // rows.count)]
-            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-            t = t.to(self.device)
-            dev[k] = t.to(self.dtype) if t.is_floating_point() else t
-        out = self._fns[task](dev).float()
-        if rows is not None:
-            parts = [torch.empty_like(out) for _ in range(rows.count)]
-            torch.distributed.all_gather(parts, out.contiguous(), group=rows.group)
-            out = torch.cat(parts)
-        return out.cpu().numpy()
+        batch and gets the whole output. Spans: `serve.request` ⊃
+        {`serve.copy_in`, `serve.forward`, `serve.copy_out`}."""
+        with annotate("serve.request"):
+            rows = None
+            if self.mesh is not None:
+                rows = M.batch_sharding(self.mesh)
+                for k, v in batch.items():
+                    if v.shape[0] % rows.count:
+                        raise ValueError(
+                            f"batch['{k}'] leading dim {v.shape[0]} does not divide the mesh's "
+                            f"data extent {rows.count}; pad the request micro-batch to a "
+                            "multiple (serve_stream does)")
+            dev = {}
+            with annotate("serve.copy_in"):
+                for k, v in batch.items():
+                    if k not in self._reads[task]:
+                        continue
+                    if rows is not None:
+                        v = v[rows.rows(v.shape[0] // rows.count)]
+                    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                    t = t.to(self.device)
+                    dev[k] = t.to(self.dtype) if t.is_floating_point() else t
+            with annotate("serve.forward"):
+                out = self._fns[task](dev)
+            with annotate("serve.copy_out"):
+                out = out.float()
+                if rows is not None:
+                    parts = [torch.empty_like(out) for _ in range(rows.count)]
+                    torch.distributed.all_gather(parts, out.contiguous(), group=rows.group)
+                    out = torch.cat(parts)
+                return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

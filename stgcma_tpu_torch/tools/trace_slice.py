@@ -15,14 +15,10 @@ Swin-Base with `--preset swin_base`) at T = 5 frames with its multi-scale
 taps, TPAVI and the FPN decoder, bf16. `avqa` serves MUSIC-AVQA
 (`add_avqa`): Swin-Large fusion (or Swin-Base) at T = 10 frames with the
 question LSTM, grounding and QA attention, bf16 or with `--int8`; its
-request carries v_nega, which the server leaves on the host. For `avs` and
-`avqa`, beside the request's trace it traces the tower and the head once
-each on the inputs already on the card and prints the device time of each,
-so that the request's device time splits into the host-to-device copy, the
-tower and the head. For `avqa` it also traces the tower with v_nega (the
-three-output forward of training) and each stage (`swin.stage_apply`) over
-the fused pair and over the triple, so that the nega stream's device time
-splits by stage.
+request carries v_nega, which the server leaves on the host. For `avqa` it
+also traces the tower with v_nega (the three-output forward of training)
+and each stage (`swin.stage_apply`) over the fused pair and over the
+triple, so that the nega stream's device time splits by stage.
 With `--fused` the CLIP model also serves
 both towers in the fused-block configuration (STGCMA_CLIP_TADAPT_FUSED=1 and
 STGCMA_CLIP_WHOLE_BLOCK=1: K13 twice and K12 once a block); with `--qfuse`
@@ -36,11 +32,15 @@ library kernels (cuBLAS, cuDNN, PyTorch's attention) are listed by name: in
 the fused configuration only the embed's convolutions and the head's two
 linears remain, whatever the depth. For each task it
 prints the median wall time of 5 untraced B = 8 requests, then traces
-one request with torch.profiler and prints the device time summed over all
-kernels (and without the host-to-device copies of the inputs), the share of the untraced wall time it covers (the rest is the
-device idle, waiting on the host), and the kernels that took the most device
-time. The Chrome trace of each mode is written to DIR (default
-build/trace). Needs a CUDA device.
+one request with torch.profiler and prints its wall (the `serve.request`
+span), the device time of the work it launched (and without the
+host-to-device copies of the inputs), the share of its wall that covers
+(the rest is the device idle, waiting on the host), the request's device
+time split by the port's spans into the copy in (`serve.copy_in`), the
+tower (`model.tower`), the head (`model.head`) and the copy out
+(`serve.copy_out`), and the kernels that took the most device time. The
+Chrome trace of each mode is written to DIR (default build/trace). Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -58,8 +58,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import AVQAHeadConfig, AVSHeadConfig, clip_b16, clip_l14, swin_base, swin_large
 from ..models.ave import random_clip_ave, random_swin_ave
-from ..models.avqa import answer_head_apply, random_avqa
-from ..models.avs import avs_head_apply, random_avs
+from ..models.avqa import random_avqa
+from ..models.avs import random_avs
 from ..nn import swin
 from ..ops.quant import quantize_clip_tower
 from ..serving import MultiTaskServer
@@ -77,6 +77,9 @@ LIBRARY_KERNELS = ("cublas", "nvjet", "cutlass", "cudnn", "xmma", "gemm", "gemv"
 PORT_KERNELS = ("gemm_wgmma_kernel", "attn_small_kernel", "attn_resident_kernel",
                 "attn_stream_kernel", "quant_rows_kernel", "ln_rows_kernel", "fuse_kernel",
                 "pair_kernel", "tattn_kernel", "rowadapt_kernel", "ffn_kernel")
+# the request's spans (`serving.py::MultiTaskServer.predict`, `models/*.py`)
+SPLIT = ("serve.copy_in", "model.tower", "model.head", "serve.copy_out")
+SPANS = ("serve.", "model.")
 
 
 def main(argv=None) -> int:
@@ -120,7 +123,7 @@ def main(argv=None) -> int:
         hcfg = AVQAHeadConfig(feat_dim=cfg.num_features, grid=7, num_frames=cfg.num_frames)
         task = f"avqa_{preset}_fusion_{'int8' if args.int8 else 'bf16'}"
         srv.add_avqa(task, cfg, hcfg, random_avqa(cfg, hcfg, args.seed, int8=args.int8))
-        avqa = (cfg, hcfg)
+        avqa = cfg
         n, T = cfg.img_size, cfg.num_frames
         batch = {"a": rng.randn(B, T, n, n).astype(np.float32),
                  "v": rng.randn(B, T, n, n, 3).astype(np.float32),
@@ -132,7 +135,7 @@ def main(argv=None) -> int:
                              audio_dim=cfg.num_features, num_frames=cfg.num_frames)
         model = random_avs(cfg, hcfg, args.seed)
         srv.add_avs(f"avs_{preset}_fusion_bf16", cfg, hcfg, model)
-        avs = (cfg, hcfg)
+        avs = cfg
         n = cfg.img_size
         batch = {"a": rng.randn(B, cfg.num_frames, n, n).astype(np.float32),
                  "v": rng.randn(B, cfg.num_frames, n, n, 3).astype(np.float32)}
@@ -180,9 +183,13 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             srv.predict(task, batch)
         prof.export_chrome_trace(os.path.join(args.out, f"{task}.json"))
+        avg = prof.key_averages()
         # device-side rows only (kernels, copies): the CPU ops' rows repeat them
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in rows)
+        rows = [e for e in avg if e.device_type == DeviceType.CUDA and not e.key.startswith(SPANS)]
+        # a span's device time: the work launched inside it, its children's too
+        span = {e.key: e for e in avg if e.device_type == DeviceType.CPU and e.key.startswith(SPANS)}
+        req = span["serve.request"]
+        dev_us, req_us = req.device_time_total, req.cpu_time_total
         h2d_us = sum(e.self_device_time_total for e in rows if "HtoD" in e.key)
         port = [e for e in rows if any(k in e.key for k in PORT_KERNELS)]
         port_us = sum(e.self_device_time_total for e in port)
@@ -191,11 +198,13 @@ def main(argv=None) -> int:
         print(f"[{task}] untraced request: median {wall * 1e3:.2f} ms of {len(walls)} "
               f"(min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}) = "
               f"{B / wall:.2f} clips/s")
-        print(f"[{task}] traced request: device time {dev_us / 1e3:.2f} ms = "
-              f"{100 * dev_us / 1e3 / (wall * 1e3):.1f}% of the untraced wall time, "
+        print(f"[{task}] traced request: {req_us / 1e3:.2f} ms, device time {dev_us / 1e3:.2f} "
+              f"ms = {100 * dev_us / req_us:.1f}% of it, "
               f"{(dev_us - h2d_us) / 1e3:.2f} ms without the host-to-device copies; "
               f"port kernels {port_us / 1e3:.2f} ms ({100 * port_us / max(dev_us, 1):.1f}% "
               f"of device time)")
+        print(f"[{task}] split of its device time: " + ", ".join(
+            f"{k} {span[k].device_time_total / 1e3:.3f} ms" for k in SPLIT if k in span))
         if args.fused or args.qfuse:
             print(f"[{task}] library kernels: {sum(e.count for e in library)} launches, "
                   f"{sum(e.self_device_time_total for e in library) / 1e3:.3f} ms: "
@@ -210,9 +219,11 @@ def main(argv=None) -> int:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:110]}")
         if avs is not None:
-            trace_avs_parts(task, *avs, srv.models[task], batch, h2d_us, wall, args.out)
+            print(f"[{task}] {B * avs.num_ttokens / wall:.2f} masks/s untraced ({B} clips of "
+                  f"{avs.num_ttokens} frames)")
         if avqa is not None:
-            trace_avqa_parts(task, *avqa, srv.models[task], batch, h2d_us, wall, args.out)
+            a, v = (torch.as_tensor(batch[k]).to("cuda", torch.bfloat16) for k in ("a", "v"))
+            trace_nega_stages(task, avqa, srv.models[task], a, v, batch, args.out)
     return 0
 
 
@@ -224,59 +235,6 @@ def _device_rows(fn, path):
         torch.cuda.synchronize()
     prof.export_chrome_trace(path)
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], out
-
-
-def trace_avs_parts(task, cfg, hcfg, model, batch, h2d_us, wall, out_dir):
-    """The AVS request split on the served `model` (the server's own cast
-    copy): the tower (`backbone_apply` with the taps) and the decoder
-    (`avs_head_apply`), each traced once on inputs already on the card,
-    beside the request's host-to-device copy and untraced wall time."""
-    a, v = (torch.as_tensor(batch[k]).to("cuda", torch.bfloat16) for k in ("a", "v"))
-    with torch.inference_mode():
-        def tower():
-            return swin.backbone_apply(model.backbone, cfg, a=a, v=v, collect_multiscale=True)
-        feats = tower()                                   # warm-up
-        avs_head_apply(model.avstask, hcfg, feats)
-        tower_rows, feats = _device_rows(tower, os.path.join(out_dir, f"{task}_tower.json"))
-        head_rows, _ = _device_rows(lambda: avs_head_apply(model.avstask, hcfg, feats),
-                                    os.path.join(out_dir, f"{task}_head.json"))
-    tower_us, head_us = (sum(e.self_device_time_total for e in rows)
-                         for rows in (tower_rows, head_rows))
-    print(f"[{task}] the head's kernels, by device time:")
-    for e in sorted(head_rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
-    frames = B * cfg.num_ttokens
-    print(f"[{task}] split: host-to-device copy {h2d_us / 1e3:.3f} ms, tower {tower_us / 1e3:.2f} "
-          f"ms, head {head_us / 1e3:.2f} ms of device time; untraced wall {wall * 1e3:.2f} ms = "
-          f"{frames / wall:.2f} masks/s ({B} clips of {cfg.num_ttokens} frames)")
-
-
-def trace_avqa_parts(task, cfg, hcfg, model, batch, h2d_us, wall, out_dir):
-    """The AVQA request split on the served `model` (the server's own cast
-    copy): the two-stream tower (`backbone_apply`) and the head
-    (`answer_head_apply`: the question encoder, the grounding and the two
-    attentions), each traced once on inputs already on the card, beside the
-    request's host-to-device copy and untraced wall time."""
-    a, v = (torch.as_tensor(batch[k]).to("cuda", torch.bfloat16) for k in ("a", "v"))
-    q = torch.as_tensor(batch["question"]).to("cuda")
-    T = cfg.num_ttokens
-    with torch.inference_mode():
-        def tower():
-            return swin.backbone_apply(model.backbone, cfg, a=a, v=v)
-        feats = tower()                                   # warm-up
-        answer_head_apply(model.avqatask, hcfg, feats, q, B, T)
-        tower_rows, feats = _device_rows(tower, os.path.join(out_dir, f"{task}_tower.json"))
-        head_rows, _ = _device_rows(lambda: answer_head_apply(model.avqatask, hcfg, feats, q, B, T),
-                                    os.path.join(out_dir, f"{task}_head.json"))
-    tower_us, head_us = (sum(e.self_device_time_total for e in rows)
-                         for rows in (tower_rows, head_rows))
-    print(f"[{task}] the head's kernels, by device time:")
-    for e in sorted(head_rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
-    print(f"[{task}] split: host-to-device copy {h2d_us / 1e3:.3f} ms, tower {tower_us / 1e3:.2f} "
-          f"ms, head {head_us / 1e3:.2f} ms of device time; untraced wall {wall * 1e3:.2f} ms = "
-          f"{B / wall:.2f} clips/s ({B} clips of {T} frames, v_nega not copied)")
-    trace_nega_stages(task, cfg, model, a, v, batch, out_dir)
 
 
 def trace_nega_stages(task, cfg, model, a, v, batch, out_dir):

@@ -29,6 +29,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..runtime import mesh as M
+from ..runtime.profiling import annotate
 from .optim import Optimizer, trainable_mask
 
 
@@ -74,7 +75,9 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     loss runs inside `runtime/mesh.py::data_parallel` (draws and batch
     statistics of the global batch), and the masters' gradients and the
     loss are averaged over 'data' before the update, so every rank makes
-    the same update, the one a single process makes on the whole batch."""
+    the same update, the one a single process makes on the whole batch.
+    Spans: `train.step` ⊃ {`train.cast` (the masters' casts, zero_grad),
+    `train.loss`, `train.backward`, `train.optim`}."""
     frozen = {"model": lambda: None, "state": None}
 
     def frozen_casts(model):
@@ -85,19 +88,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         return frozen["state"]
 
     def train_step(model: nn.Module, batch, generator: torch.Generator = None):
-        state = dict(frozen_casts(model))
-        state.update({n: p.to(compute_dtype) for n, p in model.named_parameters()
-                      if p.requires_grad})
-        optimizer.zero_grad()
-        with M.data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
-            loss, aux = _call(model, loss_fn, state, batch, generator)
-            loss.backward()
-        if mesh is not None:
-            loss = M.mean_over_data(
-                [loss.detach()] + [p.grad for _, p in optimizer.named_parameters()
-                                   if p.grad is not None], mesh)[0]
-        optimizer.step()
-        return loss.detach(), aux
+        with annotate("train.step"):
+            with annotate("train.cast"):
+                state = dict(frozen_casts(model))
+                state.update({n: p.to(compute_dtype) for n, p in model.named_parameters()
+                              if p.requires_grad})
+                optimizer.zero_grad()
+            with M.data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
+                with annotate("train.loss"):
+                    loss, aux = _call(model, loss_fn, state, batch, generator)
+                with annotate("train.backward"):
+                    loss.backward()
+            if mesh is not None:
+                loss = M.mean_over_data(
+                    [loss.detach()] + [p.grad for _, p in optimizer.named_parameters()
+                                       if p.grad is not None], mesh)[0]
+            with annotate("train.optim"):
+                optimizer.step()
+            return loss.detach(), aux
 
     return train_step
 

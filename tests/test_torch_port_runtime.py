@@ -1,5 +1,5 @@
 """The port's runtime against the JAX package's: `runtime/profiling.py`
-(`StepMeters`, `cost_analysis` reading XLA's 524288 flops and 49152 bytes
+(`cost_analysis` reading XLA's 524288 flops and 49152 bytes
 for a (64, 64) fp32 matmul, `trace` / `annotate` writing a trace that holds
 the region) and `runtime/mesh.py` (`param_spec` on every 2-D leaf of the
 tiny Swin and CLIP fusion AVE, the split dim mapped through the (in, out)
@@ -63,26 +63,6 @@ def test_every_jax_module_has_a_port_counterpart():
         if not (port_root / RENAMED.get(rel, rel)).is_file():
             missing.append(rel)
     assert not missing, missing
-
-
-def test_step_meters_match_jax(monkeypatch):
-    clock = iter(np.arange(0.0, 100.0, 0.25))
-    now = {"t": 0.0}
-
-    def tick():
-        now["t"] = next(clock)
-        return now["t"]
-
-    reports = []
-    for mod in (JP, PP):
-        monkeypatch.setattr(mod.time, "time", tick)
-        m = mod.StepMeters(n_print_steps=2)
-        for step in range(3):
-            m.data_loaded(4)
-            m.step_done(4, loss=1.0 + step)
-        reports.append(m.report())
-    assert reports[0] == reports[1]
-    assert reports[1]["loss"] == 2.0
 
 
 def test_cost_analysis_matches_jax():
