@@ -129,35 +129,43 @@ def apply_avs(model: AVSModel, cfg: SwinConfig, hcfg: AVSHeadConfig, a, v, train
 
 def avs_head_apply(hp: AVSHead, hcfg: AVSHeadConfig, feats, train=False, return_state=False):
     """The decoder over `backbone_apply(..., collect_multiscale=True)`'s
-    output; returns as `apply_avs` does."""
+    output; returns as `apply_avs` does. Spans, in order: `model.head.audio`
+    (the audio linear), `model.head.taps` (each stage's linear and ASPP),
+    `model.head.tpavi`, `model.head.fpn` (the fusion blocks, and the relu'd
+    maps they leave), `model.head.out` (the output convolutions)."""
     B, T = feats["B"], feats["T"]
-    # pooled audio per frame -> the TPAVI conditioning
-    audio_feature = linear(hp.audio_linear, feats["a"].mean(dim=1).reshape(B, T, -1))
+    with annotate("model.head.audio"):
+        # pooled audio per frame -> the TPAVI conditioning
+        audio_feature = linear(hp.audio_linear, feats["a"].mean(dim=1).reshape(B, T, -1))
     feature_map_list = []
-    for i, tap in enumerate(feats["multi_scale"]):
-        r = hcfg.stage_resolutions[i]
-        x = linear(getattr(hp, f"x{i + 1}_linear"), tap.reshape(tap.shape[0], r, r, -1))
-        feature_map_list.append(aspp_apply(getattr(hp, f"conv{i + 1}"), x))
+    with annotate("model.head.taps"):
+        for i, tap in enumerate(feats["multi_scale"]):
+            r = hcfg.stage_resolutions[i]
+            x = linear(getattr(hp, f"x{i + 1}_linear"), tap.reshape(tap.shape[0], r, r, -1))
+            feature_map_list.append(aspp_apply(getattr(hp, f"conv{i + 1}"), x))
     n = len(hcfg.stage_dims)
     a_fea_list: List[Optional[torch.Tensor]] = [None] * n
     bn_state: Dict[str, Dict[str, torch.Tensor]] = {}
-    for i in hcfg.tpavi_stages:
-        if not hcfg.tpavi_va_flag:
-            continue
-        BT, H, W, C = feature_map_list[i].shape
-        z, a_fea, stats = tpavi_apply(getattr(hp, f"tpavi_b{i + 1}"),
-                                      feature_map_list[i].reshape(B, T, H, W, C),
-                                      audio_feature, train=train)
-        if stats is not None:
-            bn_state[f"tpavi_b{i + 1}"] = stats
-        a_fea_list[i] = a_fea
-        feature_map_list[i] = z.reshape(BT, H, W, C)
-    # FPN top-down decode, each path upsampling 2x (path4 -> path1, :1887-1890)
-    x = ffb_apply(getattr(hp, f"path{n}"), feature_map_list[-1])
-    for i in range(n - 2, -1, -1):
-        x = ffb_apply(getattr(hp, f"path{i + 1}"), x, feature_map_list[i])
-    pred = output_conv_apply(hp.output_conv, x)
-    feature_map_list = [torch.relu(fm) for fm in feature_map_list]
+    with annotate("model.head.tpavi"):
+        for i in hcfg.tpavi_stages:
+            if not hcfg.tpavi_va_flag:
+                continue
+            BT, H, W, C = feature_map_list[i].shape
+            z, a_fea, stats = tpavi_apply(getattr(hp, f"tpavi_b{i + 1}"),
+                                          feature_map_list[i].reshape(B, T, H, W, C),
+                                          audio_feature, train=train)
+            if stats is not None:
+                bn_state[f"tpavi_b{i + 1}"] = stats
+            a_fea_list[i] = a_fea
+            feature_map_list[i] = z.reshape(BT, H, W, C)
+    with annotate("model.head.fpn"):
+        # FPN top-down decode, each path upsampling 2x (path4 -> path1, :1887-1890)
+        x = ffb_apply(getattr(hp, f"path{n}"), feature_map_list[-1])
+        for i in range(n - 2, -1, -1):
+            x = ffb_apply(getattr(hp, f"path{i + 1}"), x, feature_map_list[i])
+        feature_map_list = [torch.relu(fm) for fm in feature_map_list]
+    with annotate("model.head.out"):
+        pred = output_conv_apply(hp.output_conv, x)
     if return_state:
         return pred, feature_map_list, a_fea_list, bn_state
     return pred, feature_map_list, a_fea_list

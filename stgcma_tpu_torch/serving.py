@@ -8,7 +8,8 @@ tower's scales, the Swin bias tables and the BatchNorms' running statistics
 included, as the JAX `cast_tree` does), integer inputs (AVQA's question) go
 as they are, and the logits or mask logits come back as float32 numpy. Only
 the inputs a task reads go to the card; inputs already there are used as
-they are.
+they are. `add_avs(..., graph=True)` replays each request's forward as a
+CUDA graph (`GraphedForward`), captured once a shape.
 
 The streaming half (:125-347): `StreamRequest`, `HostDecoder` (native WAV
 and jpg/png decode through `data/native_io.py`, scipy and PIL where the
@@ -73,6 +74,42 @@ def share_frozen_tower(canonical: nn.Module, others: Dict[str, nn.Module]
     return others
 
 
+class GraphedForward:
+    """A served forward fn(batch of device tensors) -> tensor, replayed as a
+    CUDA graph: one graph for each set of input names, shapes and dtypes,
+    captured at its first call after one eager call on a side stream (which
+    loads the kernels' libraries and fills the caches of their tables,
+    masks and library handles outside the capture). A call copies the batch
+    into the graph's own inputs and replays it; the returned tensor is the
+    graph's output, which the next call of the same shapes overwrites."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(batch)
+        graph, inputs, out = self.graphs[key]
+        for k, v in batch.items():
+            inputs[k].copy_(v)
+        graph.replay()
+        return out
+
+    def _capture(self, batch: Dict[str, torch.Tensor]) -> tuple:
+        inputs = {k: v.clone() for k, v in batch.items()}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.fn(inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.fn(inputs)
+        return graph, inputs, out
+
+
 class MultiTaskServer:
     """Dispatches batched inference by task name."""
 
@@ -93,11 +130,17 @@ class MultiTaskServer:
         self._fns[name] = lambda batch: apply_swin_ave(m, cfg, batch.get("a"), batch.get("v"))
         self._reads[name] = ("a", "v")
 
-    def add_avs(self, name: str, cfg: SwinConfig, hcfg: AVSHeadConfig, model: AVSModel):
+    def add_avs(self, name: str, cfg: SwinConfig, hcfg: AVSHeadConfig, model: AVSModel,
+                graph: bool = False):
         """Serve an AVS `model` (left as it is: the server keeps a cast copy):
-        a request {"a", "v"} -> the mask logits `pred` (B*T, H, W, 1)."""
+        a request {"a", "v"} -> the mask logits `pred` (B*T, H, W, 1). With
+        `graph` (a CUDA server without a mesh) each request's forward is a
+        replay of a CUDA graph captured at the first request of its shapes
+        (`GraphedForward`): the host launches one graph in place of the
+        tower's and decoder's ~1300 kernels, so the card never waits on it."""
         m = self.models[name] = self._place(model)
-        self._fns[name] = lambda batch: apply_avs(m, cfg, hcfg, batch["a"], batch["v"])[0]
+        fn = lambda batch: apply_avs(m, cfg, hcfg, batch["a"], batch["v"])[0]
+        self._fns[name] = self._graphed(fn) if graph else fn
         self._reads[name] = ("a", "v")
 
     def add_clip_ave(self, name: str, cfg: ClipConfig, model: ClipAVE):
@@ -119,6 +162,12 @@ class MultiTaskServer:
                                                     batch["question"])
         self._reads[name] = ("a", "v", "question")
 
+    def _graphed(self, fn: Callable) -> "GraphedForward":
+        if self.device.type != "cuda" or self.mesh is not None:
+            raise ValueError("graph serving takes a CUDA server without a mesh, not "
+                             f"{self.device} with mesh {self.mesh}")
+        return GraphedForward(fn)
+
     def _place(self, model: nn.Module) -> nn.Module:
         """The served copy: cast to the serving dtype, on the server's
         device, and under a mesh replicated or split (`shard_tower`)."""
@@ -136,7 +185,9 @@ class MultiTaskServer:
         """batch: numpy arrays or tensors (on any device: those on the
         server's are used as they are); float inputs are cast to the serving
         dtype on the server's device. Under a mesh each rank gives the whole
-        batch and gets the whole output. Spans: `serve.request` ⊃
+        batch and gets the whole output. The host does not wait for the copy
+        of a pinned input, and the output comes back in a fresh array made
+        while the card works. Spans: `serve.request` ⊃
         {`serve.copy_in`, `serve.forward`, `serve.copy_out`}."""
         with annotate("serve.request"):
             rows = None
@@ -156,7 +207,9 @@ class MultiTaskServer:
                     if rows is not None:
                         v = v[rows.rows(v.shape[0] // rows.count)]
                     t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-                    t = t.to(self.device)
+                    # from pinned memory the host goes on at once: the copy out
+                    # below waits for the card, so the batch is read by then
+                    t = t.to(self.device, non_blocking=True)
                     dev[k] = t.to(self.dtype) if t.is_floating_point() else t
             with annotate("serve.forward"):
                 out = self._fns[task](dev)
@@ -166,7 +219,10 @@ class MultiTaskServer:
                     parts = [torch.empty_like(out) for _ in range(rows.count)]
                     torch.distributed.all_gather(parts, out.contiguous(), group=rows.group)
                     out = torch.cat(parts)
-                return out.cpu().numpy()
+                # the host array is made and written while the card still works,
+                # so that the copy into it does not fault its pages in after
+                host = torch.empty(out.shape, dtype=out.dtype).fill_(0)
+                return host.copy_(out).numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ tree `train.step` > {`train.cast`, `train.loss` > {`data.pipeline`,
 `model.tower`, `model.head`}, `train.backward` > `train.recompute.K*`,
 `train.optim`}, and one `predict` gives `serve.request` > {`serve.copy_in`,
 `serve.forward` > {`model.tower`, `model.head`}, `serve.copy_out`}, with the
-aten ops of each inside its interval.
+aten ops of each inside its interval. A tiny AVS `predict` (four Swin stages,
+every decoder stage) opens `model.head`'s five children in order, and
+nothing while no profiler records.
 
 `portbench/spans.py` on a made-up trace of one step whose every figure is
 worked out by hand: a launch belongs to the span open at the launch, not at
@@ -28,9 +30,10 @@ import torch
 
 from portbench import spans as SP
 from portbench.trace import REGION, reduce_trace
-from stgcma_tpu_torch.configs import clip_tiny_test
+from stgcma_tpu_torch.configs import AVSHeadConfig, clip_tiny_test, swin_tiny_test
 from stgcma_tpu_torch.data.loader import make_ave_device_pipeline
 from stgcma_tpu_torch.models.ave import apply_clip_ave, random_clip_ave
+from stgcma_tpu_torch.models.avs import random_avs
 from stgcma_tpu_torch.ops.fbank import FbankConfig
 from stgcma_tpu_torch.runtime.profiling import annotate
 from stgcma_tpu_torch.serving import MultiTaskServer
@@ -168,6 +171,47 @@ def test_predict_span_tree_on_the_clock_of_its_ops(tmp_path):
                <= req["ts"] + req["dur"] for n in ("serve.copy_in", "serve.forward",
                                                    "model.tower", "model.head",
                                                    "serve.copy_out"))
+
+
+AVS_HEAD_SPANS = ["model.head.audio", "model.head.taps", "model.head.tpavi", "model.head.fpn",
+                  "model.head.out"]
+
+
+def _avs_server():
+    cfg = swin_tiny_test(ftmode="fusion", depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4),
+                         img_size=64, window_size=4, adapter_ratios=(0.25,) * 4)
+    hcfg = AVSHeadConfig(channel=16, vis_dim=(8, 8, 16, 16), stage_dims=(16, 32, 64, 128),
+                         stage_resolutions=(16, 8, 4, 2), audio_dim=128, tpavi_audio_dim=8,
+                         num_frames=2)
+    srv = MultiTaskServer(dtype=torch.float32, device="cpu")
+    srv.add_avs("avs", cfg, hcfg, random_avs(cfg, hcfg, 0))
+    rng = np.random.RandomState(0)
+    batch = {"a": rng.randn(1, 2, 64, 64).astype(np.float32),
+             "v": rng.randn(1, 2, 64, 64, 3).astype(np.float32)}
+    return srv, batch
+
+
+def test_avs_head_spans_in_order_under_model_head(monkeypatch, tmp_path):
+    srv, batch = _avs_server()
+    events = _trace(lambda: srv.predict("avs", batch), tmp_path)
+    tree = _tree(events)
+    assert tree["serve.forward"] == {"model.tower", "model.head"}
+    assert tree["model.head"] == set(AVS_HEAD_SPANS)
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("model.head.")), key=lambda e: e["ts"])
+    assert [e["name"] for e in spans] == AVS_HEAD_SPANS
+    head = next(e for e in events if e.get("name") == "model.head")
+    assert all(head["ts"] <= e["ts"] and e["ts"] + e["dur"] <= head["ts"] + head["dur"]
+               for e in spans)
+    convs = [e for e in events if e.get("cat") == "cpu_op" and e["name"] == "aten::conv2d"
+             and head["ts"] <= e["ts"] <= head["ts"] + head["dur"]]
+    inside = [e for e in convs if any(s["ts"] <= e["ts"] <= s["ts"] + s["dur"] for s in spans)]
+    assert convs and inside == convs
+    # and with no profiler recording, nothing is opened
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", _raise)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert srv.predict("avs", batch).shape == (2, 64, 64, 1)
 
 
 # ---------------------------------------------------------------------------
